@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of the LACIN reproduction's ``repro`` package.
+
+Module paths mirror ``repro`` one to one.  This package imports torch and
+numpy, never JAX and nothing of ``repro``.  Ported so far: the LM serving
+path (``models``, ``serving``) with its hand-written Hopper
+flash-attention kernel (``kernels``).
+"""

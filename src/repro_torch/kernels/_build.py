@@ -1,0 +1,78 @@
+"""Build the CUDA sources under ``csrc/`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and becomes one shared
+library, ``build/<name>-<hash>.so`` beside this file, compiled by ``nvcc``
+for Hopper (``sm_90a``) at first use.  The file name carries a hash of the
+source and the flags, so an edited source is rebuilt and a stale library is
+never loaded.  :func:`build_all` starts one ``nvcc`` per source, all at
+once.  A failed build raises with the compiler's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+CUDA_NVCC = "/usr/local/cuda/bin/nvcc"   # where nvcc is when not on PATH
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or CUDA_NVCC
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit's nvcc (PATH or /usr/local/cuda)")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` goes, keyed on its hash."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every source (or ``names``) that has no library yet, one
+    ``nvcc`` per source in parallel.  Returns ``{name: ptxas report}`` for
+    the sources compiled by this call."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else names
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{n}.cu:\n{out}")
+            continue
+        os.replace(tmp, library_path(n))   # atomic: readers never see half a file
+        reports[n] = out
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, building it if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

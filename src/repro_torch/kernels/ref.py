@@ -1,0 +1,41 @@
+"""Plain PyTorch versions of the hand-written kernels in this package.
+
+Each is the kernel's contract written in the most obvious O(T*S)-memory
+way.  On the CPU the wrappers in :mod:`repro_torch.kernels.ops` run these;
+on the card the kernels are held against them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def reference_attention(q, k, v, *, q_pos=None, kv_pos=None,
+                        causal: bool = True, window: int = 0):
+    """q: (B,T,H,D); k/v: (B,S,KV,D) -> (B,T,H,D).  fp32 softmax.
+
+    Query head h reads KV head ``h // (H/KV)``.  A key is visible iff
+    ``kv_pos >= 0``, and with ``causal`` iff ``kv_pos <= q_pos``, and with
+    ``window > 0`` iff ``q_pos - kv_pos < window``.  Rows that see no key
+    are zeros.  Port of ``repro.kernels.ref.reference_attention``.
+    """
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    if q_pos is None:
+        q_pos = torch.arange(t, dtype=torch.int32, device=q.device)
+    if kv_pos is None:
+        kv_pos = torch.arange(s, dtype=torch.int32, device=q.device)
+    qg = q.reshape(b, t, kvh, g, d).float() / math.sqrt(d)
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, k.float())
+    ok = kv_pos[None, :] >= 0
+    if causal:
+        ok = ok & (kv_pos[None, :] <= q_pos[:, None])
+    if window > 0:
+        ok = ok & ((q_pos[:, None] - kv_pos[None, :]) < window)
+    logits = logits.masked_fill(~ok, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgts,bskd->btkgd", w, v.float())
+    o = o * ok.any(dim=-1)[None, :, None, None, None]
+    return o.reshape(b, t, h, d).to(q.dtype)

@@ -1,0 +1,6 @@
+"""Model zoo of the port: configs, layers, and the assembled models."""
+from .config import (ATTN, ATTN_CROSS, HYMBA, MLSTM, SLSTM, ModelConfig,
+                     get_config, list_archs, register)
+from .convert import params_from_numpy
+from .transformer import (build_runs, cast_params, decode_step, init_caches,
+                          init_params, prefill)

@@ -1,0 +1,29 @@
+"""``import repro_torch`` and every submodule pulls in neither jax nor the
+JAX package repro."""
+import os
+import subprocess
+import sys
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "src")
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def test_repro_torch_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    n, bad = out.split(" ", 1)
+    assert int(n) >= 14, out          # every module of the port was imported
+    assert bad.strip() == "[]", out

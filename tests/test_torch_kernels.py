@@ -1,0 +1,135 @@
+"""repro_torch.kernels against the JAX reference repro.kernels.
+
+On the CPU, ``ops.flash_attention`` runs the kernel's plain version
+(``repro_torch.kernels.ref.reference_attention``); both are held against
+``repro.kernels.ref.reference_attention`` and, for a few cases, against the
+Pallas kernel ``repro.kernels.flash_attention.flash_attention`` run in
+interpret mode.  Inputs are numpy draws from a seed.  Tolerances as in
+tests/test_kernels.py: float32 2e-5, bfloat16 2e-2.  The CUDA kernel itself
+is held against its plain version in tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.ref import reference_attention as jax_reference
+
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.ref import reference_attention
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+# name: (b, t, s, h, kvh, d, q_pos, causal, window); q_pos None = arange(t),
+# "tail" = the last t of s positions (queries over a cache prefix).
+CASES = {
+    "mha_square": (1, 128, 128, 2, 2, 64, "tail", True, 0),
+    "gqa2_cache_extended": (2, 128, 256, 4, 2, 64, "tail", True, 0),
+    "mqa_d128": (1, 256, 256, 4, 1, 128, "tail", True, 0),
+    "padding_path": (2, 96, 160, 4, 2, 64, "tail", True, 0),
+    "tiny_d32": (1, 8, 8, 2, 2, 32, "tail", True, 0),
+    "gqa3_d128_odd": (2, 67, 67, 6, 2, 128, None, True, 0),
+    "gqa3_d16_odd_tail": (1, 33, 70, 6, 2, 16, "tail", True, 0),
+    "window1": (2, 128, 128, 4, 2, 64, None, True, 1),
+    "window7": (2, 128, 128, 4, 2, 64, None, True, 7),
+    "window64": (2, 128, 128, 4, 2, 64, None, True, 64),
+    "window1000": (2, 128, 128, 4, 2, 64, None, True, 1000),
+    "gqa3_window5": (1, 45, 45, 6, 2, 32, None, True, 5),
+    "noncausal": (1, 64, 96, 2, 2, 64, None, False, 0),
+    "noncausal_gqa3_window": (1, 20, 50, 3, 1, 16, "tail", False, 9),
+    "decode": (4, 1, 512, 8, 2, 64, [511], True, 0),
+    "decode_gqa3_d128": (2, 1, 200, 6, 2, 128, [130], True, 0),
+    "decode_window": (2, 1, 200, 6, 2, 32, [150], True, 40),
+    "fully_masked_rows": (1, 16, 32, 2, 2, 32, [-5] * 16, True, 0),
+    "some_rows_masked": (1, 16, 32, 6, 2, 32, list(range(-8, 8)), True, 0),
+}
+# Interpret mode runs the Pallas kernel body in Python: keep these few.
+PALLAS_CASES = ["gqa3_d128_odd", "gqa3_window5", "noncausal_gqa3_window",
+                "decode_gqa3_d128", "some_rows_masked"]
+
+
+def _inputs(name, dtype):
+    b, t, s, h, kvh, d, q_pos, causal, window = CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    arrs = [rng.normal(size=shape).astype(np.float32)
+            for shape in ((b, t, h, d), (b, s, kvh, d), (b, s, kvh, d))]
+    torch_qkv = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    jax_qkv = [jnp.asarray(x.float().numpy(), dtype) for x in torch_qkv]
+    if q_pos == "tail":
+        q_pos = list(range(s - t, s))
+    if q_pos is None:
+        q_pos = list(range(t))
+    pos = np.asarray(q_pos, np.int32)
+    kw = dict(causal=causal, window=window)
+    return (torch_qkv, dict(kw, q_pos=torch.from_numpy(pos)),
+            jax_qkv, dict(kw, q_pos=jnp.asarray(pos)))
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_attention_matches_reference(name, dtype):
+    """repro_torch reference_attention and ops.flash_attention (CPU) vs
+    repro.kernels.ref.reference_attention."""
+    tq, tkw, jq, jkw = _inputs(name, dtype)
+    want = _f32(jax_reference(*jq, **jkw))
+    got = reference_attention(*tq, **tkw)
+    assert got.dtype == tq[0].dtype and got.shape == tq[0].shape
+    np.testing.assert_allclose(_f32(got), want, **TOL[dtype])
+    np.testing.assert_allclose(_f32(ops.flash_attention(*tq, **tkw)), want,
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("name", PALLAS_CASES)
+def test_plain_attention_matches_pallas_kernel(name):
+    """repro_torch ops.flash_attention (CPU) vs the Pallas kernel
+    repro.kernels.flash_attention.flash_attention(interpret=True)."""
+    tq, tkw, jq, jkw = _inputs(name, "float32")
+    want = _f32(pallas_flash(*jq, **jkw, block_q=32, block_k=32,
+                             interpret=True))
+    np.testing.assert_allclose(_f32(ops.flash_attention(*tq, **tkw)), want,
+                               **TOL["float32"])
+
+
+def test_fully_masked_rows_are_zero():
+    tq, tkw, _, _ = _inputs("fully_masked_rows", "float32")
+    assert not ops.flash_attention(*tq, **tkw).any()
+    tq, tkw, _, _ = _inputs("some_rows_masked", "float32")
+    out = ops.flash_attention(*tq, **tkw)
+    assert not out[:, :8].any() and out[:, 8:].abs().min() > 0
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The CUDA wrapper never falls back: CPU tensors go through ops."""
+    tq, tkw, _, _ = _inputs("tiny_d32", "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(*tq, **tkw)
+
+
+def test_build_is_keyed_on_the_source(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    first = _build.library_path("k")
+    src.write_text("// two\n")
+    assert _build.library_path("k") != first
+    assert _build.library_path("k").name.startswith("k-")
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_NVCC", str(tmp_path / "nvcc"))
+    (tmp_path / "k.cu").write_text("// k\n")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build_all()
