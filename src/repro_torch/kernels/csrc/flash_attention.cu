@@ -10,9 +10,10 @@
 // by 1/sqrt(D) in fp32 before q.k.  Key s is visible to query t iff
 // kv_pos[s] >= 0, and (causal) kv_pos[s] <= q_pos[t], and (window > 0)
 // q_pos[t] - kv_pos[s] < window.  Online softmax in fp32; a row that sees no
-// key is zeros.  q_pos is padded to the q tile and kv_pos (with -1) to the
-// KV tile by the wrapper; rows of q, k and v past T and S are zero-filled
-// here instead of being copied into padded tensors.
+// key is zeros.  q_pos holds T entries and kv_pos S: the last tiles are
+// padded here, not by the caller, with zero rows of q, k and v, query
+// position 0 and key position -1, so a padded key is masked as in the
+// reference's padding.
 //
 // What bounds it on the H100.  Serving llama3.2-3b, one prefill launch
 // (B4, T = S = 512, H24, KV8, D128, bf16) moves 33.6 MB and does 6.4 GFLOP
@@ -102,7 +103,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / D, d = i % D, t = q0 + r;
     q_s[r * DP + d] = t < t_len ? load_f(qb + t * q_stride + d) * scale : 0.f;
   }
-  for (int i = tid; i < BQ; i += kThreads) qp_s[i] = q_pos[q0 + i];
+  for (int i = tid; i < BQ; i += kThreads)
+    qp_s[i] = q0 + i < t_len ? q_pos[q0 + i] : 0;
 
   float m[RI], l[RI], acc[RI][DJ];
 #pragma unroll
@@ -116,7 +118,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_k_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's reads of kv_s, p_s and kp_s are done
-    if (tid < kBK) kp_s[tid] = kv_pos[k0 + tid];
+    if (tid < kBK) kp_s[tid] = k0 + tid < s_len ? kv_pos[k0 + tid] : -1;
     __syncthreads();
 
     unsigned ok[RI];
@@ -267,9 +269,8 @@ cudaError_t dispatch_block_q(int block_q, int head_dim, const Args& a) {
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).  q_pos must hold
-// ceil(T / block_q) * block_q entries and kv_pos ceil(S / 64) * 64.
-// block_q is 16 or 64, head_dim 16, 32, 64 or 128; is_bf16 selects bf16
+// Returns the cudaError_t of the launch (0 on success).  q_pos holds T
+// entries and kv_pos S.  block_q is 16 or 64, head_dim 16, 32, 64 or 128; is_bf16 selects bf16
 // (else fp32) for q, k, v and out.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, const int* q_pos,
@@ -282,6 +283,3 @@ extern "C" int repro_flash_attention_fwd(
   return is_bf16 ? dispatch_block_q<__nv_bfloat16>(block_q, head_dim, a)
                  : dispatch_block_q<float>(block_q, head_dim, a);
 }
-
-// Tile sizes, for the wrapper's padding of the position vectors.
-extern "C" int repro_flash_attention_block_k() { return kBK; }

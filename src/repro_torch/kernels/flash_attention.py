@@ -8,10 +8,9 @@ sliding-window and ``kv_pos < 0`` masking by absolute positions, an fp32
 online softmax, zeros for rows that see no key, and the output in q's
 dtype.  ``window`` is a plain Python int passed to the kernel at run time.
 
-T and S are padded to the kernel's tiles the way the reference pads them:
-``q_pos`` with 0 and ``kv_pos`` with -1, so padded KV slots are masked.
-Only the position vectors are padded here; the kernel zero-fills the rows
-of q, k and v past T and S instead of this wrapper copying them.
+The kernel pads T and S to its tiles itself, the way the reference pads
+them: zero rows, query position 0 and key position -1, so padded KV slots
+are masked.  Nothing is copied or padded here.
 """
 from __future__ import annotations
 
@@ -19,7 +18,6 @@ import ctypes
 import math
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
 
@@ -38,19 +36,19 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.repro_flash_attention_block_k.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _positions(pos, n, padded, fill, device, name):
+def _positions(pos, n, device, name):
     if pos is None:
-        pos = torch.arange(n, dtype=torch.int32, device=device)
-    if pos.dtype != torch.int32 or pos.shape != (n,) or pos.device != device:
-        raise ValueError(f"{name} must be an int32 vector of length {n} on "
-                         f"{device}; got {pos.dtype} {tuple(pos.shape)} on "
-                         f"{pos.device}")
-    return F.pad(pos, (0, padded - n), value=fill).contiguous()
+        return torch.arange(n, dtype=torch.int32, device=device)
+    if pos.dtype != torch.int32 or pos.shape != (n,) or pos.device != device \
+            or not pos.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int32 vector of length "
+                         f"{n} on {device}; got {pos.dtype} "
+                         f"{tuple(pos.shape)} on {pos.device}")
+    return pos
 
 
 def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
@@ -82,10 +80,8 @@ def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
         raise TypeError(f"window must be a Python int, got {type(window)}")
     lib = _library()
     block_q = 16 if t <= 16 else 64
-    block_k = lib.repro_flash_attention_block_k()
-    qp = _positions(q_pos, t, -(-t // block_q) * block_q, 0, q.device, "q_pos")
-    kp = _positions(kv_pos, s, -(-s // block_k) * block_k, -1, q.device,
-                    "kv_pos")
+    qp = _positions(q_pos, t, q.device, "q_pos")
+    kp = _positions(kv_pos, s, q.device, "kv_pos")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.repro_flash_attention_fwd(

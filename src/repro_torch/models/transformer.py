@@ -92,19 +92,30 @@ def _layer_specs(cfg: ModelConfig) -> list[tuple[int, float]]:
 
 
 def cast_params(params, cfg: ModelConfig, device=None):
-    """Copies of the float parameters in the compute dtype (``cfg.dtype``),
-    on ``device`` if given.  Made once at load, they give the numbers of
-    the reference's per-layer cast."""
+    """The parameters as :func:`prefill` and :func:`decode_step` take them:
+    on ``device`` if given, with every float leaf that the reference casts
+    at use (the layers', the embedding's and the untied head's) in the
+    compute dtype ``cfg.dtype``.  The final norm keeps its dtype, as in the
+    reference.  Made once where the parameters enter, the copies give the
+    numbers of the reference's per-layer cast."""
     dtype = getattr(torch, cfg.dtype)
 
-    def go(a):
+    def go(a, to):
         if isinstance(a, dict):
-            return {k: go(x) for k, x in a.items()}
+            return {k: go(x, to) for k, x in a.items()}
         if isinstance(a, list):
-            return [go(x) for x in a]
-        return a.to(device=device, dtype=dtype if a.is_floating_point()
+            return [go(x, to) for x in a]
+        return a.to(device=device, dtype=to if a.is_floating_point()
                     else a.dtype)
-    return go(params)
+    return {k: go(v, None if k == "final_norm" else dtype)
+            for k, v in params.items()}
+
+
+def _check_cast(params, cfg: ModelConfig):
+    got = params["embed"]["table"].dtype
+    if got != getattr(torch, cfg.dtype):
+        raise TypeError(f"parameters are {got}, not the compute dtype "
+                        f"{cfg.dtype}; pass them through cast_params once")
 
 
 # ---------------------------------------------------------------------------
@@ -178,9 +189,9 @@ def _self_attention(p, y, cfg, *, window: int, theta: float, q_pos, kv_pos,
     else:
         t, seq_len = q.shape[1], cache["k"].shape[1]
         # The reference's dynamic_update_slice clamps a start index past the
-        # cache; here that raises.  ServingEngine retires every request by
-        # pos = max_seq - 1, so it gets here only when run() goes on
-        # stepping empty slots with requests still queued (ROADMAP C5).
+        # cache; here that raises.  ServingEngine never gets here: it retires
+        # every request by pos = max_seq - 1 and stops stepping once every
+        # slot is empty.
         if not 0 <= pos <= seq_len - t:
             raise IndexError(f"decode position {pos} is past the "
                              f"{seq_len}-slot cache")
@@ -207,9 +218,8 @@ def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
 def _apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None):
     new_caches = []
     for i, (window, theta) in enumerate(_layer_specs(cfg)):
-        p = cast_params(params["layers"][i], cfg)   # no copy once cast
         x, c = apply_attn_block(
-            p, x, cfg, window=window, theta=theta, q_pos=q_pos, kv_pos=kv_pos,
+            params["layers"][i], x, cfg, window=window, theta=theta, q_pos=q_pos, kv_pos=kv_pos,
             cache=None if caches is None else caches[i], pos=pos)
         new_caches.append(c)
     return x, new_caches
@@ -228,11 +238,13 @@ def _check_batch(batch):
 def prefill(params, batch, cfg: ModelConfig, seq_len: int):
     """Prefill caches of length ``seq_len``; returns (last_logits, caches).
 
+    ``params``: as :func:`cast_params` returns them.
     ``batch["tokens"]``: (B, T) integer tensor on the parameters' device.
     Logits are (B, 1, Vp); each cache holds positions 0..T-1 and zeros
     after them.
     """
     _check_batch(batch)
+    _check_cast(params, cfg)
     tokens = batch["tokens"]
     x = L.embed_tokens(params["embed"], tokens, cfg)
     t = x.shape[1]
@@ -251,9 +263,10 @@ def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig,
                 seq_len: int):
     """One decode step.  tokens: (B, 1); pos: Python int cache fill level.
 
-    Writes the new k and v into ``caches`` in place and returns
-    (logits (B, 1, Vp), caches).
+    ``params``: as :func:`cast_params` returns them.  Writes the new k and
+    v into ``caches`` in place and returns (logits (B, 1, Vp), caches).
     """
+    _check_cast(params, cfg)
     x = L.embed_tokens(params["embed"], tokens, cfg)
     kv_pos = torch.arange(seq_len, dtype=torch.int32, device=x.device)
     q_pos = torch.tensor([pos], dtype=torch.int32, device=x.device)

@@ -29,7 +29,6 @@ class Request:
     temperature: float = 0.0
     out_tokens: list = field(default_factory=list)
     done: bool = False
-    arrived: int | None = None         # decode step at submit time
 
 
 class ServingEngine:
@@ -48,16 +47,12 @@ class ServingEngine:
         self.active: list[Request | None] = [None] * slots
         self.queue: list[Request] = []
         self.rng = np.random.default_rng(seed)
-        self.steps_total = 0              # decode steps across all runs
         self._last_tok = torch.zeros((slots, 1), dtype=torch.int64,
                                      device=self.device)
 
     # -- request management ---------------------------------------------------
-    def submit(self, req: Request, *, at: int | None = None):
-        """Queue a request.  ``at`` overrides the recorded arrival step
-        (defaults to the engine's decode-step clock) so replayed logs
-        keep their original timestamps."""
-        req.arrived = self.steps_total if at is None else int(at)
+    def submit(self, req: Request):
+        """Queue a request."""
         self.queue.append(req)
 
     def _admit(self):
@@ -110,7 +105,6 @@ class ServingEngine:
             self.params, self._last_tok, self.caches, self.pos, self.cfg,
             self.max_seq)
         self.pos += 1
-        self.steps_total += 1
         tok = self._sample(logits[:, 0])
         self._last_tok = torch.from_numpy(tok).to(self.device)
         for i, r in enumerate(self.active):
@@ -123,14 +117,19 @@ class ServingEngine:
                 self.active[i] = None
 
     def run(self, max_steps: int = 512) -> list[Request]:
-        """Run until every queued request completes; returns them."""
+        """Run the admitted requests to completion; returns those finished.
+
+        As in the reference, requests queued beyond the slots are admitted
+        only by a later run: a prefill mid-run would desynchronise the
+        shared position.  The reference goes on stepping empty slots until
+        ``max_steps``, which changes nothing it returns; the loop here stops
+        once every slot is empty.
+        """
         self._admit()
         self._prefill_all()
         steps = 0
         all_reqs = [r for r in self.active if r is not None] + self.queue
-        while any(not r.done for r in all_reqs) and steps < max_steps:
+        while any(r is not None for r in self.active) and steps < max_steps:
             self.step()
             steps += 1
-            # As in the reference, new requests are admitted only between
-            # runs: a prefill mid-run would desynchronise the shared position.
         return [r for r in all_reqs if r.done]

@@ -153,6 +153,7 @@ def test_prefill_and_decode_match_reference(arch, dtype):
     """repro.models.transformer.prefill and decode_step
     (attention_impl="reference"): logits and caches."""
     cj, ct, pj, pt = _models(arch, dtype)
+    pt = TT.cast_params(pt, ct)
     seq_len, t = 24, 11
     tokens = np.random.default_rng(9).integers(0, cj.vocab_size, (2, t))
     lj, cache_j = JT.prefill(pj, {"tokens": jnp.asarray(tokens, jnp.int32)},
@@ -186,6 +187,25 @@ def test_decode_past_the_cache_raises():
     with pytest.raises(IndexError):
         TT.decode_step(pt, torch.zeros((1, 1), dtype=torch.int64), caches, 8,
                        ct, 8)
+
+
+def test_params_are_cast_once_where_they_enter():
+    """cast_params casts what the reference casts at use, in every layer
+    and the embedding, and keeps the final norm's dtype, as
+    repro.models.transformer does; prefill refuses parameters not cast."""
+    _, ct, _, pt = _models("llama3.2-3b", "bfloat16")
+    tokens = {"tokens": torch.zeros((1, 3), dtype=torch.int64)}
+    with pytest.raises(TypeError, match="cast_params"):
+        TT.prefill(pt, tokens, ct, 8)
+    cast = TT.cast_params(pt, ct)
+    assert cast["final_norm"]["scale"].dtype == torch.float32
+    assert {a.dtype for layer in cast["layers"]
+            for a in jax.tree_util.tree_leaves(layer)} == {torch.bfloat16}
+    assert cast["embed"]["table"].dtype == torch.bfloat16
+    assert TT.cast_params(cast, ct)["layers"][0]["attn"]["wq"] is \
+        cast["layers"][0]["attn"]["wq"]
+    logits, _ = TT.prefill(cast, tokens, ct, 8)
+    assert logits.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -98,14 +98,28 @@ def test_engine_needs_cuda_by_default(monkeypatch):
         ServingEngine(cfg, params)
 
 
-def test_oversubscribed_run_raises_where_reference_clamps():
-    """ROADMAP C5: with more requests than slots, run() steps empty slots
-    until max_steps; past the cache the port raises where the reference's
-    dynamic_update_slice clamps."""
-    cfg = get_config("lacin-demo").reduced()
-    eng = ServingEngine(cfg, init_params(0, cfg, device="cpu"), slots=1,
-                        max_seq=12, device="cpu")
-    for r in _requests(Request, cfg.vocab_size, [4, 4], [0.0, 0.0], 3):
-        eng.submit(r)
-    with pytest.raises(IndexError, match="past the 12-slot cache"):
-        eng.run(max_steps=20)
+def test_oversubscribed_run_returns_what_reference_returns():
+    """More requests than slots: each run() of the port returns the requests
+    that repro.serving.engine.ServingEngine.run returns, with the same
+    greedy tokens, and the queued one waits for the next run.  The
+    reference steps its empty slot until max_steps, past the cache, where
+    its cache write clamps; the port stops once every slot is empty."""
+    cj = dataclasses.replace(jax_get_config("llama3.2-3b").reduced(),
+                             dtype="float32")
+    ct = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                             dtype="float32")
+    pj = jax_init_params(jax.random.PRNGKey(0), cj)
+    pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), ct,
+                           device="cpu")
+    runs = []
+    for eng, cls in ((JServingEngine(cj, pj, slots=1, max_seq=12), JRequest),
+                     (ServingEngine(ct, pt, slots=1, max_seq=12, device="cpu"),
+                      Request)):
+        for r in _requests(cls, cj.vocab_size, [4, 6], [0.0, 0.0], 3):
+            eng.submit(r)
+        runs.append([{r.rid: r.out_tokens for r in eng.run(max_steps=20)}
+                     for _ in range(2)])
+    want, got = runs
+    assert got == want
+    assert [sorted(r) for r in got] == [[0], [1]]
+    assert all(len(toks) == 3 for r in got for toks in r.values())
