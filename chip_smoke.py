@@ -6,18 +6,23 @@
 Phases, one JSON line each:
 
 1. device  -- the card, its power limit (nvidia-smi) and the software;
-2. build   -- compiles every CUDA source under src/repro_torch/kernels/csrc;
+2. build   -- compiles every CUDA source under src/repro_torch/kernels/csrc,
+   one nvcc per source, all at once;
 3. kernels -- holds each kernel against its plain PyTorch version on the
-   hazard cases (fp32 tol 2e-5, bf16 tol 2e-2) and at the serving shapes,
-   and times kernel, plain version and the library call beside its bound;
-4. serve   -- llama3.2-3b at full width and depth, random weights from a
-   seed, through ServingEngine: 4 requests (prompts 512/384/256/128, one
-   sampled at temperature 0.8) x 32 new tokens, with the kernel launch
-   counts of that run; the prefill logits against the same model with
-   attention swapped for the plain version; the reduced model on the card
-   against the CPU; prefill ms, decode tokens/s and peak memory;
-5. profile -- device time by kernel over prefills and decode steps
-   (torch.profiler), and the share of the time the device is idle.
+   hazard cases (flash attention: fp32 tol 2e-5, bf16 tol 2e-2; mLSTM
+   chunk scan: fp32 rtol 5e-4 atol 5e-5, bf16 5e-2, on h and on the final
+   state) and at the serving shapes, and times kernel, plain version and
+   the library call, where there is one, beside its bound;
+4. small   -- the reduced models in fp32 on the card against the CPU;
+5. serve   -- llama3.2-3b and then xlstm-350m at full width and depth,
+   random weights from a seed, each through ServingEngine: 4 requests
+   (prompts 512/384/256/128, one sampled at temperature 0.8) x 32 new
+   tokens, with every kernel's launch count in that run (set to 0 just
+   before it); the prefill logits against the same model with every kernel
+   swapped for its plain version; prefill ms, decode tokens/s and peak
+   memory;
+6. profile -- device time by kernel over prefills and decode steps of each
+   model (torch.profiler), and the share of the time the device is idle.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -40,7 +45,9 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels.ref import reference_attention  # noqa: E402
+from repro_torch.kernels import mlstm_scan as ms  # noqa: E402
+from repro_torch.kernels.ref import (reference_attention,  # noqa: E402
+                                     reference_mlstm_scan)
 from repro_torch.models import get_config, init_params  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
@@ -50,6 +57,10 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense tensor cores
               torch.float32: 67e12}        # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# mLSTM chunk scan, as tests/test_kernels.py holds the Pallas kernel: h in
+# q's dtype; the final state is fp32 on both sides and held to the fp32 tol.
+MLSTM_TOL = {torch.float32: dict(rtol=5e-4, atol=5e-5),
+             torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
 
 # name: (b, t, s, h, kvh, d, q_pos, causal, window); q_pos None = arange(t),
 # "tail" = the last t of s positions.
@@ -68,7 +79,34 @@ HAZARDS = {
     "some_rows_masked": (2, 80, 80, 6, 2, 64, list(range(-40, 40)), True, 0),
 }
 
-# The serving run: 4 slots, prompts left-padded to 512, a 1024-slot cache.
+# name: (b, t, h, d, chunk, gates); gates "normal", "forget_near_zero"
+# (log_f << 0), "large_log_i" (the stabilizer dominates) or "state" (a
+# given initial state).  The last is the serving shape of xlstm-350m.
+MLSTM_HAZARDS = {
+    "d16": (1, 64, 1, 16, 16, "normal"),
+    "d32": (2, 128, 3, 32, 32, "normal"),
+    "d64_four_chunks": (2, 256, 2, 64, 64, "normal"),
+    "d128": (1, 256, 2, 128, 128, "normal"),
+    "d512": (1, 512, 2, 512, 256, "normal"),
+    "chunk48": (1, 96, 2, 32, 48, "normal"),
+    "forget_near_zero": (1, 256, 2, 64, 64, "forget_near_zero"),
+    "large_log_i": (1, 256, 2, 64, 64, "large_log_i"),
+    "initial_state": (2, 128, 2, 128, 64, "state"),
+    "bh1": (1, 256, 1, 128, 64, "normal"),
+    "serving": (4, 512, 4, 512, 256, "normal"),
+}
+MLSTM_NO_LIBRARY = "no single PyTorch call computes chunkwise mLSTM"
+
+# The dtype in which each served model's prefill logits are held against the
+# same model with every kernel swapped for its plain version (relative L2
+# 5e-2).  xlstm-350m is held in float32, on its bf16 weights: in bf16 its 21
+# mLSTM layers amplify rounding so far that at full depth the plain version
+# differs from itself re-chunked (chunk 128 for 256, the same function) by
+# a relative L2 of about 0.3, and no implementation can meet 5e-2 there.
+# The bf16 figure is reported beside that floor.
+LOGITS_CHECK_DTYPE = {"llama3.2-3b": "bfloat16", "xlstm-350m": "float32"}
+
+# The serving runs: 4 slots, prompts left-padded to 512, a 1024-slot cache.
 PROMPTS = (512, 384, 256, 128)
 MAX_SEQ, NEW_TOKENS = 1024, 32
 DECODE_POS = 527                           # a fill position the run decodes at
@@ -167,6 +205,7 @@ def phase_build():
     t0 = time.perf_counter()
     reports = _build.build_all()
     fa._library()
+    ms._library()
     ptxas = [line.strip() for text in reports.values()
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
@@ -241,8 +280,168 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies):
     return out
 
 
-def phase_serve():
-    cfg = get_config("llama3.2-3b")
+def mlstm_inputs(b, t, h, d, gates, dtype, seed):
+    """q, k, v in ``dtype``; log_i, log_f fp32; the initial state or None."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        x = rng.normal(size=shape).astype(np.float32) * scale + shift
+        return torch.from_numpy(x).cuda()
+    qkv = [draw(b, t, h, d).to(dtype) for _ in range(3)]
+    li = draw(b, t, h, scale=2.0, shift=40.0 if gates == "large_log_i" else 0.0)
+    lf = F.logsigmoid(draw(b, t, h, scale=2.0, shift=-20.0
+                           if gates == "forget_near_zero" else 1.0))
+    state = None
+    if gates == "state":
+        state = (draw(b, h, d, d, scale=0.1), draw(b, h, d).abs(), draw(b, h))
+    return (*qkv, li, lf), state
+
+
+def mlstm_bound(q, chunk, state):
+    """Least time the card could take for one mlstm_scan call: each input
+    read once and h and the final state written once, against the
+    multiply-adds the chunkwise algorithm needs on the fp32 pipe it computes
+    on (67 TFLOP/s): per (batch, head) and chunk of L rows, q k^T and p v
+    over the causal L(L+1)/2 pairs, and q C0, q n0 and the k^T w v, k^T w
+    state update over D x D.  The first chunk's q C0 and q n0 are left out
+    when there is no initial state: they are zeros.  Also returns the time
+    the same multiply-adds would take at the bf16 tensor-core peak."""
+    b, t, h, d = q.shape
+    nc = t // chunk
+    pairs = chunk * (chunk + 1) // 2
+    inter = (nc if state is not None else nc - 1) * chunk * (d * d + d)
+    macs = b * h * (nc * (2 * pairs * d + chunk * (d * d + d)) + inter)
+    nbytes = (4 * q.numel() * q.element_size()       # q, k, v read; h written
+              + 2 * b * t * h * 4                     # log_i, log_f
+              + 4 * b * h * (d * d + d + 1)           # final C, n, m
+              + (4 * b * h * (d * d + d + 1) if state is not None else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops_bf16 = 2 * macs / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, t_ops_bf16), macs, nbytes)
+
+
+def check_mlstm(name, got, want, dtype):
+    """h (tol of ``dtype``) and the final C, n, m (fp32 tol); returns the
+    largest |error| of h and of the state."""
+    errs = []
+    for what, g, w, tol in (("h", got[0], want[0], MLSTM_TOL[dtype]),
+                            *zip("Cnm", got[1], want[1],
+                                 [MLSTM_TOL[torch.float32]] * 3)):
+        err = (g.float() - w.float()).abs()
+        excess = float((err - tol["rtol"] * w.float().abs()).max())
+        if not excess <= tol["atol"]:
+            raise AssertionError(
+                f"mlstm_scan {name} {dtype}: {what} of the kernel and the "
+                f"plain version differ by up to {float(err.max())} ({tol})")
+        errs.append(float(err.max()))
+    return errs[0], max(errs[1:])
+
+
+def phase_mlstm_hazards():
+    worst = {}
+    for name, (b, t, h, d, chunk, gates) in MLSTM_HAZARDS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            args, state = mlstm_inputs(b, t, h, d, gates, dtype,
+                                       seed=sum(map(ord, name)))
+            before = ms.launches
+            got = ms.mlstm_scan(*args, state, chunk=chunk)
+            torch.cuda.synchronize()
+            if ms.launches != before + 1:
+                raise AssertionError("the wrapper did not count its launch")
+            want = reference_mlstm_scan(*args, state, chunk=chunk)
+            err_h, err_state = check_mlstm(name, got, want, dtype)
+            key = str(dtype).removeprefix("torch.")
+            worst[key] = max(worst.get(key, 0.0), err_h)
+            worst["state"] = max(worst.get("state", 0.0), err_state)
+            emit("kernel_case", kernel="mlstm_scan", case=name, dtype=key,
+                 shape=f"B{b} T{t} H{h} D{d} chunk {chunk} {gates}",
+                 max_abs_err=err_h, state_max_abs_err=err_state,
+                 tol=MLSTM_TOL[dtype])
+    emit("kernel_hazards", kernel="mlstm_scan", cases=len(MLSTM_HAZARDS) * 2,
+         max_abs_err=worst)
+
+
+def time_mlstm():
+    """Kernel and plain version at the serving shape of xlstm-350m (bf16),
+    cycling over 8 input sets so that each call finds them in device memory
+    and not in the 50 MB L2, as each layer of a prefill does."""
+    b, t, h, d, chunk, gates = MLSTM_HAZARDS["serving"]
+    dtype = torch.bfloat16
+    sets = [mlstm_inputs(b, t, h, d, gates, dtype, seed=i)[0]
+            for i in range(8)]
+    err_h, err_state = check_mlstm(
+        "serving", ms.mlstm_scan(*sets[0], chunk=chunk),
+        reference_mlstm_scan(*sets[0], chunk=chunk), dtype)
+    turn = [0]
+
+    def cycle(fn):
+        def call():
+            args = sets[turn[0] % len(sets)]
+            turn[0] += 1
+            return fn(*args, chunk=chunk)
+        return call
+
+    iters = 20
+    ms_ = cuda_ms(cycle(ms.mlstm_scan), iters)
+    plain_ms = cuda_ms(cycle(reference_mlstm_scan), iters)
+    ms_again = cuda_ms(cycle(ms.mlstm_scan), iters)
+    bound_ms, bound_by, bound_bf16_ms, macs, nbytes = mlstm_bound(
+        sets[0][0], chunk, None)
+    out = dict(shape=f"B{b} T{t} H{h} D{d} chunk {chunk} bf16",
+               max_abs_err=err_h, state_max_abs_err=err_state,
+               tol=MLSTM_TOL[dtype], ms=ms_, ms_repeat=ms_again,
+               plain_ms=plain_ms, library_ms=None,
+               library_note=MLSTM_NO_LIBRARY, bound_ms=bound_ms,
+               bound_by=bound_by, bound_ms_at_bf16_peak=bound_bf16_ms,
+               multiply_adds=macs, bytes=nbytes)
+    emit("kernel_timing", kernel="mlstm_scan", case="prefill", **out)
+    return out
+
+
+def with_plain_kernels(fn, mlstm_chunk=None):
+    """``fn()`` with every kernel entry point of ops swapped for its plain
+    version; with ``mlstm_chunk``, the plain mLSTM scan runs chunks of that
+    size whatever the caller asks (the same function, summed in another
+    order)."""
+    kept = ops.flash_attention, ops.mlstm_scan
+    scan = reference_mlstm_scan
+    if mlstm_chunk is not None:
+        def scan(*args, chunk, **kw):
+            return reference_mlstm_scan(*args, chunk=mlstm_chunk, **kw)
+    ops.flash_attention, ops.mlstm_scan = reference_attention, scan
+    try:
+        return fn()
+    finally:
+        ops.flash_attention, ops.mlstm_scan = kept
+
+
+def rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def kernel_launches():
+    return {"flash_attention": fa.launches, "mlstm_scan": ms.launches}
+
+
+def reset_launches():
+    fa.launches = ms.launches = 0
+
+
+def expected_launches(cfg):
+    """Launches of one serve run: flash attention at every attention layer
+    of the prefill and of each decode step; mlstm_scan at every mLSTM layer
+    of the prefill (512 is a multiple of its chunk), none in decode, which
+    takes the sequential step."""
+    kinds = cfg.block_pattern or ("attn",) * cfg.num_layers
+    return {"flash_attention": kinds.count("attn") * (1 + NEW_TOKENS),
+            "mlstm_scan": kinds.count("mlstm")}
+
+
+def phase_serve(arch):
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(SEED, cfg, device="cuda")
     eng = ServingEngine(cfg, params, slots=len(PROMPTS), max_seq=MAX_SEQ,
@@ -260,18 +459,18 @@ def phase_serve():
     for r in reqs:
         eng.submit(r)
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {"flash_attention": fa.launches}
+    launches = kernel_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    want = cfg.num_layers * (1 + NEW_TOKENS)
-    if launches["flash_attention"] != want:
-        raise AssertionError(f"flash_attention launched "
-                             f"{launches['flash_attention']} times, not {want}")
+    want = expected_launches(cfg)
+    if launches != want:
+        raise AssertionError(f"{arch}: kernels launched {launches} times, "
+                             f"not {want}")
     if len(done) != len(reqs):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
     for r in done:
@@ -279,27 +478,37 @@ def phase_serve():
                 0 <= tok < cfg.vocab_size for tok in r.out_tokens):
             raise AssertionError(f"request {r.rid}: bad tokens {r.out_tokens}")
 
-    # The same prefill with attention through the plain version instead.
+    # The same prefill with every kernel swapped for its plain version.
     toks = np.zeros((len(PROMPTS), max(PROMPTS)), np.int64)
     for i, r in enumerate(reqs):
         toks[i, -len(r.prompt):] = r.prompt
     batch = {"tokens": torch.from_numpy(toks).cuda()}
+
+    def prefill(p, c, **plain):
+        run = lambda: TT.prefill(p, batch, c, MAX_SEQ)[0]  # noqa: E731
+        return with_plain_kernels(run, **plain) if plain else run()
     logits, caches = TT.prefill(eng.params, batch, cfg, MAX_SEQ)
-    kernel_fn = ops.flash_attention
-    ops.flash_attention = reference_attention
-    try:
-        plain_logits, _ = TT.prefill(eng.params, batch, cfg, MAX_SEQ)
-    finally:
-        ops.flash_attention = kernel_fn
+    plain_logits = prefill(eng.params, cfg, mlstm_chunk=None)
     a, b = logits.float(), plain_logits.float()
     if not torch.isfinite(a).all():
         raise AssertionError("prefill logits are not finite")
-    rel = float((a - b).norm() / b.norm())
+    rel = {cfg.dtype: rel_l2(a, b)}
     same_argmax = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    check_dtype = LOGITS_CHECK_DTYPE[arch]
+    if check_dtype != cfg.dtype:
+        c32 = dataclasses.replace(cfg, dtype=check_dtype)
+        p32 = TT.cast_params(eng.params, c32)
+        rel[check_dtype] = rel_l2(prefill(p32, c32),
+                                  prefill(p32, c32, mlstm_chunk=None))
+        del p32
+    plain_self = None
+    if "mlstm" in (cfg.block_pattern or ()):
+        plain_self = rel_l2(prefill(eng.params, cfg, mlstm_chunk=128), b)
     logits_tol = 5e-2
-    if not rel <= logits_tol:
-        raise AssertionError(f"prefill logits with the kernel and with the "
-                             f"plain version differ: relative L2 {rel}")
+    if not rel[check_dtype] <= logits_tol:
+        raise AssertionError(f"prefill logits ({check_dtype}) with the kernels "
+                             f"and with the plain versions differ: relative "
+                             f"L2 {rel[check_dtype]}")
 
     prefill_ms = cuda_ms(lambda: TT.prefill(eng.params, batch, cfg, MAX_SEQ),
                          iters=5, warmup=1)
@@ -309,11 +518,15 @@ def phase_serve():
                       iters=20)
     emit("serve", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, vocab=cfg.vocab_size,
+         blocks={k: (cfg.block_pattern or ("attn",) * cfg.num_layers).count(k)
+                 for k in ("attn", "mlstm", "slstm")},
          dtype=cfg.dtype, slots=len(PROMPTS), prompts=list(PROMPTS),
          new_tokens=NEW_TOKENS, max_seq=MAX_SEQ, init_s=init_s,
          run_s=run_s, generated_tokens=sum(len(r.out_tokens) for r in done),
          launches=launches, launches_expected=want,
-         prefill_logits_rel_l2_vs_plain=rel, logits_tol_rel_l2=logits_tol,
+         prefill_logits_rel_l2_vs_plain=rel, logits_checked_in=check_dtype,
+         logits_tol_rel_l2=logits_tol,
+         plain_vs_plain_rechunked_rel_l2=plain_self,
          prefill_logits_max_abs_diff=float((a - b).abs().max()),
          prefill_logits_max_abs=float(b.abs().max()),
          prefill_argmax_agreement=same_argmax, prefill_ms=prefill_ms,
@@ -321,14 +534,15 @@ def phase_serve():
          decode_tokens_per_s=len(PROMPTS) / step_ms * 1e3,
          peak_memory_gb=peak_gb,
          tokens={r.rid: r.out_tokens[:8] for r in done})
-    phase_profile("prefill", lambda: TT.prefill(eng.params, batch, cfg,
-                                                MAX_SEQ), prefill_ms, calls=2)
-    phase_profile("decode step", lambda: TT.decode_step(
+    phase_profile(arch, "prefill", lambda: TT.prefill(eng.params, batch, cfg,
+                                                      MAX_SEQ),
+                  prefill_ms, calls=2)
+    phase_profile(arch, "decode step", lambda: TT.decode_step(
         eng.params, nxt, caches, DECODE_POS, cfg, MAX_SEQ), step_ms, calls=5)
     return launches
 
 
-def phase_profile(what, fn, call_ms, calls):
+def phase_profile(arch, what, fn, call_ms, calls):
     """Device time by kernel over a few calls of ``fn`` (torch.profiler), and
     the share of the time in which the device ran no kernel: under the
     profiler, and against ``call_ms`` measured without it."""
@@ -347,35 +561,51 @@ def phase_profile(what, fn, call_ms, calls):
            for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(t for _, t, _ in dev)
-    attn_us = sum(t for k, t, _ in dev if "flash_attention" in k)
+    ours = {name: sum(t for k, t, _ in dev if name in k)
+            for name in ("flash_attention", "mlstm_scan")}
     top = sorted(dev, key=lambda e: -e[1])[:8]
-    emit("profile", what=what, calls=calls, wall_us=wall_us,
+    emit("profile", model=arch, what=what, calls=calls, wall_us=wall_us,
          device_busy_us=busy_us, device_idle_share=1 - busy_us / wall_us,
          device_idle_share_unprofiled=1 - busy_us / calls / (call_ms * 1e3),
-         attention_kernel_us=attn_us,
-         attention_share_of_device=attn_us / busy_us if busy_us else None,
+         kernel_launches_profiled=sum(c for _, _, c in dev),
+         repo_kernel_us=ours,
+         repo_kernel_share_of_device={
+             k: (v / busy_us if busy_us else None) for k, v in ours.items()},
          top=[{"kernel": k[:80], "us": t, "calls": c} for k, t, c in top])
 
 
+# name: prompt length; 256 is a multiple of the mLSTM chunk, so the card
+# takes the mlstm_scan kernel and the CPU its plain version.
+SMALL_MODELS = {"llama3.2-3b": 70, "lacin-demo": 70, "xlstm-350m": 256}
+
+
 def phase_small_model():
-    """The reduced model in float32 on the card (kernel) against the CPU
-    (plain version): logits of prefill and one decode step, atol 1e-4."""
-    worst = 0.0
-    for arch in ("llama3.2-3b", "lacin-demo"):
+    """The reduced models in float32 on the card (kernels) against the CPU
+    (plain versions): logits of prefill and one decode step, atol 1e-4."""
+    worst = {}
+    for arch, t in SMALL_MODELS.items():
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
         params = init_params(SEED, cfg, device="cpu")
         tokens = torch.from_numpy(
-            np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 70)))
+            np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, t)))
         out = {}
         for dev in ("cpu", "cuda"):
             p = TT.cast_params(params, cfg, dev)
-            logits, caches = TT.prefill(p, {"tokens": tokens.to(dev)}, cfg, 96)
-            step, _ = TT.decode_step(p, logits.argmax(-1), caches, 70, cfg, 96)
+            before = kernel_launches()
+            logits, caches = TT.prefill(p, {"tokens": tokens.to(dev)}, cfg,
+                                        t + 26)
+            step, _ = TT.decode_step(p, logits.argmax(-1), caches, t, cfg,
+                                     t + 26)
+            launched = {k: v - before[k] for k, v in kernel_launches().items()}
             out[dev] = torch.cat([logits, step], 1).cpu()
+        if arch == "xlstm-350m" and launched["mlstm_scan"] != \
+                cfg.block_pattern.count("mlstm"):
+            raise AssertionError(f"{arch} reduced: mlstm_scan launched "
+                                 f"{launched['mlstm_scan']} times")
         err = float((out["cuda"] - out["cpu"]).abs().max())
         if not (torch.isfinite(out["cuda"]).all() and err <= 1e-4):
             raise AssertionError(f"{arch} reduced: card and CPU differ by {err}")
-        worst = max(worst, err)
+        worst[arch] = err
     emit("small_model_vs_cpu", max_abs_err=worst, tol=1e-4)
 
 
@@ -388,18 +618,33 @@ def main():
                          None, copies=1)
     dec = time_attention("decode", b, 1, MAX_SEQ, h, kvh, d, [DECODE_POS],
                          copies=8)
+    phase_mlstm_hazards()
+    scan = time_mlstm()
     phase_small_model()
-    launches = phase_serve()
+    llama = phase_serve("llama3.2-3b")
+    xlstm = phase_serve("xlstm-350m")
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:39",
-        "launches": launches["flash_attention"],
+        "launches": llama["flash_attention"] + xlstm["flash_attention"],
+        "launches_by_model": {"llama3.2-3b": llama["flash_attention"],
+                              "xlstm-350m": xlstm["flash_attention"]},
         "max_abs_err": max(pre["max_abs_err"], dec["max_abs_err"]),
         "tol": TOL[torch.bfloat16], "kernel_ms": pre["ms"],
         **{key: pre[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "shape")},
-        "decode": dec}]}), flush=True)
+        "decode": dec}, {
+        "name": "mlstm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+        "replaces": "src/repro/kernels/mlstm_scan.py:32",
+        "launches": llama["mlstm_scan"] + xlstm["mlstm_scan"],
+        "launches_by_model": {"llama3.2-3b": llama["mlstm_scan"],
+                              "xlstm-350m": xlstm["mlstm_scan"]},
+        **{key: scan[key] for key in (
+            "max_abs_err", "state_max_abs_err", "tol", "ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_ms_at_bf16_peak", "library_ms",
+            "library_note", "shape")}}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 
 Module paths mirror ``repro`` one to one.  This package imports torch and
 numpy, never JAX and nothing of ``repro``.  Ported so far: the LM serving
-path (``models``, ``serving``) with its hand-written Hopper
-flash-attention kernel (``kernels``).
+path (``models``, ``serving``) for attention and xLSTM models, with the
+hand-written Hopper kernels for flash attention and the chunkwise mLSTM
+scan (``kernels``).
 """

@@ -4,6 +4,6 @@ in :mod:`repro_torch.models.config`'s registry.
 Only the architectures the port serves are here; the JAX package's other
 configs come with the model kinds they need (ROADMAP, queue A item 10).
 """
-from . import llama32_3b, lacin_demo
+from . import llama32_3b, lacin_demo, xlstm_350m
 
-__all__ = ["llama32_3b", "lacin_demo"]
+__all__ = ["llama32_3b", "lacin_demo", "xlstm_350m"]

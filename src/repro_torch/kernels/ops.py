@@ -7,7 +7,8 @@ other switch and no fallback.  Port of ``repro.kernels.ops``.
 from __future__ import annotations
 
 from . import flash_attention as _fa
-from .ref import reference_attention
+from . import mlstm_scan as _ms
+from .ref import reference_attention, reference_mlstm_scan
 
 
 def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
@@ -18,3 +19,12 @@ def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
                                    causal=causal, window=window)
     return reference_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                causal=causal, window=window)
+
+
+def mlstm_scan(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
+    """q/k/v: (B,T,H,D); log_i/log_f: (B,T,H) -> (h in q's dtype,
+    (C, n, m) float32).  T a multiple of ``chunk``; ``state`` None starts
+    from zero.  See :func:`.ref.reference_mlstm_scan`."""
+    if q.is_cuda:
+        return _ms.mlstm_scan(q, k, v, log_i, log_f, state, chunk=chunk)
+    return reference_mlstm_scan(q, k, v, log_i, log_f, state, chunk=chunk)

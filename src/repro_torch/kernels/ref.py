@@ -39,3 +39,22 @@ def reference_attention(q, k, v, *, q_pos=None, kv_pos=None,
     o = torch.einsum("bkgts,bskd->btkgd", w, v.float())
     o = o * ok.any(dim=-1)[None, :, None, None, None]
     return o.reshape(b, t, h, d).to(q.dtype)
+
+
+def reference_mlstm(q, k, v, log_i, log_f, state=None):
+    """Sequential stabilized mLSTM, the exact oracle: a re-export of
+    :func:`repro_torch.models.xlstm.mlstm_sequential` (imported here, at
+    call time, because that module imports this package).  Port of
+    ``repro.kernels.ref.reference_mlstm``."""
+    from repro_torch.models.xlstm import mlstm_sequential
+    return mlstm_sequential(q, k, v, log_i, log_f, state)
+
+
+def reference_mlstm_scan(q, k, v, log_i, log_f, state=None, *,
+                         chunk: int = 256):
+    """The plain version of the ``mlstm_scan`` kernel:
+    :func:`repro_torch.models.xlstm.mlstm_chunkwise`, with h in q's dtype.
+    Returns (h (B,T,H,D), (C, n, m) float32)."""
+    from repro_torch.models.xlstm import mlstm_chunkwise
+    h, final = mlstm_chunkwise(q, k, v, log_i, log_f, state, chunk)
+    return h.to(q.dtype), final

@@ -1,22 +1,27 @@
-"""Model assembly for stacks of self-attention blocks: init, prefill and
-decode.
+"""Model assembly for stacks of attention and xLSTM blocks: init, prefill
+and decode.
 
-Port of ``repro.models.transformer`` for ``ATTN`` blocks.  The reference
-scans stacked per-run parameters with ``lax.scan``; here the layers are a
-Python loop over one parameter dict per layer, in layer order.  Each
-layer's window and RoPE theta come from :func:`build_runs` as plain Python
-numbers, so the attention kernel gets ``window`` as a run-time int.
+Port of ``repro.models.transformer`` for ``ATTN``, ``MLSTM`` and ``SLSTM``
+blocks.  The reference scans stacked per-run parameters with ``lax.scan``;
+here the layers are a Python loop over one parameter dict per layer, in
+layer order, dispatching on each layer's kind.  Each attention layer's
+window and RoPE theta come from :func:`build_runs` as plain Python numbers,
+so the attention kernel gets ``window`` as a run-time int.
 
 Parameter trees (layouts as in the reference)::
 
     {"embed": {"table": (Vp, d)},
      "layers": [{"ln1": {"scale"}, "attn": {"wq", "wk", "wv", "wo"},
-                 "ln2": {"scale"}, "mlp": {"wi", "wg", "wo"}}, ...],
+                 "ln2": {"scale"}, "mlp": {"wi", "wg", "wo"}}   # ATTN
+                | {"up", "conv_w", "wq", ..., "down"}           # MLSTM
+                | {"w_gates", "r_gates", ..., "ffn_wo"}, ...],  # SLSTM
      "final_norm": {"scale"}, "lm_head": {"w": (d, Vp)}  # untied only}
 
-Caches are one ``{"k", "v"}`` dict of (B, seq_len, KV, dh) tensors per
-layer.  Entry points take a ``device`` that defaults to ``"cuda"`` and
-raise when CUDA is absent unless the caller asks for ``"cpu"``.
+Caches are one dict per layer: ``{"k", "v"}`` of (B, seq_len, KV, dh)
+tensors for attention, ``{"conv", "C", "n", "m"}`` for mLSTM and
+``{"h", "c", "n", "m"}`` for sLSTM.  Entry points take a ``device`` that
+defaults to ``"cuda"`` and raise when CUDA is absent unless the caller asks
+for ``"cpu"``.
 """
 from __future__ import annotations
 
@@ -25,12 +30,15 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .config import ATTN, ModelConfig
+from .config import ATTN, MLSTM, SLSTM, ModelConfig
 from . import layers as L
+from .xlstm import (apply_mlstm_block, apply_slstm_block, init_mlstm_block,
+                    init_mlstm_cache, init_slstm_block, init_slstm_cache)
 
 #: Model parts the port does not have yet, and the ROADMAP item that ports
 #: them.
 _NOT_PORTED = "not ported yet (ROADMAP queue A, item 10)"
+_PORTED_KINDS = (ATTN, MLSTM, SLSTM)
 
 
 def resolve_device(device) -> torch.device:
@@ -74,8 +82,9 @@ def build_runs(cfg: ModelConfig) -> tuple[RunSpec, ...]:
     return tuple(runs)
 
 
-def _layer_specs(cfg: ModelConfig) -> list[tuple[int, float]]:
-    """(window, theta) per layer; raises for model parts not ported yet."""
+def _layer_specs(cfg: ModelConfig) -> list[tuple[str, int, float]]:
+    """(kind, window, theta) per layer; raises for model parts not ported
+    yet."""
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: MoE blocks are {_NOT_PORTED}")
     if cfg.is_encdec or cfg.num_meta_tokens or cfg.num_patch_tokens:
@@ -84,25 +93,32 @@ def _layer_specs(cfg: ModelConfig) -> list[tuple[int, float]]:
             f"prefixes are {_NOT_PORTED}")
     specs = []
     for run in build_runs(cfg):
-        if run.kind != ATTN:
+        if run.kind not in _PORTED_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: {run.kind!r} blocks are {_NOT_PORTED}")
-        specs += list(zip(run.windows, run.thetas))
+        specs += [(run.kind, w, th) for w, th in zip(run.windows, run.thetas)]
     return specs
+
+
+#: Leaves that keep their dtype in the compute copy, as the reference's
+#: ``_cast`` keeps them (the selective SSM's; no ported block has them yet).
+_KEEP_DTYPE = ("A_log", "D", "dt_bias")
 
 
 def cast_params(params, cfg: ModelConfig, device=None):
     """The parameters as :func:`prefill` and :func:`decode_step` take them:
     on ``device`` if given, with every float leaf that the reference casts
     at use (the layers', the embedding's and the untied head's) in the
-    compute dtype ``cfg.dtype``.  The final norm keeps its dtype, as in the
-    reference.  Made once where the parameters enter, the copies give the
-    numbers of the reference's per-layer cast."""
+    compute dtype ``cfg.dtype``, except the leaves whose dtype the reference
+    keeps (``A_log``, ``D``, ``dt_bias``).  The final norm keeps its dtype,
+    as in the reference.  Made once where the parameters enter, the
+    copies give the numbers of the reference's per-layer cast."""
     dtype = getattr(torch, cfg.dtype)
 
     def go(a, to):
         if isinstance(a, dict):
-            return {k: go(x, to) for k, x in a.items()}
+            return {k: go(x, None if k in _KEEP_DTYPE else to)
+                    for k, x in a.items()}
         if isinstance(a, list):
             return [go(x, to) for x in a]
         return a.to(device=device, dtype=to if a.is_floating_point()
@@ -122,7 +138,14 @@ def _check_cast(params, cfg: ModelConfig):
 # Init.
 # ---------------------------------------------------------------------------
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def init_block(kind: str, gen: torch.Generator, cfg: ModelConfig,
+               dtype) -> dict:
+    if kind == MLSTM:
+        return init_mlstm_block(gen, cfg, dtype)
+    if kind == SLSTM:
+        return init_slstm_block(gen, cfg, dtype)
+    if kind != ATTN:
+        raise ValueError(f"unknown block kind {kind!r}")
     p = {
         "ln1": L.init_norm(cfg, dtype, gen.device),
         "attn": L.init_attention(gen, cfg, dtype),
@@ -139,12 +162,12 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
     """Random parameters in ``cfg.param_dtype``, with the reference's
     distributions, drawn from a ``torch.Generator`` seeded with ``seed``."""
     device = resolve_device(device)
-    n_layers = len(_layer_specs(cfg))
+    specs = _layer_specs(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     params: dict = {"embed": L.init_embed(gen, cfg, dtype),
-                    "layers": [init_block(gen, cfg, dtype)
-                               for _ in range(n_layers)],
+                    "layers": [init_block(kind, gen, cfg, dtype)
+                               for kind, _, _ in specs],
                     "final_norm": L.init_norm(cfg, dtype, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": L.dense_init(
@@ -154,13 +177,22 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
                 device="cuda"):
-    """One zeroed ``{"k", "v"}`` cache of (batch, seq_len, KV, dh) per layer."""
+    """One zeroed cache per layer: ``{"k", "v"}`` of (batch, seq_len, KV,
+    dh) in ``dtype`` (default the compute dtype) for attention, and the
+    float32 recurrent state of the xLSTM blocks, as the reference has them."""
     device = resolve_device(device)
     dtype = getattr(torch, dtype or cfg.dtype)
     shape = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in _layer_specs(cfg)]
+    caches = []
+    for kind, _, _ in _layer_specs(cfg):
+        if kind == MLSTM:
+            caches.append(init_mlstm_cache(cfg, batch, device=device))
+        elif kind == SLSTM:
+            caches.append(init_slstm_cache(cfg, batch, device=device))
+        else:
+            caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                           "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return caches
 
 
 # ---------------------------------------------------------------------------
@@ -216,11 +248,21 @@ def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
 
 
 def _apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None):
+    """All layers in order.  Prefill (``caches`` None) passes no state into
+    the recurrent blocks, as the reference does; decode passes each layer
+    its cache."""
     new_caches = []
-    for i, (window, theta) in enumerate(_layer_specs(cfg)):
-        x, c = apply_attn_block(
-            params["layers"][i], x, cfg, window=window, theta=theta, q_pos=q_pos, kv_pos=kv_pos,
-            cache=None if caches is None else caches[i], pos=pos)
+    for i, (kind, window, theta) in enumerate(_layer_specs(cfg)):
+        p = params["layers"][i]
+        cache = None if caches is None else caches[i]
+        if kind == MLSTM:
+            x, c = apply_mlstm_block(p, x, cfg, cache=cache)
+        elif kind == SLSTM:
+            x, c = apply_slstm_block(p, x, cfg, cache=cache)
+        else:
+            x, c = apply_attn_block(p, x, cfg, window=window, theta=theta,
+                                    q_pos=q_pos, kv_pos=kv_pos, cache=cache,
+                                    pos=pos)
         new_caches.append(c)
     return x, new_caches
 
@@ -240,8 +282,8 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int):
 
     ``params``: as :func:`cast_params` returns them.
     ``batch["tokens"]``: (B, T) integer tensor on the parameters' device.
-    Logits are (B, 1, Vp); each cache holds positions 0..T-1 and zeros
-    after them.
+    Logits are (B, 1, Vp); each attention cache holds positions 0..T-1
+    and zeros after them; each recurrent cache holds the state after T.
     """
     _check_batch(batch)
     _check_cast(params, cfg)
@@ -249,10 +291,10 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int):
     x = L.embed_tokens(params["embed"], tokens, cfg)
     t = x.shape[1]
     pos = torch.arange(t, dtype=torch.int32, device=x.device)
-    x, kvs = _apply_stack(params, x, cfg, q_pos=pos, kv_pos=pos)
-    # (B, T, KV, dh) -> (B, seq_len, KV, dh), zeros after T
-    caches = [{n: F.pad(c[n], (0, 0, 0, 0, 0, seq_len - t)) for n in ("k", "v")}
-              for c in kvs]
+    x, states = _apply_stack(params, x, cfg, q_pos=pos, kv_pos=pos)
+    # k, v: (B, T, KV, dh) -> (B, seq_len, KV, dh), zeros after T
+    caches = [{n: F.pad(a, (0, 0, 0, 0, 0, seq_len - t)) if n in ("k", "v")
+               else a for n, a in c.items()} for c in states]
     x = L.apply_norm(params["final_norm"], x[:, -1:])
     logits = L.logits_from_hidden(x, params["embed"], params.get("lm_head"),
                                   cfg)
@@ -264,7 +306,8 @@ def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig,
     """One decode step.  tokens: (B, 1); pos: Python int cache fill level.
 
     ``params``: as :func:`cast_params` returns them.  Writes the new k and
-    v into ``caches`` in place and returns (logits (B, 1, Vp), caches).
+    v into the attention caches in place, replaces each recurrent cache by
+    the next state, and returns (logits (B, 1, Vp), caches).
     """
     _check_cast(params, cfg)
     x = L.embed_tokens(params["embed"], tokens, cfg)

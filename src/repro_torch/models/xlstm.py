@@ -1,0 +1,277 @@
+"""xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM
+(scalar memory, sequential with block-diagonal recurrence).  [arXiv:2405.04517]
+
+Port of ``repro.models.xlstm``.  The mLSTM recurrence (per batch, per head;
+stabilizer ``m``):
+
+    m_t = max(lf_t + m_{t-1}, li_t)
+    C_t = e^{lf_t + m_{t-1} - m_t} C_{t-1} + e^{li_t - m_t} k_t v_t^T
+    n_t = e^{lf_t + m_{t-1} - m_t} n_{t-1} + e^{li_t - m_t} k_t
+    h_t = (q_t C_t) / max(|q_t n_t|, e^{-m_t})          q pre-scaled 1/sqrt(dk)
+
+:func:`mlstm_sequential` is the exact oracle and the decode step;
+:func:`mlstm_chunkwise` computes the same chunk-parallel and is the plain
+version of the ``mlstm_scan`` kernel, which the mLSTM block reaches through
+:func:`repro_torch.kernels.ops.mlstm_scan`.  Both run in float32.  The
+sLSTM scan is a plain loop over time.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+
+from .layers import apply_norm, dense_init
+from .ssm import _causal_conv
+
+
+# ---------------------------------------------------------------------------
+# mLSTM cell math.
+# ---------------------------------------------------------------------------
+
+def _zero_state(b, h, d, device):
+    return (torch.zeros((b, h, d, d), dtype=torch.float32, device=device),
+            torch.zeros((b, h, d), dtype=torch.float32, device=device),
+            torch.full((b, h), -math.inf, dtype=torch.float32, device=device))
+
+
+def _f32_inputs(q, k, v, log_i, log_f):
+    d = q.shape[-1]
+    return (q.float() / math.sqrt(d), k.float(), v.float(), log_i.float(),
+            log_f.float())
+
+
+def mlstm_sequential(q, k, v, log_i, log_f, state=None):
+    """Exact recurrence.  q,k,v: (B,T,H,D); log_i/log_f: (B,T,H).
+
+    Returns (h (B,T,H,D) float32, state) with state = (C (B,H,D,D),
+    n (B,H,D), m (B,H)).  All math in fp32.
+    """
+    b, t, h, d = q.shape
+    q, k, v, li, lf = _f32_inputs(q, k, v, log_i, log_f)
+    C, n, m = (_zero_state(b, h, d, q.device) if state is None
+               else tuple(s.float() for s in state))
+    hs = []
+    for i in range(t):
+        qt, kt, vt, lit, lft = q[:, i], k[:, i], v[:, i], li[:, i], lf[:, i]
+        m_new = torch.maximum(lft + m, lit)
+        a = torch.exp(lft + m - m_new)[..., None]          # (B,H,1)
+        bcoef = torch.exp(lit - m_new)[..., None]
+        C = (a[..., None] * C
+             + bcoef[..., None] * kt[..., None] * vt[..., None, :])
+        n = a * n + bcoef * kt
+        num = torch.einsum("bhd,bhde->bhe", qt, C)
+        den = torch.einsum("bhd,bhd->bh", qt, n).abs()
+        den = torch.maximum(den, torch.exp(-m_new))[..., None]
+        hs.append(num / den)
+        m = m_new
+    return torch.stack(hs, dim=1), (C, n, m)
+
+
+def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, chunk: int = 256):
+    """Chunk-parallel mLSTM, the semantics of :func:`mlstm_sequential`.
+    T must be a multiple of ``chunk``.  Returns h in float32."""
+    b, t, h, d = q.shape
+    if t % chunk:
+        raise ValueError(f"T={t} must be a multiple of chunk={chunk}")
+    nc = t // chunk
+    q, k, v, li, lf = (x.reshape(b, nc, chunk, *x.shape[2:])
+                       for x in _f32_inputs(q, k, v, log_i, log_f))
+    C0, n0, m0 = (_zero_state(b, h, d, q.device) if state is None
+                  else tuple(s.float() for s in state))
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=q.device).tril()[None, :, :, None]   # s <= t
+    hs = []
+    for c in range(nc):
+        qc, kc, vc, lic, lfc = q[:, c], k[:, c], v[:, c], li[:, c], lf[:, c]
+        bcum = lfc.cumsum(dim=1)            # inclusive sum of log_f, (B,C,H)
+        btot = bcum[:, -1]                  # (B,H)
+        # intra-chunk log weights e_ts = bcum_t - bcum_s + li_s (s <= t)
+        e = bcum[:, :, None, :] - bcum[:, None, :, :] + lic[:, None, :, :]
+        e = e.masked_fill(~tri, -math.inf)  # (B,t,s,H)
+        g = bcum + m0[:, None, :]           # inter exponent (B,C,H)
+        m_row = torch.maximum(e.amax(dim=2), g)
+        m_row = torch.clamp_min(m_row, -1e30)          # guard -inf rows
+        s_mat = torch.einsum("bthd,bshd->btsh", qc, kc) * torch.exp(
+            e - m_row[:, :, None, :])
+        s_mat = s_mat.masked_fill(~tri, 0.0)
+        c_inter = torch.exp(g - m_row)                  # (B,C,H)
+        num = (torch.einsum("btsh,bshd->bthd", s_mat, vc)
+               + c_inter[..., None] * torch.einsum("bthd,bhde->bthe", qc, C0))
+        dot = (s_mat.sum(dim=2)
+               + c_inter * torch.einsum("bthd,bhd->bth", qc, n0))
+        den = torch.maximum(dot.abs(), torch.exp(-m_row))[..., None]
+        hs.append(num / den)
+        # chunk-end state update
+        m_new = torch.maximum(btot + m0,
+                              (btot[:, None] - bcum + lic).amax(dim=1))
+        scale0 = torch.exp(btot + m0 - m_new)           # (B,H)
+        w_s = torch.exp(btot[:, None] - bcum + lic - m_new[:, None])
+        C0 = (scale0[..., None, None] * C0
+              + torch.einsum("bsh,bshd,bshe->bhde", w_s, kc, vc))
+        n0 = scale0[..., None] * n0 + torch.einsum("bsh,bshd->bhd", w_s, kc)
+        m0 = m_new
+    return torch.stack(hs, dim=1).reshape(b, t, h, d), (C0, n0, m0)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block.
+# ---------------------------------------------------------------------------
+
+def _silu(x):
+    """x * sigmoid(x) op by op in x's dtype, as ``jax.nn.silu`` computes it:
+    in bfloat16 this rounds as the reference does, where ``F.silu``'s single
+    rounding differs from it by an ulp in about 4 elements of 10."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def init_mlstm_block(gen: torch.Generator, cfg, dtype) -> dict:
+    d = cfg.d_model
+    inner = cfg.ssm_expand * d
+    dev = gen.device
+    return {
+        "norm_scale": torch.zeros((d,), dtype=dtype, device=dev),
+        "up": dense_init(gen, (d, 2 * inner), dtype),
+        "conv_w": dense_init(gen, (cfg.conv_kernel, inner), dtype,
+                             fan_in=cfg.conv_kernel),
+        "wq": dense_init(gen, (inner, inner), dtype),
+        "wk": dense_init(gen, (inner, inner), dtype),
+        "wv": dense_init(gen, (inner, inner), dtype),
+        "w_i": dense_init(gen, (inner, cfg.num_heads), dtype),
+        "w_f": dense_init(gen, (inner, cfg.num_heads), dtype),
+        "b_i": torch.zeros((cfg.num_heads,), dtype=dtype, device=dev),
+        "b_f": torch.full((cfg.num_heads,), 3.0, dtype=dtype, device=dev),
+        "hnorm_scale": torch.zeros((inner,), dtype=dtype, device=dev),
+        "down": dense_init(gen, (inner, d), dtype, fan_in=inner),
+    }
+
+
+def apply_mlstm_block(p, x, cfg, *, cache=None, chunk: int = 256):
+    """Pre-norm residual mLSTM block.  cache: {"conv", "C", "n", "m"}.
+
+    A prompt whose length is a multiple of ``chunk`` goes through
+    :func:`repro_torch.kernels.ops.mlstm_scan` (the kernel on the card);
+    a single step or any other length through :func:`mlstm_sequential`.
+    """
+    b, t, d = x.shape
+    inner = cfg.ssm_expand * d
+    nh = cfg.num_heads
+    dh = inner // nh
+    y = apply_norm({"scale": p["norm_scale"]}, x)
+    up = y @ p["up"]
+    xin, z = up[..., :inner], up[..., inner:]
+    conv_state = None if cache is None else cache["conv"]
+    xc, new_conv = _causal_conv(xin, p["conv_w"], conv_state)
+    xc = _silu(xc)
+    q = (xc @ p["wq"]).reshape(b, t, nh, dh)
+    k = (xc @ p["wk"]).reshape(b, t, nh, dh)
+    v = (xin @ p["wv"]).reshape(b, t, nh, dh)
+    log_i = (xc @ p["w_i"] + p["b_i"]).float()
+    log_f = F.logsigmoid((xc @ p["w_f"] + p["b_f"]).float())
+    state = None if cache is None else (cache["C"], cache["n"], cache["m"])
+    if t == 1 or t % chunk:
+        h, (C, n, m) = mlstm_sequential(q, k, v, log_i, log_f, state)
+    else:
+        h, (C, n, m) = kops.mlstm_scan(q, k, v, log_i, log_f, state,
+                                       chunk=chunk)
+    h = h.reshape(b, t, inner).to(x.dtype)
+    h = apply_norm({"scale": p["hnorm_scale"]}, h)        # output norm
+    h = h * _silu(z)
+    out = h @ p["down"]
+    return x + out, {"conv": new_conv, "C": C, "n": n, "m": m}
+
+
+def init_mlstm_cache(cfg, batch, *, device) -> dict:
+    inner = cfg.ssm_expand * cfg.d_model
+    dh = inner // cfg.num_heads
+    C, n, m = _zero_state(batch, cfg.num_heads, dh, device)
+    return {"conv": torch.zeros((batch, cfg.conv_kernel - 1, inner),
+                                dtype=torch.float32, device=device),
+            "C": C, "n": n, "m": m}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block.
+# ---------------------------------------------------------------------------
+
+def init_slstm_block(gen: torch.Generator, cfg, dtype) -> dict:
+    d = cfg.d_model
+    nh = cfg.num_heads
+    dh = d // nh
+    ff = int(d * 4 / 3)
+    dev = gen.device
+    return {
+        "norm_scale": torch.zeros((d,), dtype=dtype, device=dev),
+        "w_gates": dense_init(gen, (d, 4 * d), dtype),      # z, i, f, o
+        "r_gates": dense_init(gen, (nh, dh, 4 * dh), dtype, fan_in=dh),
+        "b_gates": torch.cat([
+            torch.zeros((2 * d,), device=dev), torch.full((d,), 3.0, device=dev),
+            torch.zeros((d,), device=dev)]).to(dtype),
+        "hnorm_scale": torch.zeros((d,), dtype=dtype, device=dev),
+        "ffn_wi": dense_init(gen, (d, ff), dtype),
+        "ffn_wg": dense_init(gen, (d, ff), dtype),
+        "ffn_wo": dense_init(gen, (ff, d), dtype, fan_in=ff),
+        "ffn_norm_scale": torch.zeros((d,), dtype=dtype, device=dev),
+    }
+
+
+def slstm_scan(wx, r_gates, h0, c0, n0, m0, nh):
+    """Sequential sLSTM.  wx: (B,T,4d) input-driven gate preactivations.
+
+    Per step, the recurrent contribution uses block-diagonal R per head.
+    Returns (h (B,T,d), (h,c,n,m) final).  fp32 math.
+    """
+    b, t, d4 = wx.shape
+    d = d4 // 4
+    dh = d // nh
+    h, c, n, m = h0, c0, n0, m0                 # (B,d) fp32
+    hs = []
+    for i in range(t):
+        rec = torch.einsum("bhd,hde->bhe", h.reshape(b, nh, dh),
+                           r_gates).reshape(b, 4 * d)
+        pre = wx[:, i].float() + rec
+        zt, it, ft, ot = pre.split(d, dim=-1)
+        zt = torch.tanh(zt)
+        ot = torch.sigmoid(ot)
+        lf = F.logsigmoid(ft)
+        m_new = torch.maximum(lf + m, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(lf + m - m_new)
+        c = f_p * c + i_p * zt
+        n = f_p * n + i_p
+        h = ot * c / torch.clamp_min(n, 1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), (h, c, n, m)
+
+
+def apply_slstm_block(p, x, cfg, *, cache=None):
+    b, t, d = x.shape
+    nh = cfg.num_heads
+    y = apply_norm({"scale": p["norm_scale"]}, x)
+    wx = y @ p["w_gates"] + p["b_gates"]
+    if cache is None:
+        c = init_slstm_cache(cfg, b, device=x.device)
+        state = (c["h"], c["c"], c["n"], c["m"])
+    else:
+        state = (cache["h"], cache["c"], cache["n"], cache["m"])
+    r = p["r_gates"].float()
+    hs, (h, c, n, m) = slstm_scan(wx, r, *state, nh=nh)
+    hs = apply_norm({"scale": p["hnorm_scale"]}, hs.to(x.dtype))
+    x = x + hs
+    # gated FFN (factor 4/3)
+    y = apply_norm({"scale": p["ffn_norm_scale"]}, x)
+    hff = _silu(y @ p["ffn_wg"]) * (y @ p["ffn_wi"])
+    x = x + hff @ p["ffn_wo"]
+    return x, {"h": h, "c": c, "n": n, "m": m}
+
+
+def init_slstm_cache(cfg, batch, *, device) -> dict:
+    d = cfg.d_model
+    z = torch.zeros((batch, d), dtype=torch.float32, device=device)
+    return {"h": z, "c": z.clone(), "n": z.clone(),
+            "m": torch.full((batch, d), -math.inf, dtype=torch.float32,
+                            device=device)}

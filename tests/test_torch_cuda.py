@@ -1,10 +1,12 @@
-"""The port on the card: the CUDA flash-attention kernel against its plain
-version, and the model on the card against the model on the CPU.
+"""The port on the card: the CUDA flash-attention and mLSTM chunk-scan
+kernels against their plain versions, and the models on the card against
+the models on the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no GPU.  This
 file imports neither jax nor repro, so it runs where only the port is
 installed:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
-Tolerances: float32 2e-5 and bfloat16 2e-2, as in tests/test_kernels.py.
+Tolerances as in tests/test_kernels.py: attention float32 2e-5 and
+bfloat16 2e-2; mLSTM float32 rtol 5e-4 atol 5e-5 and bfloat16 5e-2.
 """
 import dataclasses
 
@@ -13,7 +15,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels.ref import reference_attention
+from repro_torch.kernels import mlstm_scan as ms
+from repro_torch.kernels.ref import reference_attention, reference_mlstm_scan
 from repro_torch.models import get_config, init_params
 from repro_torch.models import transformer as TT
 
@@ -93,21 +96,112 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                            v[..., :24].contiguous(), **kw)
 
 
+# Prompt length per model: 256 is a multiple of the mLSTM chunk, so the
+# xLSTM's prefill takes the mlstm_scan kernel on the card.
+PROMPT = {"llama3.2-3b": 70, "lacin-demo": 70, "xlstm-350m": 256}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "lacin-demo"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "lacin-demo", "xlstm-350m"])
 def test_model_on_the_card_matches_the_cpu(cuda, arch):
-    """prefill + decode_step with the kernel (card) vs with the plain
-    version (CPU), reduced config in float32: atol 1e-4."""
+    """prefill + decode_step with the kernels (card) vs with the plain
+    versions (CPU), reduced config in float32: atol 1e-4."""
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     params = init_params(0, cfg, device="cpu")
     on_card = TT.cast_params(params, cfg, cuda)
+    t = PROMPT[arch]
     tokens = torch.from_numpy(
-        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 70)))
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, t)))
     out = {}
     for dev, p in (("cpu", params), ("cuda", on_card)):
-        logits, caches = TT.prefill(p, {"tokens": tokens.to(dev)}, cfg, 96)
-        step, _ = TT.decode_step(p, logits.argmax(-1).to(dev), caches, 70,
-                                 cfg, 96)
+        before = ms.launches
+        logits, caches = TT.prefill(p, {"tokens": tokens.to(dev)}, cfg,
+                                    t + 26)
+        launched = ms.launches - before
+        step, _ = TT.decode_step(p, logits.argmax(-1).to(dev), caches, t,
+                                 cfg, t + 26)
         out[dev] = [logits.cpu().numpy(), step.cpu().numpy()]
+    # one mlstm_scan launch per mLSTM layer of the prefill on the card
+    assert launched == cfg.block_pattern.count("mlstm")
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+
+
+MLSTM_TOL = {"float32": dict(rtol=5e-4, atol=5e-5),
+             "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+# name: (b, t, h, d, chunk, gates); gates "normal", "forget_near_zero"
+# (log_f << 0), "large_log_i" (the stabilizer dominates) or "state" (a
+# given initial state).
+MLSTM_CASES = {
+    "d16": (1, 64, 1, 16, 16, "normal"),
+    "d32_chunk48": (1, 96, 2, 32, 48, "normal"),
+    "d64_four_chunks": (2, 256, 2, 64, 64, "normal"),
+    "d128": (1, 256, 2, 128, 128, "normal"),
+    "d512_two_chunks": (1, 512, 2, 512, 256, "normal"),
+    "forget_near_zero": (1, 256, 2, 64, 64, "forget_near_zero"),
+    "large_log_i": (1, 256, 2, 64, 64, "large_log_i"),
+    "initial_state": (2, 128, 2, 64, 64, "state"),
+    "bh1_d128": (1, 128, 1, 128, 64, "normal"),
+}
+
+
+def _mlstm_inputs(name, dtype, device):
+    b, t, h, d, chunk, gates = MLSTM_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return rng.normal(size=shape).astype(np.float32) * scale + shift
+    qkv = [torch.from_numpy(draw(b, t, h, d)).to(device=device,
+                                                 dtype=getattr(torch, dtype))
+           for _ in range(3)]
+    li = draw(b, t, h, scale=2.0, shift=40.0 if gates == "large_log_i" else 0.0)
+    lf = draw(b, t, h, scale=2.0, shift=-20.0 if gates == "forget_near_zero"
+              else 1.0)
+    gate_t = [torch.from_numpy(li).to(device),
+              torch.nn.functional.logsigmoid(torch.from_numpy(lf)).to(device)]
+    state = None
+    if gates == "state":
+        state = (torch.from_numpy(draw(b, h, d, d, scale=0.1)).to(device),
+                 torch.from_numpy(np.abs(draw(b, h, d))).to(device),
+                 torch.from_numpy(draw(b, h)).to(device))
+    return qkv + gate_t, state, chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(MLSTM_CASES))
+def test_mlstm_kernel_matches_plain_version(cuda, name, dtype):
+    """csrc/mlstm_scan.cu vs kernels.ref.reference_mlstm_scan (the
+    chunkwise mLSTM): h and the final (C, n, m)."""
+    args, state, chunk = _mlstm_inputs(name, dtype, cuda)
+    before = ms.launches
+    got_h, got_state = ms.mlstm_scan(*args, state, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ms.launches == before + 1
+    want_h, want_state = reference_mlstm_scan(*args, state, chunk=chunk)
+    assert got_h.dtype == want_h.dtype and got_h.shape == want_h.shape
+    # the state is fp32 on both sides; bf16 inputs are the same values
+    for got, want, tol in ((got_h, want_h, MLSTM_TOL[dtype]),
+                           *zip(got_state, want_state,
+                                [MLSTM_TOL["float32"]] * 3)):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_refuses_what_it_does_not_take(cuda):
+    (q, k, v, li, lf), _, chunk = _mlstm_inputs("d32_chunk48", "float32",
+                                                cuda)
+    with pytest.raises(TypeError):
+        ms.mlstm_scan(q.half(), k.half(), v.half(), li, lf, chunk=chunk)
+    with pytest.raises(TypeError, match="float32"):
+        ms.mlstm_scan(q, k, v, li.bfloat16(), lf, chunk=chunk)
+    with pytest.raises(ValueError, match="multiple"):
+        ms.mlstm_scan(q, k, v, li, lf, chunk=64)
+    with pytest.raises(ValueError, match="head_dim"):
+        ms.mlstm_scan(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                      v[..., :8].contiguous(), li, lf, chunk=chunk)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mlstm_scan(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                      li, lf, chunk=chunk)

@@ -1,10 +1,11 @@
 """repro_torch.serving.ServingEngine against the JAX reference
 repro.serving.engine.ServingEngine, on the CPU.
 
-Both engines serve the reduced llama3.2-3b in a float32 config with the
-same weights (the reference's ``init_params(PRNGKey(0))`` through
-``params_from_numpy``).  Prompts of unequal length exercise the left-pad
-path; greedy tokens must be equal.
+Both engines serve the reduced llama3.2-3b, and the reduced xlstm-350m, in
+a float32 config with the same weights (the reference's
+``init_params(PRNGKey(0))`` through ``params_from_numpy``).  Prompts of
+unequal length exercise the left-pad path; greedy tokens must be equal, and
+for the xLSTM the sampled ones too.
 """
 import dataclasses
 
@@ -56,6 +57,39 @@ def test_greedy_tokens_equal_reference_engine():
         assert got[rid] == want[rid]
     assert len(got[3]) == max_new
     assert all(0 <= t < cj.vocab_size for t in got[3])
+
+
+def test_xlstm_tokens_equal_reference_engine():
+    """Greedy and temperature out_tokens of the reduced xlstm-350m equal
+    repro.serving.engine.ServingEngine's: both engines draw from a numpy
+    Generator of the same seed, so equal logits give equal samples.  The
+    longest prompt is 256 tokens, a multiple of the mLSTM chunk, so the
+    prefill takes ops.mlstm_scan; decode takes the sequential step.  With
+    no attention layer, max_seq only bounds the fill position."""
+    cj = dataclasses.replace(jax_get_config("xlstm-350m").reduced(),
+                             dtype="float32")
+    ct = dataclasses.replace(get_config("xlstm-350m").reduced(),
+                             dtype="float32")
+    pj = jax_init_params(jax.random.PRNGKey(0), cj)
+    pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), ct,
+                           device="cpu")
+    lengths, temps, max_new = [256, 200, 97, 31], [0.0, 0.8, 0.0, 0.8], 6
+    outs = []
+    for eng, cls in ((JServingEngine(cj, pj, slots=4, max_seq=272), JRequest),
+                     (ServingEngine(ct, pt, slots=4, max_seq=272,
+                                    device="cpu"), Request)):
+        reqs = _requests(cls, cj.vocab_size, lengths, temps, max_new)
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+        assert len(done) == len(reqs)
+        assert eng.pos == max(lengths) + max_new
+        outs.append({r.rid: r.out_tokens for r in done})
+    want, got = outs
+    assert got == want
+    assert all(len(toks) == max_new and all(0 <= t < cj.vocab_size
+                                            for t in toks)
+               for toks in got.values())
 
 
 def test_stop_rule_at_the_end_of_the_cache():
