@@ -9,11 +9,14 @@ Phases, one JSON line each:
 2. build   -- compiles every CUDA source under src/repro_torch/kernels/csrc,
    one nvcc per source, all at once;
 3. kernels -- holds each kernel against its plain PyTorch version on the
-   hazard cases (flash attention: fp32 tol 2e-5, bf16 tol 2e-2; mLSTM
+   hazard cases (flash attention, whose wrapper picks the fp32, the bf16
+   prefill or the bf16 decode kernel: fp32 tol 2e-5, bf16 tol 2e-2; mLSTM
    chunk scan: fp32 rtol 5e-4 atol 5e-5, bf16 5e-2, on h and on the final
    state) and at the serving shapes, and times kernel, plain version and
-   the library call, where there is one, beside its bound;
-4. small   -- the reduced models in fp32 on the card against the CPU;
+   the library call, where there is one, beside its bound (attention: on
+   the device alone through a CUDA graph, and per eager call);
+4. small   -- the reduced models in fp32 on the card against the CPU (the
+   run that drives the fp32 attention kernel);
 5. serve   -- llama3.2-3b and then xlstm-350m at full width and depth,
    random weights from a seed, each through ServingEngine: 4 requests
    (prompts 512/384/256/128, one sampled at temperature 0.8) x 32 new
@@ -32,6 +35,7 @@ numpy and repro_torch.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -77,7 +81,29 @@ HAZARDS = {
     "decode_window": (4, 1, 1024, 24, 8, 128, [700], True, 100),
     "fully_masked_rows": (1, 16, 40, 6, 2, 128, [-5] * 16, True, 0),
     "some_rows_masked": (2, 80, 80, 6, 2, 64, list(range(-40, 40)), True, 0),
+    # bf16 switches from the decode kernel (T <= 16) to the prefill kernel
+    "decode_t16": (2, 16, 300, 6, 2, 128, "tail", True, 0),
+    "prefill_t17": (2, 17, 300, 6, 2, 128, "tail", True, 0),
+    "decode_t2_d64": (2, 2, 200, 6, 2, 64, "tail", True, 0),
+    "decode_t8_gqa4_d32": (3, 8, 257, 8, 2, 32, "tail", True, 0),
+    # group sizes G = H/KV of 1, 4 and 8, prefill and decode
+    "mha_g1_d64": (2, 150, 150, 4, 4, 64, None, True, 0),
+    "decode_g1": (2, 1, 300, 4, 4, 128, [250], True, 0),
+    "gqa4_d128_tail": (1, 100, 140, 8, 2, 128, "tail", True, 0),
+    "gqa8_d64": (1, 90, 90, 16, 2, 64, None, True, 0),
+    "decode_gqa8_t16": (1, 16, 200, 16, 2, 64, "tail", True, 0),
+    # D = 16 on the tensor cores, and S below one 64-key tile
+    "d16_gqa4": (2, 70, 70, 8, 2, 16, None, True, 0),
+    "decode_d16": (2, 1, 100, 6, 2, 16, [77], True, 0),
+    "s_below_tile": (2, 40, 40, 6, 2, 128, None, True, 0),
+    "decode_s_below_tile": (2, 1, 40, 6, 2, 64, [30], True, 0),
+    # a window edge inside a split, a decode row that sees nothing (every
+    # split empty), one (batch, KV head) over many splits
+    "decode_window_edge": (2, 1, 1024, 6, 2, 128, [700], True, 97),
+    "decode_all_masked": (2, 1, 512, 6, 2, 128, [-3], True, 0),
+    "decode_bkv1": (1, 1, 2048, 4, 1, 128, [1500], True, 0),
 }
+ALL_MASKED = ("fully_masked_rows", "decode_all_masked")
 
 # name: (b, t, h, d, chunk, gates); gates "normal", "forget_near_zero"
 # (log_f << 0), "large_log_i" (the stabilizer dominates) or "state" (a
@@ -129,6 +155,34 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls, replays=5):
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, the graph replayed ``replays`` times between CUDA events.
+    The host's time to issue each call (Python, allocation, launch) is left
+    out; ``cuda_ms`` of the same calls keeps it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def make_inputs(b, t, s, h, kvh, d, q_pos, dtype, seed, copies=1):
@@ -201,16 +255,35 @@ def phase_device():
     return smi
 
 
+def ptxas_summary(text):
+    """One line per compiled kernel of an ``nvcc -Xptxas -v`` report: its
+    name and template arguments as mangled (``ILi128EE``: 128), registers,
+    and spills."""
+    lines, name, spill = [], "?", ""
+    for line in text.splitlines():
+        if "entry function" in line:
+            # the kernel's name is the one preceded by its length
+            for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel))", line):
+                if len(m.group(2)) == int(m.group(1)):
+                    args = re.match(r"I\w*?E", line[m.end(2):])
+                    name = m.group(2) + (args.group(0) if args else "")
+                    break
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return lines
+
+
 def phase_build():
     t0 = time.perf_counter()
     reports = _build.build_all()
     fa._library()
     ms._library()
-    ptxas = [line.strip() for text in reports.values()
-             for line in text.splitlines()
-             if "registers" in line or "spill" in line]
+    ptxas = [line for text in reports.values() for line in ptxas_summary(text)]
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(reports),
-         ptxas=ptxas)
+         ptxas=ptxas, kernels_that_spill=[
+             line for line in ptxas if "0 bytes spill stores" not in line])
 
 
 def phase_hazards():
@@ -220,29 +293,34 @@ def phase_hazards():
             q, [(k, v)], qp = make_inputs(b, t, s, h, kvh, d, q_pos, dtype,
                                           seed=sum(map(ord, name)))
             kw = dict(q_pos=qp, causal=causal, window=window)
-            before = fa.launches
+            path = fa.plan(b, t, s, h, kvh, d, dtype).path
+            before = fa.launches, fa.launches_by_path[path]
             got = fa.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            if fa.launches != before + 1:
+            if (fa.launches, fa.launches_by_path[path]) != (before[0] + 1,
+                                                            before[1] + 1):
                 raise AssertionError("the wrapper did not count its launch")
             err = check_close(name, got, reference_attention(q, k, v, **kw),
                               dtype)
-            if name == "fully_masked_rows" and got.any():
-                raise AssertionError("fully masked rows are not zeros")
+            if name in ALL_MASKED and got.any():
+                raise AssertionError(f"{name}: fully masked rows are not "
+                                     f"zeros")
             key = str(dtype).removeprefix("torch.")
             worst[key] = max(worst.get(key, 0.0), err)
             emit("kernel_case", kernel="flash_attention", case=name,
-                 dtype=key, max_abs_err=err, tol=TOL[dtype])
+                 path=path, dtype=key, max_abs_err=err, tol=TOL[dtype])
     emit("kernel_hazards", kernel="flash_attention", cases=len(HAZARDS) * 2,
          max_abs_err=worst)
 
 
-def time_attention(label, b, t, s, h, kvh, d, q_pos, copies):
-    """Kernel, plain version and SDPA at one serving shape (bf16).  With
-    ``copies`` > 1 the calls cycle over that many K/V caches, so that they
-    find the cache in device memory and not in the 50 MB L2, as each layer
-    of a decode step does."""
-    dtype = torch.bfloat16
+def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
+                   dtype=torch.bfloat16):
+    """Kernel, plain version and SDPA at one serving shape, each timed on
+    the device alone (``graph_ms``: ``ms``, ``plain_ms``, ``library_ms``)
+    and per call with the host's time to issue it (``cuda_ms``: the
+    ``*_eager`` keys).  With ``copies`` > 1 the calls cycle over that many
+    K/V caches, so that they find the cache in device memory and not in the
+    50 MB L2, as each layer of a decode step does."""
     q, kvs, qp = make_inputs(b, t, s, h, kvh, d, q_pos, dtype, seed=t + s,
                              copies=copies)
     kp = torch.arange(s, dtype=torch.int32, device="cuda")
@@ -266,16 +344,27 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies):
             q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
             enable_gqa=True, **sdpa_kw)
 
-    iters = 50
-    ms = cuda_ms(cycle(lambda *a: fa.flash_attention(*a, **kw)), iters)
-    plain_ms = cuda_ms(cycle(lambda *a: reference_attention(*a, **kw)), iters)
-    library_ms = cuda_ms(cycle(sdpa), iters)
-    ms_again = cuda_ms(cycle(lambda *a: fa.flash_attention(*a, **kw)), iters)
+    calls = {"kernel": cycle(lambda *a: fa.flash_attention(*a, **kw)),
+             "plain": cycle(lambda *a: reference_attention(*a, **kw)),
+             "library": cycle(sdpa)}
+    iters = 48                  # a multiple of copies (8)
+    times = {}
+    for timer, suffix in ((graph_ms, ""), (cuda_ms, "_eager")):
+        for name in ("kernel", "plain", "library", "kernel"):
+            key = name + suffix
+            times[key + ("_repeat" if key in times else "")] = timer(
+                calls[name], iters)
     bound_ms, bound_by = bound(q, k, qp, kp, True, 0)
-    out = dict(shape=f"B{b} T{t} S{s} H{h} KV{kvh} D{d} bf16 causal",
-               max_abs_err=err, tol=TOL[dtype], ms=ms, ms_repeat=ms_again,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by)
+    key = str(dtype).removeprefix("torch.")
+    out = dict(shape=f"B{b} T{t} S{s} H{h} KV{kvh} D{d} {key} causal",
+               path=fa.plan(b, t, s, h, kvh, d, dtype).path,
+               max_abs_err=err, tol=TOL[dtype], ms=times["kernel"],
+               ms_repeat=times["kernel_repeat"], plain_ms=times["plain"],
+               library_ms=times["library"], bound_ms=bound_ms,
+               bound_by=bound_by, ms_eager=times["kernel_eager"],
+               ms_eager_repeat=times["kernel_eager_repeat"],
+               plain_ms_eager=times["plain_eager"],
+               library_ms_eager=times["library_eager"])
     emit("kernel_timing", kernel="flash_attention", case=label, **out)
     return out
 
@@ -423,20 +512,31 @@ def rel_l2(a, b):
 
 
 def kernel_launches():
-    return {"flash_attention": fa.launches, "mlstm_scan": ms.launches}
+    """Attention calls, each attention kernel's launches, mLSTM scans."""
+    return {"flash_attention": fa.launches,
+            **{f"flash_attention_{path}": n
+               for path, n in fa.launches_by_path.items()},
+            "mlstm_scan": ms.launches}
 
 
 def reset_launches():
     fa.launches = ms.launches = 0
+    for path in fa.launches_by_path:
+        fa.launches_by_path[path] = 0
 
 
 def expected_launches(cfg):
-    """Launches of one serve run: flash attention at every attention layer
-    of the prefill and of each decode step; mlstm_scan at every mLSTM layer
-    of the prefill (512 is a multiple of its chunk), none in decode, which
-    takes the sequential step."""
+    """Launches of one serve run (bf16): the prefill attention kernel at
+    every attention layer of the prefill, the decode kernel at every
+    attention layer of each decode step, the fp32 kernel never; mlstm_scan
+    at every mLSTM layer of the prefill (512 is a multiple of its chunk),
+    none in decode, which takes the sequential step."""
     kinds = cfg.block_pattern or ("attn",) * cfg.num_layers
-    return {"flash_attention": kinds.count("attn") * (1 + NEW_TOKENS),
+    attn = kinds.count("attn")
+    return {"flash_attention": attn * (1 + NEW_TOKENS),
+            "flash_attention_fp32": 0,
+            "flash_attention_prefill": attn,
+            "flash_attention_decode": attn * NEW_TOKENS,
             "mlstm_scan": kinds.count("mlstm")}
 
 
@@ -581,8 +681,11 @@ SMALL_MODELS = {"llama3.2-3b": 70, "lacin-demo": 70, "xlstm-350m": 256}
 
 def phase_small_model():
     """The reduced models in float32 on the card (kernels) against the CPU
-    (plain versions): logits of prefill and one decode step, atol 1e-4."""
+    (plain versions): logits of prefill and one decode step, atol 1e-4.
+    Returns the launches on the card (counts set to 0 just before): the
+    path that runs the fp32 attention kernel."""
     worst = {}
+    reset_launches()
     for arch, t in SMALL_MODELS.items():
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
         params = init_params(SEED, cfg, device="cpu")
@@ -598,6 +701,9 @@ def phase_small_model():
                                      t + 26)
             launched = {k: v - before[k] for k, v in kernel_launches().items()}
             out[dev] = torch.cat([logits, step], 1).cpu()
+        if launched["flash_attention_fp32"] != launched["flash_attention"]:
+            raise AssertionError(f"{arch} reduced: fp32 attention left the "
+                                 f"fp32 kernel: {launched}")
         if arch == "xlstm-350m" and launched["mlstm_scan"] != \
                 cfg.block_pattern.count("mlstm"):
             raise AssertionError(f"{arch} reduced: mlstm_scan launched "
@@ -606,7 +712,9 @@ def phase_small_model():
         if not (torch.isfinite(out["cuda"]).all() and err <= 1e-4):
             raise AssertionError(f"{arch} reduced: card and CPU differ by {err}")
         worst[arch] = err
-    emit("small_model_vs_cpu", max_abs_err=worst, tol=1e-4)
+    total = kernel_launches()
+    emit("small_model_vs_cpu", max_abs_err=worst, tol=1e-4, launches=total)
+    return total
 
 
 def main():
@@ -614,27 +722,40 @@ def main():
     phase_build()
     phase_hazards()
     b, h, kvh, d = len(PROMPTS), 24, 8, 128
-    pre = time_attention("prefill", b, max(PROMPTS), max(PROMPTS), h, kvh, d,
-                         None, copies=1)
+    serving = (b, max(PROMPTS), max(PROMPTS), h, kvh, d, None)
+    pre = time_attention("prefill", *serving, copies=1)
     dec = time_attention("decode", b, 1, MAX_SEQ, h, kvh, d, [DECODE_POS],
                          copies=8)
+    fp32 = time_attention("prefill", *serving, copies=1, dtype=torch.float32)
     phase_mlstm_hazards()
     scan = time_mlstm()
-    phase_small_model()
+    small = phase_small_model()
     llama = phase_serve("llama3.2-3b")
     xlstm = phase_serve("xlstm-350m")
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:39",
-        "launches": llama["flash_attention"] + xlstm["flash_attention"],
-        "launches_by_model": {"llama3.2-3b": llama["flash_attention"],
-                              "xlstm-350m": xlstm["flash_attention"]},
-        "max_abs_err": max(pre["max_abs_err"], dec["max_abs_err"]),
-        "tol": TOL[torch.bfloat16], "kernel_ms": pre["ms"],
-        **{key: pre[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms", "shape")},
-        "decode": dec}, {
+
+    def attention_entry(path, source, timing, runs):
+        """One attention kernel; ``runs`` are the launch counts of the
+        runs that drive its path."""
+        key = f"flash_attention_{path}"
+        return {
+            "name": key, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/kernels/flash_attention.py:39",
+            "launches": sum(run[key] for run in runs.values()),
+            "launches_by_run": {name: run[key] for name, run in runs.items()},
+            "attention_calls_by_run": {name: run["flash_attention"]
+                                       for name, run in runs.items()},
+            **{k: timing[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "shape")}}
+    serve_runs = {"llama3.2-3b": llama, "xlstm-350m": xlstm}
+    print(json.dumps({"kernels": [
+        attention_entry("prefill", "flash_attention_prefill.cu", pre,
+                        serve_runs),
+        attention_entry("decode", "flash_attention_decode.cu", dec,
+                        serve_runs),
+        attention_entry("fp32", "flash_attention.cu", fp32,
+                        {"reduced models in fp32": small}), {
         "name": "mlstm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
         "replaces": "src/repro/kernels/mlstm_scan.py:32",

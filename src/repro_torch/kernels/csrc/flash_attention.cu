@@ -1,27 +1,28 @@
-// GQA flash-attention forward for Hopper (sm_90a), with a plain C interface.
+// fp32 GQA flash-attention forward for Hopper (sm_90a), with a plain C
+// interface.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py (`_kernel`,
-// launched through pl.pallas_call by `flash_attention`).  The Python wrapper
-// is src/repro_torch/kernels/flash_attention.py; the plain PyTorch version it
-// is held against is src/repro_torch/kernels/ref.py::reference_attention.
+// Replaces the TPU kernel src/repro/kernels/flash_attention.py:39 (`_kernel`,
+// launched through pl.pallas_call by `flash_attention`) for fp32 inputs.
+// bf16 inputs take flash_attention_prefill.cu (T > 16) or
+// flash_attention_decode.cu (T <= 16); the Python wrapper
+// src/repro_torch/kernels/flash_attention.py picks the kernel.  The plain
+// PyTorch version all three are held against is
+// src/repro_torch/kernels/ref.py::reference_attention.
 //
-// Contract.  q (B,T,H,D), k/v (B,S,KV,D), contiguous, fp32 or bf16; output
-// (B,T,H,D) in q's type.  Query head h reads KV head h / (H/KV).  q is scaled
-// by 1/sqrt(D) in fp32 before q.k.  Key s is visible to query t iff
-// kv_pos[s] >= 0, and (causal) kv_pos[s] <= q_pos[t], and (window > 0)
-// q_pos[t] - kv_pos[s] < window.  Online softmax in fp32; a row that sees no
-// key is zeros.  q_pos holds T entries and kv_pos S: the last tiles are
-// padded here, not by the caller, with zero rows of q, k and v, query
-// position 0 and key position -1, so a padded key is masked as in the
-// reference's padding.
+// Contract.  q (B,T,H,D), k/v (B,S,KV,D), contiguous fp32; output (B,T,H,D)
+// fp32.  Query head h reads KV head h / (H/KV).  q is scaled by 1/sqrt(D)
+// in fp32 before q.k.  Key s is visible to query t iff kv_pos[s] >= 0, and
+// (causal) kv_pos[s] <= q_pos[t], and (window > 0) q_pos[t] - kv_pos[s] <
+// window.  Online softmax in fp32; a row that sees no key is zeros.  q_pos
+// holds T entries and kv_pos S: the last tiles are padded here, not by the
+// caller, with zero rows of q, k and v, query position 0 and key position
+// -1, so a padded key is masked as in the reference's padding.
 //
-// What bounds it on the H100.  Serving llama3.2-3b, one prefill launch
-// (B4, T = S = 512, H24, KV8, D128, bf16) moves 33.6 MB and does 6.4 GFLOP
-// of causal work: with the tensor cores (989 TFLOP/s bf16) it would be bound
-// by memory, at about 10 us.  One decode launch (T = 1 against a 1024-slot
-// cache) is bound by reading the K/V cache.  This first version computes on
-// the fp32 FMA pipe (67 TFLOP/s), so prefill is bound by operations on that
-// pipe, not by memory.
+// What bounds it on the H100.  fp32 attention cannot use the bf16 tensor
+// cores, and TF32 would not hold the fp32 tolerance (2e-5) that this path
+// is held to: it computes on the fp32 FMA pipe (67 TFLOP/s) and is bound by
+// operations there.  Serving runs bf16 and never reaches it; the reduced
+// models in fp32 and the fp32 checks do.
 //
 // What the design does about it.  One block of 128 threads per (batch x
 // q-head, tile of BQ query rows); a loop over KV tiles of 64 keys staged in
@@ -31,9 +32,6 @@
 // cache slot past the fill position) is skipped before it is loaded, which is
 // exact: a fully masked tile changes neither max, sum nor accumulator.
 // Decode (T <= 16) uses BQ = 16 so that a one-row query wastes less work.
-// Left for later: tensor cores (mma.sync / wgmma), TMA loads, and sharing a
-// K/V tile among the H/KV query heads of its group.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,15 +39,6 @@ namespace {
 constexpr int kBK = 64;        // keys per KV tile
 constexpr int kThreads = 128;  // 8 row groups x 16 column lanes
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Reductions over the 16 lanes that share a row (lanes 0-15 or 16-31).
 __device__ __forceinline__ float row_max(float x) {
@@ -71,11 +60,11 @@ constexpr size_t smem_bytes() {
 
 // Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty + 8 i, key
 // columns tx + 16 j of the score tile, and output dims tx + 16 j.
-template <typename T, int BQ, int D>
+template <int BQ, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const int* __restrict__ q_pos,
-                           const int* __restrict__ kv_pos, T* __restrict__ out,
+flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const int* __restrict__ q_pos,
+                           const int* __restrict__ kv_pos, float* __restrict__ out,
                            int t_len, int s_len, int n_heads, int n_kv_heads,
                            int n_k_tiles, int causal, int window, float scale) {
   constexpr int RI = BQ / 8;    // rows per thread
@@ -95,13 +84,13 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (n_heads / n_kv_heads);
   const int q0 = blockIdx.x * BQ;
   const size_t q_stride = (size_t)n_heads * D, kv_stride = (size_t)n_kv_heads * D;
-  const T* qb = q + (size_t)b * t_len * q_stride + (size_t)h * D;
-  const T* kb = k + (size_t)b * s_len * kv_stride + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * s_len * kv_stride + (size_t)kvh * D;
+  const float* qb = q + (size_t)b * t_len * q_stride + (size_t)h * D;
+  const float* kb = k + (size_t)b * s_len * kv_stride + (size_t)kvh * D;
+  const float* vb = v + (size_t)b * s_len * kv_stride + (size_t)kvh * D;
 
   for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, d = i % D, t = q0 + r;
-    q_s[r * DP + d] = t < t_len ? load_f(qb + t * q_stride + d) * scale : 0.f;
+    q_s[r * DP + d] = t < t_len ? qb[t * q_stride + d] * scale : 0.f;
   }
   for (int i = tid; i < BQ; i += kThreads)
     qp_s[i] = q0 + i < t_len ? q_pos[q0 + i] : 0;
@@ -142,7 +131,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, d = i % D, s = k0 + r;
-      kv_s[r * DP + d] = s < s_len ? load_f(kb + s * kv_stride + d) : 0.f;
+      kv_s[r * DP + d] = s < s_len ? kb[s * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -192,7 +181,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, d = i % D, s = k0 + r;
-      kv_s[r * DP + d] = s < s_len ? load_f(vb + s * kv_stride + d) : 0.f;
+      kv_s[r * DP + d] = s < s_len ? vb[s * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -215,9 +204,9 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = q0 + ty + 8 * i;
     if (t >= t_len) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];
-    T* o = out + ((size_t)b * t_len + t) * q_stride + (size_t)h * D;
+    float* o = out + ((size_t)b * t_len + t) * q_stride + (size_t)h * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) store_f(o + tx + 16 * j, acc[i][j] / denom);
+    for (int j = 0; j < DJ; ++j) o[tx + 16 * j] = acc[i][j] / denom;
   }
 }
 
@@ -230,9 +219,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int BQ, int D>
+template <int BQ, int D>
 cudaError_t launch(const Args& a) {
-  auto kernel = flash_attention_fwd_kernel<T, BQ, D>;
+  auto kernel = flash_attention_fwd_kernel<BQ, D>;
   constexpr size_t smem = smem_bytes<BQ, D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -240,29 +229,28 @@ cudaError_t launch(const Args& a) {
   const int n_k_tiles = (a.s_len + kBK - 1) / kBK;
   const dim3 grid((a.t_len + BQ - 1) / BQ, a.batch * a.n_heads);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.q_pos, a.kv_pos, static_cast<T*>(a.out),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.q_pos, a.kv_pos, static_cast<float*>(a.out),
       a.t_len, a.s_len, a.n_heads, a.n_kv_heads, n_k_tiles, a.causal, a.window,
       a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int BQ>
+template <int BQ>
 cudaError_t dispatch_head_dim(int head_dim, const Args& a) {
   switch (head_dim) {
-    case 16: return launch<T, BQ, 16>(a);
-    case 32: return launch<T, BQ, 32>(a);
-    case 64: return launch<T, BQ, 64>(a);
-    case 128: return launch<T, BQ, 128>(a);
+    case 16: return launch<BQ, 16>(a);
+    case 32: return launch<BQ, 32>(a);
+    case 64: return launch<BQ, 64>(a);
+    case 128: return launch<BQ, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
 cudaError_t dispatch_block_q(int block_q, int head_dim, const Args& a) {
   switch (block_q) {
-    case 16: return dispatch_head_dim<T, 16>(head_dim, a);
-    case 64: return dispatch_head_dim<T, 64>(head_dim, a);
+    case 16: return dispatch_head_dim<16>(head_dim, a);
+    case 64: return dispatch_head_dim<64>(head_dim, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -270,16 +258,15 @@ cudaError_t dispatch_block_q(int block_q, int head_dim, const Args& a) {
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  q_pos holds T
-// entries and kv_pos S.  block_q is 16 or 64, head_dim 16, 32, 64 or 128; is_bf16 selects bf16
-// (else fp32) for q, k, v and out.
+// entries and kv_pos S.  block_q is 16 or 64, head_dim 16, 32, 64 or 128;
+// q, k, v and out are fp32.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, const int* q_pos,
     const int* kv_pos, void* out, int batch, int t_len, int s_len, int n_heads,
     int n_kv_heads, int head_dim, int block_q, int causal, int window,
-    float scale, int is_bf16, void* stream) {
+    float scale, void* stream) {
   const Args a{q, k, v, q_pos, kv_pos, out, batch, t_len, s_len, n_heads,
                n_kv_heads, causal, window, scale,
                static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? dispatch_block_q<__nv_bfloat16>(block_q, head_dim, a)
-                 : dispatch_block_q<float>(block_q, head_dim, a);
+  return dispatch_block_q(block_q, head_dim, a);
 }

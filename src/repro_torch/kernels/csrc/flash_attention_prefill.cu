@@ -1,0 +1,656 @@
+// bf16 GQA flash-attention prefill for Hopper (sm_90a): wgmma and TMA, with a
+// plain C interface.
+//
+// Replaces the TPU kernel src/repro/kernels/flash_attention.py:39 (`_kernel`,
+// launched through pl.pallas_call by `flash_attention`) for bf16 inputs with
+// more than 16 query positions.  The Python wrapper is
+// src/repro_torch/kernels/flash_attention.py, which also picks this kernel;
+// the plain PyTorch version it is held against is
+// src/repro_torch/kernels/ref.py::reference_attention.
+//
+// Contract.  q (B,T,H,D), k/v (B,S,KV,D), contiguous bf16, 16-byte aligned,
+// D in {16, 32, 64, 128}, G = H/KV at most 192; output (B,T,H,D) bf16.
+// Query head h reads KV head h / G.  Scores q.k are fp32 and scaled by
+// 1/sqrt(D) there.  Key s is visible to query t iff kv_pos[s] >= 0, and
+// (causal) kv_pos[s] <= q_pos[t], and (window > 0) q_pos[t] - kv_pos[s] <
+// window.  Online softmax in fp32; P is rounded to bf16 for P.V; a row that
+// sees no key is exactly zero.  T and S are padded here: TMA fills the rows
+// past T and S with zeros, and a key past S has position -1.
+//
+// What bounds it on the H100.  At the llama3.2-3b serving shape (B4, T = S =
+// 512, H24, KV8, D128, causal) one launch moves 33.6 MB and does 6.4 GFLOP
+// of causal work: at the bf16 tensor-core peak (989 TFLOP/s) that is 6.5 us
+// against 10 us for the bytes at 3.35 TB/s, so the bound is the bytes, and
+// only if each K/V tile is read once for all G query heads of its group.
+//
+// What the design does about it.  One block per (batch, KV head, tile of P =
+// 192 / G query positions), launched latest tile first because causal work
+// grows with the position.  Its 192 rows are the (position, head) pairs of
+// the tile, row p*G + g, so that one K/V tile in shared memory feeds all G
+// heads; at G = 3 that is 64 positions x 3 heads.  Three consumer
+// warpgroups own 64 rows each.  One warp of a fourth, producer warpgroup
+// walks the KV tiles of 64 keys, skips a tile no row can see (from the
+// block's least and greatest query position and the window's lower edge:
+// exact, decided on the device), marks a tile every row sees whole as
+// full, and loads the others by TMA into a 3-stage ring signalled by
+// mbarriers.  The producer gives up registers (setmaxnreg) so that each
+// consumer thread holds its O (64 x D fp32 a warpgroup) and S tile without
+// spilling.  S = Q.K^T runs as wgmma m64n64k16 with Q and K from shared
+// memory; the fp32 online softmax works on the accumulator registers, with
+// the mask only on tiles that are not full and the 1/sqrt(D) scale folded
+// into the exponent; P goes to bf16 in registers as the A operand of O +=
+// P.V (wgmma m64nNk16, N = min(D, 64), V read transposed from shared
+// memory).  Q, K and V tiles are stored with the TMA swizzle that the wgmma
+// descriptors name (128, 64 or 32 bytes wide by D).  Left for later:
+// overlapping one warpgroup's softmax with another's products (ping-pong),
+// and a persistent grid that packs the uneven causal blocks onto the SMs.
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kBN = 64;                      // keys per K/V tile
+constexpr int kWarpgroups = 3;               // consumer warpgroups
+constexpr int kRows = 64 * kWarpgroups;      // (position, head) rows of a block
+constexpr int kConsumers = 128 * kWarpgroups;
+constexpr int kThreads = kConsumers + 128;   // and a producer warpgroup
+constexpr int kStages = 3;                   // K/V tiles in flight
+// Registers a thread: the producer warpgroup gives most of its share to the
+// consumers, whose accumulators (O and S, 96 fp32 at D = 128) need more
+// than the 128 an even split of the SM's 65,536 leaves.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs =
+    (65536 - 128 * kProducerRegs) / kConsumers / 8 * 8;
+constexpr float kNegInf = -1e30f;
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Waits for the phase of `bar` with this parity to complete.  A wait that
+// lasts about 10 s (a protocol fault) traps, so the launch fails instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// One box of a 4-d tensor map into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, the byte stride
+// between 8-row groups (as both leading and stride offset: the one the
+// layout does not use is ignored), and the swizzle (1: 128 B, 2: 64 B,
+// 3: 32 B).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t group,
+                                              uint64_t swizzle) {
+  const uint64_t off = group >> 4;
+  return ((smem_u32(p) & 0x3FFFFu) >> 4) | (off << 16) | (off << 32) |
+         (swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Orders the compiler's reads and writes of an accumulator register against
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// D = A.B (+ D) for a 64-row tile: ss takes A and B from shared memory (both
+// K-major), rs takes A from registers and B transposed (N-major) from shared
+// memory.  Accumulator layout (PTX ISA, wgmma D fragments): in warp w of the
+// warpgroup, lane l holds rows 16w + l/4 (+8) and, per 8 columns j, columns
+// 8j + 2(l%4) + {0, 1}: d[4j + 2i + e] is row 16w + l/4 + 8i, column
+// 8j + 2(l%4) + e.  The A fragment of 16 keys is the same layout in bf16
+// pairs: a[2c + i] holds row l/4 + 8i, keys 8c + 2(l%4) + {0, 1}.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  else wgmma_rs_n16(d, a, b);
+}
+
+// 2^x on the special-function unit, one instruction (exp2f adds a
+// denormal fix-up that this softmax does not need).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int D>
+struct Layout {
+  static constexpr int kCol = D < 64 ? D : 64;   // columns of a swizzled block
+  static constexpr int kColBlocks = D / kCol;
+  static constexpr uint32_t kRowBytes = kCol * 2;
+  static constexpr uint32_t kGroup = 8 * kRowBytes;       // one 8-row group
+  static constexpr uint64_t kSwizzle =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr uint32_t kQBlock = kRows * kRowBytes;  // Q, one col block
+  static constexpr uint32_t kKVBlock = kBN * kRowBytes;   // K or V, one col block
+  static constexpr uint32_t kTile = kBN * D * 2;          // K or V tile
+  static constexpr uint32_t kQBytes = kColBlocks * kQBlock;
+  // Q, the K ring, the V ring, then full, empty and q barriers, the tile
+  // code and the key positions of each stage; 1024 bytes of slack to align
+  // the start.
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kTile +
+                                  8 * (2 * kStages + 1) + 4 * kStages * (1 + kBN);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const int* __restrict__ q_pos,
+                               const int* __restrict__ kv_pos,
+                               __nv_bfloat16* __restrict__ out, int batch,
+                               int t_len, int s_len, int n_heads,
+                               int n_kv_heads, int positions, int causal,
+                               int window, float scale_log2) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* k_s = q_s + L::kQBytes;             // [stage][col block][64 keys]
+  uint8_t* v_s = k_s + kStages * L::kTile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + kStages * L::kTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+  int* tile_s = reinterpret_cast<int*>(q_full + 1);  // kStages: its kind
+  int* kpos_s = tile_s + kStages;                     // kStages x kBN
+
+  const int group = n_heads / n_kv_heads;
+  const int n_bkv = batch * n_kv_heads;
+  const int n_q_tiles = (t_len + positions - 1) / positions;
+  const int t0 = (n_q_tiles - 1 - static_cast<int>(blockIdx.x) / n_bkv) *
+                 positions;
+  const int b = static_cast<int>(blockIdx.x) % n_bkv / n_kv_heads;
+  const int kvh = static_cast<int>(blockIdx.x) % n_kv_heads;
+  const int used_rows = group * positions;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (warp != kConsumers / 32) return;  // one warp of it does the work
+    // Producer.  The least and greatest query position of the block bound
+    // what any of its rows can see.
+    int q_lo = INT_MAX, q_hi = INT_MIN;
+    for (int p = lane; p < positions && t0 + p < t_len; p += 32) {
+      q_lo = min(q_lo, q_pos[t0 + p]);
+      q_hi = max(q_hi, q_pos[t0 + p]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      q_lo = min(q_lo, __shfl_xor_sync(0xffffffffu, q_lo, o));
+      q_hi = max(q_hi, __shfl_xor_sync(0xffffffffu, q_hi, o));
+    }
+    if (lane == 0) {
+      mbar_expect_tx(q_full, used_rows * D * 2);
+      for (int c = 0; c < L::kColBlocks; ++c)
+        tma_load(q_s + c * L::kQBlock, &q_map, q_full, c * L::kCol,
+                 kvh * group, t0, b);
+    }
+    const int n_k_tiles = (s_len + kBN - 1) / kBN;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_k_tiles; ++kt) {
+      // A tile with no key in [q_lo - window + 1, q_hi] (or no key at all)
+      // is seen by no row: skipping it is exact.  A tile whose every key
+      // every row sees needs no mask: it goes as "full".
+      bool any = false;
+      int kp[2], kp_lo = INT_MAX, kp_hi = INT_MIN;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int s = kt * kBN + 32 * j + lane;
+        kp[j] = s < s_len ? kv_pos[s] : -1;
+        any = any || (kp[j] >= 0 && (!causal || kp[j] <= q_hi) &&
+                      (window <= 0 ||
+                       static_cast<long long>(kp[j]) >
+                           static_cast<long long>(q_lo) - window));
+        kp_lo = min(kp_lo, kp[j]);
+        kp_hi = max(kp_hi, kp[j]);
+      }
+      if (!__any_sync(0xffffffffu, any)) continue;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        kp_lo = min(kp_lo, __shfl_xor_sync(0xffffffffu, kp_lo, o));
+        kp_hi = max(kp_hi, __shfl_xor_sync(0xffffffffu, kp_hi, o));
+      }
+      const bool full_tile =
+          kp_lo >= 0 && (!causal || kp_hi <= q_lo) &&
+          (window <= 0 || static_cast<long long>(q_hi) - kp_lo < window);
+      mbar_wait(&empty[stage], phase ^ 1);
+      // The key positions go with the tile, for the mask; lane 0's arrive
+      // below releases the whole warp's stores (ordered by the __syncwarp).
+      kpos_s[stage * kBN + lane] = kp[0];
+      kpos_s[stage * kBN + 32 + lane] = kp[1];
+      __syncwarp();
+      if (lane == 0) {
+        tile_s[stage] = full_tile;
+        mbar_expect_tx(&full[stage], 2 * L::kTile);
+        for (int c = 0; c < L::kColBlocks; ++c) {
+          const uint32_t off = stage * L::kTile + c * L::kKVBlock;
+          tma_load(k_s + off, &k_map, &full[stage], c * L::kCol, kvh,
+                   kt * kBN, b);
+          tma_load(v_s + off, &v_map, &full[stage], c * L::kCol, kvh,
+                   kt * kBN, b);
+        }
+      }
+      __syncwarp();
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    mbar_wait(&empty[stage], phase ^ 1);
+    if (lane == 0) {
+      tile_s[stage] = -1;  // no more tiles
+      mbar_arrive(&full[stage]);
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63; this thread rows
+  // row0 and row0 + 8 (row r is position r / G, head r % G of the group).
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const int wg = warp / 4;
+  const int row0 = 64 * wg + 16 * (warp % 4) + lane / 4;
+  int qp[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i, t = t0 + r / group;
+    live[i] = r < used_rows && t < t_len;
+    qp[i] = live[i] ? q_pos[t] : 0;
+  }
+  float o[L::kColBlocks][L::kCol / 2];
+#pragma unroll
+  for (int c = 0; c < L::kColBlocks; ++c)
+#pragma unroll
+    for (int j = 0; j < L::kCol / 2; ++j) o[c][j] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const uint8_t* q_wg = q_s + 64 * wg * L::kRowBytes;
+
+  mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  while (true) {
+    mbar_wait(&full[stage], phase);
+    const int code = tile_s[stage];  // 1: full tile, 0: masked, -1: done
+    if (code < 0) break;
+    const bool full_tile = code == 1;
+    const uint8_t* kt_s = k_s + stage * L::kTile;
+    const uint8_t* vt_s = v_s + stage * L::kTile;
+
+    // S = Q.K^T over D in steps of 16.
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 / L::kCol, off = (kk * 16 % L::kCol) * 2;
+      wgmma_ss_n64(s,
+                   smem_desc(q_wg + c * L::kQBlock + off, L::kGroup, L::kSwizzle),
+                   smem_desc(kt_s + c * L::kKVBlock + off, L::kGroup, L::kSwizzle),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // The mask (bit 4j + 2i + e of vis for s[4j + 2i + e]; all set in a
+    // full tile) and the running max, on the unscaled scores.
+    uint32_t vis = ~0u;
+    float mx[2] = {kNegInf, kNegInf};
+    if (full_tile) {
+#pragma unroll
+      for (int idx = 0; idx < 32; ++idx)
+        mx[(idx / 2) % 2] = fmaxf(mx[(idx / 2) % 2], s[idx]);
+    } else {
+      vis = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = kpos_s[stage * kBN + 8 * j + 2 * (lane % 4) + e];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            bool ok = kp >= 0;
+            if (causal) ok = ok && kp <= qp[i];
+            if (window > 0) ok = ok && qp[i] - kp < window;
+            const int idx = 4 * j + 2 * i + e;
+            if (ok) {
+              vis |= 1u << idx;
+              mx[i] = fmaxf(mx[i], s[idx]);
+            }
+          }
+        }
+    }
+    // Scores are scaled by 1/sqrt(D), in log2 units, inside the exponent:
+    // p = 2^(s scale_log2 - m scale_log2).
+    float alpha[2], m_scaled[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = ex2((m[i] - m_new) * scale_log2);
+      m[i] = m_new;
+      m_scaled[i] = m_new * scale_log2;
+      l[i] *= alpha[i];
+    }
+    // P in bf16, as the A fragments of 4 steps of 16 keys.  Masked after
+    // the exp: in a row with nothing visible yet m is -1e30 and the exp
+    // would not be 0.
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int idx = 4 * j + 2 * i;
+        float p0 = ex2(fmaf(s[idx], scale_log2, -m_scaled[i]));
+        float p1 = ex2(fmaf(s[idx + 1], scale_log2, -m_scaled[i]));
+        if (!full_tile) {
+          p0 = (vis >> idx) & 1u ? p0 : 0.f;
+          p1 = (vis >> (idx + 1)) & 1u ? p1 : 0.f;
+        }
+        l[i] += p0 + p1;
+        pa[j / 2][(j % 2) * 2 + i] = pack_bf16(p0, p1);
+      }
+    // Rescale O where the max moved in some row of the warp.
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int c = 0; c < L::kColBlocks; ++c)
+#pragma unroll
+        for (int j = 0; j < L::kCol / 2; ++j) o[c][j] *= alpha[(j / 2) % 2];
+    }
+
+    // O += P.V over the 64 keys in steps of 16.
+#pragma unroll
+    for (int c = 0; c < L::kColBlocks; ++c) fence_regs(o[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < L::kColBlocks; ++c)
+        wgmma_rs<L::kCol>(o[c], pa[kk],
+                          smem_desc(vt_s + c * L::kKVBlock + kk * 16 * L::kRowBytes,
+                                    L::kGroup, L::kSwizzle));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < L::kColBlocks; ++c) fence_regs(o[c]);
+
+    mbar_arrive(&empty[stage]);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // Each of the 4 lanes of a row holds part of its sum.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!live[i]) continue;
+    const int r = row0 + 8 * i, t = t0 + r / group;
+    const int h = kvh * group + r % group;
+    __nv_bfloat16* orow = out + ((size_t)(b * t_len + t) * n_heads + h) * D;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+#pragma unroll
+    for (int c = 0; c < L::kColBlocks; ++c)
+#pragma unroll
+      for (int j = 0; j < L::kCol / 8; ++j) {
+        const int col = c * L::kCol + 8 * j + 2 * (lane % 4);
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+            o[c][4 * j + 2 * i] * inv, o[c][4 * j + 2 * i + 1] * inv);
+      }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime: no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a contiguous (B, len, heads, D) bf16 tensor whose box is
+// `col` columns x `box_heads` heads x `box_rows` rows of one batch; rows and
+// heads past the tensor read as zeros.
+bool tensor_map(CUtensorMap* map, const void* base, int batch, int len,
+                int heads, int d, int col, int box_heads, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(heads),
+                              cuuint64_t(len), cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(d) * 2, cuuint64_t(heads) * d * 2,
+                                 cuuint64_t(len) * heads * d * 2};
+  const cuuint32_t box[4] = {cuuint32_t(col), cuuint32_t(box_heads),
+                             cuuint32_t(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      col * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : col * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const int *q_pos, *kv_pos;
+  void* out;
+  int batch, t_len, s_len, n_heads, n_kv_heads, positions, causal, window;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
+template <int D>
+cudaError_t launch(const Args& a) {
+  using L = Layout<D>;
+  const int group = a.n_heads / a.n_kv_heads;
+  CUtensorMap q_map, k_map, v_map;
+  if (!tensor_map(&q_map, a.q, a.batch, a.t_len, a.n_heads, D, L::kCol, group,
+                  a.positions) ||
+      !tensor_map(&k_map, a.k, a.batch, a.s_len, a.n_kv_heads, D, L::kCol, 1,
+                  kBN) ||
+      !tensor_map(&v_map, a.v, a.batch, a.s_len, a.n_kv_heads, D, L::kCol, 1,
+                  kBN))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_attention_prefill_kernel<D>;
+  // Allowing the kernel its shared memory is a driver call: once a device.
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !allowed[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(L::kSmem));
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) allowed[dev] = true;
+  }
+  const int n_q_tiles = (a.t_len + a.positions - 1) / a.positions;
+  kernel<<<a.batch * a.n_kv_heads * n_q_tiles, kThreads, L::kSmem, a.stream>>>(
+      q_map, k_map, v_map, a.q_pos, a.kv_pos,
+      static_cast<__nv_bfloat16*>(a.out), a.batch, a.t_len, a.s_len,
+      a.n_heads, a.n_kv_heads, a.positions, a.causal, a.window, a.scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the launch (0 on success).  q_pos holds T
+// entries and kv_pos S; `positions` query positions per block, with
+// positions x (n_heads / n_kv_heads) <= 192; head_dim 16, 32, 64 or 128.
+extern "C" int repro_flash_attention_prefill(
+    const void* q, const void* k, const void* v, const int* q_pos,
+    const int* kv_pos, void* out, int batch, int t_len, int s_len, int n_heads,
+    int n_kv_heads, int head_dim, int positions, int causal, int window,
+    float scale, void* stream) {
+  if (n_kv_heads <= 0 || n_heads % n_kv_heads || positions <= 0 ||
+      positions * (n_heads / n_kv_heads) > kRows || positions > 256)
+    return cudaErrorInvalidValue;
+  const Args a{q, k, v, q_pos, kv_pos, out, batch, t_len, s_len, n_heads,
+               n_kv_heads, positions, causal, window,
+               scale * 1.4426950408889634f, static_cast<cudaStream_t>(stream)};
+  switch (head_dim) {
+    case 16: return launch<16>(a);
+    case 32: return launch<32>(a);
+    case 64: return launch<64>(a);
+    case 128: return launch<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}

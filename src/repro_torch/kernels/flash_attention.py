@@ -1,5 +1,4 @@
-"""Flash-attention forward on the card: the wrapper of
-``csrc/flash_attention.cu``.
+"""Flash-attention forward on the card: the wrapper of three CUDA kernels.
 
 Port of the TPU kernel ``repro.kernels.flash_attention`` (Pallas).  Same
 contract as :func:`repro_torch.kernels.ref.reference_attention`, its plain
@@ -8,36 +7,121 @@ sliding-window and ``kv_pos < 0`` masking by absolute positions, an fp32
 online softmax, zeros for rows that see no key, and the output in q's
 dtype.  ``window`` is a plain Python int passed to the kernel at run time.
 
-The kernel pads T and S to its tiles itself, the way the reference pads
-them: zero rows, query position 0 and key position -1, so padded KV slots
-are masked.  Nothing is copied or padded here.
+Which kernel runs is a fixed rule on dtype and T, made by :func:`plan`
+(pure Python, no device):
+
+- float32: ``csrc/flash_attention.cu``, on the fp32 FMA pipe.  The fp32
+  tolerance it is held to (2e-5) is out of reach of the tensor cores.
+- bfloat16, T > 16 (prefill): ``csrc/flash_attention_prefill.cu``,
+  tensor cores (wgmma) fed by TMA; one block per (batch, KV head, tile of
+  positions) holds all G = H/KV query heads of the group.
+- bfloat16, T <= 16 (decode): ``csrc/flash_attention_decode.cu``, the
+  keys cut in splits, one block per (batch, KV head, split), and a combine
+  pass over the splits' fp32 scratch, which is allocated here.
+
+No path reads a position back to the host.  The kernels pad T and S to
+their tiles themselves, the way the reference pads them: zero rows, query
+position 0 and key position -1, so padded KV slots are masked.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
 from . import _build
 
-#: Kernel launches since the count was last set to 0.
+#: Wrapper calls (one per attention call) since the count was last set to 0.
 launches = 0
+#: The same calls by the kernel they launched (decode: its split kernel and
+#: its combine pass); set each to 0 with ``launches``.
+launches_by_path = {"fp32": 0, "prefill": 0, "decode": 0}
 
 _HEAD_DIMS = (16, 32, 64, 128)
-_lib = None
+KEY_TILE = 64          # keys per K/V tile, in every kernel
+PREFILL_ROWS = 192     # (position, head) rows of a prefill block: 3 x 64
+DECODE_MAX_T = 16      # bf16 calls with at most this many positions decode
+DECODE_ROWS = 64       # (position, head) rows of a decode block at most
+H100_SMS = 132
+
+# path: (source under csrc/, C entry point, pointer and int arguments
+# before the float scale and the stream)
+_KERNELS = {"fp32": ("flash_attention", "repro_flash_attention_fwd", 6, 9),
+            "prefill": ("flash_attention_prefill",
+                        "repro_flash_attention_prefill", 6, 9),
+            "decode": ("flash_attention_decode",
+                       "repro_flash_attention_decode", 7, 10)}
+_fns: dict[str, object] = {}
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs.  ``block_q``: query positions per block (fp32
+    and prefill) or the call's T (decode).  ``blocks``: thread blocks of
+    the main kernel.  Decode only: the keys go in ``splits`` splits of
+    ``tiles_per_split`` tiles of ``KEY_TILE``, the G x T rows of a KV group
+    in ``row_chunks`` chunks of at most ``DECODE_ROWS``, and ``scratch`` is
+    the fp32 (splits, B*T*H, D + 2) tensor of each (row, split)'s acc, m
+    and l."""
+    path: str
+    block_q: int
+    blocks: int
+    splits: int = 1
+    tiles_per_split: int = 0
+    row_chunks: int = 1
+    scratch: tuple = ()
+
+
+def plan(b: int, t: int, s: int, h: int, kvh: int, d: int, dtype,
+         sms: int = H100_SMS) -> Plan:
+    """The kernel, tiles and splits for q (b,t,h,d), k/v (b,s,kvh,d) of
+    ``dtype`` on a card with ``sms`` SMs."""
+    g = h // kvh
+    if dtype == torch.float32:
+        bq = 16 if t <= 16 else 64
+        return Plan("fp32", bq, -(-t // bq) * b * h)
+    if t > DECODE_MAX_T:
+        if g > PREFILL_ROWS:
+            raise ValueError(f"H/KV = {g} query heads per KV head; the "
+                             f"prefill kernel holds at most {PREFILL_ROWS}")
+        positions = PREFILL_ROWS // g
+        return Plan("prefill", positions, b * kvh * -(-t // positions))
+    chunks = -(-g * t // DECODE_ROWS)
+    tiles = -(-s // KEY_TILE)
+    # Enough splits that about 4 blocks per SM are in flight, none empty.
+    per_split = max(1, tiles * b * kvh * chunks // (4 * sms))
+    splits = -(-tiles // per_split)
+    return Plan("decode", t, b * kvh * splits * chunks, splits, per_split,
+                chunks, (splits, b * t * h, d + 2))
+
+
+_plan = functools.lru_cache(maxsize=1024)(plan)   # a call's plan, kept
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _kernel(path: str):
+    fn = _fns.get(path)
+    if fn is None:
+        source, entry, n_ptr, n_int = _KERNELS[path]
+        fn = getattr(_build.load(source), entry)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[path] = fn
+    return fn
 
 
 def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attention")
-        fn = lib.repro_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    """Builds and loads all three kernels."""
+    for path in _KERNELS:
+        _kernel(path)
 
 
 def _positions(pos, n, device, name):
@@ -76,20 +160,31 @@ def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
         raise ValueError("T and S must be positive")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary")
     if not isinstance(window, int):
         raise TypeError(f"window must be a Python int, got {type(window)}")
-    lib = _library()
-    block_q = 16 if t <= 16 else 64
+    p = _plan(b, t, s, h, kvh, d, q.dtype, _sms(q.device.index))
+    fn = _kernel(p.path)
     qp = _positions(q_pos, t, q.device, "q_pos")
     kp = _positions(kv_pos, s, q.device, "kv_pos")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.repro_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
-        out.data_ptr(), b, t, s, h, kvh, d, block_q, int(causal), window,
-        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), stream)
+    # the raw handle of the current stream, without building a Stream object
+    # (a few microseconds a call, as much as a decode launch takes)
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
+            kp.data_ptr(), out.data_ptr())
+    scale = 1.0 / math.sqrt(d)
+    if p.path == "decode":
+        part = q.new_empty(p.scratch, dtype=torch.float32)
+        err = fn(*head, part.data_ptr(), b, t, s, h, kvh, d, p.splits,
+                 p.tiles_per_split, int(causal), window, scale, stream)
+    else:
+        err = fn(*head, b, t, s, h, kvh, d, p.block_q, int(causal), window,
+                 scale, stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError_t {err}")
+        raise RuntimeError(f"flash_attention {p.path} kernel launch failed: "
+                           f"error {err}")
     launches += 1
+    launches_by_path[p.path] += 1
     return out

@@ -39,7 +39,28 @@ CASES = {
     "decode_t16": (2, 16, 300, 6, 2, 128, "tail", True, 0),
     "fully_masked_rows": (1, 16, 40, 6, 2, 128, [-5] * 16, True, 0),
     "some_rows_masked": (2, 80, 80, 6, 2, 64, list(range(-40, 40)), True, 0),
+    # bf16 switches from the decode kernel (T <= 16) to the prefill kernel
+    "prefill_t17": (2, 17, 300, 6, 2, 128, "tail", True, 0),
+    "decode_t2_d64": (2, 2, 200, 6, 2, 64, "tail", True, 0),
+    "decode_t8_gqa4_d32": (3, 8, 257, 8, 2, 32, "tail", True, 0),
+    # group sizes G = H/KV of 1, 4 and 8, prefill and decode
+    "mha_g1_d64": (2, 150, 150, 4, 4, 64, None, True, 0),
+    "decode_g1": (2, 1, 300, 4, 4, 128, [250], True, 0),
+    "gqa4_d128_tail": (1, 100, 140, 8, 2, 128, "tail", True, 0),
+    "gqa8_d64": (1, 90, 90, 16, 2, 64, None, True, 0),
+    "decode_gqa8_t16": (1, 16, 200, 16, 2, 64, "tail", True, 0),
+    # D = 16 on the tensor cores, and S below one 64-key tile
+    "d16_gqa4": (2, 70, 70, 8, 2, 16, None, True, 0),
+    "decode_d16": (2, 1, 100, 6, 2, 16, [77], True, 0),
+    "s_below_tile": (2, 40, 40, 6, 2, 128, None, True, 0),
+    "decode_s_below_tile": (2, 1, 40, 6, 2, 64, [30], True, 0),
+    # a window edge inside a split, a decode row that sees nothing (every
+    # split empty), one (batch, KV head) over many splits
+    "decode_window_edge": (2, 1, 1024, 6, 2, 128, [700], True, 97),
+    "decode_all_masked": (2, 1, 512, 6, 2, 128, [-3], True, 0),
+    "decode_bkv1": (1, 1, 2048, 4, 1, 128, [1500], True, 0),
 }
+ALL_MASKED = ("fully_masked_rows", "decode_all_masked")
 
 
 @pytest.fixture
@@ -68,17 +89,24 @@ def _inputs(name, dtype, device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_matches_plain_version(cuda, name, dtype):
-    """csrc/flash_attention.cu vs kernels.ref.reference_attention."""
+    """The kernel the wrapper picks (csrc/flash_attention.cu for fp32,
+    flash_attention_prefill.cu or flash_attention_decode.cu for bf16) vs
+    kernels.ref.reference_attention."""
     qkv, kw = _inputs(name, dtype, cuda)
-    before = fa.launches
+    b, t, s, h, kvh, d = CASES[name][:6]
+    path = fa.plan(b, t, s, h, kvh, d, getattr(torch, dtype)).path
+    assert path == ("fp32" if dtype == "float32" else
+                    "decode" if t <= 16 else "prefill")
+    before = fa.launches, fa.launches_by_path[path]
     got = fa.flash_attention(*qkv, **kw)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert (fa.launches, fa.launches_by_path[path]) == (before[0] + 1,
+                                                        before[1] + 1)
     want = reference_attention(*qkv, **kw)
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **TOL[dtype])
-    if name == "fully_masked_rows":
+    if name in ALL_MASKED:
         assert not got.any()
 
 

@@ -133,3 +133,72 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text("// k\n")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()
+
+
+# The wrapper's plan: which kernel, tiles, splits and scratch a call gets.
+# Pure Python, so it is tested here; the kernels it picks run on the card
+# (tests/test_torch_cuda.py).
+PLAN_SHAPES = [  # (b, t, s, h, kvh, d)
+    (4, 512, 512, 24, 8, 128),     # llama3.2-3b prefill
+    (4, 1, 1024, 24, 8, 128),      # llama3.2-3b decode step
+    (2, 16, 300, 6, 2, 128), (2, 17, 300, 6, 2, 128),
+    (1, 1, 2048, 4, 1, 128), (1, 16, 200, 16, 2, 64),
+    (3, 8, 257, 8, 2, 32), (2, 1, 40, 6, 2, 64), (1, 90, 90, 16, 2, 64),
+    (2, 150, 150, 4, 4, 16), (1, 1, 100_000, 32, 8, 128),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_fp32_always_takes_the_fma_kernel(shape):
+    b, t, s, h, kvh, d = shape
+    p = fa.plan(b, t, s, h, kvh, d, torch.float32)
+    assert p.path == "fp32" and p.scratch == ()
+    assert p.block_q == (16 if t <= 16 else 64)
+    assert p.blocks == -(-t // p.block_q) * b * h
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_bf16_decodes_up_to_t16_and_prefills_above(shape):
+    b, t, s, h, kvh, d = shape
+    p = fa.plan(b, t, s, h, kvh, d, torch.bfloat16)
+    assert p.path == ("decode" if t <= 16 else "prefill")
+    if p.path == "prefill":
+        # one block holds every query head of its KV group
+        g = h // kvh
+        assert p.block_q * g <= fa.PREFILL_ROWS and p.block_q >= 1
+        assert p.block_q == fa.PREFILL_ROWS // g
+        assert p.blocks == b * kvh * -(-t // p.block_q)
+
+
+def test_plan_switches_kernels_between_t16_and_t17():
+    assert fa.plan(2, 16, 300, 6, 2, 128, torch.bfloat16).path == "decode"
+    assert fa.plan(2, 17, 300, 6, 2, 128, torch.bfloat16).path == "prefill"
+    assert fa.plan(4, 512, 512, 24, 8, 128, torch.bfloat16).block_q == 64
+
+
+def test_plan_serving_decode_fills_the_card():
+    """llama3.2-3b's decode step: at least two blocks per SM of the H100."""
+    p = fa.plan(4, 1, 1024, 24, 8, 128, torch.bfloat16)
+    assert p.path == "decode" and p.blocks >= 2 * fa.H100_SMS
+    assert (p.splits, p.tiles_per_split, p.blocks) == (16, 1, 512)
+
+
+@pytest.mark.parametrize("shape", [x for x in PLAN_SHAPES if x[1] <= 16])
+def test_plan_scratch_covers_every_row_and_split(shape):
+    b, t, s, h, kvh, d = shape
+    p = fa.plan(b, t, s, h, kvh, d, torch.bfloat16)
+    assert p.scratch == (p.splits, b * t * h, d + 2)
+    # the splits cover every key tile and none is empty
+    tiles = -(-s // fa.KEY_TILE)
+    assert (p.splits - 1) * p.tiles_per_split < tiles
+    assert p.splits * p.tiles_per_split >= tiles
+    # the row chunks cover the G x T rows of a KV group
+    g = h // kvh
+    assert (p.row_chunks - 1) * fa.DECODE_ROWS < g * t
+    assert p.row_chunks * fa.DECODE_ROWS >= g * t
+    assert p.blocks == b * kvh * p.splits * p.row_chunks
+
+
+def test_plan_refuses_a_group_larger_than_a_prefill_block():
+    with pytest.raises(ValueError, match="prefill"):
+        fa.plan(1, 64, 64, 2 * fa.PREFILL_ROWS, 1, 64, torch.bfloat16)
