@@ -11,10 +11,11 @@ Phases, one JSON line each:
 3. kernels -- holds each kernel against its plain PyTorch version on the
    hazard cases (flash attention, whose wrapper picks the fp32, the bf16
    prefill or the bf16 decode kernel: fp32 tol 2e-5, bf16 tol 2e-2; mLSTM
-   chunk scan: fp32 rtol 5e-4 atol 5e-5, bf16 5e-2, on h and on the final
-   state) and at the serving shapes, and times kernel, plain version and
-   the library call, where there is one, beside its bound (attention: on
-   the device alone through a CUDA graph, and per eager call);
+   chunk scan, whose wrapper picks the fp32 FMA kernel or the bf16
+   tensor-core kernel: fp32 rtol 5e-4 atol 5e-5, bf16 5e-2, on h and on
+   the final state) and at the serving shapes, and times kernel, plain
+   version and the library call, where there is one, beside its bound, on
+   the device alone through a CUDA graph and per eager call;
 4. small   -- the reduced models in fp32 on the card against the CPU (the
    run that drives the fp32 attention kernel);
 5. serve   -- llama3.2-3b and then xlstm-350m at full width and depth,
@@ -22,8 +23,8 @@ Phases, one JSON line each:
    (prompts 512/384/256/128, one sampled at temperature 0.8) x 32 new
    tokens, with every kernel's launch count in that run (set to 0 just
    before it); the prefill logits against the same model with every kernel
-   swapped for its plain version; prefill ms, decode tokens/s and peak
-   memory;
+   swapped for its plain version (xlstm-350m in bf16 also against the plain
+   version re-chunked); prefill ms, decode tokens/s and peak memory;
 6. profile -- device time by kernel over prefills and decode steps of each
    model (torch.profiler), and the share of the time the device is idle.
 
@@ -34,8 +35,10 @@ numpy and repro_torch.
 """
 import dataclasses
 import json
+import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -106,8 +109,11 @@ HAZARDS = {
 ALL_MASKED = ("fully_masked_rows", "decode_all_masked")
 
 # name: (b, t, h, d, chunk, gates); gates "normal", "forget_near_zero"
-# (log_f << 0), "large_log_i" (the stabilizer dominates) or "state" (a
-# given initial state).  The last is the serving shape of xlstm-350m.
+# (log_f << 0), "forget_near_one" (log_f ~ 0: C sums every step of T),
+# "large_log_i" (the stabilizer dominates) or "state" (a given initial
+# state).  bf16 calls with a chunk that is a multiple of 16 take the
+# tensor-core kernel, the others the FMA kernel (chunk24_bf16).  The last is
+# the serving shape of xlstm-350m.
 MLSTM_HAZARDS = {
     "d16": (1, 64, 1, 16, 16, "normal"),
     "d32": (2, 128, 3, 32, 32, "normal"),
@@ -119,8 +125,15 @@ MLSTM_HAZARDS = {
     "large_log_i": (1, 256, 2, 64, 64, "large_log_i"),
     "initial_state": (2, 128, 2, 128, 64, "state"),
     "bh1": (1, 256, 1, 128, 64, "normal"),
+    "forget_near_one": (1, 1024, 2, 512, 256, "forget_near_one"),
+    "many_chunks_d512": (1, 1024, 1, 512, 64, "normal"),
+    "state_d512": (2, 512, 2, 512, 256, "state"),
+    "d48": (1, 128, 2, 48, 32, "normal"),
+    "chunk16_d64": (1, 64, 2, 64, 16, "normal"),
+    "chunk24_bf16": (1, 96, 2, 32, 24, "normal"),
     "serving": (4, 512, 4, 512, 256, "normal"),
 }
+LF_SHIFT = {"forget_near_zero": -20.0, "forget_near_one": 20.0}
 MLSTM_NO_LIBRARY = "no single PyTorch call computes chunkwise mLSTM"
 
 # The dtype in which each served model's prefill logits are held against the
@@ -129,7 +142,10 @@ MLSTM_NO_LIBRARY = "no single PyTorch call computes chunkwise mLSTM"
 # mLSTM layers amplify rounding so far that at full depth the plain version
 # differs from itself re-chunked (chunk 128 for 256, the same function) by
 # a relative L2 of about 0.3, and no implementation can meet 5e-2 there.
-# The bf16 figure is reported beside that floor.
+# Its bf16 logits are held to that floor instead (phase_serve): the
+# differences that re-chunking the plain version (chunk 256) into each of
+# RECHUNKS makes, their mean plus three standard deviations.
+RECHUNKS = (16, 32, 64, 128, 512)
 LOGITS_CHECK_DTYPE = {"llama3.2-3b": "bfloat16", "xlstm-350m": "float32"}
 
 # The serving runs: 4 slots, prompts left-padded to 512, a 1024-slot cache.
@@ -270,7 +286,7 @@ def ptxas_summary(text):
                     break
         elif "spill" in line:
             spill = line.strip()
-        elif "registers" in line:
+        elif re.search(r"Used \d+ registers", line):
             lines.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
     return lines
 
@@ -378,8 +394,7 @@ def mlstm_inputs(b, t, h, d, gates, dtype, seed):
         return torch.from_numpy(x).cuda()
     qkv = [draw(b, t, h, d).to(dtype) for _ in range(3)]
     li = draw(b, t, h, scale=2.0, shift=40.0 if gates == "large_log_i" else 0.0)
-    lf = F.logsigmoid(draw(b, t, h, scale=2.0, shift=-20.0
-                           if gates == "forget_near_zero" else 1.0))
+    lf = F.logsigmoid(draw(b, t, h, scale=2.0, shift=LF_SHIFT.get(gates, 1.0)))
     state = None
     if gates == "state":
         state = (draw(b, h, d, d, scale=0.1), draw(b, h, d).abs(), draw(b, h))
@@ -389,12 +404,13 @@ def mlstm_inputs(b, t, h, d, gates, dtype, seed):
 def mlstm_bound(q, chunk, state):
     """Least time the card could take for one mlstm_scan call: each input
     read once and h and the final state written once, against the
-    multiply-adds the chunkwise algorithm needs on the fp32 pipe it computes
-    on (67 TFLOP/s): per (batch, head) and chunk of L rows, q k^T and p v
-    over the causal L(L+1)/2 pairs, and q C0, q n0 and the k^T w v, k^T w
-    state update over D x D.  The first chunk's q C0 and q n0 are left out
-    when there is no initial state: they are zeros.  Also returns the time
-    the same multiply-adds would take at the bf16 tensor-core peak."""
+    multiply-adds of the chunkwise algorithm at the peak of q's type (bf16:
+    the tensor cores; fp32: the fp32 pipe): per (batch, head) and chunk of L
+    rows, q k^T and p v over the causal L(L+1)/2 pairs, and q C0, q n0 and
+    the k^T w v, k^T w state update over D x D.  The first chunk's q C0 and
+    q n0 are left out when there is no initial state: they are zeros.
+    Returns (bound ms, what bounds it, the same bound with the operations on
+    the fp32 pipe, multiply-adds, bytes)."""
     b, t, h, d = q.shape
     nc = t // chunk
     pairs = chunk * (chunk + 1) // 2
@@ -405,10 +421,10 @@ def mlstm_bound(q, chunk, state):
               + 4 * b * h * (d * d + d + 1)           # final C, n, m
               + (4 * b * h * (d * d + d + 1) if state is not None else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * macs / PEAK_FLOPS[torch.float32] * 1e3
-    t_ops_bf16 = 2 * macs / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_ops = 2 * macs / PEAK_FLOPS[q.dtype] * 1e3
+    t_ops_fp32 = 2 * macs / PEAK_FLOPS[torch.float32] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            max(t_bytes, t_ops_bf16), macs, nbytes)
+            max(t_bytes, t_ops_fp32), macs, nbytes)
 
 
 def check_mlstm(name, got, want, dtype):
@@ -434,17 +450,23 @@ def phase_mlstm_hazards():
         for dtype in (torch.float32, torch.bfloat16):
             args, state = mlstm_inputs(b, t, h, d, gates, dtype,
                                        seed=sum(map(ord, name)))
-            before = ms.launches
+            path = ms.plan(b, t, h, d, chunk, dtype, state is not None).path
+            if path != ("tc" if dtype == torch.bfloat16 and chunk % 16 == 0
+                        else "fma"):
+                raise AssertionError(f"mlstm_scan {name} {dtype}: path {path}")
+            before = ms.launches, ms.launches_by_path[path]
             got = ms.mlstm_scan(*args, state, chunk=chunk)
             torch.cuda.synchronize()
-            if ms.launches != before + 1:
+            if (ms.launches, ms.launches_by_path[path]) != (before[0] + 1,
+                                                            before[1] + 1):
                 raise AssertionError("the wrapper did not count its launch")
             want = reference_mlstm_scan(*args, state, chunk=chunk)
             err_h, err_state = check_mlstm(name, got, want, dtype)
             key = str(dtype).removeprefix("torch.")
             worst[key] = max(worst.get(key, 0.0), err_h)
             worst["state"] = max(worst.get("state", 0.0), err_state)
-            emit("kernel_case", kernel="mlstm_scan", case=name, dtype=key,
+            emit("kernel_case", kernel="mlstm_scan", case=name, path=path,
+                 dtype=key,
                  shape=f"B{b} T{t} H{h} D{d} chunk {chunk} {gates}",
                  max_abs_err=err_h, state_max_abs_err=err_state,
                  tol=MLSTM_TOL[dtype])
@@ -452,17 +474,42 @@ def phase_mlstm_hazards():
          max_abs_err=worst)
 
 
-def time_mlstm():
-    """Kernel and plain version at the serving shape of xlstm-350m (bf16),
-    cycling over 8 input sets so that each call finds them in device memory
-    and not in the 50 MB L2, as each layer of a prefill does."""
+def fma_scan(q, k, v, log_i, log_f, *, chunk):
+    """csrc/mlstm_scan.cu (the FMA kernel) on these inputs whatever their
+    type: the kernel bf16 calls took before the tensor-core one, timed
+    beside it.  Called here, not through the wrapper, so that it counts no
+    launch."""
+    b, t, h, d = q.shape
+    out = torch.empty_like(q)
+    c = q.new_empty((b, h, d, d), dtype=torch.float32)
+    n = q.new_empty((b, h, d), dtype=torch.float32)
+    m = q.new_empty((b, h), dtype=torch.float32)
+    err = ms._kernel("fma")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
+        log_f.data_ptr(), None, None, None, out.data_ptr(), c.data_ptr(),
+        n.data_ptr(), m.data_ptr(), b, t, h, d, chunk, 1.0 / math.sqrt(d),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"mlstm_scan fma kernel launch failed: {err}")
+    return out, (c, n, m)
+
+
+def time_mlstm(dtype):
+    """Kernel and plain version at the serving shape of xlstm-350m, cycling
+    over 8 input sets so that each call finds them in device memory and not
+    in the 50 MB L2, as each layer of a prefill does: on the device alone
+    (``graph_ms``: ``ms``, ``plain_ms``) and per eager call with the host's
+    time to issue it (``cuda_ms``: the ``*_eager`` keys).  In bf16 the FMA
+    kernel, which bf16 calls took before the tensor-core kernel, is timed
+    beside it (``fma_ms``)."""
     b, t, h, d, chunk, gates = MLSTM_HAZARDS["serving"]
-    dtype = torch.bfloat16
     sets = [mlstm_inputs(b, t, h, d, gates, dtype, seed=i)[0]
             for i in range(8)]
-    err_h, err_state = check_mlstm(
-        "serving", ms.mlstm_scan(*sets[0], chunk=chunk),
-        reference_mlstm_scan(*sets[0], chunk=chunk), dtype)
+    want = reference_mlstm_scan(*sets[0], chunk=chunk)
+    err_h, err_state = check_mlstm("serving", ms.mlstm_scan(*sets[0],
+                                                            chunk=chunk),
+                                   want, dtype)
     turn = [0]
 
     def cycle(fn):
@@ -472,19 +519,37 @@ def time_mlstm():
             return fn(*args, chunk=chunk)
         return call
 
-    iters = 20
-    ms_ = cuda_ms(cycle(ms.mlstm_scan), iters)
-    plain_ms = cuda_ms(cycle(reference_mlstm_scan), iters)
-    ms_again = cuda_ms(cycle(ms.mlstm_scan), iters)
-    bound_ms, bound_by, bound_bf16_ms, macs, nbytes = mlstm_bound(
+    calls = {"kernel": cycle(ms.mlstm_scan), "plain": cycle(reference_mlstm_scan)}
+    order = ["kernel", "plain", "kernel"]
+    out = {}
+    if dtype == torch.bfloat16:
+        out["fma_max_abs_err"] = check_mlstm(
+            "serving (fma)", fma_scan(*sets[0], chunk=chunk), want, dtype)[0]
+        calls["fma"] = cycle(fma_scan)
+        order = ["kernel", "plain", "fma", "kernel"]
+    iters = 16                  # a multiple of the 8 input sets
+    times = {}
+    for timer, suffix in ((graph_ms, ""), (cuda_ms, "_eager")):
+        for name in order:
+            key = name + suffix
+            times[key + ("_repeat" if key in times else "")] = timer(
+                calls[name], iters)
+    bound_ms, bound_by, bound_fp32_ms, macs, nbytes = mlstm_bound(
         sets[0][0], chunk, None)
-    out = dict(shape=f"B{b} T{t} H{h} D{d} chunk {chunk} bf16",
+    key = str(dtype).removeprefix("torch.")
+    out.update(shape=f"B{b} T{t} H{h} D{d} chunk {chunk} {key}",
+               path=ms.plan(b, t, h, d, chunk, dtype).path,
                max_abs_err=err_h, state_max_abs_err=err_state,
-               tol=MLSTM_TOL[dtype], ms=ms_, ms_repeat=ms_again,
-               plain_ms=plain_ms, library_ms=None,
+               tol=MLSTM_TOL[dtype], ms=times["kernel"],
+               ms_repeat=times["kernel_repeat"], plain_ms=times["plain"],
+               ms_eager=times["kernel_eager"],
+               ms_eager_repeat=times["kernel_eager_repeat"],
+               plain_ms_eager=times["plain_eager"], library_ms=None,
                library_note=MLSTM_NO_LIBRARY, bound_ms=bound_ms,
-               bound_by=bound_by, bound_ms_at_bf16_peak=bound_bf16_ms,
+               bound_by=bound_by, bound_ms_fp32_pipe=bound_fp32_ms,
                multiply_adds=macs, bytes=nbytes)
+    if "fma" in calls:
+        out.update(fma_ms=times["fma"], fma_ms_eager=times["fma_eager"])
     emit("kernel_timing", kernel="mlstm_scan", case="prefill", **out)
     return out
 
@@ -512,32 +577,39 @@ def rel_l2(a, b):
 
 
 def kernel_launches():
-    """Attention calls, each attention kernel's launches, mLSTM scans."""
+    """Attention calls, each attention kernel's launches, mLSTM scans and
+    each mLSTM kernel's launches."""
     return {"flash_attention": fa.launches,
             **{f"flash_attention_{path}": n
                for path, n in fa.launches_by_path.items()},
-            "mlstm_scan": ms.launches}
+            "mlstm_scan": ms.launches,
+            **{f"mlstm_scan_{path}": n
+               for path, n in ms.launches_by_path.items()}}
 
 
 def reset_launches():
     fa.launches = ms.launches = 0
-    for path in fa.launches_by_path:
-        fa.launches_by_path[path] = 0
+    for counts in (fa.launches_by_path, ms.launches_by_path):
+        for path in counts:
+            counts[path] = 0
 
 
 def expected_launches(cfg):
     """Launches of one serve run (bf16): the prefill attention kernel at
     every attention layer of the prefill, the decode kernel at every
-    attention layer of each decode step, the fp32 kernel never; mlstm_scan
-    at every mLSTM layer of the prefill (512 is a multiple of its chunk),
-    none in decode, which takes the sequential step."""
+    attention layer of each decode step, the fp32 kernel never; the
+    tensor-core mlstm_scan at every mLSTM layer of the prefill (512 is a
+    multiple of its chunk, 256, a multiple of 16), the FMA one never, none
+    in decode, which takes the sequential step."""
     kinds = cfg.block_pattern or ("attn",) * cfg.num_layers
     attn = kinds.count("attn")
     return {"flash_attention": attn * (1 + NEW_TOKENS),
             "flash_attention_fp32": 0,
             "flash_attention_prefill": attn,
             "flash_attention_decode": attn * NEW_TOKENS,
-            "mlstm_scan": kinds.count("mlstm")}
+            "mlstm_scan": kinds.count("mlstm"),
+            "mlstm_scan_fma": 0,
+            "mlstm_scan_tc": kinds.count("mlstm")}
 
 
 def phase_serve(arch):
@@ -603,12 +675,31 @@ def phase_serve(arch):
         del p32
     plain_self = None
     if "mlstm" in (cfg.block_pattern or ()):
-        plain_self = rel_l2(prefill(eng.params, cfg, mlstm_chunk=128), b)
+        plain_self = {ch: rel_l2(prefill(eng.params, cfg, mlstm_chunk=ch), b)
+                      for ch in RECHUNKS}
     logits_tol = 5e-2
     if not rel[check_dtype] <= logits_tol:
         raise AssertionError(f"prefill logits ({check_dtype}) with the kernels "
                              f"and with the plain versions differ: relative "
                              f"L2 {rel[check_dtype]}")
+    # In fp32 the mLSTM scan takes the FMA kernel, so the check above does not
+    # reach the bf16 tensor-core kernel.  That one is held to what re-chunking
+    # the plain version moves the same logits: a kernel that differs from the
+    # plain version by more than the same function summed in another order
+    # does is wrong beyond rounding.  Each re-chunking is one draw of that
+    # rounding noise (about 0.3, a few hundredths apart), and so is any
+    # kernel that agrees with the plain version to rounding, so the bound is
+    # the draws' mean plus three standard deviations.
+    rechunk_bound = None
+    if plain_self is not None:
+        draws = list(plain_self.values())
+        rechunk_bound = statistics.mean(draws) + 3 * statistics.stdev(draws)
+        if not rel[cfg.dtype] <= rechunk_bound:
+            raise AssertionError(
+                f"prefill logits ({cfg.dtype}) with the kernels and with the "
+                f"plain versions differ by relative L2 {rel[cfg.dtype]}, more "
+                f"than the plain version re-chunked does ({plain_self}: bound "
+                f"{rechunk_bound})")
 
     prefill_ms = cuda_ms(lambda: TT.prefill(eng.params, batch, cfg, MAX_SEQ),
                          iters=5, warmup=1)
@@ -627,6 +718,7 @@ def phase_serve(arch):
          prefill_logits_rel_l2_vs_plain=rel, logits_checked_in=check_dtype,
          logits_tol_rel_l2=logits_tol,
          plain_vs_plain_rechunked_rel_l2=plain_self,
+         rechunked_bound_rel_l2=rechunk_bound,
          prefill_logits_max_abs_diff=float((a - b).abs().max()),
          prefill_logits_max_abs=float(b.abs().max()),
          prefill_argmax_agreement=same_argmax, prefill_ms=prefill_ms,
@@ -704,10 +796,12 @@ def phase_small_model():
         if launched["flash_attention_fp32"] != launched["flash_attention"]:
             raise AssertionError(f"{arch} reduced: fp32 attention left the "
                                  f"fp32 kernel: {launched}")
-        if arch == "xlstm-350m" and launched["mlstm_scan"] != \
-                cfg.block_pattern.count("mlstm"):
-            raise AssertionError(f"{arch} reduced: mlstm_scan launched "
-                                 f"{launched['mlstm_scan']} times")
+        if arch == "xlstm-350m" and (
+                launched["mlstm_scan"], launched["mlstm_scan_fma"],
+                launched["mlstm_scan_tc"]) != (
+                (cfg.block_pattern.count("mlstm"),) * 2 + (0,)):
+            raise AssertionError(f"{arch} reduced: fp32 mlstm_scan left the "
+                                 f"FMA kernel: {launched}")
         err = float((out["cuda"] - out["cpu"]).abs().max())
         if not (torch.isfinite(out["cuda"]).all() and err <= 1e-4):
             raise AssertionError(f"{arch} reduced: card and CPU differ by {err}")
@@ -728,44 +822,44 @@ def main():
                          copies=8)
     fp32 = time_attention("prefill", *serving, copies=1, dtype=torch.float32)
     phase_mlstm_hazards()
-    scan = time_mlstm()
+    scan = time_mlstm(torch.bfloat16)
+    scan32 = time_mlstm(torch.float32)
     small = phase_small_model()
     llama = phase_serve("llama3.2-3b")
     xlstm = phase_serve("xlstm-350m")
 
-    def attention_entry(path, source, timing, runs):
-        """One attention kernel; ``runs`` are the launch counts of the
-        runs that drive its path."""
-        key = f"flash_attention_{path}"
+    def entry(kernel, path, source, replaces, timing, runs, keys=()):
+        """One kernel; ``runs`` are the launch counts of the runs that drive
+        its path."""
+        key = f"{kernel}_{path}"
         return {
             "name": key, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": "src/repro/kernels/flash_attention.py:39",
+            "replaces": replaces,
             "launches": sum(run[key] for run in runs.values()),
             "launches_by_run": {name: run[key] for name, run in runs.items()},
-            "attention_calls_by_run": {name: run["flash_attention"]
-                                       for name, run in runs.items()},
+            "calls_by_run": {name: run[kernel] for name, run in runs.items()},
             **{k: timing[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
-                                      "shape")}}
+                                      "shape", *keys)}}
     serve_runs = {"llama3.2-3b": llama, "xlstm-350m": xlstm}
+    fp32_runs = {"reduced models in fp32": small}
+    attn = "src/repro/kernels/flash_attention.py:39"
+    scan_keys = ("state_max_abs_err", "library_note", "ms_eager",
+                 "plain_ms_eager", "bound_ms_fp32_pipe")
     print(json.dumps({"kernels": [
-        attention_entry("prefill", "flash_attention_prefill.cu", pre,
-                        serve_runs),
-        attention_entry("decode", "flash_attention_decode.cu", dec,
-                        serve_runs),
-        attention_entry("fp32", "flash_attention.cu", fp32,
-                        {"reduced models in fp32": small}), {
-        "name": "mlstm_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
-        "replaces": "src/repro/kernels/mlstm_scan.py:32",
-        "launches": llama["mlstm_scan"] + xlstm["mlstm_scan"],
-        "launches_by_model": {"llama3.2-3b": llama["mlstm_scan"],
-                              "xlstm-350m": xlstm["mlstm_scan"]},
-        **{key: scan[key] for key in (
-            "max_abs_err", "state_max_abs_err", "tol", "ms", "plain_ms",
-            "bound_ms", "bound_by", "bound_ms_at_bf16_peak", "library_ms",
-            "library_note", "shape")}}]}), flush=True)
+        entry("flash_attention", "prefill", "flash_attention_prefill.cu",
+              attn, pre, serve_runs),
+        entry("flash_attention", "decode", "flash_attention_decode.cu", attn,
+              dec, serve_runs),
+        entry("flash_attention", "fp32", "flash_attention.cu", attn, fp32,
+              fp32_runs),
+        entry("mlstm_scan", "tc", "mlstm_scan_tc.cu",
+              "src/repro/kernels/mlstm_scan.py:32", scan, serve_runs,
+              scan_keys + ("fma_ms",)),
+        entry("mlstm_scan", "fma", "mlstm_scan.cu",
+              "src/repro/kernels/mlstm_scan.py:32", scan32, fp32_runs,
+              scan_keys)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

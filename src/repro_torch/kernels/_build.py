@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes one shared
 library, ``build/<name>-<hash>.so`` beside this file, compiled by ``nvcc``
 for Hopper (``sm_90a``) at first use.  The file name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded.  :func:`build_all` starts one ``nvcc`` per source, all at
-once.  A failed build raises with the compiler's output.
+source, the shared headers ``csrc/*.cuh`` it may include and the flags, so
+an edited source or header is rebuilt and a stale library is never loaded.
+:func:`build_all` starts one ``nvcc`` per source, all at once.  A failed
+build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -34,8 +35,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` goes, keyed on its hash."""
+    """Where the library for ``csrc/<name>.cu`` goes, keyed on a hash of
+    the source, of every shared header ``csrc/*.cuh`` and of the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -44,11 +44,9 @@
 // descriptors name (128, 64 or 32 bytes wide by D).  Left for later:
 // overlapping one warpgroup's softmax with another's products (ping-pong),
 // and a persistent grid that packs the uneven causal blocks onto the SMs.
-#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
+
 #include <climits>
-#include <cstdint>
 
 namespace {
 
@@ -65,159 +63,6 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs =
     (65536 - 128 * kProducerRegs) / kConsumers / 8 * 8;
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Waits for the phase of `bar` with this parity to complete.  A wait that
-// lasts about 10 s (a protocol fault) traps, so the launch fails instead of
-// holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (!done && clock64() - start > (1ll << 34)) __trap();
-  } while (!done);
-}
-
-// One box of a 4-d tensor map into shared memory, counted on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, the byte stride
-// between 8-row groups (as both leading and stride offset: the one the
-// layout does not use is ignored), and the swizzle (1: 128 B, 2: 64 B,
-// 3: 32 B).
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t group,
-                                              uint64_t swizzle) {
-  const uint64_t off = group >> 4;
-  return ((smem_u32(p) & 0x3FFFFu) >> 4) | (off << 16) | (off << 32) |
-         (swizzle << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Orders the compiler's reads and writes of an accumulator register against
-// the asynchronous wgmma that owns it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// D = A.B (+ D) for a 64-row tile: ss takes A and B from shared memory (both
-// K-major), rs takes A from registers and B transposed (N-major) from shared
-// memory.  Accumulator layout (PTX ISA, wgmma D fragments): in warp w of the
-// warpgroup, lane l holds rows 16w + l/4 (+8) and, per 8 columns j, columns
-// 8j + 2(l%4) + {0, 1}: d[4j + 2i + e] is row 16w + l/4 + 8i, column
-// 8j + 2(l%4) + e.  The A fragment of 16 keys is the same layout in bf16
-// pairs: a[2c + i] holds row l/4 + 8i, keys 8c + 2(l%4) + {0, 1}.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-  else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
-  else wgmma_rs_n16(d, a, b);
-}
 
 // 2^x on the special-function unit, one instruction (exp2f adds a
 // denormal fix-up that this softmax does not need).
@@ -225,11 +70,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 template <int D>
@@ -416,7 +256,7 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int c = kk * 16 / L::kCol, off = (kk * 16 % L::kCol) * 2;
-      wgmma_ss_n64(s,
+      wgmma_ss_n64<0, 0>(s,
                    smem_desc(q_wg + c * L::kQBlock + off, L::kGroup, L::kSwizzle),
                    smem_desc(kt_s + c * L::kKVBlock + off, L::kGroup, L::kSwizzle),
                    kk > 0);
@@ -539,55 +379,6 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime: no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A tensor map over a contiguous (B, len, heads, D) bf16 tensor whose box is
-// `col` columns x `box_heads` heads x `box_rows` rows of one batch; rows and
-// heads past the tensor read as zeros.
-bool tensor_map(CUtensorMap* map, const void* base, int batch, int len,
-                int heads, int d, int col, int box_heads, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(heads),
-                              cuuint64_t(len), cuuint64_t(batch)};
-  const cuuint64_t strides[3] = {cuuint64_t(d) * 2, cuuint64_t(heads) * d * 2,
-                                 cuuint64_t(len) * heads * d * 2};
-  const cuuint32_t box[4] = {cuuint32_t(col), cuuint32_t(box_heads),
-                             cuuint32_t(box_rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      col * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : col * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct Args {
   const void *q, *k, *v;
   const int *q_pos, *kv_pos;
@@ -611,17 +402,9 @@ cudaError_t launch(const Args& a) {
     return cudaErrorInvalidValue;
   auto kernel = flash_attention_prefill_kernel<D>;
   // Allowing the kernel its shared memory is a driver call: once a device.
-  static bool allowed[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool allowed[64] = {};
+  const cudaError_t err = allow_smem(kernel, L::kSmem, allowed);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || !allowed[dev]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(L::kSmem));
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) allowed[dev] = true;
-  }
   const int n_q_tiles = (a.t_len + a.positions - 1) / a.positions;
   kernel<<<a.batch * a.n_kv_heads * n_q_tiles, kThreads, L::kSmem, a.stream>>>(
       q_map, k_map, v_map, a.q_pos, a.kv_pos,

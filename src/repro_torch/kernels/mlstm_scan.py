@@ -1,4 +1,4 @@
-"""Chunkwise mLSTM forward on the card: the wrapper of ``csrc/mlstm_scan.cu``.
+"""Chunkwise mLSTM forward on the card: the wrapper of two CUDA kernels.
 
 Port of the TPU kernel ``repro.kernels.mlstm_scan`` (Pallas).  Same
 contract as :func:`repro_torch.kernels.ref.reference_mlstm_scan`, its plain
@@ -7,34 +7,99 @@ pre-activations log_i/log_f (B,T,H), T a multiple of ``chunk``, q scaled by
 1/sqrt(D), fp32 arithmetic, h in q's dtype.  Unlike the Pallas kernel it
 also takes an initial state and returns the final one, (C (B,H,D,D),
 n (B,H,D), m (B,H)) in fp32, which decode continues from.
+
+Which kernel runs is a fixed rule on dtype and chunk, made by :func:`plan`
+(pure Python, no device):
+
+- float32: ``csrc/mlstm_scan.cu`` (path ``"fma"``), on the fp32 FMA pipe.
+  The fp32 tolerance h is held to (rtol 5e-4, atol 5e-5) is out of reach of
+  the bf16 tensor cores.
+- bfloat16 with ``chunk`` a multiple of 16 (path ``"tc"``):
+  ``csrc/mlstm_scan_tc.cu``, two launches on the tensor cores (wgmma) fed
+  by TMA: a state pass that carries C across the chunks and writes the
+  state entering each chunk to scratch allocated here (C as two bf16 terms
+  hi + lo; n, m and the chunk's cumulative log_f in fp32), then an output
+  pass over every (chunk, 128 rows, 128 columns of h) at once.
+- any other bfloat16 call: ``csrc/mlstm_scan.cu`` (path ``"fma"``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
 from . import _build
 
-#: Kernel launches since the count was last set to 0.
+#: Wrapper calls (one per scan) since the count was last set to 0.
 launches = 0
+#: The same calls by the kernel they launched (``"tc"``: its state and
+#: output passes); set each to 0 with ``launches``.
+launches_by_path = {"fma": 0, "tc": 0}
 
-MAX_HEAD_DIM = 512     # C[:, 64 columns] of fp32 fills 128 KB of shared memory
+MAX_HEAD_DIM = 512     # fma: C[:, 64 columns] of fp32 fills 128 KB of shared memory
 MAX_CHUNK = 1024
-_lib = None
+STATE_TILE = 128       # rows and columns of C a tc state block owns
+OUT_TILE = 128         # rows of a chunk and columns of h a tc output block owns
+C_PARTS = 2            # bf16 terms of each chunk state in the tc scratch (kCParts)
+
+# path: (source under csrc/, C entry point, pointer and int arguments
+# before the float scale)
+_KERNELS = {"fma": ("mlstm_scan", "repro_mlstm_scan_fwd", 12, 5),
+            "tc": ("mlstm_scan_tc", "repro_mlstm_scan_tc", 16, 5)}
+_fns: dict[str, object] = {}
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs.  ``blocks``: thread blocks of each launch, in
+    order (tc: the state pass, then the output pass).  ``boundary``: tc
+    only, the shape of the bf16 scratch that holds C entering each chunk
+    that needs it (every chunk but the first, and the first too when an
+    initial state is given) as hi and lo terms, () when there is none."""
+    path: str
+    blocks: tuple
+    boundary: tuple = ()
+
+
+def plan(b: int, t: int, h: int, d: int, chunk: int, dtype,
+         has_state: bool = False) -> Plan:
+    """The kernel and grid for q/k/v (b,t,h,d) of ``dtype`` in chunks of
+    ``chunk``, from an initial state or not."""
+    if dtype == torch.bfloat16 and chunk % 16 == 0 and d % 16 == 0 \
+            and d <= MAX_HEAD_DIM:
+        nc = t // chunk
+        tiles = -(-d // STATE_TILE)
+        out = -(-chunk // OUT_TILE) * nc * b * h * -(-d // OUT_TILE)
+        states = nc - 1 + int(has_state)
+        return Plan("tc", (tiles * tiles * b * h, out),
+                    (states, b * h, C_PARTS, d, d) if states else ())
+    dv = 64 if d % 64 == 0 else 32 if d % 32 == 0 else 16
+    return Plan("fma", (d // dv * b * h,))
+
+
+_plan = functools.lru_cache(maxsize=1024)(plan)   # a call's plan, kept
+
+
+def _kernel(path: str):
+    fn = _fns.get(path)
+    if fn is None:
+        source, entry, n_ptr, n_int = _KERNELS[path]
+        fn = getattr(_build.load(source), entry)
+        extra = [ctypes.c_int] if path == "fma" else []   # is_bf16
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] + extra + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[path] = fn
+    return fn
 
 
 def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("mlstm_scan")
-        fn = lib.repro_mlstm_scan_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    """Builds and loads both kernels."""
+    for path in _KERNELS:
+        _kernel(path)
 
 
 def _check_state(state, b, h, d, device):
@@ -81,18 +146,36 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("q, k, v, log_i and log_f must be contiguous")
     c_in, n_in, m_in = _check_state(state, b, h, d, q.device)
-    lib = _library()
+    p = _plan(b, t, h, d, chunk, q.dtype, state is not None)
+    fn = _kernel(p.path)
     out = torch.empty_like(q)
     c = torch.empty((b, h, d, d), dtype=torch.float32, device=q.device)
     n = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.repro_mlstm_scan_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
-        log_f.data_ptr(), c_in, n_in, m_in, out.data_ptr(), c.data_ptr(),
-        n.data_ptr(), m.data_ptr(), b, t, h, d, chunk, 1.0 / math.sqrt(d),
-        int(q.dtype == torch.bfloat16), stream)
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
+            log_f.data_ptr(), c_in, n_in, m_in, out.data_ptr(), c.data_ptr(),
+            n.data_ptr(), m.data_ptr())
+    scale = 1.0 / math.sqrt(d)
+    if p.path == "tc":
+        if any(x.data_ptr() % 16 for x in (q, k, v)):
+            raise ValueError("q, k and v must start on a 16-byte boundary")
+        nc = t // chunk
+        # held until the launches are queued; the allocator reuses them only
+        # for work queued after these on this stream
+        bound = q.new_empty(p.boundary) if p.boundary else None
+        n_prev = q.new_empty((nc, b * h, d), dtype=torch.float32)
+        m_prev = q.new_empty((nc, b * h), dtype=torch.float32)
+        bcum = q.new_empty((nc, b * h, chunk), dtype=torch.float32)
+        err = fn(*head, None if bound is None else bound.data_ptr(),
+                 n_prev.data_ptr(), m_prev.data_ptr(), bcum.data_ptr(), b, t,
+                 h, d, chunk, scale, stream)
+    else:
+        err = fn(*head, b, t, h, d, chunk, scale,
+                 int(q.dtype == torch.bfloat16), stream)
     if err:
-        raise RuntimeError(f"mlstm_scan kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"mlstm_scan {p.path} kernel launch failed: "
+                           f"cudaError_t {err}")
     launches += 1
+    launches_by_path[p.path] += 1
     return out, (c, n, m)

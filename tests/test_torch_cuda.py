@@ -159,8 +159,10 @@ MLSTM_TOL = {"float32": dict(rtol=5e-4, atol=5e-5),
              "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 
 # name: (b, t, h, d, chunk, gates); gates "normal", "forget_near_zero"
-# (log_f << 0), "large_log_i" (the stabilizer dominates) or "state" (a
-# given initial state).
+# (log_f << 0), "forget_near_one" (log_f ~ 0: C sums every step of T),
+# "large_log_i" (the stabilizer dominates) or "state" (a given initial
+# state).  bf16 calls whose chunk is a multiple of 16 take the tensor-core
+# kernel, the others csrc/mlstm_scan.cu (chunk24_bf16).
 MLSTM_CASES = {
     "d16": (1, 64, 1, 16, 16, "normal"),
     "d32_chunk48": (1, 96, 2, 32, 48, "normal"),
@@ -171,7 +173,14 @@ MLSTM_CASES = {
     "large_log_i": (1, 256, 2, 64, 64, "large_log_i"),
     "initial_state": (2, 128, 2, 64, 64, "state"),
     "bh1_d128": (1, 128, 1, 128, 64, "normal"),
+    "forget_near_one": (1, 1024, 2, 512, 256, "forget_near_one"),
+    "many_chunks_d512": (1, 1024, 1, 512, 64, "normal"),
+    "state_d512": (2, 512, 2, 512, 256, "state"),
+    "d48": (1, 128, 2, 48, 32, "normal"),
+    "chunk16_d64": (1, 64, 2, 64, 16, "normal"),
+    "chunk24_bf16": (1, 96, 2, 32, 24, "normal"),
 }
+LF_SHIFT = {"forget_near_zero": -20.0, "forget_near_one": 20.0}
 
 
 def _mlstm_inputs(name, dtype, device):
@@ -184,8 +193,7 @@ def _mlstm_inputs(name, dtype, device):
                                                  dtype=getattr(torch, dtype))
            for _ in range(3)]
     li = draw(b, t, h, scale=2.0, shift=40.0 if gates == "large_log_i" else 0.0)
-    lf = draw(b, t, h, scale=2.0, shift=-20.0 if gates == "forget_near_zero"
-              else 1.0)
+    lf = draw(b, t, h, scale=2.0, shift=LF_SHIFT.get(gates, 1.0))
     gate_t = [torch.from_numpy(li).to(device),
               torch.nn.functional.logsigmoid(torch.from_numpy(lf)).to(device)]
     state = None
@@ -200,13 +208,21 @@ def _mlstm_inputs(name, dtype, device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", sorted(MLSTM_CASES))
 def test_mlstm_kernel_matches_plain_version(cuda, name, dtype):
-    """csrc/mlstm_scan.cu vs kernels.ref.reference_mlstm_scan (the
-    chunkwise mLSTM): h and the final (C, n, m)."""
+    """The kernel the wrapper picks (csrc/mlstm_scan.cu for fp32 and for a
+    bf16 chunk that is not a multiple of 16, csrc/mlstm_scan_tc.cu for the
+    other bf16 calls) vs kernels.ref.reference_mlstm_scan (the chunkwise
+    mLSTM): h and the final (C, n, m)."""
     args, state, chunk = _mlstm_inputs(name, dtype, cuda)
-    before = ms.launches
+    b, t, h, d = args[0].shape
+    path = ms.plan(b, t, h, d, chunk, getattr(torch, dtype),
+                   state is not None).path
+    assert path == ("tc" if dtype == "bfloat16" and chunk % 16 == 0
+                    else "fma")
+    before = ms.launches, ms.launches_by_path[path]
     got_h, got_state = ms.mlstm_scan(*args, state, chunk=chunk)
     torch.cuda.synchronize()
-    assert ms.launches == before + 1
+    assert (ms.launches, ms.launches_by_path[path]) == (before[0] + 1,
+                                                        before[1] + 1)
     want_h, want_state = reference_mlstm_scan(*args, state, chunk=chunk)
     assert got_h.dtype == want_h.dtype and got_h.shape == want_h.shape
     # the state is fp32 on both sides; bf16 inputs are the same values

@@ -19,6 +19,7 @@ from repro.kernels.ref import reference_attention as jax_reference
 
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mlstm_scan as ms
 from repro_torch.kernels.ref import reference_attention
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -116,13 +117,24 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_build_is_keyed_on_the_source(tmp_path, monkeypatch):
+    """The key covers the source and every shared header csrc/*.cuh, so
+    an edited header rebuilds every source that may include it."""
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
     first = _build.library_path("k")
     src.write_text("// two\n")
-    assert _build.library_path("k") != first
-    assert _build.library_path("k").name.startswith("k-")
+    second = _build.library_path("k")
+    assert second != first
+    assert second.name.startswith("k-")
+    header = tmp_path / "shared.cuh"
+    header.write_text("// a\n")
+    third = _build.library_path("k")
+    assert third != second
+    header.write_text("// b\n")
+    assert _build.library_path("k") not in (second, third)
+    header.unlink()
+    assert _build.library_path("k") == second
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -202,3 +214,64 @@ def test_plan_scratch_covers_every_row_and_split(shape):
 def test_plan_refuses_a_group_larger_than_a_prefill_block():
     with pytest.raises(ValueError, match="prefill"):
         fa.plan(1, 64, 64, 2 * fa.PREFILL_ROWS, 1, 64, torch.bfloat16)
+
+
+# The mLSTM scan's plan: which kernel and grid a call gets, and the scratch
+# of the tensor-core path.  Pure Python, so it is tested here; the kernels
+# it picks run on the card (tests/test_torch_cuda.py).
+MLSTM_PLAN_SHAPES = [  # (b, t, h, d, chunk)
+    (4, 512, 4, 512, 256),         # xlstm-350m prefill
+    (1, 1024, 2, 512, 256), (1, 1024, 1, 512, 64), (2, 512, 2, 512, 256),
+    (1, 64, 1, 16, 16), (1, 96, 2, 32, 48), (1, 128, 2, 48, 32),
+    (2, 256, 2, 64, 64), (1, 256, 2, 128, 128), (1, 64, 2, 64, 16),
+    (1, 96, 2, 32, 24), (2, 4, 2, 16, 1),
+]
+
+
+@pytest.mark.parametrize("shape", MLSTM_PLAN_SHAPES)
+@pytest.mark.parametrize("has_state", [False, True])
+def test_mlstm_plan_fp32_always_takes_the_fma_kernel(shape, has_state):
+    b, t, h, d, chunk = shape
+    p = ms.plan(b, t, h, d, chunk, torch.float32, has_state)
+    assert p.path == "fma" and p.boundary == ()
+    assert len(p.blocks) == 1
+
+
+@pytest.mark.parametrize("shape", MLSTM_PLAN_SHAPES)
+def test_mlstm_plan_bf16_takes_the_tc_kernel_iff_chunk_is_a_multiple_of_16(
+        shape):
+    b, t, h, d, chunk = shape
+    p = ms.plan(b, t, h, d, chunk, torch.bfloat16)
+    assert p.path == ("tc" if chunk % 16 == 0 else "fma")
+    assert len(p.blocks) == (2 if p.path == "tc" else 1)
+
+
+def test_mlstm_plan_serving_shape_fills_the_card():
+    """xlstm-350m's prefill scan takes the tensor-core kernel, and each of
+    its two passes has at least 128 blocks for the H100's 132 SMs."""
+    p = ms.plan(4, 512, 4, 512, 256, torch.bfloat16)
+    assert p.path == "tc"
+    assert all(n >= 128 for n in p.blocks)
+    assert p.blocks == (256, 256)
+
+
+def test_mlstm_plan_chunk24_bf16_takes_the_fma_kernel():
+    assert ms.plan(1, 96, 2, 32, 24, torch.bfloat16).path == "fma"
+    assert ms.plan(1, 96, 2, 32, 32, torch.bfloat16).path == "tc"
+
+
+@pytest.mark.parametrize("nc", [1, 2, 4, 16])
+@pytest.mark.parametrize("has_state", [False, True])
+def test_mlstm_plan_scratch_covers_the_chunk_states(nc, has_state):
+    """One C (hi and lo terms) for each chunk that carries a state in: every
+    chunk but the first, and the first too with an initial state; none for
+    a single chunk from zero."""
+    b, h, d, chunk = 2, 3, 64, 64
+    p = ms.plan(b, nc * chunk, h, d, chunk, torch.bfloat16, has_state)
+    states = nc - 1 + int(has_state)
+    assert p.boundary == ((states, b * h, 2, d, d) if states else ())
+
+
+def test_mlstm_counts_launches_by_path():
+    assert set(ms.launches_by_path) == {"fma", "tc"}
+    assert isinstance(ms.launches, int)
