@@ -26,7 +26,16 @@ Phases, one JSON line each:
    swapped for its plain version (xlstm-350m in bf16 also against the plain
    version re-chunked); prefill ms, decode tokens/s and peak memory;
 6. profile -- device time by kernel over prefills and decode steps of each
-   model (torch.profiler), and the share of the time the device is idle.
+   model (torch.profiler), and the share of the time the device is idle;
+7. sim     -- the simulator's main path (repro_torch.sim), which runs no
+   hand-written kernel: ``sim_speed`` (CIN xor 16, 3 loads x 8 seeds x
+   1600 cycles in one sweep) and ``xl_scale`` (a 1040-switch Dragonfly,
+   256 cycles), each bit for bit against the same engine on the CPU,
+   with lane-cycles/s or cycles/s cold
+   and warm, CUDA-graph capture apart from replay, device ms per cycle in
+   the graph and eager, kernels per cycle and a profile of graph replays;
+   then drained runs: a one-shot all-to-all against the closed-form link
+   loads, and Valiant and adaptive sweeps on a Dragonfly against the CPU.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -58,6 +67,10 @@ from repro_torch.kernels.ref import (reference_attention,  # noqa: E402
 from repro_torch.models import get_config, init_params  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch import sim as S  # noqa: E402
+from repro_torch.core import DragonflyConfig  # noqa: E402
+from repro_torch.core.simulate import cin_link_loads  # noqa: E402
+from repro_torch.sim import xengine as XE  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
@@ -811,6 +824,306 @@ def phase_small_model():
     return total
 
 
+# ---------------------------------------------------------------------------
+# The simulator's main path (repro_torch.sim): no hand-written kernel, the
+# cycle step as a CUDA graph, held bit for bit to the same engine on the CPU
+# (which tests/test_torch_xengine.py holds to the JAX reference).
+# ---------------------------------------------------------------------------
+
+#: The reference's two speed workloads of its cycle engine, at full size:
+#: ``sim_speed`` (benchmarks/bench_simulation.py:136-150) and ``xl_scale``
+#: (benchmarks/bench_compile.py:161-200); ``exact`` are the cross-checks.
+#: ``xl_scale`` is held to the CPU on the same fabric and traffic over
+#: ``check_cycles`` (the whole run: about 6 s on 8 CPU cores).
+#: ``dragonfly`` is (a, p, h, g).
+SIM_FULL = {
+    "sim_speed": {"n": 16, "terminals": 12, "loads": (0.5, 0.7, 0.9),
+                  "seeds": tuple(range(31, 39)), "cycles": 1600,
+                  "warmup": 400},
+    "xl_scale": {"dragonfly": (16, 8, 8, 65), "load": 0.05, "seed": 0,
+                 "cycles": 256, "warmup": 64, "check_cycles": 256},
+    "exact": {"a2a_n": 16, "a2a_terminals": 4, "dragonfly": (6, 3, 2, 12),
+              "load": 0.5, "cycles": 60, "warmup": 15, "seeds": (1, 2),
+              "adaptive": {"threshold": 0.5, "weight": 1.3}},
+}
+#: The same phase at a size the CPU runs in seconds (tests/test_torch_sim_smoke.py).
+SIM_TINY = {
+    "sim_speed": {"n": 8, "terminals": 2, "loads": (0.5, 0.9),
+                  "seeds": (31, 32), "cycles": 48, "warmup": 12},
+    "xl_scale": {"dragonfly": (4, 2, 2, 9), "load": 0.05, "seed": 0,
+                 "cycles": 40, "warmup": 10, "check_cycles": 8},
+    "exact": {"a2a_n": 8, "a2a_terminals": 2, "dragonfly": (4, 2, 2, 5),
+              "load": 0.5, "cycles": 20, "warmup": 5, "seeds": (1, 2),
+              "adaptive": {"threshold": 0.5, "weight": 1.3}},
+}
+
+
+def stats_diff(a, b):
+    """The RunStats fields, all but ``timing``/``trace``, on which two runs
+    differ (NaN equals NaN)."""
+    bad = []
+    for f in dataclasses.fields(a):
+        if f.name in ("timing", "trace"):
+            continue
+        x, y = np.asarray(getattr(a, f.name)), np.asarray(getattr(b, f.name))
+        if not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+            bad.append(f.name)
+    return bad
+
+
+def check_same_grid(what, got, want):
+    """Card against CPU, point for point, every RunStats field."""
+    pairs = [(a, b) for ra, rb in zip(got, want) for a, b in zip(ra, rb)]
+    if len(pairs) != sum(len(r) for r in want) or not pairs:
+        raise AssertionError(f"{what}: grids of different shapes")
+    for i, (a, b) in enumerate(pairs):
+        bad = stats_diff(a, b)
+        if bad:
+            raise AssertionError(f"{what}: point {i} differs from the CPU "
+                                 f"on {bad}")
+    return len(pairs)
+
+
+def wall_ms(fn, iters, device, warmup=1):
+    """Mean time of ``fn`` over ``iters`` calls: by CUDA events on the
+    card, by the host clock on the CPU."""
+    if device == "cuda":
+        return cuda_ms(fn, iters, warmup=warmup)
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_ops(fn, device, calls=1):
+    """``fn`` called ``calls`` times under torch.profiler: the rows that ran
+    on ``device`` (CUDA: kernels, memsets and copies; CPU: operators),
+    their busy time and the wall time of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    kind = (torch.autograd.DeviceType.CUDA if device == "cuda"
+            else torch.autograd.DeviceType.CPU)
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total if device == "cuda"
+             else e.self_cpu_time_total, e.count)
+            for e in prof.key_averages() if e.device_type == kind]
+    return rows, sum(t for _, t, _ in rows), wall_us
+
+
+def step_profile(prep, device):
+    """The cycle step of a prepared sweep (repro_torch.sim.xengine) on its
+    own: device ms per cycle as the CUDA graph replays a block and as the
+    same block runs eagerly, kernels per cycle (one eager block under the
+    profiler; the graph replays exactly those), and the device's busy
+    share and top operations per cycle over two graph replays.  Runs
+    real cycles from cycle 0 (9 blocks), so the horizon should hold them."""
+    spec, tb, pkt, k = prep.spec, prep.tb, prep.pkt, XE._BLOCK
+    state = XE._init_state(spec, tb, pkt)
+    pred = torch.ones((), dtype=torch.bool, device=device)
+
+    def eager():
+        XE._block(spec, tb, pkt, state, pred, k)
+    out = {"block_cycles": k}
+    rows, _, _ = device_ops(eager, device)
+    out["kernels_per_cycle"] = sum(c for _, _, c in rows) / k
+    out["eager_ms_per_cycle"] = wall_ms(eager, 2, device) / k
+    if device != "cuda":
+        out["graph_ms_per_cycle"] = None          # no CUDA graph on the CPU
+        return out
+    t0 = time.perf_counter()
+    graph = XE._capture(spec, tb, pkt, state, pred, k)
+    torch.cuda.synchronize()
+    out["capture_s"] = time.perf_counter() - t0
+    out["graph_ms_per_cycle"] = wall_ms(graph.replay, 2, device) / k
+    replays = 2
+    rows, busy_us, wall_us = device_ops(graph.replay, device, replays)
+    cycles = replays * k
+    # The threefry draw of a block alone, as its own graph: its share of
+    # the block's device time is what a fused RNG kernel could save.
+    bits = torch.cuda.CUDAGraph()
+    cycle = state.cycle.clone()
+    XE._block_bits(spec, tb, pkt, cycle, k)
+    with torch.cuda.graph(bits):
+        XE._block_bits(spec, tb, pkt, cycle, k)
+    rng_ms = wall_ms(bits.replay, 3, device) / k
+    out["threefry_ms_per_cycle"] = rng_ms
+    out["threefry_share_of_cycle"] = rng_ms / out["graph_ms_per_cycle"]
+    out["graph_profile"] = {
+        "cycles": cycles, "wall_us": wall_us, "device_busy_us": busy_us,
+        "device_busy_share": busy_us / wall_us if wall_us else None,
+        "device_busy_share_unprofiled":
+            busy_us / cycles / (out["graph_ms_per_cycle"] * 1e3),
+        "kernels_per_cycle": sum(c for _, _, c in rows) / cycles,
+        "top_per_cycle": [
+            {"op": key[:80], "us": t / cycles, "calls": c / cycles}
+            for key, t, c in sorted(rows, key=lambda r: -r[1])[:10]]}
+    del graph, bits
+    return out
+
+
+def run_sim_speed(cfg, device):
+    """The headline speed workload: CIN xor n=16, uniform traffic, minimal
+    routing, 3 loads x 8 seeds as one sweep (24 fabric copies)."""
+    n = cfg["n"]
+    topo = S.cin_topology("xor", n)
+
+    def tf(load, seed):
+        return S.uniform(n, offered=load, cycles=cfg["cycles"],
+                         terminals=cfg["terminals"], seed=seed)
+    kw = dict(seeds=cfg["seeds"], terminals=cfg["terminals"],
+              cycles=cfg["cycles"], warmup=cfg["warmup"])
+
+    def run(dev):
+        t0 = time.perf_counter()
+        grid = S.sweep(topo, "minimal", tf, cfg["loads"], device=dev, **kw)
+        return grid, time.perf_counter() - t0
+    cold, cold_s = run(device)
+    warm, warm_s = run(device)
+    ref, cpu_s = run("cpu")
+    points = check_same_grid("sim_speed", warm, ref)
+    check_same_grid("sim_speed (cold)", cold, ref)
+    lane_cycles = len(cfg["loads"]) * len(cfg["seeds"]) * cfg["cycles"]
+    prep = XE._prepare(topo, "minimal", tf, cfg["loads"], device=device, **kw)
+    out = {
+        "copies": points, "cycles": cfg["cycles"],
+        "lane_cycles_per_s_warm": lane_cycles / warm_s,
+        "lane_cycles_per_s_cold": lane_cycles / cold_s,
+        "wall_s_warm": warm_s, "wall_s_cold": cold_s, "wall_s_cpu": cpu_s,
+        "timing_warm": warm[0][0].timing, "timing_cold": cold[0][0].timing,
+        "accepted_by_load": [float(np.mean([r.accepted for r in row]))
+                             for row in warm],
+        "step": step_profile(prep, device)}
+    emit("sim_speed", device=device, **out)
+    return out
+
+
+def run_xl_scale(cfg, device):
+    """The largest cycle-engine fabric: Dragonfly a=16 p=8 h=8 g=65 (1040
+    switches, 8320 terminals), uniform load 0.05, minimal routing; the card
+    against the CPU on the same fabric and traffic over ``check_cycles``."""
+    a, p, h, g = cfg["dragonfly"]
+    dcfg = DragonflyConfig(group_size=a, terminals_per_switch=p,
+                           global_ports_per_switch=h, num_groups=g)
+    t0 = time.perf_counter()
+    topo = S.dragonfly_topology(dcfg)
+    topo.minimal_port_table()
+    table_s = time.perf_counter() - t0
+    n = topo.num_switches
+
+    def tf(load, seed):
+        return S.uniform(n, offered=load, cycles=cfg["cycles"], terminals=p,
+                         seed=seed)
+
+    def run(dev, cycles):
+        t0 = time.perf_counter()
+        grid = S.sweep(topo, "minimal", tf, [cfg["load"]],
+                       seeds=(cfg["seed"],), terminals=p, cycles=cycles,
+                       warmup=cfg["warmup"] if cycles == cfg["cycles"]
+                       else cycles // 4, device=dev)
+        return grid, time.perf_counter() - t0
+    cold, cold_s = run(device, cfg["cycles"])
+    if device == "cuda":
+        held = torch.cuda.memory_allocated()   # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+    warm, warm_s = run(device, cfg["cycles"])
+    peak = (torch.cuda.max_memory_allocated() - held if device == "cuda"
+            else None)
+    if warm[0][0].packets_delivered <= 0:
+        raise AssertionError("xl_scale delivered no packets")
+    check_same_grid("xl_scale", warm, cold)
+    ref, cpu_s = run("cpu", cfg["check_cycles"])
+    short = (warm if cfg["check_cycles"] == cfg["cycles"]
+             else run(device, cfg["check_cycles"])[0])
+    check_same_grid(f"xl_scale at {cfg['check_cycles']} cycles", short, ref)
+    prep = XE._prepare(topo, "minimal", tf, [cfg["load"]],
+                       seeds=(cfg["seed"],), terminals=p,
+                       cycles=cfg["cycles"], warmup=cfg["warmup"],
+                       device=device)
+    out = {
+        "switches": n, "terminals": n * p, "cycles": cfg["cycles"],
+        "cycles_per_s_warm": cfg["cycles"] / warm_s,
+        "cycles_per_s_cold": cfg["cycles"] / cold_s,
+        "wall_s_warm": warm_s, "wall_s_cold": cold_s,
+        "packets_delivered": int(warm[0][0].packets_delivered),
+        "minimal_port_table_host_s": table_s,
+        "timing_warm": warm[0][0].timing, "timing_cold": cold[0][0].timing,
+        "max_memory_allocated_by_run": peak,
+        "cpu_check_cycles": cfg["check_cycles"], "cpu_check_wall_s": cpu_s,
+        "step": step_profile(prep, device)}
+    emit("xl_scale", device=device, **out)
+    return out
+
+
+def run_sim_exact(cfg, device):
+    """Drained runs on the device: the one-shot all-to-all on CIN xor
+    against the closed form (core.simulate.cin_link_loads), and uniform
+    sweeps with Valiant and adaptive routing on a small Dragonfly against
+    the CPU."""
+    n = cfg["a2a_n"]
+    topo = S.cin_topology("xor", n)
+    st = S.simulate_torch(topo, "minimal", S.one_shot_all_to_all(n),
+                          terminals=cfg["a2a_terminals"], device=device)
+    counter = S.LinkLoadCounter(S.LinkTable.for_topology(topo, 1))
+    counter.total = st.link_loads
+    if st.packets_delivered != n * (n - 1) or \
+            counter.by_switch_pair() != cin_link_loads("xor", n):
+        raise AssertionError("one-shot all-to-all: link loads differ from "
+                             "the closed form")
+    a, p, h, g = cfg["dragonfly"]
+    df = S.dragonfly_topology(DragonflyConfig(
+        group_size=a, terminals_per_switch=p, global_ports_per_switch=h,
+        num_groups=g))
+    m = df.num_switches
+
+    def tf(load, seed):
+        return S.uniform(m, offered=load, cycles=cfg["cycles"], terminals=p,
+                         seed=seed)
+    checked = {}
+    for policy in (S.ValiantPolicy(), S.AdaptivePolicy(**cfg["adaptive"])):
+        grids = [S.sweep(df, policy, tf, [cfg["load"]], seeds=cfg["seeds"],
+                         terminals=p, cycles=cfg["cycles"],
+                         warmup=cfg["warmup"], drain=True, device=dev)
+                 for dev in (device, "cpu")]
+        check_same_grid(f"drained {policy.name}", *grids)
+        checked[policy.name] = [r.packets_delivered for r in grids[0][0]]
+    out = {"a2a_packets": st.packets_delivered, "a2a_links": len(
+        counter.by_switch_pair()), "dragonfly_switches": m,
+        "drained_delivered": checked,
+        "adaptive": cfg["adaptive"]}
+    emit("sim_exact", device=device, **out)
+    return out
+
+
+def phase_sim(device="cuda", sizes=SIM_FULL):
+    """The simulator's main path: ``sim_speed``, ``xl_scale`` and the
+    exactness checks, each raising on a difference.  The port's kernels'
+    launch counts are set to 0 before and read after: this path runs
+    none of them."""
+    t0 = time.perf_counter()
+    reset_launches()
+    out = {"sim_speed": run_sim_speed(sizes["sim_speed"], device),
+           "xl_scale": run_xl_scale(sizes["xl_scale"], device),
+           "exact": run_sim_exact(sizes["exact"], device)}
+    launched = kernel_launches()
+    if any(launched.values()):
+        raise AssertionError(f"the simulator launched a model kernel: "
+                             f"{launched}")
+    emit("sim", device=device, seconds=time.perf_counter() - t0,
+         launches=launched)
+    return out
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -827,6 +1140,7 @@ def main():
     small = phase_small_model()
     llama = phase_serve("llama3.2-3b")
     xlstm = phase_serve("xlstm-350m")
+    phase_sim()
 
     def entry(kernel, path, source, replaces, timing, runs, keys=()):
         """One kernel; ``runs`` are the launch counts of the runs that drive

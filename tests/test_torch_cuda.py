@@ -249,3 +249,31 @@ def test_mlstm_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ms.mlstm_scan(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
                       li, lf, chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,drain", [("minimal", False),
+                                          ("adaptive", True)])
+def test_cycle_engine_on_the_card_matches_the_cpu(cuda, policy, drain):
+    """repro_torch.sim.sweep through its CUDA graph against the same sweep
+    run eagerly on the CPU: every RunStats field but timing and trace."""
+    from repro_torch import sim
+    from repro_torch.core import DragonflyConfig
+
+    topo = sim.dragonfly_topology(DragonflyConfig(6, 3, 2, 12))
+    pol = (sim.AdaptivePolicy(threshold=0.5, weight=1.3)
+           if policy == "adaptive" else policy)
+
+    def tf(load, seed):
+        return sim.uniform(72, offered=load, cycles=50, terminals=3,
+                           seed=seed)
+    grids = [sim.sweep(topo, pol, tf, [0.4, 0.9], seeds=(1, 2), terminals=3,
+                       cycles=50, warmup=12, drain=drain, device=dev)
+             for dev in (cuda, "cpu")]
+    for got, want in zip(*(sum(g, []) for g in grids)):
+        for f in dataclasses.fields(got):
+            if f.name in ("timing", "trace"):
+                continue
+            assert np.array_equal(np.asarray(getattr(got, f.name)),
+                                  np.asarray(getattr(want, f.name))), f.name
+    assert grids[0][0][0].timing["compile_s"] > 0      # a graph was captured
