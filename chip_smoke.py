@@ -35,7 +35,17 @@ Phases, one JSON line each:
    and warm, CUDA-graph capture apart from replay, device ms per cycle in
    the graph and eager, kernels per cycle and a profile of graph replays;
    then drained runs: a one-shot all-to-all against the closed-form link
-   loads, and Valiant and adaptive sweeps on a Dragonfly against the CPU.
+   loads, and Valiant and adaptive sweeps on a Dragonfly against the CPU;
+8. studies -- the studies path (repro_torch.studies) at the bundled specs'
+   own sizes on the torch engine: ``python -m repro_torch.studies run
+   collective_replay`` as a subprocess (minimal replays at the
+   contention-free bound on CIN-16 and HyperX-256, 142 cycles against 32
+   on Dragonfly-72; all six records equal to the same Study on the CPU),
+   then ``cin16_saturation`` (knees equal to the numpy oracle's, one
+   experiment record for record against the CPU), ``hyperx256_uniform``
+   and ``dragonfly72_uniform`` through ``Study.run()``; one line per spec
+   with its points, cold and warm wall seconds, lane-cycles/s, summed
+   capture, replay and host seconds, and completions or knees.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -50,10 +60,11 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+sys.path.insert(0, SRC)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -71,6 +82,7 @@ from repro_torch import sim as S  # noqa: E402
 from repro_torch.core import DragonflyConfig  # noqa: E402
 from repro_torch.core.simulate import cin_link_loads  # noqa: E402
 from repro_torch.sim import xengine as XE  # noqa: E402
+from repro_torch import studies as ST  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
@@ -1124,6 +1136,189 @@ def phase_sim(device="cuda", sizes=SIM_FULL):
     return out
 
 
+#: The studies phase: the bundled specs at their own sizes.  ``replay`` is
+#: run through the CLI; ``replay_expect`` is (completion, ideal) of the
+#: minimal arms (BENCH ``collective_replay``); ``oracle_knees`` is held to
+#: the numpy oracle's knees, and ``cpu_check`` is one experiment held to
+#: the CPU record for record.
+STUDIES_FULL = {
+    "replay": "collective_replay",
+    "replay_expect": {"cin-xor-16/replay-all_to_all/minimal": (30, 30),
+                      "hyperx-16x16-xor/replay-all_to_all/minimal": (60, 60),
+                      "dragonfly-a6h2g12/replay-all_to_all/minimal":
+                          (142, 32)},
+    "saturation": ("cin16_saturation", "hyperx256_uniform",
+                   "dragonfly72_uniform"),
+    "oracle_knees": "cin16_saturation",
+    "cpu_check": ("cin16_saturation", "cin-xor-16/uniform/minimal"),
+}
+#: The same phase at a size the CPU runs in seconds
+#: (tests/test_torch_sim_smoke.py): CIN-8 replays, the smoke spec.
+STUDIES_TINY = {
+    "replay": [{"fabric": {"kind": "cin",
+                           "params": {"instance": "xor", "n": 8}},
+                "traffic": {"pattern": "workload",
+                            "params": {"collective": "all_to_all",
+                                       "message_size": 2}},
+                "routing": {"policy": policy},
+                "sweep": {"loads": [0.0], "seeds": [0]}}
+               for policy in ("minimal", "adaptive")],
+    "replay_expect": {"cin-xor-8/replay-all_to_all/minimal": (14, 14)},
+    "saturation": ("studies_smoke",),
+    "oracle_knees": "studies_smoke",
+    "cpu_check": ("studies_smoke", "cin-xor-8/uniform/minimal"),
+}
+
+
+def record_fields(result):
+    """A stored record without what names the run (provenance: host,
+    versions, timings)."""
+    return {k: v for k, v in result.record().items() if k != "provenance"}
+
+
+def check_same_records(what, got, want):
+    """Two lists of study records, key for key and field for field."""
+    if [r.key for r in got] != [r.key for r in want]:
+        raise AssertionError(f"{what}: different grid points")
+    for a, b in zip(got, want):
+        if record_fields(a) != record_fields(b):
+            bad = sorted(k for k in record_fields(a)
+                         if record_fields(a)[k] != record_fields(b).get(k))
+            raise AssertionError(f"{what}: {a.key} differs on {bad}")
+    return len(got)
+
+
+def timed_study(source, device, backend="torch"):
+    t0 = time.perf_counter()
+    out = ST.Study(source, backend=backend, device=device).run()
+    return out, time.perf_counter() - t0
+
+
+def study_line(name, device, cold, cold_s, warm, warm_s):
+    """The numbers of one spec: its points, cold and warm wall seconds of
+    ``Study.run()``, simulated lane-cycles (each point's cycles) a second,
+    and the timings of the warm run summed over its experiments (one
+    sweep, one shared timing record, each)."""
+    check_same_records(f"{name}: warm against cold", warm.results,
+                       cold.results)
+    timing = {}
+    for r in warm.results:
+        timing.setdefault(r.experiment, r.stats.timing)
+    lane_cycles = sum(r.cycles for r in warm.results)
+    return {
+        "spec": name, "device": device, "experiments": len(timing),
+        "points": len(warm.results), "wall_s_cold": cold_s,
+        "wall_s_warm": warm_s, "lane_cycles": lane_cycles,
+        "lane_cycles_per_s_warm": lane_cycles / warm_s,
+        **{f"{k}_sum": sum(t.get(k, 0.0) for t in timing.values())
+           for k in ("compile_s", "execute_s", "host_s")}}
+
+
+def run_replay_study(cfg, device, tmp):
+    """``python -m repro_torch.studies run <replay spec>`` on ``device`` as
+    its own process, the store read back: the minimal arms' completions
+    against ``replay_expect``, every record against the same Study on the
+    CPU; then the spec's cold and warm ``Study.run()`` in this process."""
+    src = cfg["replay"]
+    if not isinstance(src, str):
+        src = os.path.join(tmp, "replay_spec.json")
+        ST.dump_specs(ST.load_specs(cfg["replay"]), src)
+    store = os.path.join(tmp, "replay.results.jsonl")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.studies", "run", src,
+         "--backend", "torch", "--device", device, "--store", store],
+        env=env, capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the studies CLI exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    path = ST.resolve_spec_source(src)
+    specs = ST.load_specs(path)
+    stored = ST.JsonlStore(store).load()
+    keys = [e.key(*p) for e in specs for p in e.points()]
+    if sorted(stored) != sorted(keys):
+        raise AssertionError(f"the CLI stored {sorted(stored)}, not {keys}")
+    cli_records = [stored[k] for k in keys]
+    if {r.backend for r in cli_records} != {"torch"} or any(
+            (r.provenance or {}).get("timings", {}).get("backend") != "torch"
+            for r in cli_records):
+        raise AssertionError("the CLI's records did not come from the torch "
+                             "engine")
+    replays = {r.experiment: [r.completion_cycles, r.ideal_cycles]
+               for r in cli_records}
+    for name, want in cfg["replay_expect"].items():
+        if tuple(replays.get(name, ())) != tuple(want):
+            raise AssertionError(f"{name}: completion/ideal "
+                                 f"{replays.get(name)}, expected {want}")
+    cpu, cpu_s = timed_study(path, "cpu")
+    check_same_records("replays: CLI on the device against the CPU",
+                       cli_records, cpu.results)
+    cold, cold_s = timed_study(path, device)
+    warm, warm_s = timed_study(path, device)
+    check_same_records("replays: Study on the device against the CPU",
+                       warm.results, cpu.results)
+    out = study_line(os.path.splitext(os.path.basename(path))[0], device,
+                     cold, cold_s, warm, warm_s)
+    out.update(cli_wall_s=cli_s, cpu_wall_s=cpu_s,
+               completion_vs_ideal=replays,
+               cli_says=[ln for ln in proc.stdout.splitlines()
+                         if ln.startswith("ran ")])
+    emit("study", **out)
+    return out
+
+
+def run_saturation_study(name, cfg, device):
+    """A bundled saturation spec through ``Study.run()`` on ``device``, cold
+    and warm: its knees; against the numpy oracle's knees (``oracle_knees``)
+    and one experiment against the CPU (``cpu_check``)."""
+    src = ST.bundled_spec_path(name)
+    cold, cold_s = timed_study(src, device)
+    warm, warm_s = timed_study(src, device)
+    out = study_line(name, device, cold, cold_s, warm, warm_s)
+    out["knees"] = warm.saturation_points()
+    if name == cfg["oracle_knees"]:
+        oracle, oracle_s = timed_study(src, None, backend="numpy")
+        out.update(oracle_knees=oracle.saturation_points(),
+                   oracle_wall_s=oracle_s)
+        if out["knees"] != out["oracle_knees"]:
+            raise AssertionError(f"{name}: knees {out['knees']} differ from "
+                                 f"the numpy oracle's {out['oracle_knees']}")
+    if name == cfg["cpu_check"][0]:
+        exp = [e for e in ST.load_specs(src) if e.name == cfg["cpu_check"][1]]
+        cpu, cpu_s = timed_study(exp, "cpu")
+        n = check_same_records(
+            f"{exp[0].name} against the CPU",
+            [r for r in warm.results if r.experiment == exp[0].name],
+            cpu.results)
+        out.update(cpu_check=exp[0].name, cpu_check_points=n,
+                   cpu_check_wall_s=cpu_s)
+    emit("study", **out)
+    return out
+
+
+def phase_studies(device="cuda", sizes=STUDIES_FULL):
+    """The studies path on ``device``: the replay spec through the CLI, then
+    the saturation specs through ``Study.run()``, each raising on a failed
+    check.  The port's kernels' launch counts are set to 0 before and read
+    after: this path runs none of them."""
+    t0 = time.perf_counter()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"replay": run_replay_study(sizes, device, tmp)}
+    for name in sizes["saturation"]:
+        out[name] = run_saturation_study(name, sizes, device)
+    launched = kernel_launches()
+    if any(launched.values()):
+        raise AssertionError(f"the studies launched a model kernel: "
+                             f"{launched}")
+    emit("studies", device=device, seconds=time.perf_counter() - t0,
+         launches=launched)
+    return out
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1141,6 +1336,7 @@ def main():
     llama = phase_serve("llama3.2-3b")
     xlstm = phase_serve("xlstm-350m")
     phase_sim()
+    phase_studies()
 
     def entry(kernel, path, source, replaces, timing, runs, keys=()):
         """One kernel; ``runs`` are the launch counts of the runs that drive

@@ -4,5 +4,8 @@ Module paths mirror ``repro`` one to one.  This package imports torch and
 numpy, never JAX and nothing of ``repro``.  Ported so far: the LM serving
 path (``models``, ``serving``) for attention and xLSTM models, with the
 hand-written Hopper kernels for flash attention and the chunkwise mLSTM
-scan (``kernels``).
+scan (``kernels``); the fabric math, schedules and ``Fabric`` objects
+(``core``, ``fabric``); the packet simulator with its torch cycle engine
+and collective replays (``sim``); and the declarative studies with their
+CLI, ``python -m repro_torch.studies`` (``studies``).
 """

@@ -2,24 +2,36 @@
 Dragonfly compositions, carried from ``repro.core`` (numpy), with
 branchless torch twins of the reference's ``jnp`` routers.
 
-Ported so far: ``port_matrix``, ``routing``, ``hyperx``, ``dragonfly``
-and ``simulate`` (the closed-form link loads).  Factorizations, layouts,
-1-factor schedules and the collectives are not ported yet (ROADMAP queue
-A, items 1 and 9).
+Ported: ``port_matrix``, ``factorization``, ``routing``, ``layout``,
+``hyperx``, ``dragonfly``, ``schedule`` (the 1-factor step schedules) and
+``simulate`` (the closed-form link loads).  The collectives are not
+ported yet (ROADMAP queue A, item 9), and ``schedule_for_axis`` raises
+until they are.
 """
 from .port_matrix import (IDLE, circle_matrix, circle_neighbor,
                           is_complete, is_isoport, is_power_of_two,
                           port_matrix, swap_matrix, swap_neighbor,
                           swap_peer_port, verify_instance, xor_matrix,
                           xor_neighbor)
+from .factorization import (column_contention, factor, factorization,
+                            factors, is_one_factorization,
+                            is_perfect_matching)
 from .routing import (ROUTING_COST, route, route_circle,
                       route_circle_closed, route_circle_torch, route_packet,
                       route_swap, route_swap_torch, route_torch, route_xor,
                       route_xor_torch, routing_ops)
+from .layout import (circle_layout_crossings_with_rule,
+                     circle_predicted_crossings, column_report,
+                     factor_crossings, instance_crossings,
+                     lacin_total_wire_length,
+                     lacin_total_wire_length_enumerated, swap_to_lacin_ratio,
+                     swap_total_wire_length, table1, wire_length_histogram)
 from .hyperx import (HyperXConfig, HyperXDeployment, all_pairs_max_hops,
                      fig4_4cubed, paper_16cubed)
 from .dragonfly import (DragonflyConfig, PartitionedCIN, fig3_16,
                         frontier_like, hpe_dragonfly_group)
+from .schedule import (LacinSchedule, make_schedule, partner_table,
+                       schedule_for_axis)
 from .simulate import (all_to_all_steps, cin_link_loads,
                        dragonfly_link_loads, hyperx_link_loads,
                        schedule_hop_counts, schedule_step_report,

@@ -1,17 +1,33 @@
-"""``repro_torch.fabric`` — the CIN instance registry.
+"""``repro_torch.fabric`` — the single entry point for every LACIN topology.
 
-Ported so far: the registry (:mod:`.registry`) with the paper's ``swap``
-/ ``circle`` / ``xor`` built-ins and the ``mirror`` instance
-(:mod:`.mirror`, registered through the public API).  The ``Fabric``
-objects and the mesh-aware collectives are not ported yet (ROADMAP queue
-A, items 1 and 9).
+* an **instance registry** (:func:`register_instance` /
+  :func:`get_instance` / :func:`instance_names`) holding the paper's
+  ``swap`` / ``circle`` / ``xor`` built-ins plus anything a caller
+  registers — ``mirror`` (:mod:`.mirror`) is registered below purely
+  through the public API;
+* the **Fabric protocol** (:class:`Fabric` with :class:`CINFabric`,
+  :class:`HyperXFabric`, :class:`DragonflyFabric`, built by
+  :func:`make_fabric`): ``neighbor_matrix()``, ``schedule()``,
+  ``sim_topology()``, ``link_loads()``, ``deployment()``, ``verify()``
+  and ``replay(collective)``, which replays the fabric's own schedule
+  through the torch cycle engine.
+
+The reference's mesh-aware collectives (``LacinCollectives``,
+``all_to_all_grid``, ``all_reduce_two_level``) are not ported yet, and
+``Fabric.collectives`` raises (ROADMAP queue A, item 9).
 """
+from repro_torch._compat import LacinDeprecationWarning
+
 from .registry import (InstanceSpec, get_instance, instance_names,
                        register_instance, registered_instances,
                        unregister_instance)
 from . import mirror as _mirror  # registers the 'mirror' instance (public API)
+from .fabric import (CINFabric, DragonflyFabric, Fabric, HyperXFabric,
+                     make_fabric)
 
 __all__ = [
+    "LacinDeprecationWarning",
     "InstanceSpec", "register_instance", "unregister_instance",
     "get_instance", "instance_names", "registered_instances",
+    "Fabric", "CINFabric", "HyperXFabric", "DragonflyFabric", "make_fabric",
 ]

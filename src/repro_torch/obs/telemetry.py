@@ -6,11 +6,17 @@ across processes, and the port keeps none within one either, so every
 run captures its graph anew: ``compile_cached`` is always ``False`` here.
 ``compile_s`` is the graph's warm-up and capture; ``execute_s`` is its
 replay, timed to completion on the device (:func:`device_clock`).
+:func:`provenance` is the environment block stored with every study
+result, with torch's and CUDA's versions and the card's name where the
+reference records JAX's version.
 """
 from __future__ import annotations
 
+import os
+import platform
 import time
 
+import numpy as np
 import torch
 
 
@@ -39,3 +45,29 @@ def device_clock(device: torch.device) -> float:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter()
+
+
+def provenance(timing: dict | None = None, *, backend: str | None = None,
+               spec_digest: str | None = None) -> dict:
+    """The environment/provenance block persisted with results: where and
+    with what a number was produced (reference ``obs/telemetry.py:371``:
+    the same keys, with ``torch``, ``cuda`` and ``device`` in place of
+    ``jax``; ``device`` is ``None`` where CUDA is not visible)."""
+    out = {
+        "host": platform.node(),
+        "platform": platform.platform(),
+        "python": platform.python_version(),
+        "numpy": np.__version__,
+        "cpu_count": os.cpu_count(),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "device": (torch.cuda.get_device_name(0)
+                   if torch.cuda.is_available() else None),
+    }
+    if backend is not None:
+        out["backend"] = backend
+    if spec_digest:
+        out["spec_digest"] = spec_digest
+    if timing is not None:
+        out["timings"] = dict(timing)
+    return out

@@ -17,8 +17,11 @@ engine.  Quickstart::
                      warmup=400)            # device="cuda" by default
     print(grid[0][0].accepted, grid[0][0].timing)
 
-Not ported yet: ``report``, ``workloads`` (collective replays) and the
-engine options listed in :mod:`.xengine` (ROADMAP queue A, items 2-3).
+Collective replays (:mod:`.workloads`) replay a fabric's own 1-factor
+schedules through either engine (``sim.replay``, on the card by
+default), and :mod:`.report` keeps the reference's deprecated sweep
+shims over :mod:`repro_torch.studies`.  Not ported yet: the engine
+options listed in :mod:`.xengine` (ROADMAP queue A, item 3).
 """
 from .topology import (SimTopology, cin_topology, dragonfly_topology,
                        hyperx_topology, routed_link_loads)
@@ -31,5 +34,8 @@ from .traffic import (Traffic, adversarial_same_group, hotspot,
                       uniform)
 from .engine import Engine, simulate
 from .metrics import RunStats, latency_summary
+from .report import (compare_policies, format_table, saturation_point,
+                     saturation_sweep, save_json, to_record)
+from .workloads import Phase, Workload, collective_workload, replay
 from . import xengine
 from .xengine import simulate_torch, sweep

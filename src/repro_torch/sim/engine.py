@@ -396,23 +396,26 @@ def simulate(topo: SimTopology, policy: RoutingPolicy, traffic: Traffic, *,
              cycles: int | None = None,
              warmup: int = 0, drain: bool | None = None,
              max_cycles: int | None = None, seed: int = 0,
-             backend: str = "numpy", trace=None, failures=None,
+             backend: str = "torch", trace=None, failures=None,
              bucket: bool | None = None, devices=None,
              device="cuda") -> RunStats:
-    """Run one simulation; ``backend`` picks the engine.
+    """Run one simulation; ``backend`` picks the engine.  The default is
+    the torch cycle engine on the card, which raises where CUDA is absent:
+    the oracle runs only when asked for.
 
     ``terminals`` defaults to what the traffic object was generated with
     (:func:`repro_torch.sim.traffic.resolve_terminals`); passing a
     disagreeing explicit value raises.
 
-    * ``"numpy"`` — the interpreted oracle :class:`Engine` (one Python
-      iteration per cycle; reference semantics).
-    * ``"torch"`` — the cycle engine (:mod:`repro_torch.sim.xengine`): the
-      same pipeline as one fixed-shape step replayed as a CUDA graph on
-      ``device`` (default ``"cuda"``; ``"cpu"`` runs the step eagerly).
+    * ``"torch"`` (default) — the cycle engine
+      (:mod:`repro_torch.sim.xengine`): the same pipeline as one
+      fixed-shape step replayed as a CUDA graph on ``device`` (default
+      ``"cuda"``; ``"cpu"`` runs the step eagerly).
       Bit-identical to the reference's compiled ``"jax"`` engine, which
       draws the same threefry stream.  Prefer
       :func:`repro_torch.sim.xengine.sweep` for many (load, seed) points.
+    * ``"numpy"`` — the interpreted oracle :class:`Engine` (one Python
+      iteration per cycle; reference semantics).
 
     ``trace`` turns on time-series recording on the numpy engine (the
     torch engine's trace buffers are not ported yet and raise).  The

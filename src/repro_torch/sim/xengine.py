@@ -36,9 +36,12 @@ The host side stays numpy, as in the reference: the dense next-hop table
 (:func:`_build_tables`), traffic packing and the reconstruction of
 per-packet delivery cycles from the ejection log.
 
+Collective replays (traffic carrying a :class:`~.workloads.Workload`) run
+the step's phase barrier: a phase's closing cycle is recorded by the step
+in the cycle it happens, and a gated-off cycle writes none.
+
 Not ported yet, and raising ``NotImplementedError`` from :func:`sweep`:
-collective replays (ROADMAP A3d; the phase-barrier branch of the step is
-carried), serving requests (A3e), degraded fabrics (A3f/A5), traces (A3g),
+serving requests (ROADMAP A3e), degraded fabrics (A3f/A5), traces (A3g),
 shape bucketing (A3h) and sharding the copies over several devices.
 The port runs exact shapes, which is the reference's ``bucket=False``
 (pinned bit-identical to its bucketed program by the reference's own
@@ -57,7 +60,7 @@ from ..obs.telemetry import device_clock, timing_dict
 from ..obs.trace import TraceConfig
 from .engine import _DRAIN_SLACK
 from .link import LinkLoadCounter, LinkTable
-from .metrics import RunStats, build_stats
+from .metrics import RunStats, attach_replay, build_stats, replay_timeline
 from .policies import RoutingPolicy, make_policy
 from .threefry import fold_in, prng_key, random_bits
 from .topology import SimTopology
@@ -80,8 +83,6 @@ _BLOCK = 16
 
 #: What each unported option needs, by ROADMAP item.
 _NOT_PORTED = {
-    "replay": "collective replays (num_phases) are not ported yet "
-              "(ROADMAP queue A, item 3d: needs repro_torch.sim.workloads)",
     "serving": "serving request metrics are not ported yet "
                "(ROADMAP queue A, item 3e)",
     "degraded": "degraded topologies are not ported yet "
@@ -698,6 +699,7 @@ class _Prepared(NamedTuple):
     policy: RoutingPolicy
     grid: list
     packed: list
+    workloads: list
     bases: np.ndarray
     links: LinkTable
     horizon: int
@@ -738,8 +740,6 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
             grid.append((load, seed, tr))
     if not grid:
         return None
-    if any(tr.workload is not None for _, _, tr in grid):
-        raise NotImplementedError(_NOT_PORTED["replay"])
     if any(tr.request is not None for _, _, tr in grid):
         raise NotImplementedError(_NOT_PORTED["serving"])
 
@@ -750,6 +750,17 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
             f"but the traffic objects record terminals="
             f"{sorted(resolved_t)}; use one terminals value per sweep")
     terminals = resolved_t.pop()
+
+    # Collective replays (traffic.workload set) run the phase barrier:
+    # all-or-none across the grid (the barrier changes the injection
+    # gate's meaning), one static phase-window count.
+    wls = [tr.workload for _, _, tr in grid]
+    replaying = any(w is not None for w in wls)
+    if replaying and not all(w is not None for w in wls):
+        raise ValueError("a batched sweep cannot mix collective-replay "
+                         "workloads with open-loop traffic")
+    num_phases = (max(w.num_phases for w in wls) if replaying else 0)
+    replaying = num_phases > 0
 
     if drain is None:
         drain = all(tr.offered == 0 for _, _, tr in grid)
@@ -777,7 +788,8 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
                 f"the shared horizon, which dilutes their accepted "
                 f"throughput — pass cycles= to pin one window",
                 stacklevel=2)
-    warmups = [horizon // 4 if warmup is None else warmup] * len(grid)
+    default_warmup = 0 if replaying else horizon // 4
+    warmups = [default_warmup if warmup is None else warmup] * len(grid)
     cutoff = int(max_cycles if max_cycles is not None
                  else horizon + _DRAIN_SLACK)
     b = len(grid)
@@ -792,7 +804,7 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
         threshold=float(getattr(policy, "threshold", 0.0)),
         weight=float(getattr(policy, "weight", 0.0)),
         alpha=0.05, drain=bool(drain), horizon=horizon,
-        log_deliveries=log_deliveries)
+        log_deliveries=log_deliveries, num_phases=num_phases)
 
     links = LinkTable.for_topology(topo, num_vcs)
     tables = _build_tables(topo, links, b, terminals, num_vcs)
@@ -821,11 +833,18 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
         "lim": as_dev([horizon, cutoff]),
         "total_m": as_dev(int(flat_np["m_real"].sum())),
     }
+    if replaying:
+        # Per-copy cumulative phase sizes, padded to the shared static
+        # phase count (padding phases are empty and complete at once).
+        pkt["phase_cum"] = as_dev(
+            np.stack([w.phase_cum(num_phases) for w in wls]))
     seed_key = hash(tuple(s for _, s, _ in grid)) & 0x7FFFFFFF
     tb = _device_tables(spec, tables, seed_key, device)
     host_s = time.perf_counter() - t_host
     return _Prepared(spec=spec, tb=tb, pkt=pkt, topo=topo, policy=policy,
-                     grid=grid, packed=packed, bases=bases, links=links,
+                     grid=grid, packed=packed,
+                     workloads=wls if replaying else [None] * len(grid),
+                     bases=bases, links=links,
                      horizon=horizon, warmups=warmups, terminals=terminals,
                      n_seeds=len(seeds), host_s=host_s)
 
@@ -867,13 +886,24 @@ def _collect(run: _Prepared, out: dict, timing: dict
         counter.window = out["load_window"][
             i * n_links:(i + 1) * n_links].astype(np.int64)
         deliver = deliver_all[int(bases[i]):int(bases[i]) + m]
+        gen_arg = packed[i]["gen"][:m].astype(np.int64)
+        cycles_arg = max(horizon, 1)
+        wl = run.workloads[i]
+        if wl is not None:
+            # Measure over the replay's own timeline (see
+            # metrics.replay_timeline): horizon = completion cycle,
+            # generation = the cycle each packet's phase released.
+            phase_done = out["phase_done"][i, :wl.num_phases]
+            cycles_arg, gen_arg = replay_timeline(phase_done, gen_arg)
         stats = build_stats(
             topology=topo, policy=policy, traffic=tr,
-            cycles=max(horizon, 1), warmup=int(run.warmups[i]),
-            terminals=terminals, gen=packed[i]["gen"][:m].astype(np.int64),
+            cycles=cycles_arg, warmup=int(run.warmups[i]),
+            terminals=terminals, gen=gen_arg,
             deliver=deliver, link_counter=counter,
             delivered_in_window=int(out["delivered_in_window"][i]),
             in_flight=int(out["in_flight"][i]))
+        if wl is not None:
+            attach_replay(stats, wl, phase_done)
         stats.timing = timing
         results.append(stats)
     k = run.n_seeds
@@ -905,9 +935,14 @@ def sweep(topo: SimTopology, policy, traffic_factory: Callable,
     its replay to completion, ``compile_cached`` always ``False``, and
     ``host_s`` the host-side tables and traffic packing before the run.
 
-    ``trace``, ``bucket=True``, ``devices`` other than one, collective
-    replays, serving traffic and degraded topologies raise
-    ``NotImplementedError`` (see the module docstring).
+    Traffic that carries a collective-replay workload runs the phase
+    barrier (all points of a grid replay, or none: a mixed grid raises
+    ``ValueError``); its warm-up defaults to 0, and each point's stats
+    carry ``phase_cycles`` / ``completion_cycles`` / ``ideal_cycles``.
+
+    ``trace``, ``bucket=True``, ``devices`` other than one, serving
+    traffic and degraded topologies raise ``NotImplementedError`` (see
+    the module docstring).
     """
     run = _prepare(topo, policy, traffic_factory, loads, seeds=seeds,
                    terminals=terminals, eject_bw=eject_bw, num_vcs=num_vcs,

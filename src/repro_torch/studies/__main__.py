@@ -1,0 +1,287 @@
+"""Command-line entry point: ``python -m repro_torch.studies <command>``.
+
+Commands:
+
+* ``run SPEC``   — execute a study spec (a path, or a bundled spec name)
+  and stream results to a JSONL store (default: ``<spec>.results.jsonl``
+  in the current directory).  Re-running resumes: grid points whose keys
+  are already in the store are skipped.  The torch cycle engine runs on
+  ``--device`` (default ``cuda``, which fails where CUDA is absent);
+  ``--backend numpy`` runs the oracle.
+* ``show SPEC``  — print the experiments, grid sizes, and store keys a
+  spec expands to, without running anything.  ``--results`` additionally
+  prints each stored record's fidelity tier, latency percentiles, and
+  serving SLO fields (including fields written by a newer version —
+  nothing is silently dropped).  ``--trace`` additionally reads the
+  spec's result store and prints each record's provenance (host,
+  backend, torch/CUDA versions and card, capture-vs-replay timings) plus
+  the per-experiment totals.
+* ``specs``      — list the bundled spec files.
+* ``trace export SPEC`` and ``cache`` — the reference's trace export and
+  compile-cache commands; not ported yet, they fail naming their ROADMAP
+  items (queue A, items 3g and 7).
+
+Examples::
+
+    python -m repro_torch.studies specs
+    python -m repro_torch.studies run studies_smoke --backend numpy --table
+    python -m repro_torch.studies run collective_replay --store a2a.jsonl
+    python -m repro_torch.studies run cin16_saturation --device cpu
+    python -m repro_torch.studies show collective_replay --trace --store a2a.jsonl
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+from . import (BACKENDS, JsonlStore, Study, bundled_specs, load_specs,
+               resolve_spec_source)
+
+
+def _resolve_spec_arg(spec: str) -> str:
+    try:
+        return resolve_spec_source(spec)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def _default_store(spec_path: str) -> str:
+    stem = os.path.splitext(os.path.basename(spec_path))[0]
+    return f"{stem}.results.jsonl"
+
+
+def cmd_run(args) -> int:
+    spec_path = _resolve_spec_arg(args.spec)
+    store = args.store if args.store is not None else _default_store(spec_path)
+    study = Study(spec_path, store=JsonlStore(store),
+                  backend=args.backend, device=args.device)
+    print(f"study: {spec_path}")
+    print(f"store: {store}")
+    for exp in study.experiments:
+        print(f"  - {exp.describe()}")
+    t0 = time.time()
+    out = study.run(resume=not args.no_resume)
+    dt = time.time() - t0
+    print(f"ran {out.executed} grid points "
+          f"({out.restored} restored from the store) "
+          f"on backend={out.backend} in {dt:.1f}s")
+    if args.table:
+        print()
+        print(out.table())
+    replays = out.replay_points()
+    if replays:
+        print("collective replay (measured vs contention-free bound):")
+        for name, rp in replays.items():
+            print(f"  {name}: measured={rp['measured']} "
+                  f"ideal={rp['ideal']} ratio={rp['ratio']}")
+    serving = out.serving_points()
+    if serving:
+        print("serving SLO (worst grid point):")
+        for name, sp in serving.items():
+            att = (f"{sp['attainment']:.4f}"
+                   if sp['attainment'] is not None else "n/a")
+            print(f"  {name}: requests={sp['requests']} p50={sp['p50']} "
+                  f"p95={sp['p95']} p99={sp['p99']} "
+                  f"slo={sp['slo']} attainment={att}")
+    if len(replays) + len(serving) < len(out.experiments):
+        print("saturation points:")
+        try:
+            knees = [("", out.saturation_points())]
+        except ValueError:
+            # A resumed store mixing fidelity tiers: one knee per tier.
+            knees = [(f" [{tier}]", out.saturation_points(fidelity=tier))
+                     for tier in ("cycle", "flow")]
+        for suffix, tier_knees in knees:
+            for name, knee in tier_knees.items():
+                if name in replays or name in serving:
+                    continue
+                print(f"  {name}{suffix}: "
+                      f"{knee if knee is not None else '> max load'}")
+    return 0
+
+
+def cmd_show(args) -> int:
+    spec_path = _resolve_spec_arg(args.spec)
+    specs = load_specs(spec_path)
+    total = 0
+    for exp in specs:
+        pts = exp.points()
+        total += len(pts)
+        print(exp.describe())
+        print(f"    loads={list(exp.sweep.loads)} seeds={list(exp.sweep.seeds)}"
+              f" warmup={exp.sweep.warmup}")
+        print(f"    first key: {exp.key(*pts[0])}")
+    print(f"{len(specs)} experiments, {total} grid points")
+    if getattr(args, "results", False):
+        _show_results(spec_path, args.store)
+    if getattr(args, "trace", False):
+        _show_trace(spec_path, specs, args.store)
+    return 0
+
+
+def _show_results(spec_path: str, store_arg: str | None) -> None:
+    """The ``show --results`` tail: one line per stored record, with the
+    fidelity tier, serving latency percentiles, and any fields written
+    by a newer Result version (``extra``) — nothing silently dropped."""
+    store_path = store_arg if store_arg is not None \
+        else _default_store(spec_path)
+    store = JsonlStore(store_path)
+    if not store.exists():
+        print(f"no result store at {store_path} — run the study first "
+              f"(or pass --store)")
+        return
+    records = store.load()
+    print(f"\nstore: {store_path} ({len(records)} records)")
+    for key in sorted(records):
+        r = records[key]
+        line = (f"  {key}: fidelity={r.fidelity} "
+                f"accepted={r.accepted} lat_p99={r.latency_p99}")
+        if r.completion_cycles is not None:
+            line += (f" completion={r.completion_cycles}"
+                     f" ideal={r.ideal_cycles}")
+        if r.request_count is not None:
+            line += (f" requests={r.request_count}"
+                     f" req_p50={r.request_latency_p50}"
+                     f" req_p95={r.request_latency_p95}"
+                     f" req_p99={r.request_latency_p99}")
+            if r.slo_target is not None:
+                line += (f" slo={r.slo_target}"
+                         f" attainment={r.slo_attainment}")
+        if r.extra:
+            line += " " + " ".join(f"{k}={v}" for k, v in
+                                   sorted(r.extra.items()))
+        print(line)
+
+
+def _show_trace(spec_path: str, specs, store_arg: str | None) -> None:
+    """The ``show --trace`` tail: stored provenance + capture-vs-replay
+    totals (``compile_s`` is the CUDA graph's capture on the torch
+    engine, the compile on the reference's)."""
+    store_path = store_arg if store_arg is not None \
+        else _default_store(spec_path)
+    store = JsonlStore(store_path)
+    if not store.exists():
+        print(f"no result store at {store_path} — run the study first "
+              f"(or pass --store)")
+        return
+    records = store.load()
+    print(f"\nstore: {store_path} ({len(records)} records)")
+    timed = 0
+    for key in sorted(records):
+        prov = records[key].provenance or {}
+        timings = prov.get("timings")
+        if timings is None:
+            continue
+        timed += 1
+        amortized = (timings.get("total_s", 0.0)
+                     / max(timings.get("grid_points", 1), 1))
+        kind = timings.get("compile_cached")
+        cached = f" (cached: {kind})" if kind else ""
+        print(f"  {key}")
+        print(f"    backend={timings.get('backend')} host={prov.get('host')}"
+              f" torch={prov.get('torch')} cuda={prov.get('cuda')}"
+              f" device={prov.get('device')}")
+        print(f"    compile={timings.get('compile_s')}s{cached}"
+              f" execute={timings.get('execute_s')}s"
+              f" amortized={amortized:.6f}s/point")
+    if not timed:
+        print("  no records carry timings (store predates telemetry); "
+              "re-run with --no-resume to refresh")
+        return
+    # Per-experiment compile tax, each batched program counted once.
+    from .runner import StudyResult
+    by_name = {e.name: e for e in specs}
+    summary = StudyResult(
+        experiments=[by_name[r.experiment] for r in records.values()
+                     if r.experiment in by_name],
+        results=list(records.values()), executed=0, restored=len(records),
+        backend="").telemetry()
+    if summary:
+        print("compile tax per experiment (batched programs counted once):")
+        for name, t in summary.items():
+            print(f"  {name}: {t['programs']} program(s), {t['points']} "
+                  f"point(s), compile={t['compile_s']}s "
+                  f"execute={t['execute_s']}s")
+
+
+def cmd_trace(args) -> int:
+    raise NotImplementedError(
+        "trace export is not ported yet: it needs the torch engine's trace "
+        "ring buffers (ROADMAP queue A, item 3g) and the Perfetto export "
+        "of repro_torch.obs (item 7)")
+
+
+def cmd_cache(args) -> int:
+    raise NotImplementedError(
+        "the compile cache is not ported yet (ROADMAP queue A, item 7); the "
+        "torch engine keeps no graph across calls")
+
+
+def cmd_specs(_args) -> int:
+    for name, path in bundled_specs().items():
+        try:
+            n_exp = f"{len(load_specs(path)):>2} experiments"
+        except NotImplementedError as e:
+            n_exp = f"not runnable: {e}"
+        print(f"{name:<24} {n_exp}   {path}")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.studies",
+        description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    run = sub.add_parser("run", help="execute a study spec")
+    run.add_argument("spec", help="spec file path or bundled spec name")
+    run.add_argument("--store", default=None,
+                     help="JSONL result store (default: <spec>.results.jsonl"
+                          " in the current directory)")
+    run.add_argument("--backend", default="auto", choices=list(BACKENDS))
+    run.add_argument("--device", default="cuda",
+                     help="where the torch engine runs (default: cuda; "
+                          "'cpu' runs the same step eagerly)")
+    run.add_argument("--no-resume", action="store_true",
+                     help="re-run every grid point even if already stored")
+    run.add_argument("--table", action="store_true",
+                     help="print the full result table")
+    run.set_defaults(fn=cmd_run)
+
+    show = sub.add_parser("show", help="expand a spec without running")
+    show.add_argument("spec", help="spec file path or bundled spec name")
+    show.add_argument("--results", action="store_true",
+                      help="also print each stored record's fidelity, "
+                           "latency percentiles, and serving SLO fields")
+    show.add_argument("--trace", action="store_true",
+                      help="also print stored provenance/timing records "
+                           "and the per-experiment compile tax")
+    show.add_argument("--store", default=None,
+                      help="result store to read with --trace "
+                           "(default: <spec>.results.jsonl)")
+    show.set_defaults(fn=cmd_show)
+
+    trace = sub.add_parser(
+        "trace", help="export a traced run (not ported yet)")
+    trace.add_argument("action", choices=["export"])
+    trace.add_argument("spec", help="spec file path or bundled spec name")
+    trace.add_argument("rest", nargs=argparse.REMAINDER,
+                       help="the reference's trace export options")
+    trace.set_defaults(fn=cmd_trace)
+
+    cache = sub.add_parser(
+        "cache", help="inspect the compile cache (not ported yet)")
+    cache.add_argument("--clear", action="store_true")
+    cache.set_defaults(fn=cmd_cache)
+
+    specs = sub.add_parser("specs", help="list bundled spec files")
+    specs.set_defaults(fn=cmd_specs)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

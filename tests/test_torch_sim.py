@@ -9,6 +9,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro import sim as R
 from repro.core.dragonfly import DragonflyConfig as R_Dragonfly
@@ -123,13 +124,13 @@ def test_oracle_engine_runstats_equal(name, policy):
     a = R.simulate(rt, R.make_policy(policy), R.uniform(n, **kw), warmup=15,
                    seed=9)
     b = T.simulate(tt, T.make_policy(policy), T.uniform(n, **kw), warmup=15,
-                   seed=9)
+                   seed=9, backend="numpy")
     assert_same_stats(a, b)
     assert b.timing["backend"] == "numpy"
     a = R.simulate(rt, R.make_policy(policy), R.one_shot_all_to_all(n),
                    terminals=2, seed=1)
     b = T.simulate(tt, T.make_policy(policy), T.one_shot_all_to_all(n),
-                   terminals=2, seed=1)
+                   terminals=2, seed=1, backend="numpy")
     assert_same_stats(a, b)
 
 
@@ -140,7 +141,8 @@ def test_oracle_engine_trace_equal():
     a = R.simulate(R.cin_topology("xor", 8), R.MinimalPolicy(),
                    R.uniform(8, **kw), warmup=10, trace={"stride": 5})
     b = T.simulate(T.cin_topology("xor", 8), T.MinimalPolicy(),
-                   T.uniform(8, **kw), warmup=10, trace={"stride": 5})
+                   T.uniform(8, **kw), warmup=10, trace={"stride": 5},
+                   backend="numpy")
     assert_same_stats(a, b)
     for f in ("cycles", "link_load", "queue_occ", "injected", "delivered",
               "backlog"):
@@ -162,3 +164,16 @@ def test_unported_backends_and_options_raise():
         topo.degrade({"links": 0.1})
     with pytest.raises(ValueError, match="unknown simulator backend"):
         T.simulate(topo, T.MinimalPolicy(), tr, backend="jax")
+
+
+def test_simulate_defaults_to_the_torch_engine_on_the_card(monkeypatch):
+    """The port's ``simulate`` runs the cycle engine on ``cuda`` unless the
+    caller asks for the oracle: without CUDA the default raises and never
+    runs the numpy engine."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = T.cin_topology("xor", 8)
+    tr = T.uniform(8, offered=0.5, cycles=10, terminals=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.simulate(topo, T.MinimalPolicy(), tr)
+    assert T.simulate(topo, T.MinimalPolicy(), tr, backend="numpy"
+                      ).timing["backend"] == "numpy"

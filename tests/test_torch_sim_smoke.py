@@ -1,8 +1,9 @@
-"""``chip_smoke.py``'s ``sim`` phase on the CPU at a tiny size, so that
-the phase the GPU run ends with cannot rot between chip runs: it drives
-``sim_speed``, ``xl_scale`` and the exactness checks through the same
+"""``chip_smoke.py``'s ``sim`` and ``studies`` phases on the CPU at a tiny
+size, so that the phases the GPU run ends with cannot rot between chip
+runs: they drive ``sim_speed``, ``xl_scale``, the exactness checks and the
+studies path (the CLI as a subprocess, ``Study.run()``) through the same
 code, with the CPU standing in for the card (no CUDA graph there), and
-raises on any difference.  Imports neither jax nor repro.
+raise on any difference.  Imports neither jax nor repro.
 """
 import importlib.util
 import os
@@ -47,3 +48,28 @@ def test_sim_phase_sizes_are_the_reference_workloads(chip_smoke):
     assert full["xl_scale"]["dragonfly"] == (16, 8, 8, 65)
     assert (full["xl_scale"]["cycles"], full["xl_scale"]["warmup"],
             full["xl_scale"]["load"]) == (256, 64, 0.05)
+
+
+def test_studies_phase_runs_on_the_cpu_at_a_tiny_size(chip_smoke):
+    out = chip_smoke.phase_studies("cpu", chip_smoke.STUDIES_TINY)
+    replay = out["replay"]
+    assert replay["completion_vs_ideal"][
+        "cin-xor-8/replay-all_to_all/minimal"] == [14, 14]
+    assert replay["points"] == 2 and replay["lane_cycles_per_s_warm"] > 0
+    assert replay["cli_says"] and "backend=torch" in replay["cli_says"][0]
+    smoke = out["studies_smoke"]
+    assert smoke["knees"] == smoke["oracle_knees"]
+    assert smoke["cpu_check_points"] == 2
+    assert smoke["execute_s_sum"] > 0 and smoke["host_s_sum"] > 0
+
+
+def test_studies_phase_runs_the_bundled_specs(chip_smoke):
+    """The full sizes are the bundled specs' own, and the expected replay
+    completions are BENCH collective_replay's minimal rows."""
+    full = chip_smoke.STUDIES_FULL
+    assert full["replay"] == "collective_replay"
+    assert set(full["saturation"]) == {"cin16_saturation",
+                                       "hyperx256_uniform",
+                                       "dragonfly72_uniform"}
+    assert sorted(full["replay_expect"].values()) == [(30, 30), (60, 60),
+                                                      (142, 32)]

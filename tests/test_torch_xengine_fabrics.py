@@ -164,10 +164,6 @@ def test_unported_options_raise_naming_their_roadmap_item():
         T.simulate_torch(topo, "minimal", tr, devices=2, **run)
     with pytest.raises(NotImplementedError, match="sharding"):
         T.simulate_torch(topo, "minimal", tr, devices="auto", **run)
-    replay = T.one_shot_all_to_all(8)
-    replay.workload = object()
-    with pytest.raises(NotImplementedError, match="item 3d"):
-        T.simulate_torch(topo, "minimal", replay, **run)
     serving = T.uniform(8, offered=0.5, cycles=10, terminals=2)
     serving.request = np.arange(serving.num_packets)
     with pytest.raises(NotImplementedError, match="item 3e"):
