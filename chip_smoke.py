@@ -45,7 +45,23 @@ Phases, one JSON line each:
    experiment record for record against the CPU), ``hyperx256_uniform``
    and ``dragonfly72_uniform`` through ``Study.run()``; one line per spec
    with its points, cold and warm wall seconds, lane-cycles/s, summed
-   capture, replay and host seconds, and completions or knees.
+   capture, replay and host seconds, and completions or knees;
+9. faults  -- ``failure_sweep`` (degraded CIN-16, HyperX-256 and
+   Dragonfly-72 at 0, 5 and 10% link failure) through ``Study.run()``:
+   the f0 experiments against the pristine grids, the CIN-16 experiments
+   against the CPU record for record, the degraded CIN-16 knees against
+   the numpy oracle's, knees non-increasing in the failure rate, and the
+   degraded tables' host time;
+10. flow   -- ``python -m repro_torch.studies run flow_scale_smoke`` (a
+   4096-switch HyperX, which "auto" takes to the flow tier) as a
+   subprocess on the card and on the CPU, records equal and within rtol
+   1e-12 of the numpy solver; where a flow grid point's time goes (routes,
+   upload, solver iterations and ms, RunStats); ``cin16_saturation``'s
+   flow knees against its cycle knees;
+11. trace  -- every ``collective_replay`` experiment as a traced sweep on
+   the card against the CPU (every trace array, every RunStats field, and
+   the untraced run's), kernels per cycle untraced and traced, and
+   ``trace export --backend both`` as a subprocess, its JSON validated.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -946,9 +962,8 @@ def step_profile(prep, device):
 
     def eager():
         XE._block(spec, tb, pkt, state, pred, k)
-    out = {"block_cycles": k}
-    rows, _, _ = device_ops(eager, device)
-    out["kernels_per_cycle"] = sum(c for _, _, c in rows) / k
+    out = {"block_cycles": k, "kernels_per_cycle": kernels_per_cycle(
+        prep, device)}
     out["eager_ms_per_cycle"] = wall_ms(eager, 2, device) / k
     if device != "cuda":
         out["graph_ms_per_cycle"] = None          # no CUDA graph on the CPU
@@ -1214,6 +1229,24 @@ def study_line(name, device, cold, cold_s, warm, warm_s):
            for k in ("compile_s", "execute_s", "host_s")}}
 
 
+def studies_cli(*argv):
+    """``python -m repro_torch.studies *argv`` as its own process, with this
+    checkout's ``src`` on its path: the finished process and its wall
+    seconds; raises when it exits non-zero."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.studies",
+                           *argv], env=env, capture_output=True, text=True,
+                          timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the studies CLI ({' '.join(argv[:2])}) exited "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc, seconds
+
+
 def run_replay_study(cfg, device, tmp):
     """``python -m repro_torch.studies run <replay spec>`` on ``device`` as
     its own process, the store read back: the minimal arms' completions
@@ -1224,17 +1257,8 @@ def run_replay_study(cfg, device, tmp):
         src = os.path.join(tmp, "replay_spec.json")
         ST.dump_specs(ST.load_specs(cfg["replay"]), src)
     store = os.path.join(tmp, "replay.results.jsonl")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.studies", "run", src,
-         "--backend", "torch", "--device", device, "--store", store],
-        env=env, capture_output=True, text=True, timeout=900)
-    cli_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"the studies CLI exited {proc.returncode}:\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    proc, cli_s = studies_cli("run", src, "--backend", "torch", "--device",
+                              device, "--store", store)
     path = ST.resolve_spec_source(src)
     specs = ST.load_specs(path)
     stored = ST.JsonlStore(store).load()
@@ -1319,6 +1343,437 @@ def phase_studies(device="cuda", sizes=STUDIES_FULL):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Degraded fabrics, the flow tier and cycle traces: repro_torch.faults,
+# repro_torch.flow and the trace ring buffers of repro_torch.sim.xengine,
+# through the studies path on the card.  No hand-written kernel runs here.
+# ---------------------------------------------------------------------------
+
+#: The faults phase: ``failure_sweep`` at its own size.  Its f0 experiments
+#: are held to the pristine grids of the ``pristine`` specs (same name but
+#: the ``/f0``; records where the grid is the same, knees everywhere), the
+#: experiments named ``cpu_check``* to the CPU record for record, and the
+#: degraded knees of those named ``oracle_knees``* to the numpy oracle's
+#: on the same degraded fabric.
+FAULTS_FULL = {
+    "spec": "failure_sweep",
+    "pristine": ("cin16_saturation", "hyperx256_uniform",
+                 "dragonfly72_uniform"),
+    "cpu_check": "cin-xor-16/",
+    "oracle_knees": "cin-xor-16/",
+}
+
+
+def _tiny_cin8(policy, name, failures=None):
+    exp = {"fabric": {"kind": "cin", "params": {"instance": "xor", "n": 8}},
+           "traffic": {"pattern": "uniform", "params": {"seed": 21}},
+           "routing": {"policy": policy},
+           "sweep": {"loads": [0.2, 0.5, 0.8], "seeds": [23], "cycles": 120,
+                     "warmup": 30},
+           "terminals": 4, "name": name}
+    if failures is not None:
+        exp["failures"] = failures
+    return exp
+
+
+#: The same phase at a size the CPU runs in seconds
+#: (tests/test_torch_sim_smoke.py): CIN-8 at 0 and 10% link failure.
+FAULTS_TINY = {
+    "spec": [_tiny_cin8(policy, f"cin-xor-8/uniform/{policy}/{tag}", f)
+             for policy in ("minimal", "valiant")
+             for tag, f in (("f0", None),
+                            ("f0.1", {"link_fraction": 0.1, "seed": 3}))],
+    "pristine": ([_tiny_cin8(policy, f"cin-xor-8/uniform/{policy}")
+                  for policy in ("minimal", "valiant")],),
+    "cpu_check": "cin-xor-8/",
+    "oracle_knees": "cin-xor-8/",
+}
+
+
+def load_spec_source(src):
+    """A bundled spec's name, or a list of experiment dicts."""
+    return ST.load_specs(ST.bundled_spec_path(src) if isinstance(src, str)
+                         else src)
+
+
+def point_fields(result):
+    """A stored record without what names its experiment (the name is
+    part of the key and of the spec digest) or the run."""
+    return {k: v for k, v in result.record().items()
+            if k not in ("key", "experiment", "spec_digest", "provenance")}
+
+
+def knee_order(value):
+    return math.inf if value is None else value
+
+
+def phase_faults(device="cuda", sizes=FAULTS_FULL):
+    """``failure_sweep`` through ``Study.run()`` on ``device``, cold and
+    warm: the f0 experiments against the pristine grids, the CIN-16
+    experiments against the CPU, the degraded CIN-16 knees against the
+    numpy oracle on the same degraded fabric, and every knee curve
+    non-increasing in the failure rate; the degraded tables' host time.
+    The port's kernels' launch counts are set to 0 before and read after:
+    this path runs none of them."""
+    t0 = time.perf_counter()
+    reset_launches()
+    specs = load_spec_source(sizes["spec"])
+    tables = {}
+    for exp in specs:
+        key = f"{exp.fabric.label}+{exp.failures.label}" if exp.failures \
+            else None
+        if key is None or key in tables:
+            continue
+        topo = exp.fabric.resolve_topology()
+        t1 = time.perf_counter()
+        topo.degrade(exp.failures)
+        tables[key] = time.perf_counter() - t1
+    cold, cold_s = timed_study(specs, device)
+    warm, warm_s = timed_study(specs, device)
+    name = sizes["spec"] if isinstance(sizes["spec"], str) else "faults"
+    out = study_line(name, device, cold, cold_s, warm, warm_s)
+    knees = warm.saturation_points()
+
+    # An f0 experiment that is its pristine grid but for the name must give
+    # its records; one whose spec fixes another traffic seed or fewer
+    # seeds (HyperX-256, Dragonfly-72 in failure_sweep) its knee.
+    by_name = {e.name: e for src in sizes["pristine"]
+               for e in load_spec_source(src)}
+    f0 = {e.name: by_name[e.name.rsplit("/", 1)[0]]
+          for e in specs if e.failures is None}
+    pristine, pristine_s = timed_study(list(f0.values()), device)
+    same_grid = [e for e in specs if e.name in f0 and dataclasses.replace(
+        f0[e.name], name=e.name) == e]
+    got = [r for e in same_grid for r in warm.results
+           if r.experiment == e.name]
+    want = [r for e in same_grid for r in pristine.results
+            if r.experiment == f0[e.name].name]
+    if not got or [point_fields(r) for r in got] != \
+            [point_fields(r) for r in want]:
+        raise AssertionError("faults: f0 records differ from the pristine "
+                             "grids'")
+    pristine_knees = pristine.saturation_points()
+    f0_knees = {name: (knees[name], pristine_knees[p.name])
+                for name, p in f0.items()}
+    if any(a != b for a, b in f0_knees.values()):
+        raise AssertionError(f"faults: f0 knees differ from the pristine "
+                             f"grids' (f0, pristine): {f0_knees}")
+
+    cpu_exps = [e for e in specs if e.name.startswith(sizes["cpu_check"])]
+    cpu, cpu_s = timed_study(cpu_exps, "cpu")
+    n_cpu = check_same_records(
+        "faults: against the CPU",
+        [r for r in warm.results if r.experiment.startswith(
+            sizes["cpu_check"])], cpu.results)
+
+    degraded = [e for e in specs if e.failures is not None
+                and e.name.startswith(sizes["oracle_knees"])]
+    oracle, oracle_s = timed_study(degraded, None, backend="numpy")
+    oracle_knees = oracle.saturation_points()
+    if {e.name: knees[e.name] for e in degraded} != oracle_knees:
+        raise AssertionError(f"faults: degraded knees "
+                             f"{ {e.name: knees[e.name] for e in degraded} } "
+                             f"differ from the numpy oracle's "
+                             f"{oracle_knees}")
+
+    curves = {}
+    for exp in specs:
+        rate = exp.failures.link_fraction if exp.failures else 0.0
+        curves.setdefault(exp.name.rsplit("/", 1)[0], []).append(
+            (rate, knees[exp.name]))
+    for family, curve in curves.items():
+        curve.sort()
+        ks = [knee_order(k) for _, k in curve]
+        if any(b > a for a, b in zip(ks, ks[1:])):
+            raise AssertionError(f"faults: {family} knees rise with the "
+                                 f"failure rate: {curve}")
+    launched = kernel_launches()
+    if any(launched.values()):
+        raise AssertionError(f"the fault studies launched a model kernel: "
+                             f"{launched}")
+    out.update(knees=knees, knee_curves=curves, oracle_knees=oracle_knees,
+               oracle_wall_s=oracle_s, f0_points=len(got),
+               f0_knees=f0_knees, pristine_wall_s=pristine_s, cpu_check_points=n_cpu,
+               cpu_check_wall_s=cpu_s, degrade_host_s=tables,
+               degrade_host_s_sum=sum(tables.values()),
+               seconds=time.perf_counter() - t0, launches=launched)
+    emit("faults", **out)
+    return out
+
+
+#: The flow phase: ``spec`` through the CLI with ``backend`` (``auto``
+#: escalates ``flow_scale_smoke``'s 4096 switches to the flow tier), held
+#: to the CLI on the CPU and to the numpy solver; then ``cycle_check``'s
+#: flow knees against its cycle knees on the card
+#: (tests/test_flow.py:379's cross-fidelity check).
+FLOW_FULL = {"spec": "flow_scale_smoke", "backend": "auto",
+             "cycle_check": "cin16_saturation"}
+#: The same phase at a size the CPU runs in seconds: a CIN-16 grid on the
+#: flow backend, the smoke spec's knees.
+FLOW_TINY = {
+    "spec": [{"fabric": {"kind": "cin", "params": {"instance": "xor",
+                                                   "n": 16}},
+              "traffic": {"pattern": "uniform"},
+              "routing": {"policy": policy},
+              "sweep": {"loads": [0.3, 0.9], "seeds": [0], "cycles": 200,
+                        "warmup": 50},
+              "terminals": 12} for policy in ("minimal", "valiant")],
+    "backend": "flow", "cycle_check": "studies_smoke"}
+
+
+def close_records(what, got, want, rtol):
+    """Two records, numbers within ``rtol`` (exact elsewhere)."""
+    for k, b in want.items():
+        a = got.get(k)
+        if isinstance(b, float) or isinstance(a, float):
+            if not math.isclose(a, b, rel_tol=rtol, abs_tol=0.0):
+                raise AssertionError(f"{what}: {k} {a} against {b}")
+        elif isinstance(b, list) and b and isinstance(b[0], float):
+            if not np.allclose(a, b, rtol=rtol, atol=0.0):
+                raise AssertionError(f"{what}: {k} differs")
+        elif a != b:
+            raise AssertionError(f"{what}: {k} {a} against {b}")
+
+
+def flow_breakdown(exp, topo, load, device):
+    """One flow grid point step by step, on the host clock: the demand
+    matrix, the route tracing and problem assembly, capacities, the upload
+    of the CSR incidence, the solver (its iterations, CUDA-event ms and the
+    profiler's device busy time) and the RunStats.  The topology is built
+    before (``topology_s`` of the phase)."""
+    from repro_torch.flow import adapters as FA
+    from repro_torch.flow import model as FM
+    from repro_torch.flow import solver as FS
+    params = FM.FlowParams(detour_weight=float(
+        (exp.routing.params or {}).get("weight", 2.0)))
+    terminals = exp.terminals if exp.terminals is not None else 1
+    routing = exp.routing.label
+    clock = []
+
+    def tick():
+        if device == "cuda":
+            torch.cuda.synchronize()
+        clock.append(time.perf_counter())
+    tick()
+    src, dst, rate = FA.pattern_demands(topo, exp.traffic.pattern, load,
+                                        terminals, params,
+                                        dict(exp.traffic.params))
+    tick()
+    problem = {"minimal": lambda: FA._minimal_problem(topo, src, dst, rate),
+               "valiant": lambda: FA._valiant_problem(topo, src, dst, rate,
+                                                      params),
+               "adaptive": lambda: FA._adaptive_problem(topo, src, dst, rate,
+                                                        params)}[routing]()
+    tick()
+    capacity = FM.link_capacities(topo, problem, params)
+    tick()
+    args = FS.upload_problem(problem.demand, problem.link_ids,
+                             problem.flow_ptr, capacity, device)
+    tick()
+    rates, iters = FS._torch_core(*args, params.max_iters)
+    tick()
+    sol = FA.FlowSolution(topo=topo, routing=routing, problem=problem,
+                          capacity=capacity, rates=rates.cpu().numpy(),
+                          params=params)
+    cycles = exp.sweep.cycles or 1
+    FA._stats_from_solution(sol, policy=routing, traffic=exp.traffic.label,
+                            offered=load, cycles=cycles,
+                            warmup=exp.sweep.warmup or 0,
+                            terminals=terminals)
+    tick()
+    solver_ms = wall_ms(lambda: FS._torch_core(*args, params.max_iters), 3,
+                        device)
+    rows, busy_us, wall_us = device_ops(
+        lambda: FS._torch_core(*args, params.max_iters), device)
+    steps = np.diff(clock)
+    return {"load": load, "flows": int(problem.num_flows),
+            "nnz": int(problem.link_ids.size), "links": int(capacity.size),
+            "iterations": iters, "demands_s": steps[0], "routes_s": steps[1],
+            "capacities_s": steps[2], "upload_s": steps[3],
+            "solve_s_first": steps[4], "runstats_s": steps[5],
+            "solver_ms": solver_ms, "solver_device_busy_ms": busy_us / 1e3,
+            "solver_device_busy_share": busy_us / wall_us if wall_us
+            else None, "solver_ops": sum(c for _, _, c in rows)}
+
+
+def phase_flow(device="cuda", sizes=FLOW_FULL):
+    """The flow tier on ``device``: ``python -m repro_torch.studies run
+    <spec>`` as a subprocess (``auto`` escalating to the flow model),
+    its store equal to the same command's with ``--device cpu`` and within
+    rtol 1e-12 of the numpy solver; where a grid point's time goes; and
+    ``cycle_check``'s flow knees equal to its cycle knees on the card."""
+    from repro_torch.flow import FlowParams, study_point_stats
+    t0 = time.perf_counter()
+    reset_launches()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = sizes["spec"]
+        if not isinstance(src, str):
+            src = os.path.join(tmp, "flow_spec.json")
+            ST.dump_specs(ST.load_specs(sizes["spec"]), src)
+        stores = {}
+        for run, dev in (("device", device), ("cpu", "cpu")):
+            stores[run] = os.path.join(tmp, f"flow.{run}.jsonl")
+            proc, secs = studies_cli("run", src, "--backend",
+                                     sizes["backend"], "--device", dev,
+                                     "--store", stores[run])
+            out[f"cli_wall_s_{run}"] = secs
+            out[f"cli_says_{run}"] = [ln for ln in proc.stdout.splitlines()
+                                      if ln.startswith("ran ")]
+        specs = ST.load_specs(ST.resolve_spec_source(src))
+        got, cpu = (ST.JsonlStore(stores[r]).load() for r in ("device", "cpu"))
+    keys = [e.key(*p) for e in specs for p in e.points()]
+    if sorted(got) != sorted(keys) or sorted(cpu) != sorted(keys):
+        raise AssertionError(f"flow: the CLI stored {sorted(got)}, not "
+                             f"{keys}")
+    got = [got[k] for k in keys]
+    check_same_records("flow: the CLI on the device against the CPU", got,
+                       [cpu[k] for k in keys])
+    if {(r.backend, r.fidelity) for r in got} != {("flow", "flow")} or not \
+            any("backend=flow" in ln for ln in out["cli_says_device"]):
+        raise AssertionError("flow: the CLI's records did not come from the "
+                             "flow tier")
+    study = ST.Study(specs, device=device)
+    breakdown, topology_s = [], {}
+    for exp in specs:
+        t1 = time.perf_counter()
+        topo, tf = study._resolve(exp)
+        topology_s[exp.name] = time.perf_counter() - t1
+        w = float((exp.routing.params or {}).get("weight", 2.0))
+        for load, seed in exp.points():
+            stats = study_point_stats(exp, topo, tf, load, seed,
+                                      params=FlowParams(detour_weight=w,
+                                                        solver="numpy"),
+                                      device=device)
+            want = ST.Result.from_stats(
+                stats, key=exp.key(load, seed), experiment=exp.name,
+                load=load, seed=seed, backend="flow",
+                spec_digest=exp.digest(), fidelity="flow")
+            rec = got[keys.index(exp.key(load, seed))]
+            close_records(f"flow: {rec.key} against the numpy solver",
+                          record_fields(rec), record_fields(want), 1e-12)
+        breakdown += [flow_breakdown(exp, topo, load, device)
+                      for load in exp.sweep.loads]
+    out.update(points=len(got), accepted={r.key: r.accepted for r in got},
+               topology_s=topology_s, breakdown=breakdown)
+
+    check = sizes["cycle_check"]
+    flow, flow_s = timed_study(ST.bundled_spec_path(check), device,
+                               backend="flow")
+    cycle, cycle_s = timed_study(ST.bundled_spec_path(check), device)
+    if flow.saturation_points(fidelity="flow") != \
+            cycle.saturation_points():
+        raise AssertionError(
+            f"flow: {check} flow knees "
+            f"{flow.saturation_points(fidelity='flow')} differ from the "
+            f"cycle knees {cycle.saturation_points()}")
+    launched = kernel_launches()
+    if any(launched.values()):
+        raise AssertionError(f"the flow tier launched a model kernel: "
+                             f"{launched}")
+    out.update(cycle_check=check,
+               flow_knees=flow.saturation_points(fidelity="flow"),
+               cycle_knees=cycle.saturation_points(), flow_wall_s=flow_s,
+               cycle_wall_s=cycle_s, seconds=time.perf_counter() - t0,
+               launches=launched)
+    emit("flow", device=device, **out)
+    return out
+
+
+#: The trace phase: every experiment of ``spec`` as a traced sweep on the
+#: card against the same sweep on the CPU, and ``export`` through ``trace
+#: export`` (both engines).
+TRACE_FULL = {"spec": "collective_replay",
+              "export": "cin-xor-16/replay-all_to_all/minimal"}
+TRACE_TINY = {"spec": STUDIES_TINY["replay"],
+              "export": "cin-xor-8/replay-all_to_all/minimal"}
+
+
+def kernels_per_cycle(prep, device):
+    """Kernels (CPU: operators) of one eager block of a prepared sweep,
+    per cycle: what its CUDA graph replays."""
+    state = XE._init_state(prep.spec, prep.tb, prep.pkt)
+    pred = torch.ones((), dtype=torch.bool, device=device)
+    rows, _, _ = device_ops(lambda: XE._block(prep.spec, prep.tb, prep.pkt,
+                                              state, pred, XE._BLOCK),
+                            device)
+    return sum(c for _, _, c in rows) / XE._BLOCK
+
+
+def phase_trace(device="cuda", sizes=TRACE_FULL):
+    """Traced sweeps of the replay spec on ``device``: every trace array
+    and RunStats field equal to the CPU's, the RunStats equal to the
+    untraced run's; kernels per cycle untraced and traced; then ``python
+    -m repro_torch.studies trace export --backend both`` on ``device`` and
+    its JSON validated."""
+    from repro_torch.obs import validate_trace_events
+    t0 = time.perf_counter()
+    reset_launches()
+    specs = load_spec_source(sizes["spec"])
+    study = ST.Study(specs, device=device)
+    runs = []
+    for exp in specs:
+        topo, tf = study._resolve(exp)
+        kw = dict(seeds=exp.sweep.seeds, terminals=exp.terminals,
+                  cycles=exp.sweep.cycles, warmup=exp.sweep.warmup,
+                  **dict(exp.engine))
+
+        def sweep(dev, trace):
+            t1 = time.perf_counter()
+            grid = S.sweep(topo, exp.routing.make(), tf, exp.sweep.loads,
+                           trace=trace, device=dev, **kw)
+            return grid, time.perf_counter() - t1
+        traced, traced_s = sweep(device, True)
+        plain, plain_s = sweep(device, None)
+        cpu, _ = sweep("cpu", True)
+        check_same_grid(f"trace: {exp.name} traced against untraced",
+                        traced, plain)
+        check_same_grid(f"trace: {exp.name} against the CPU", traced, cpu)
+        for a, b in zip(traced[0], cpu[0]):
+            if not a.trace.equals(b.trace) or a.trace.meta != b.trace.meta:
+                raise AssertionError(f"trace: {exp.name}: "
+                                     f"{a.trace.diff_summary(b.trace)}")
+        line = {"experiment": exp.name,
+                "samples": int(traced[0][0].trace.num_samples),
+                "completion_cycles": traced[0][0].completion_cycles,
+                "wall_s_traced": traced_s, "wall_s_untraced": plain_s}
+        if exp.name == sizes["export"]:
+            line["kernels_per_cycle"] = {
+                "untraced": kernels_per_cycle(XE._prepare(
+                    topo, exp.routing.make(), tf, exp.sweep.loads,
+                    device=device, **kw), device),
+                "traced": kernels_per_cycle(XE._prepare(
+                    topo, exp.routing.make(), tf, exp.sweep.loads,
+                    trace=True, device=device, **kw), device)}
+        runs.append(line)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = sizes["spec"]
+        if not isinstance(src, str):
+            src = os.path.join(tmp, "trace_spec.json")
+            ST.dump_specs(specs, src)
+        path = os.path.join(tmp, "trace.json")
+        proc, cli_s = studies_cli("trace", "export", src, "--experiment",
+                                  sizes["export"], "--backend", "both",
+                                  "--device", device, "--packets", "4",
+                                  "--out", path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    validate_trace_events(events)
+    if "cross-engine traces agree exactly" not in proc.stdout:
+        raise AssertionError(f"trace export: {proc.stdout[-2000:]}")
+    launched = kernel_launches()
+    if any(launched.values()):
+        raise AssertionError(f"the traced sweeps launched a model kernel: "
+                             f"{launched}")
+    out = {"runs": runs, "export_events": len(events),
+           "export_cli_wall_s": cli_s,
+           "export_says": [ln for ln in proc.stdout.splitlines()
+                           if ln.startswith(("completion", "cross"))],
+           "seconds": time.perf_counter() - t0, "launches": launched}
+    emit("trace", device=device, **out)
+    return out
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1337,6 +1792,9 @@ def main():
     xlstm = phase_serve("xlstm-350m")
     phase_sim()
     phase_studies()
+    phase_faults()
+    phase_flow()
+    phase_trace()
 
     def entry(kernel, path, source, replaces, timing, runs, keys=()):
         """One kernel; ``runs`` are the launch counts of the runs that drive

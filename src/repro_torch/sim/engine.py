@@ -416,18 +416,33 @@ def simulate(topo: SimTopology, policy: RoutingPolicy, traffic: Traffic, *,
       :func:`repro_torch.sim.xengine.sweep` for many (load, seed) points.
     * ``"numpy"`` — the interpreted oracle :class:`Engine` (one Python
       iteration per cycle; reference semantics).
+    * ``"flow"``  — the analytical fair-share model
+      (:mod:`repro_torch.flow`): a different *fidelity tier*, not another
+      cycle engine.  Rates and replay completion are cross-validated
+      estimates; latency fields are hop-count lower bounds, and
+      queue-level knobs (``queue_capacity``, ``num_vcs``, ``eject_bw``,
+      ``seed``, ``trace``) are accepted but ignored.  Its max-min solver
+      runs on ``device`` (default ``"cuda"``, which raises where CUDA is
+      absent).
 
-    ``trace`` turns on time-series recording on the numpy engine (the
-    torch engine's trace buffers are not ported yet and raise).  The
-    reference's ``"flow"`` backend and ``failures=`` are not ported yet
-    and raise ``NotImplementedError``; ``bucket`` / ``devices`` are
-    torch-engine knobs (see :func:`repro_torch.sim.xengine.sweep`),
-    ignored by the numpy engine.
+    ``failures`` (a :class:`repro_torch.faults.FailureSpec`, or its dict
+    form) runs the simulation on the degraded fabric: the topology is
+    masked and re-routed via :func:`repro_torch.faults.degrade` and
+    packets whose endpoints died or were disconnected are dropped from
+    ``traffic`` before the engine ever sees them — uniformly for all three
+    backends.  ``None`` (or a null spec) is exactly the pristine run.
+
+    ``trace`` turns on time-series recording (anything
+    :meth:`repro_torch.obs.TraceConfig.coerce` accepts: ``True``, a
+    config, or a kwargs dict); the sampled :class:`~repro_torch.obs.Trace`
+    lands on ``stats.trace``.  ``bucket`` / ``devices`` are torch-engine
+    knobs (see :func:`repro_torch.sim.xengine.sweep`), ignored by the
+    other backends.
     """
     if failures is not None:
-        raise NotImplementedError(
-            "failures= is not ported yet (ROADMAP queue A, item 5: "
-            "repro_torch.faults)")
+        from repro_torch.faults import degrade, mask_traffic
+        topo = degrade(topo, failures)
+        traffic = mask_traffic(traffic, topo)
     if backend == "torch":
         from . import xengine
         return xengine.simulate_torch(
@@ -436,12 +451,12 @@ def simulate(topo: SimTopology, policy: RoutingPolicy, traffic: Traffic, *,
             warmup=warmup, drain=drain, max_cycles=max_cycles, seed=seed,
             trace=trace, bucket=bucket, devices=devices, device=device)
     if backend == "flow":
-        raise NotImplementedError(
-            "the flow backend is not ported yet (ROADMAP queue A, item 6: "
-            "repro_torch.flow)")
+        from repro_torch.flow import simulate_flow
+        return simulate_flow(topo, policy, traffic, terminals=terminals,
+                             cycles=cycles, warmup=warmup, device=device)
     if backend != "numpy":
         raise ValueError(f"unknown simulator backend {backend!r}; "
-                         f"expected 'numpy' or 'torch'")
+                         f"expected 'numpy', 'torch' or 'flow'")
     eng = Engine(topo, policy, traffic, terminals=terminals,
                  eject_bw=eject_bw, num_vcs=num_vcs,
                  queue_capacity=queue_capacity, seed=seed, trace=trace)

@@ -80,11 +80,14 @@ class SimTopology:
         return tbl
 
     def degrade(self, failures) -> "SimTopology":
-        """The reference's degraded copy under a ``FailureSpec``; the fault
-        layer is not ported yet, so this raises."""
-        raise NotImplementedError(
-            "degraded topologies are not ported yet (ROADMAP queue A, "
-            "items 3f and 5: repro_torch.faults)")
+        """Degraded copy of this topology under a
+        :class:`repro_torch.faults.FailureSpec` (or its dict form): dead
+        slots masked to ``-1``, ``minimal_port`` swapped for the fallback
+        next-hop table over the surviving graph, ``diameter`` re-derived.
+        A null spec (or ``None``) returns ``self`` unchanged.  See
+        :func:`repro_torch.faults.degrade`."""
+        from repro_torch.faults import degrade as _degrade
+        return _degrade(self, failures)
 
     def validate(self) -> None:
         """Cheap structural sanity: links pair up (A's port i reaches B,

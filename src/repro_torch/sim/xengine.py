@@ -38,11 +38,18 @@ per-packet delivery cycles from the ejection log.
 
 Collective replays (traffic carrying a :class:`~.workloads.Workload`) run
 the step's phase barrier: a phase's closing cycle is recorded by the step
-in the cycle it happens, and a gated-off cycle writes none.
+in the cycle it happens, and a gated-off cycle writes none.  Degraded
+fabrics (:func:`repro_torch.faults.degrade`) run the same step: their
+fallback next-hop table is the port table, dead wires are unwired slots,
+and Valiant mids outside the source's component collapse to the
+destination.  ``trace=`` adds the reference's statically shaped ring
+buffers to the state: each sampled cycle writes one row of each at the
+end of the cycle, read-modify-write under the gate, so an untraced step
+captures exactly the kernels it did before.
 
 Not ported yet, and raising ``NotImplementedError`` from :func:`sweep`:
-serving requests (ROADMAP A3e), degraded fabrics (A3f/A5), traces (A3g),
-shape bucketing (A3h) and sharding the copies over several devices.
+serving requests (ROADMAP A3e), shape bucketing (A3h) and sharding the
+copies over several devices.
 The port runs exact shapes, which is the reference's ``bucket=False``
 (pinned bit-identical to its bucketed program by the reference's own
 conformance suite).
@@ -57,7 +64,7 @@ import numpy as np
 import torch
 
 from ..obs.telemetry import device_clock, timing_dict
-from ..obs.trace import TraceConfig
+from ..obs.trace import Trace, TraceConfig, derive_backlog
 from .engine import _DRAIN_SLACK
 from .link import LinkLoadCounter, LinkTable
 from .metrics import RunStats, attach_replay, build_stats, replay_timeline
@@ -85,10 +92,6 @@ _BLOCK = 16
 _NOT_PORTED = {
     "serving": "serving request metrics are not ported yet "
                "(ROADMAP queue A, item 3e)",
-    "degraded": "degraded topologies are not ported yet "
-                "(ROADMAP queue A, items 3f and 5)",
-    "trace": "trace= ring buffers are not ported yet "
-             "(ROADMAP queue A, item 3g)",
     "bucket": "bucket=True shape bucketing is not ported yet "
               "(ROADMAP queue A, item 3h); the port runs exact shapes, "
               "the reference's bucket=False",
@@ -117,6 +120,11 @@ class XSpec(NamedTuple):
     #: ``gen`` is a phase ordinal, injection gates on completed phases).
     #: 0 = open-loop traffic.
     num_phases: int = 0
+    #: Time-series tracing (repro_torch.obs): sample the trace ring
+    #: buffers every ``trace_stride`` cycles into ``trace_samples`` rows.
+    #: 0 = off, and the step then carries no trace op at all.
+    trace_stride: int = 0
+    trace_samples: int = 0
 
 
 class _Tables(NamedTuple):
@@ -159,6 +167,13 @@ class _State(NamedTuple):
     delivered_win: torch.Tensor    # (B,)
     phase_done: torch.Tensor       # (B, num_phases) completion cycle, -1
     cycle: torch.Tensor            # () int32, shared by every copy
+    # Trace ring buffers, S = spec.trace_samples rows written in place;
+    # (1,)/(1, 1) dummies, never touched, when tracing is off.
+    tr_cycle: torch.Tensor         # (S,) sampled cycle, -1 = unwritten
+    tr_link: torch.Tensor          # (S, L) cumulative link traversals
+    tr_occ: torch.Tensor           # (S, B*N) per-switch queue occupancy
+    tr_inj: torch.Tensor           # (S, B*N) cumulative injections
+    tr_del: torch.Tensor           # (S, B) cumulative deliveries per copy
 
 
 def _key_layout(x: int) -> tuple:
@@ -213,7 +228,7 @@ def _resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the cycle engine on the CPU")
+                           "on the CPU")
     return device
 
 
@@ -256,8 +271,8 @@ def _step(spec: XSpec, tb: dict, pkt: dict, bits: torch.Tensor,
           st: _State) -> _State:
     """One cycle of every copy: the reference's ``_step`` with its loop
     condition as the gate ``g``.  ``bits`` is this cycle's ``(B, words)``
-    threefry draw.  ``ej_log``/``deliver`` are written in place; every
-    other field comes back new."""
+    threefry draw.  ``ej_log``/``deliver`` and the trace buffers are
+    written in place; every other field comes back new."""
     n, p, v = spec.n, spec.ports, spec.vcs
     cap, t = spec.cap, spec.terminals
     pv = p * v
@@ -465,12 +480,33 @@ def _step(spec: XSpec, tb: dict, pkt: dict, bits: torch.Tensor,
     load_window = st.load_window + (
         has_w & in_window[tb["copy_of_link"]]).to(_I32)
 
+    # -- trace sampling (end of cycle c, after movement) -------------------
+    # The row index is clamped, so a row is read first and replaced only
+    # when this cycle really runs (g) and samples: a gated-off tail cycle
+    # of the last block must not overwrite the last row.
+    if spec.trace_stride:
+        stride = spec.trace_stride
+        row = torch.clamp(c // stride, max=spec.trace_samples - 1
+                          ).to(_I64).view(1)
+        write = g & ((c % stride) == 0) & (c // stride < spec.trace_samples)
+        for buf_t, vec in (
+                (st.tr_cycle, c.view(1)),
+                (st.tr_link, load_total),
+                (st.tr_occ, occ.view(blocks, pv).sum(dim=1, dtype=_I32)),
+                (st.tr_inj, term_next.view(blocks, t).sum(dim=1, dtype=_I32)),
+                (st.tr_del, delivered_total)):
+            cur = buf_t.index_select(0, row)
+            buf_t.index_copy_(0, row, torch.where(
+                write, vec.view(cur.shape).to(buf_t.dtype), cur))
+
     return _State(buf=buf, head=head, occ=occ, deliver=st.deliver,
                   ej_log=st.ej_log, term_next=term_next, pressure=pressure,
                   load_total=load_total, load_window=load_window,
                   delivered_total=delivered_total,
                   delivered_win=delivered_win, phase_done=phase_done,
-                  cycle=c + g.to(_I32))
+                  cycle=c + g.to(_I32), tr_cycle=st.tr_cycle,
+                  tr_link=st.tr_link, tr_occ=st.tr_occ, tr_inj=st.tr_inj,
+                  tr_del=st.tr_del)
 
 
 def _gate(spec: XSpec, pkt: dict, st: _State) -> torch.Tensor:
@@ -523,6 +559,8 @@ def _init_state(spec: XSpec, tb: dict, pkt: dict) -> _State:
     m_flat = pkt["src"].shape[0]
     full = lambda shape, fill, dt: torch.full(  # noqa: E731
         shape, fill, dtype=dt, device=dev)
+    s = spec.trace_samples if spec.trace_stride else 0
+    rows = lambda width: (s, width) if s else (1, 1)  # noqa: E731
     return _State(
         buf=full((bq, spec.cap, 2), -1, _I32),
         head=full((bq,), 0, _I16),
@@ -538,7 +576,12 @@ def _init_state(spec: XSpec, tb: dict, pkt: dict) -> _State:
         delivered_total=full((b,), 0, _I32),
         delivered_win=full((b,), 0, _I32),
         phase_done=full((b, spec.num_phases), -1, _I32),
-        cycle=full((), 0, _I32))
+        cycle=full((), 0, _I32),
+        tr_cycle=full((max(s, 1),), -1, _I32),
+        tr_link=full(rows(b * n * p), 0, _I32),
+        tr_occ=full(rows(b * n), 0, _I32),
+        tr_inj=full(rows(b * n), 0, _I32),
+        tr_del=full(rows(b), 0, _I32))
 
 
 def _capture(spec: XSpec, tb: dict, pkt: dict, state: _State,
@@ -601,6 +644,10 @@ def _run_loop(spec: XSpec, tb: dict, pkt: dict, *, block: int = _BLOCK
         "cycle": state.cycle,
         "in_flight": state.occ.view(b, -1).sum(dim=1, dtype=_I32),
     }
+    if spec.trace_stride:
+        out.update(tr_cycle=state.tr_cycle, tr_link=state.tr_link,
+                   tr_occ=state.tr_occ, tr_inj=state.tr_inj,
+                   tr_del=state.tr_del)
     return ({k: a.cpu().numpy() for k, a in out.items()}, t1 - t0, t2 - t1)
 
 
@@ -706,6 +753,7 @@ class _Prepared(NamedTuple):
     warmups: list
     terminals: int
     n_seeds: int
+    trace: TraceConfig | None
     host_s: float
 
 
@@ -721,14 +769,11 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
     grid): option checks, traffic packing, tables, device upload."""
     t_host = time.perf_counter()
     device = _resolve_device(device)
-    if TraceConfig.coerce(trace) is not None:
-        raise NotImplementedError(_NOT_PORTED["trace"])
+    trace_cfg = TraceConfig.coerce(trace)
     if bucket:
         raise NotImplementedError(_NOT_PORTED["bucket"])
     if devices not in (None, 1):
         raise NotImplementedError(_NOT_PORTED["devices"])
-    if (topo.meta or {}).get("faults") is not None:
-        raise NotImplementedError(_NOT_PORTED["degraded"])
     policy = _resolve_policy(policy)
     seeded_factory = _accepts_seed(traffic_factory)
     n = topo.num_switches
@@ -796,6 +841,13 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
     q_flat = b * n * topo.num_ports * num_vcs
     log_deliveries = (not drain
                       and horizon * q_flat <= _LOG_ENTRY_BUDGET)
+    if trace_cfg is not None:
+        # A drain run can stop anywhere below the cutoff, so rows are
+        # allocated for the worst case (capped by max_samples); unwritten
+        # rows keep the -1 cycle and are dropped on the host.
+        span = cutoff if drain else horizon
+        trace_samples = min(trace_cfg.max_samples,
+                            (max(span, 1) - 1) // trace_cfg.stride + 1)
     spec = XSpec(
         n=n, ports=topo.num_ports, vcs=num_vcs, cap=queue_capacity,
         terminals=terminals,
@@ -804,7 +856,9 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
         threshold=float(getattr(policy, "threshold", 0.0)),
         weight=float(getattr(policy, "weight", 0.0)),
         alpha=0.05, drain=bool(drain), horizon=horizon,
-        log_deliveries=log_deliveries, num_phases=num_phases)
+        log_deliveries=log_deliveries, num_phases=num_phases,
+        trace_stride=0 if trace_cfg is None else trace_cfg.stride,
+        trace_samples=0 if trace_cfg is None else trace_samples)
 
     links = LinkTable.for_topology(topo, num_vcs)
     tables = _build_tables(topo, links, b, terminals, num_vcs)
@@ -846,7 +900,7 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
                      workloads=wls if replaying else [None] * len(grid),
                      bases=bases, links=links,
                      horizon=horizon, warmups=warmups, terminals=terminals,
-                     n_seeds=len(seeds), host_s=host_s)
+                     n_seeds=len(seeds), trace=trace_cfg, host_s=host_s)
 
 
 def _collect(run: _Prepared, out: dict, timing: dict
@@ -871,6 +925,9 @@ def _collect(run: _Prepared, out: dict, timing: dict
         deliver_all = out["deliver"].astype(np.int64)
 
     n_links = n * topo.num_ports
+    if run.trace is not None:
+        tr_valid = np.flatnonzero(out["tr_cycle"] >= 0)
+        tr_cycles = out["tr_cycle"][tr_valid].astype(np.int64)
     results: list[RunStats] = []
     for i, (load, seed, tr) in enumerate(grid):
         m = int(packed[i]["m_real"])
@@ -905,6 +962,28 @@ def _collect(run: _Prepared, out: dict, timing: dict
         if wl is not None:
             attach_replay(stats, wl, phase_done)
         stats.timing = timing
+        if run.trace is not None:
+            # Copy i's columns of the flat ring buffers; block bounds come
+            # back to local pid space by removing the copy's pid base.
+            base = int(bases[i])
+            injected = out["tr_inj"][tr_valid][:, i * n:(i + 1) * n
+                                               ].astype(np.int64)
+            stats.trace = Trace(
+                stride=run.trace.stride, cycles=tr_cycles,
+                link_load=out["tr_link"][tr_valid][
+                    :, i * n_links:(i + 1) * n_links],
+                queue_occ=out["tr_occ"][tr_valid][:, i * n:(i + 1) * n],
+                injected=injected,
+                delivered=out["tr_del"][tr_valid][:, i],
+                backlog=derive_backlog(
+                    tr_cycles, injected, packed[i]["gen"][:m].astype(np.int64),
+                    packed[i]["blk_start"].astype(np.int64) - base,
+                    packed[i]["blk_end"].astype(np.int64) - base,
+                    phase_done=phase_done if wl is not None else None),
+                meta={"topology": topo.name, "policy": policy.name,
+                      "backend": "torch", "num_switches": n,
+                      "num_ports": topo.num_ports, "terminals": terminals,
+                      "load": load, "seed": seed})
         results.append(stats)
     k = run.n_seeds
     return [results[i:i + k] for i in range(0, len(results), k)]
@@ -940,9 +1019,15 @@ def sweep(topo: SimTopology, policy, traffic_factory: Callable,
     ``ValueError``); its warm-up defaults to 0, and each point's stats
     carry ``phase_cycles`` / ``completion_cycles`` / ``ideal_cycles``.
 
-    ``trace``, ``bucket=True``, ``devices`` other than one, serving
-    traffic and degraded topologies raise ``NotImplementedError`` (see
-    the module docstring).
+    ``trace`` (anything :meth:`repro_torch.obs.TraceConfig.coerce`
+    accepts) adds statically shaped time-series ring buffers to the step;
+    per-point :class:`~repro_torch.obs.Trace` objects land on
+    ``stats.trace`` (packet spans, ``TraceConfig.packets``, are a
+    numpy-engine feature and are ignored here).  Degraded topologies
+    (``topo.meta["faults"]``) run their fallback tables.
+
+    ``bucket=True``, ``devices`` other than one and serving traffic raise
+    ``NotImplementedError`` (see the module docstring).
     """
     run = _prepare(topo, policy, traffic_factory, loads, seeds=seeds,
                    terminals=terminals, eject_bw=eject_bw, num_vcs=num_vcs,

@@ -5,9 +5,9 @@ Commands:
 * ``run SPEC``   — execute a study spec (a path, or a bundled spec name)
   and stream results to a JSONL store (default: ``<spec>.results.jsonl``
   in the current directory).  Re-running resumes: grid points whose keys
-  are already in the store are skipped.  The torch cycle engine runs on
-  ``--device`` (default ``cuda``, which fails where CUDA is absent);
-  ``--backend numpy`` runs the oracle.
+  are already in the store are skipped.  The torch cycle engine and the
+  flow model's solver run on ``--device`` (default ``cuda``, which fails
+  where CUDA is absent); ``--backend numpy`` runs the oracle.
 * ``show SPEC``  — print the experiments, grid sizes, and store keys a
   spec expands to, without running anything.  ``--results`` additionally
   prints each stored record's fidelity tier, latency percentiles, and
@@ -17,9 +17,13 @@ Commands:
   backend, torch/CUDA versions and card, capture-vs-replay timings) plus
   the per-experiment totals.
 * ``specs``      — list the bundled spec files.
-* ``trace export SPEC`` and ``cache`` — the reference's trace export and
-  compile-cache commands; not ported yet, they fail naming their ROADMAP
-  items (queue A, items 3g and 7).
+* ``trace export SPEC`` — run one experiment of a spec with time-series
+  tracing and write a Perfetto/Chrome-loadable trace JSON
+  (``ui.perfetto.dev``).  The torch engine runs on ``--device``;
+  ``--backend both`` runs the numpy oracle *and* the torch engine and
+  fails unless their traces agree exactly.
+* ``cache`` — the reference's compile-cache command; not ported yet, it
+  fails naming its ROADMAP item (queue A, item 7).
 
 Examples::
 
@@ -28,6 +32,10 @@ Examples::
     python -m repro_torch.studies run collective_replay --store a2a.jsonl
     python -m repro_torch.studies run cin16_saturation --device cpu
     python -m repro_torch.studies show collective_replay --trace --store a2a.jsonl
+    python -m repro_torch.studies run flow_scale_smoke
+    python -m repro_torch.studies trace export collective_replay \\
+        --experiment cin-xor-16/replay-all_to_all/minimal \\
+        --backend both --packets 8 --out trace-cin16.json
 """
 from __future__ import annotations
 
@@ -112,6 +120,9 @@ def cmd_show(args) -> int:
         print(exp.describe())
         print(f"    loads={list(exp.sweep.loads)} seeds={list(exp.sweep.seeds)}"
               f" warmup={exp.sweep.warmup}")
+        if exp.failures is not None:
+            print(f"    failures: {exp.failures.label} "
+                  f"(policy={exp.failures.policy})")
         print(f"    first key: {exp.key(*pts[0])}")
     print(f"{len(specs)} experiments, {total} grid points")
     if getattr(args, "results", False):
@@ -207,10 +218,73 @@ def _show_trace(spec_path: str, specs, store_arg: str | None) -> None:
 
 
 def cmd_trace(args) -> int:
-    raise NotImplementedError(
-        "trace export is not ported yet: it needs the torch engine's trace "
-        "ring buffers (ROADMAP queue A, item 3g) and the Perfetto export "
-        "of repro_torch.obs (item 7)")
+    if args.action != "export":
+        raise SystemExit(f"unknown trace action {args.action!r}")
+    from repro_torch.obs import (TraceConfig, export_perfetto,
+                                 replay_trace_events)
+    spec_path = _resolve_spec_arg(args.spec)
+    study = Study(spec_path, device=args.device)
+    by_name = {e.name: e for e in study.experiments}
+    if args.experiment is not None:
+        if args.experiment not in by_name:
+            raise SystemExit(
+                f"no experiment named {args.experiment!r} in {spec_path}; "
+                f"have: {', '.join(sorted(by_name))}")
+        exp = by_name[args.experiment]
+    elif len(by_name) == 1:
+        exp = study.experiments[0]
+    else:
+        raise SystemExit(
+            f"{spec_path} holds {len(by_name)} experiments; pick one with "
+            f"--experiment: {', '.join(sorted(by_name))}")
+
+    from repro_torch.sim.engine import simulate
+    topo, tf = study._resolve(exp)
+    load, seed = exp.points()[0]
+    cfg = TraceConfig(stride=args.stride, max_samples=args.max_samples,
+                      packets=args.packets)
+    engine_kw = dict(exp.engine)
+    engine_kw["trace"] = cfg
+
+    def run(backend: str):
+        traffic = tf(load, seed)
+        cycles = (exp.sweep.cycles if exp.sweep.cycles is not None
+                  else max(traffic.horizon, 1))
+        warmup = (exp.sweep.warmup if exp.sweep.warmup is not None
+                  else 0 if traffic.workload is not None else cycles // 4)
+        t0 = time.time()
+        stats = simulate(topo, exp.routing.make(), traffic,
+                         terminals=exp.terminals, cycles=cycles,
+                         warmup=warmup, seed=seed, backend=backend,
+                         device=args.device, **engine_kw)
+        print(f"{backend}: {stats.trace.num_samples} samples in "
+              f"{time.time() - t0:.2f}s "
+              f"(timing: {stats.timing})")
+        return stats
+
+    backends = (["numpy", "torch"] if args.backend == "both"
+                else [args.backend])
+    runs = {be: run(be) for be in backends}
+    if args.backend == "both":
+        a, b = runs["numpy"].trace, runs["torch"].trace
+        if not a.equals(b):
+            raise SystemExit(
+                f"cross-engine trace mismatch on {exp.name!r}: "
+                f"{a.diff_summary(b)}")
+        print("cross-engine traces agree exactly")
+    # The numpy run carries packet spans; prefer it for the export.
+    stats = runs.get("numpy") or runs[backends[0]]
+    out_path = args.out if args.out is not None else \
+        f"trace-{exp.name.replace('/', '-')}.json"
+    payload = export_perfetto(out_path,
+                              replay_trace_events(stats, topo=topo))
+    print(f"wrote {out_path} ({len(payload['traceEvents'])} events) — "
+          f"load it in ui.perfetto.dev")
+    if stats.completion_cycles is not None and stats.ideal_cycles:
+        print(f"completion={stats.completion_cycles} "
+              f"ideal={stats.ideal_cycles} "
+              f"ratio={stats.completion_cycles / stats.ideal_cycles:.3f}")
+    return 0
 
 
 def cmd_cache(args) -> int:
@@ -242,8 +316,9 @@ def main(argv=None) -> int:
                           " in the current directory)")
     run.add_argument("--backend", default="auto", choices=list(BACKENDS))
     run.add_argument("--device", default="cuda",
-                     help="where the torch engine runs (default: cuda; "
-                          "'cpu' runs the same step eagerly)")
+                     help="where the torch engine and the flow solver run "
+                          "(default: cuda; 'cpu' runs the same steps "
+                          "eagerly)")
     run.add_argument("--no-resume", action="store_true",
                      help="re-run every grid point even if already stored")
     run.add_argument("--table", action="store_true",
@@ -264,11 +339,26 @@ def main(argv=None) -> int:
     show.set_defaults(fn=cmd_show)
 
     trace = sub.add_parser(
-        "trace", help="export a traced run (not ported yet)")
+        "trace", help="run one experiment with tracing and export it")
     trace.add_argument("action", choices=["export"])
     trace.add_argument("spec", help="spec file path or bundled spec name")
-    trace.add_argument("rest", nargs=argparse.REMAINDER,
-                       help="the reference's trace export options")
+    trace.add_argument("--experiment", default=None,
+                       help="experiment name within the spec (required "
+                            "unless the spec holds exactly one)")
+    trace.add_argument("--backend", default="torch",
+                       choices=["torch", "numpy", "both"],
+                       help="'both' runs both engines and fails unless "
+                            "their traces agree exactly")
+    trace.add_argument("--device", default="cuda",
+                       help="where the torch engine runs (default: cuda)")
+    trace.add_argument("--stride", type=int, default=1,
+                       help="sample every k-th cycle")
+    trace.add_argument("--max-samples", type=int, default=4096)
+    trace.add_argument("--packets", type=int, default=0,
+                       help="follow K sampled packets hop-by-hop "
+                            "(numpy engine only)")
+    trace.add_argument("--out", default=None,
+                       help="output path (default: trace-<experiment>.json)")
     trace.set_defaults(fn=cmd_trace)
 
     cache = sub.add_parser(

@@ -3,14 +3,15 @@
 One :class:`Study` executes the (load x seed) grid of one or more
 :class:`~repro_torch.studies.spec.ExperimentSpec`\\ s:
 
-* **Backend.**  ``backend=None``/"auto" and ``"torch"`` run each
-  experiment's grid as one batched :func:`repro_torch.sim.xengine.sweep`
-  on the study's ``device`` (default ``"cuda"``, which raises where CUDA
-  is absent: "auto" never falls back to the numpy oracle on its own).
-  ``"numpy"`` loops the oracle (:func:`repro_torch.sim.engine.simulate`)
-  per point.  The reference's flow model is not ported yet: ``"flow"``
-  raises, and so does "auto" on fabrics of :data:`FLOW_AUTO_SWITCHES`
-  switches or more, which the reference escalates to it.
+* **Backend.**  ``"torch"`` runs each experiment's grid as one batched
+  :func:`repro_torch.sim.xengine.sweep` on the study's ``device``
+  (default ``"cuda"``, which raises where CUDA is absent).  ``"numpy"``
+  loops the oracle (:func:`repro_torch.sim.engine.simulate`) per point.
+  ``"flow"`` runs the fair-share model (:mod:`repro_torch.flow`, its
+  solver on the same ``device``).  ``backend=None``/"auto" is the torch
+  engine, escalating to the flow model on fabrics of
+  :data:`FLOW_AUTO_SWITCHES` switches or more as the reference does; it
+  never falls back to the numpy oracle on its own.
 * **Streaming persistence.**  Each finished grid point becomes a
   :class:`~repro_torch.studies.store.Result` appended to a JSONL store as
   soon as it exists, so a killed study leaves a valid prefix.
@@ -40,31 +41,47 @@ __all__ = ["BACKENDS", "FLOW_AUTO_SWITCHES", "Study", "StudyResult"]
 #: reference's name for the compiled engine; here it is ``"torch"``.
 BACKENDS = ("auto", "torch", "numpy", "flow")
 
-#: The reference's ``backend="auto"`` escalates to its flow model at or
-#: above this many switches; until the flow tier is ported, "auto"
-#: raises there instead of picking a backend that raises later.
+#: ``backend="auto"`` escalates to the flow model at or above this many
+#: switches: the cycle engines' per-point cost grows with N x cycles,
+#: while the flow model holds seconds past 4k switches.
 FLOW_AUTO_SWITCHES = 1024
-
-_FLOW = ("the flow backend is not ported yet (ROADMAP queue A, item 6: "
-         "repro_torch.flow)")
 
 
 def _select_backend(backend: str | None, *,
-                    num_switches: int | None = None) -> str:
+                    num_switches: int | None = None,
+                    experiment: "ExperimentSpec | None" = None) -> str:
     if backend in (None, "auto"):
         if num_switches is not None and num_switches >= FLOW_AUTO_SWITCHES:
-            raise NotImplementedError(
-                f"backend='auto' takes fabrics of {FLOW_AUTO_SWITCHES} "
-                f"switches or more ({num_switches} here) to the flow "
-                f"model, and {_FLOW}; pass backend='torch' to run the "
-                f"cycle engine at this size")
-        return "torch"
-    if backend not in BACKENDS:
+            choice = "flow"
+        else:
+            choice = "torch"
+    elif backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; "
                          f"expected one of {BACKENDS}")
-    if backend == "flow":
-        raise NotImplementedError(_FLOW)
-    return backend
+    else:
+        choice = backend
+    if (choice == "flow" and experiment is not None
+            and experiment.failures is not None
+            and experiment.traffic.pattern == "workload"
+            and experiment.failures.policy == "strict"):
+        # A collective replay on the flow backend traces every phase's
+        # routes through the degraded table; a disconnected residual
+        # fabric would only surface deep inside trace_routes as an
+        # unwired-port walk.  Check connectivity here, while the error
+        # can still name the experiment and the fix.
+        from repro_torch.faults import residual_report
+        report = residual_report(experiment.fabric.resolve_topology(),
+                                 experiment.failures)
+        if not report["connected"]:
+            raise ValueError(
+                f"experiment {experiment.name!r} replays a collective on "
+                f"the flow backend, but failures "
+                f"{experiment.failures.label!r} leave the fabric in "
+                f"{report['num_components']} components and "
+                f"policy='strict' forbids dropping the stranded traffic; "
+                f"use policy='drop' to mask unreachable pairs, or pick a "
+                f"FailureSpec that keeps the fabric connected")
+    return choice
 
 
 @dataclass
@@ -276,21 +293,26 @@ class Study:
 
     ``store`` (a path or :class:`JsonlStore`) turns on persistence and
     resume; ``backend`` picks the engine and ``device`` where the torch
-    engine runs (default ``"cuda"``; it raises where CUDA is absent, and
-    ``"cpu"`` runs the same step eagerly):
+    engine and the flow model's solver run (default ``"cuda"``; they
+    raise where CUDA is absent, and ``"cpu"`` runs the same steps
+    eagerly):
 
-    * ``"auto"`` / ``None`` (default) and ``"torch"`` — the cycle
-      engine (:mod:`repro_torch.sim.xengine`), which batches each
-      experiment's entire (load x seed) grid into one sweep: one CUDA
-      graph of the step, replayed.  "auto" never picks the oracle on its
-      own, and raises on fabrics of :data:`FLOW_AUTO_SWITCHES` switches or
-      more (the reference's escalation to its flow model).
+    * ``"auto"`` / ``None`` (default) — resolved per experiment: fabrics
+      with at least :data:`FLOW_AUTO_SWITCHES` switches escalate to the
+      flow model (the cycle engine's cost grows with N x cycles), smaller
+      ones run the torch cycle engine.  "auto" never picks the oracle on
+      its own.
+    * ``"torch"`` — the cycle engine (:mod:`repro_torch.sim.xengine`),
+      which batches each experiment's entire (load x seed) grid into one
+      sweep: one CUDA graph of the step, replayed.
     * ``"numpy"`` — the oracle, looped per point; per-point results are
       bit-stable across resumes (the torch path re-draws arbitration
       streams when a resumed batch has different geometry, so its resumed
       points are statistically — not bitwise — equivalent).
-    * ``"flow"`` — the reference's analytical fair-share model; not
-      ported yet, it raises (ROADMAP queue A, item 6).
+    * ``"flow"`` — the analytical fair-share model
+      (:mod:`repro_torch.flow`): a different *fidelity tier* whose records
+      carry ``fidelity="flow"`` so stores stay mixable with cycle
+      results without their knees being conflated.
     """
 
     def __init__(self, experiments, *, store=None, backend: str | None = None,
@@ -326,12 +348,14 @@ class Study:
     # -- execution -----------------------------------------------------------
 
     def run(self, *, resume: bool = True) -> StudyResult:
-        # Backend resolution is per experiment, as in the reference (whose
-        # "auto" escalates large fabrics to the flow model).
+        # Backend resolution is per experiment: "auto" escalates to the
+        # flow model above FLOW_AUTO_SWITCHES switches, so one study can
+        # mix a cycle-accurate CIN-16 grid with a 4k-switch flow grid.
         resolved = {exp.name: _select_backend(
-            self.backend, num_switches=exp.fabric.num_switches)
+            self.backend, num_switches=exp.fabric.num_switches,
+            experiment=exp)
             for exp in self.experiments}
-        if "torch" in resolved.values():
+        if {"torch", "flow"} & set(resolved.values()):
             # Fail before any point runs when the device is not there.
             from repro_torch.sim.xengine import _resolve_device
             _resolve_device(self.device)
@@ -374,6 +398,10 @@ class Study:
                     fresh = self._run_torch(exp, missing)
                     if self.store is not None:
                         self.store.append(fresh)
+                elif backend == "flow":
+                    fresh = self._run_flow(exp, missing)
+                    if self.store is not None:
+                        self.store.append(fresh)
                 else:           # numpy streams per point inside the loop
                     fresh = self._run_numpy(exp, missing)
                 executed += len(fresh)
@@ -396,9 +424,33 @@ class Study:
             topo = fs.resolve_topology()
             if key is not None:
                 self._topo_cache[key] = topo
+        if exp.failures is not None:
+            # Degrade once per (fabric, FailureSpec) and cache alongside
+            # the pristine topology: a failure-rate x seed sweep shares
+            # each degraded table across its experiments' grid points.
+            from repro_torch.faults import FabricDisconnectedError, degrade
+            fkey = (f"{key}|faults={exp.failures.to_json()}"
+                    if key is not None else None)
+            degraded = (self._topo_cache.get(fkey)
+                        if fkey is not None else None)
+            if degraded is None:
+                try:
+                    degraded = degrade(topo, exp.failures)
+                except FabricDisconnectedError as e:
+                    raise FabricDisconnectedError(
+                        f"experiment {exp.name!r}: {e}") from e
+                if fkey is not None:
+                    self._topo_cache[fkey] = degraded
+            topo = degraded
         tf = exp.traffic.factory(topo, cycles=exp.sweep.cycles,
                                  terminals=exp.terminals
                                  if exp.terminals is not None else 1)
+        if exp.failures is not None:
+            from repro_torch.faults import mask_traffic as _mask
+            inner, masked_topo = tf, topo
+
+            def tf(load, seed):
+                return _mask(inner(load, seed), masked_topo)
         return topo, tf
 
     # -- serving capacity ----------------------------------------------------
@@ -456,6 +508,31 @@ class Study:
                                   backend="torch",
                                   spec_digest=exp.digest())
                 for load, seed, stats in flat]
+
+    def _run_flow(self, exp: ExperimentSpec,
+                  missing: Sequence[tuple[float, int]]) -> list[Result]:
+        import time
+        from repro_torch.flow import study_point_stats
+        from repro_torch.obs.telemetry import timing_dict
+        topo, tf = self._resolve(exp)
+        t0 = time.perf_counter()
+        batch = [(load, seed,
+                  study_point_stats(exp, topo, tf, load, seed,
+                                    device=self.device))
+                 for load, seed in missing]
+        # One timing dict shared across the batch, like the torch path:
+        # the flow model has no capture step, only execute.
+        timing = timing_dict("flow",
+                             execute_s=time.perf_counter() - t0,
+                             grid_points=len(batch))
+        out = []
+        for load, seed, stats in batch:
+            stats.timing = timing
+            out.append(Result.from_stats(
+                stats, key=exp.key(load, seed), experiment=exp.name,
+                load=load, seed=seed, backend="flow",
+                spec_digest=exp.digest(), fidelity="flow"))
+        return out
 
     def _run_numpy(self, exp: ExperimentSpec,
                    missing: Sequence[tuple[float, int]]) -> list[Result]:

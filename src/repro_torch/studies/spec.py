@@ -16,10 +16,9 @@ be named, persisted, diffed, resumed, and shipped to CI as a file.
 
 The JSON form, :meth:`ExperimentSpec.key` and :meth:`ExperimentSpec.digest`
 are the reference's (``repro.studies.spec``) byte for byte, so a result
-store written by either package resumes in the other.  Two parts of a
-spec need modules that are not ported yet and raise
-``NotImplementedError`` when the spec is built: ``failures`` (ROADMAP
-queue A, item 5) and the ``serving`` traffic pattern (item 8).
+store written by either package resumes in the other.  The ``serving``
+traffic pattern needs a module that is not ported yet and raises
+``NotImplementedError`` when the spec is built (ROADMAP queue A, item 8).
 
 Specs are *declarative*: they hold names and parameters, never objects.
 The escape hatch for the legacy shims (``report.saturation_sweep``,
@@ -40,10 +39,8 @@ __all__ = ["FabricSpec", "TrafficSpec", "RoutingSpec", "SweepSpec",
 
 _INLINE = "custom"      # kind/pattern/policy marker for non-serializable specs
 
-#: What each unported part of a spec needs, by ROADMAP item.
+#: What the unported part of a spec needs, by ROADMAP item.
 _NOT_PORTED = {
-    "failures": "experiments on degraded fabrics (failures=) are not "
-                "ported yet (ROADMAP queue A, item 5: repro_torch.faults)",
     "serving": "the 'serving' traffic pattern is not ported yet (ROADMAP "
                "queue A, item 8: repro_torch.workload)",
 }
@@ -496,12 +493,13 @@ class ExperimentSpec(_SpecBase):
     extra engine kwargs (``queue_capacity``, ``num_vcs``, ``eject_bw``,
     ``max_cycles``, ``drain``).
 
-    ``failures`` is, in the reference, an optional
-    ``repro.faults.FailureSpec`` that runs the experiment on a degraded
-    fabric.  Not ported yet: any value but ``None`` raises
-    ``NotImplementedError`` (ROADMAP queue A, item 5).  ``failures=None``
-    is omitted from ``to_dict``, as in the reference, so spec JSON and
-    digests are the reference's.
+    ``failures`` is an optional :class:`repro_torch.faults.FailureSpec`
+    (or its dict form): the experiment then runs on the *degraded* fabric
+    — the topology passes through :func:`repro_torch.faults.degrade` once
+    per study and traffic to/from dead or disconnected switches is masked
+    before injection.  ``failures=None`` (or a null spec) is
+    byte-identical to the pre-faults behaviour: the key is omitted from
+    ``to_dict``, so spec JSON and digests are the reference's.
     """
     fabric: FabricSpec = None
     traffic: TrafficSpec = None
@@ -522,7 +520,11 @@ class ExperimentSpec(_SpecBase):
                 raise TypeError(f"ExperimentSpec.{fld} must be a {typ.__name__}"
                                 f" (or its dict form), got {type(v).__name__}")
         if self.failures is not None:
-            raise NotImplementedError(_NOT_PORTED["failures"])
+            from repro_torch.faults import FailureSpec
+            spec = FailureSpec.coerce(self.failures)
+            object.__setattr__(self, "failures",
+                               None if spec is not None and spec.is_null
+                               else spec)
         super().__post_init__()
         if not self.name:
             object.__setattr__(self, "name", "/".join(
@@ -569,8 +571,11 @@ class ExperimentSpec(_SpecBase):
 
     def describe(self) -> str:
         s = self.sweep
-        return (f"{self.name}: {len(s.loads)} loads x {len(s.seeds)} seeds"
-                f" x {s.cycles} cycles (terminals={self.terminals})")
+        out = (f"{self.name}: {len(s.loads)} loads x {len(s.seeds)} seeds"
+               f" x {s.cycles} cycles (terminals={self.terminals})")
+        if self.failures is not None:
+            out += f" failures={self.failures.label}"
+        return out
 
     def with_sweep(self, **kw) -> "ExperimentSpec":
         """A copy with sweep fields replaced (loads, seeds, cycles, warmup)

@@ -1,11 +1,11 @@
-"""``import repro_torch`` and every submodule pulls in neither jax nor the
-JAX package repro."""
+"""``import repro_torch`` and every submodule, and ``chip_smoke.py``, pull in
+neither jax nor the JAX package repro."""
 import os
 import subprocess
 import sys
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "src")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -25,5 +25,22 @@ def test_repro_torch_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     n, bad = out.split(" ", 1)
-    assert int(n) >= 53, out          # every module of the port was imported
+    assert int(n) >= 62, out          # every module of the port was imported
     assert bad.strip() == "[]", out
+
+
+_SMOKE_PROBE = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    out = subprocess.run(
+        [sys.executable, "-c", _SMOKE_PROBE,
+         os.path.join(ROOT, "chip_smoke.py")], env=dict(os.environ),
+        check=True, capture_output=True, text=True, timeout=120).stdout
+    assert out.strip() == "[]", out

@@ -1,9 +1,11 @@
-"""``chip_smoke.py``'s ``sim`` and ``studies`` phases on the CPU at a tiny
-size, so that the phases the GPU run ends with cannot rot between chip
-runs: they drive ``sim_speed``, ``xl_scale``, the exactness checks and the
-studies path (the CLI as a subprocess, ``Study.run()``) through the same
-code, with the CPU standing in for the card (no CUDA graph there), and
-raise on any difference.  Imports neither jax nor repro.
+"""``chip_smoke.py``'s ``sim``, ``studies``, ``faults``, ``flow`` and
+``trace`` phases on the CPU at a tiny size, so that the phases the GPU run
+ends with cannot rot between chip runs: they drive ``sim_speed``,
+``xl_scale``, the exactness checks, the studies path (the CLI as a
+subprocess, ``Study.run()``), degraded studies, the flow tier and traced
+sweeps with ``trace export`` through the same code, with the CPU standing
+in for the card (no CUDA graph there), and raise on any difference.
+Imports neither jax nor repro.
 """
 import importlib.util
 import os
@@ -73,3 +75,50 @@ def test_studies_phase_runs_the_bundled_specs(chip_smoke):
                                        "dragonfly72_uniform"}
     assert sorted(full["replay_expect"].values()) == [(30, 30), (60, 60),
                                                       (142, 32)]
+
+
+def test_faults_phase_runs_on_the_cpu_at_a_tiny_size(chip_smoke):
+    out = chip_smoke.phase_faults("cpu", chip_smoke.FAULTS_TINY)
+    assert out["knees"] == {
+        "cin-xor-8/uniform/minimal/f0": None,
+        "cin-xor-8/uniform/minimal/f0.1": 0.8,
+        "cin-xor-8/uniform/valiant/f0": 0.8,
+        "cin-xor-8/uniform/valiant/f0.1": 0.5}
+    assert out["oracle_knees"] == {
+        "cin-xor-8/uniform/minimal/f0.1": 0.8,
+        "cin-xor-8/uniform/valiant/f0.1": 0.5}
+    assert (out["f0_points"], out["cpu_check_points"]) == (6, 12)
+    assert list(out["degrade_host_s"]) == ["cin-xor-8+L0.1-s3"]
+
+
+def test_flow_phase_runs_on_the_cpu_at_a_tiny_size(chip_smoke):
+    out = chip_smoke.phase_flow("cpu", chip_smoke.FLOW_TINY)
+    assert out["points"] == 4
+    assert "backend=flow" in out["cli_says_device"][0]
+    assert out["accepted"]["cin-xor-16/uniform/minimal|load=0.9|seed=0"] \
+        == 0.6875
+    first = out["breakdown"][0]
+    assert first["iterations"] >= 1 and first["nnz"] == 240
+    assert out["flow_knees"] == out["cycle_knees"]
+
+
+def test_trace_phase_runs_on_the_cpu_at_a_tiny_size(chip_smoke):
+    out = chip_smoke.phase_trace("cpu", chip_smoke.TRACE_TINY)
+    first = out["runs"][0]
+    assert (first["samples"], first["completion_cycles"]) == (15, 14)
+    kpc = first["kernels_per_cycle"]
+    assert kpc["traced"] > kpc["untraced"] > 0
+    assert out["export_says"] == ["cross-engine traces agree exactly",
+                                  "completion=14 ideal=14 ratio=1.000"]
+
+
+def test_new_phases_run_the_bundled_specs(chip_smoke):
+    """The full sizes are the bundled specs' own: failure_sweep held to the
+    pristine grids it replicates, flow_scale_smoke escalated by "auto",
+    the collective_replay spec traced."""
+    assert chip_smoke.FAULTS_FULL["spec"] == "failure_sweep"
+    assert set(chip_smoke.FAULTS_FULL["pristine"]) == {
+        "cin16_saturation", "hyperx256_uniform", "dragonfly72_uniform"}
+    assert (chip_smoke.FLOW_FULL["spec"], chip_smoke.FLOW_FULL["backend"]) \
+        == ("flow_scale_smoke", "auto")
+    assert chip_smoke.TRACE_FULL["spec"] == "collective_replay"

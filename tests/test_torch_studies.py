@@ -27,7 +27,7 @@ from repro_torch.studies.store import JsonlStore as T_Store
 from repro_torch.studies.store import Result as T_Result
 
 #: Bundled specs that need unported modules, and the ROADMAP item named.
-UNPORTED = {"failure_sweep": "item 5", "serving_slo": "item 8"}
+UNPORTED = {"serving_slo": "item 8"}
 LOADABLE = sorted(set(TS.bundled_specs()) - set(UNPORTED))
 
 
@@ -78,16 +78,6 @@ def test_spec_keys_digests_and_json_equal(name):
 def test_specs_needing_unported_modules_raise_at_load(name):
     with pytest.raises(NotImplementedError, match=UNPORTED[name]):
         TS.load_specs(TS.bundled_spec_path(name))
-
-
-@pytest.mark.parametrize("backend", ["auto", "flow"])
-def test_flow_scale_smoke_raises_naming_the_flow_tier(backend):
-    """4096 switches: the reference's "auto" takes it to the flow model, so
-    the port's raises rather than pick a backend that raises later."""
-    study = TS.Study(TS.bundled_spec_path("flow_scale_smoke"),
-                     backend=backend)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        study.run()
 
 
 def test_numpy_study_equals_the_reference():
@@ -217,8 +207,6 @@ def test_unported_study_and_cli_parts_raise(tmp_path):
     study = TS.Study(TS.bundled_spec_path("studies_smoke"), backend="numpy")
     with pytest.raises(NotImplementedError, match="item 8"):
         study.slo_capacity()
-    with pytest.raises(NotImplementedError, match="item 3g"):
-        cli(["trace", "export", "collective_replay"])
     with pytest.raises(NotImplementedError, match="item 7"):
         cli(["cache"])
 
@@ -229,7 +217,13 @@ def test_cli_specs_show_and_run(tmp_path, capsys, monkeypatch):
     monkeypatch.chdir(tmp_path)
     assert cli(["specs"]) == 0
     out = capsys.readouterr().out
-    assert "studies_smoke" in out and "item 5" in out and "item 8" in out
+    assert "studies_smoke" in out and "item 8" in out
+    runnable = [ln for ln in out.splitlines() if "not runnable" not in ln]
+    assert [ln.split()[0] for ln in out.splitlines()
+            if "not runnable" in ln] == ["serving_slo"]
+    assert any(ln.startswith("failure_sweep ") and "13 experiments" in ln
+               for ln in runnable)
+    assert any(ln.startswith("flow_scale_smoke ") for ln in runnable)
     assert cli(["show", "studies_smoke"]) == 0
     assert "4 grid points" in capsys.readouterr().out
     store = str(tmp_path / "smoke.jsonl")

@@ -163,8 +163,8 @@ def test_collective_replay_minimal_arm_meets_the_bounds_on_the_oracle():
 
 def test_replay_entry_points_default_to_the_card(monkeypatch):
     """replay and Fabric.replay default to the torch engine on cuda: without
-    CUDA they raise and never run the oracle; "jax" is no backend of the
-    port, and failures= waits for its ROADMAP item."""
+    CUDA they raise and never run the oracle, degraded replays included;
+    "jax" is no backend of the port."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fab = T_make_fabric("xor", 8)
     w = TW.collective_workload(fab, "all_to_all")
@@ -174,7 +174,7 @@ def test_replay_entry_points_default_to_the_card(monkeypatch):
         TW.replay(fab.sim_topology(), "minimal", w)
     with pytest.raises(ValueError, match="unknown simulator backend"):
         TW.replay(fab.sim_topology(), "minimal", w, backend="jax")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        fab.replay(failures={"link_fraction": 0.1}, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fab.replay(failures={"link_fraction": 0.1})
     st = fab.replay(device="cpu")
     assert (st.completion_cycles, st.ideal_cycles) == (7, 7)

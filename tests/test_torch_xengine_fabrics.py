@@ -156,8 +156,6 @@ def test_unported_options_raise_naming_their_roadmap_item():
     topo = T.cin_topology("xor", 8)
     tr = T.uniform(8, offered=0.5, cycles=10, terminals=2)
     run = dict(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3g"):
-        T.simulate_torch(topo, "minimal", tr, trace=True, **run)
     with pytest.raises(NotImplementedError, match="item 3h"):
         T.simulate_torch(topo, "minimal", tr, bucket=True, **run)
     with pytest.raises(NotImplementedError, match="sharding"):
@@ -168,9 +166,5 @@ def test_unported_options_raise_naming_their_roadmap_item():
     serving.request = np.arange(serving.num_packets)
     with pytest.raises(NotImplementedError, match="item 3e"):
         T.simulate_torch(topo, "minimal", serving, **run)
-    degraded = T.cin_topology("xor", 8)
-    degraded.meta = {"faults": {"comp": np.zeros(8, np.int64)}}
-    with pytest.raises(NotImplementedError, match="items 3f and 5"):
-        T.simulate_torch(degraded, "minimal", tr, **run)
     # exact shapes are the port's only shapes: bucket=False is accepted
     T.simulate_torch(topo, "minimal", tr, bucket=False, devices=1, **run)
