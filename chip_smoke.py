@@ -61,13 +61,25 @@ Phases, one JSON line each:
 11. trace  -- every ``collective_replay`` experiment as a traced sweep on
    the card against the CPU (every trace array, every RunStats field, and
    the untraced run's), kernels per cycle untraced and traced, and
-   ``trace export --backend both`` as a subprocess, its JSON validated.
+   ``trace export --backend both`` as a subprocess, its JSON validated;
+12. serving -- the graph cache from empty (``sim_speed`` twice: a capture,
+   then a memory hit equal to it; kernels per cycle and blocks per call
+   with and without shape bucketing; ``collective_replay`` cold and warm,
+   its capture seconds), then ``python -m repro_torch.studies run
+   serving_slo`` and ``python -m repro_torch.workload slo`` on each of its
+   experiments as processes of their own (records equal to the CPU's, the
+   CIN-16 experiments' request counts and attainment equal to the numpy
+   oracle's, every search's probes and capacity equal to the CPU's), and
+   an MMPP serving sweep on ``xl_scale``'s 1040-switch Dragonfly against
+   the CPU, with the host seconds of its request metrics.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 without that last line; so does a machine without CUDA.  Imports only torch,
 numpy and repro_torch.
 """
+import collections
+import ctypes
 import dataclasses
 import json
 import math
@@ -99,6 +111,8 @@ from repro_torch.core import DragonflyConfig  # noqa: E402
 from repro_torch.core.simulate import cin_link_loads  # noqa: E402
 from repro_torch.sim import xengine as XE  # noqa: E402
 from repro_torch import studies as ST  # noqa: E402
+from repro_torch import workload as W  # noqa: E402
+from repro_torch.obs import telemetry  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
@@ -952,8 +966,8 @@ def device_ops(fn, device, calls=1):
 def step_profile(prep, device):
     """The cycle step of a prepared sweep (repro_torch.sim.xengine) on its
     own: device ms per cycle as the CUDA graph replays a block and as the
-    same block runs eagerly, kernels per cycle (one eager block under the
-    profiler; the graph replays exactly those), and the device's busy
+    same block runs eagerly, kernels per cycle (the nodes of the block's
+    captured graph, see kernels_per_cycle), and the device's busy
     share and top operations per cycle over two graph replays.  Runs
     real cycles from cycle 0 (9 blocks), so the horizon should hold them."""
     spec, tb, pkt, k = prep.spec, prep.tb, prep.pkt, XE._BLOCK
@@ -1229,22 +1243,39 @@ def study_line(name, device, cold, cold_s, warm, warm_s):
            for k in ("compile_s", "execute_s", "host_s")}}
 
 
-def studies_cli(*argv):
-    """``python -m repro_torch.studies *argv`` as its own process, with this
-    checkout's ``src`` on its path: the finished process and its wall
-    seconds; raises when it exits non-zero."""
+def cli_start(module, *argv):
+    """``python -m <module> *argv`` started as its own process, with this
+    checkout's ``src`` on its path; :func:`cli_wait` finishes it."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.studies",
-                           *argv], env=env, capture_output=True, text=True,
-                          timeout=900)
+    proc = subprocess.Popen([sys.executable, "-m", module, *argv], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, time.perf_counter(), f"{module} {' '.join(argv[:2])}"
+
+
+def cli_wait(started):
+    """The finished process of :func:`cli_start` (a CompletedProcess) and
+    its wall seconds from its start; raises when it exits non-zero."""
+    proc, t0, what = started
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError(f"the studies CLI ({' '.join(argv[:2])}) exited "
-                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
-                             f"{proc.stderr[-4000:]}")
-    return proc, seconds
+        raise AssertionError(f"the CLI ({what}) exited {proc.returncode}:\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
+    return subprocess.CompletedProcess(proc.args, 0, out, err), seconds
+
+
+def studies_cli(*argv):
+    """``python -m repro_torch.studies *argv`` as its own process: the
+    finished process and its wall seconds; raises when it exits
+    non-zero."""
+    return cli_wait(cli_start("repro_torch.studies", *argv))
 
 
 def run_replay_study(cfg, device, tmp):
@@ -1689,15 +1720,53 @@ TRACE_TINY = {"spec": STUDIES_TINY["replay"],
               "export": "cin-xor-8/replay-all_to_all/minimal"}
 
 
+#: CUgraphNodeType values (cuda.h) of the nodes that run on the device.
+_DEVICE_NODES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_nodes(graph):
+    """The device nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``) by type, read through the driver API: exactly
+    what every replay of the graph launches."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUresult {rc}")
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    kinds = collections.Counter()
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        kinds[_DEVICE_NODES.get(kind.value, "other")] += 1
+    return dict(kinds)
+
+
 def kernels_per_cycle(prep, device):
-    """Kernels (CPU: operators) of one eager block of a prepared sweep,
-    per cycle: what its CUDA graph replays."""
-    state = XE._init_state(prep.spec, prep.tb, prep.pkt)
+    """Device operations of one block of a prepared sweep, per cycle.  On
+    CUDA: the kernel, memset and copy nodes of the block's captured graph,
+    which every replay runs (a profiler window may drop records, so the
+    graph itself is read).  On the CPU: the operators of one eager block
+    under the profiler."""
+    spec, tb, pkt, k = prep.spec, prep.tb, prep.pkt, XE._BLOCK
+    state = XE._init_state(spec, tb, pkt)
     pred = torch.ones((), dtype=torch.bool, device=device)
-    rows, _, _ = device_ops(lambda: XE._block(prep.spec, prep.tb, prep.pkt,
-                                              state, pred, XE._BLOCK),
-                            device)
-    return sum(c for _, _, c in rows) / XE._BLOCK
+    if device != "cuda":
+        rows, _, _ = device_ops(
+            lambda: XE._block(spec, tb, pkt, state, pred, k), device)
+        return sum(c for _, _, c in rows) / k
+    graph = XE._capture(spec, tb, pkt, state, pred, k, keep_graph=True)
+    kinds = graph_nodes(graph)
+    del graph
+    return sum(v for kind, v in kinds.items() if kind != "other") / k
 
 
 def phase_trace(device="cuda", sizes=TRACE_FULL):
@@ -1773,6 +1842,342 @@ def phase_trace(device="cuda", sizes=TRACE_FULL):
     emit("trace", device=device, **out)
     return out
 
+# ---------------------------------------------------------------------------
+# Serving traffic and SLO capacity (repro_torch.workload, the engine's
+# request metrics) and graphs kept across calls (shape bucketing, the
+# graph cache).  No hand-written kernel runs here.
+# ---------------------------------------------------------------------------
+
+#: The serving phase: ``spec`` through the studies CLI against the CPU,
+#: its ``oracle`` experiments against the numpy oracle on request count
+#: and attainment (ROADMAP C2); ``slo`` (Study.slo_capacity's arguments,
+#: empty for the CLI's defaults) of every experiment through the workload
+#: CLI against the same search on the CPU (``search`` also in this process,
+#: where its time goes); ``sweep``, MMPP serving traffic
+#: on ``xl_scale``'s 1040-switch Dragonfly (bench_compile.py:161-200),
+#: drained, against the CPU; ``cache``: two ``sim_speed`` sweeps and the
+#: ``replay`` spec's Study through the graph cache.
+SERVING_FULL = {
+    "spec": "serving_slo",
+    "oracle": ("cin-xor-16/serving-poisson-r0.05/minimal",
+               "cin-xor-16/serving-mmpp-r0.03-b6/minimal"),
+    "slo": {},
+    "search": "cin-xor-16/serving-mmpp-r0.03-b6/minimal",
+    "sweep": {"dragonfly": (16, 8, 8, 65), "load": 1.0, "seed": 0,
+              "arrival": {"kind": "mmpp", "rate": 0.02, "burst": 6.0,
+                          "p_on": 0.05, "p_off": 0.2},
+              "packets_per_request": 4, "slo": 40.0, "cycles": 256},
+    "cache": {"sim_speed": SIM_FULL["sim_speed"],
+              "replay": STUDIES_FULL["replay"]},
+}
+#: The same phase at a size the CPU runs in seconds
+#: (tests/test_torch_sim_smoke.py): CIN-8 serving experiments, a
+#: 36-switch Dragonfly sweep.
+SERVING_TINY = {
+    "spec": [{"fabric": {"kind": "cin", "params": {"instance": "xor",
+                                                   "n": 8}},
+              "traffic": {"pattern": "serving",
+                          "params": {"arrival": arrival,
+                                     "packets_per_request": 2, "slo": 12}},
+              "routing": {"policy": "minimal"},
+              "sweep": {"loads": [0.5, 1.0], "seeds": [7], "cycles": 120,
+                        "warmup": 0},
+              "terminals": 1, "engine": {"drain": True}}
+             for arrival in ({"kind": "poisson", "rate": 0.05},
+                             {"kind": "mmpp", "rate": 0.03, "burst": 6.0,
+                              "p_on": 0.05, "p_off": 0.2})],
+    "oracle": ("cin-xor-8/serving-poisson-r0.05/minimal",),
+    "slo": {"hi": 4.0, "tol": 0.5},
+    "search": "cin-xor-8/serving-mmpp-r0.03-b6/minimal",
+    "sweep": {"dragonfly": (4, 2, 2, 9), "load": 1.0, "seed": 0,
+              "arrival": {"kind": "mmpp", "rate": 0.02, "burst": 6.0,
+                          "p_on": 0.05, "p_off": 0.2},
+              "packets_per_request": 4, "slo": 40.0, "cycles": 40},
+    "cache": {"sim_speed": SIM_TINY["sim_speed"],
+              "replay": STUDIES_TINY["replay"]},
+}
+SERVING_FIELDS = ("request_count", "request_latency_p50",
+                  "request_latency_p95", "request_latency_p99",
+                  "slo_target", "slo_attainment")
+
+
+def sim_speed_sweep(cfg, device, **kw):
+    """One ``sim_speed`` sweep (run_sim_speed's) and its wall seconds."""
+    n = cfg["n"]
+
+    def tf(load, seed):
+        return S.uniform(n, offered=load, cycles=cfg["cycles"],
+                         terminals=cfg["terminals"], seed=seed)
+    args = (S.cin_topology("xor", n), "minimal", tf, cfg["loads"])
+    kw = dict(seeds=cfg["seeds"], terminals=cfg["terminals"],
+              cycles=cfg["cycles"], warmup=cfg["warmup"], device=device, **kw)
+    t0 = time.perf_counter()
+    grid = S.sweep(*args, **kw)
+    return grid, time.perf_counter() - t0, args, kw
+
+
+def serving_cache(cfg, device):
+    """The graph cache, from empty: ``sim_speed`` twice (a capture, then a
+    hit equal to it), kernels per cycle and blocks run per call with and
+    without bucketing, then the replay spec's Study twice (the second all
+    hits), with its capture seconds."""
+    telemetry.clear_caches()
+    telemetry.reset_cache_stats()
+    first, first_s, args, kw = sim_speed_sweep(cfg["sim_speed"], device)
+    second, second_s, _, _ = sim_speed_sweep(cfg["sim_speed"], device)
+    t1, t2 = first[0][0].timing, second[0][0].timing
+    if t1["compile_cached"] is not False or \
+            t2["compile_cached"] != "memory":
+        raise AssertionError(f"sim_speed: compile_cached {t1} then {t2}, "
+                             f"expected a capture then a memory hit")
+    check_same_grid("sim_speed: the kept graph against the first call",
+                    second, first)
+    by_bucket = {}
+    for bucket in (True, False):
+        prep = XE._prepare(*args, bucket=bucket, **kw)
+        before = XE.block_runs
+        S.sweep(*args, bucket=bucket, **kw)
+        by_bucket[str(bucket)] = {
+            "kernels_per_cycle": kernels_per_cycle(prep, device),
+            "blocks_per_call": XE.block_runs - before,
+            "static_horizon": prep.spec.horizon,
+            "packet_slots": int(prep.pkt["src"].numel()),
+            "log_entries": (prep.spec.horizon * int(prep.tb["sw_local"]
+                                                    .numel())
+                            if prep.spec.log_deliveries else 0)}
+    kb, ke = by_bucket["True"], by_bucket["False"]
+    if (kb["kernels_per_cycle"], kb["blocks_per_call"]) != \
+            (ke["kernels_per_cycle"], ke["blocks_per_call"]):
+        raise AssertionError(f"bucketing changed the step: {by_bucket}")
+    replay = load_spec_source(cfg["replay"])
+    cold, cold_s = timed_study(replay, device)
+    hits = telemetry.cache_stats()["memory_hits"]
+    warm, warm_s = timed_study(replay, device)
+    line = study_line("replay", device, cold, cold_s, warm, warm_s)
+    if telemetry.cache_stats()["memory_hits"] - hits != line["experiments"]:
+        raise AssertionError("the warm replay study captured a graph")
+    out = {"sim_speed_first": {"wall_s": first_s, "timing": t1},
+           "sim_speed_second": {"wall_s": second_s, "timing": t2},
+           "bucketing": by_bucket,
+           "replay_study": {k: line[k] for k in (
+               "experiments", "wall_s_cold", "wall_s_warm",
+               "compile_s_sum", "execute_s_sum", "host_s_sum")},
+           "replay_cold_compile_s_sum": sum(
+               t["compile_s"] for t in {r.experiment: r.stats.timing
+                                        for r in cold.results}.values()),
+           "counters": telemetry.cache_stats()}
+    emit("serving_cache", device=device, **out)
+    return out
+
+
+def serving_sweep(cfg, device):
+    """MMPP serving traffic on a Dragonfly, drained, on ``device`` and on
+    the CPU: every RunStats field, the request metrics included, equal;
+    the host seconds of the request attachment (attach_serving)."""
+    a, p, h, g = cfg["dragonfly"]
+    topo = S.dragonfly_topology(DragonflyConfig(
+        group_size=a, terminals_per_switch=p, global_ports_per_switch=h,
+        num_groups=g))
+    topo.minimal_port_table()
+    n = topo.num_switches
+    arrival = W.ArrivalSpec(**cfg["arrival"])
+
+    def tf(load, seed):
+        return W.serving_traffic(arrival, n, cycles=cfg["cycles"], load=load,
+                                 terminals=p,
+                                 packets_per_request=cfg[
+                                     "packets_per_request"],
+                                 slo=cfg["slo"], seed=seed)
+    inner = XE.attach_serving
+    spent = []
+
+    def attach(*a, **kw):
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    def run(dev):
+        t0 = time.perf_counter()
+        grid = S.sweep(topo, "minimal", tf, [cfg["load"]],
+                       seeds=(cfg["seed"],), terminals=p,
+                       cycles=cfg["cycles"], warmup=0, drain=True,
+                       device=dev)
+        return grid, time.perf_counter() - t0
+    XE.attach_serving = attach
+    try:
+        got, wall_s = run(device)
+        want, cpu_s = run("cpu")
+    finally:
+        XE.attach_serving = inner
+    check_same_grid("serving sweep against the CPU", got, want)
+    st = got[0][0]
+    if not st.request_count or st.slo_attainment is None:
+        raise AssertionError("the serving sweep reported no requests")
+    out = {"switches": n, "terminals": n * p, "cycles": cfg["cycles"],
+           "packets": int(st.packets_generated),
+           **{f: getattr(st, f) for f in SERVING_FIELDS},
+           "wall_s": wall_s,
+           "cpu_wall_s": cpu_s, "timing": st.timing,
+           "attach_serving_host_s": spent[0]}
+    emit("serving_sweep", device=device, **out)
+    return out
+
+
+def sweep_timings(fn):
+    """``fn()`` and the timing records of every sweep it ran."""
+    inner = XE._collect
+    seen = []
+
+    def collect(run, out, timing):
+        seen.append(timing)
+        return inner(run, out, timing)
+    XE._collect = collect
+    try:
+        return fn(), seen
+    finally:
+        XE._collect = inner
+
+
+def serving_time(specs, cfg, device):
+    """Where a serving study's and an SLO search's time goes, in this
+    process on ``device``: the spec's ``Study.run()`` cold and warm (its
+    captures, replays and host work), then the ``search`` experiment's
+    ``slo_capacity``: wall seconds, probes, captures and memory hits, and
+    the probes' summed capture, replay and host seconds."""
+    cold, cold_s = timed_study(specs, device)
+    warm, warm_s = timed_study(specs, device)
+    study = study_line(cfg["spec"] if isinstance(cfg["spec"], str)
+                       else "serving", device, cold, cold_s, warm, warm_s)
+    before = telemetry.cache_stats()
+    t0 = time.perf_counter()
+    cap, timings = sweep_timings(lambda: ST.Study(
+        specs, device=device).slo_capacity(cfg["search"], **cfg["slo"]))
+    after = telemetry.cache_stats()
+    search = {"experiment": cfg["search"], "wall_s": time.perf_counter() - t0,
+              "probes": len(cap["probes"]), "capacity": cap["capacity"],
+              "captures": after["misses"] - before["misses"],
+              "memory_hits": after["memory_hits"] - before["memory_hits"],
+              **{f"{k}_sum": sum(t[k] for t in timings)
+                 for k in ("compile_s", "execute_s", "host_s")}}
+    emit("serving_time", device=device, study=study, search=search)
+    return {"study": study, "search": search, "cap": cap}
+
+
+def slo_lines(cap):
+    """The lines ``python -m repro_torch.workload slo`` prints for a
+    search's result, the cache line aside."""
+    return ([f"experiment: {cap['experiment']}",
+             f"slo: p{cap['percentile']:g} <= {cap['slo']} cycles"]
+            + [f"  probe load={load}: attainment={att}"
+               for load, att in cap["probes"]]
+            + [f"capacity: {cap['capacity']}"])
+
+
+def phase_serving(device="cuda", sizes=SERVING_FULL):
+    """Serving studies on ``device``: the graph cache, then where a serving
+    study's and a search's time goes (both timed alone), then the studies
+    CLI on the serving spec and the workload CLI's SLO
+    search of every experiment, as processes of their own and all at once,
+    while this process runs the deployment-size serving sweep and the CPU
+    and numpy runs they are held to.  On the CPU (the rehearsal) runs keep
+    their buffers in the graph cache as the card's do."""
+    t0 = time.perf_counter()
+    reset_launches()
+    kept = XE._CACHE_DEVICES
+    if device == "cpu":
+        XE._CACHE_DEVICES = ("cuda", "cpu")
+    try:
+        cache = serving_cache(sizes["cache"], device)
+        specs = load_spec_source(sizes["spec"])
+        spent = serving_time(specs, sizes, device)
+        with tempfile.TemporaryDirectory() as tmp:
+            src = sizes["spec"]
+            if not isinstance(src, str):
+                src = os.path.join(tmp, "serving_spec.json")
+                ST.dump_specs(specs, src)
+            store = os.path.join(tmp, "serving.results.jsonl")
+            slo_args = [a for k, v in sizes["slo"].items()
+                        for a in (f"--{k}", str(v))]
+            run = cli_start("repro_torch.studies", "run", src, "--backend",
+                            "torch", "--device", device, "--store", store)
+            slos = {e.name: cli_start("repro_torch.workload", "slo", src,
+                                      "--experiment", e.name, "--device",
+                                      device, *slo_args) for e in specs}
+            sweep = serving_sweep(sizes["sweep"], device)
+            cpu, cpu_s = timed_study(specs, "cpu")
+            oracle, oracle_s = timed_study(
+                [e for e in specs if e.name in sizes["oracle"]], None,
+                backend="numpy")
+            cpu_caps = {}
+            for name in slos:
+                t1 = time.perf_counter()
+                cap = ST.Study(specs, device="cpu").slo_capacity(
+                    name, **sizes["slo"])
+                cpu_caps[name] = (cap, time.perf_counter() - t1)
+            if cpu_caps[sizes["search"]][0] != spent["cap"]:
+                raise AssertionError(f"slo {sizes['search']}: the search on "
+                                     f"the device differs from the CPU's")
+            proc, cli_s = cli_wait(run)
+            stored = ST.JsonlStore(store).load()
+            done = {name: cli_wait(started) for name, started in slos.items()}
+        keys = [e.key(*pt) for e in specs for pt in e.points()]
+        if sorted(stored) != sorted(keys):
+            raise AssertionError(f"the CLI stored {sorted(stored)}, not "
+                                 f"{keys}")
+        records = [stored[k] for k in keys]
+        if {r.backend for r in records} != {"torch"}:
+            raise AssertionError("the serving CLI's records did not come "
+                                 "from the torch engine")
+        check_same_records("serving: CLI on the device against the CPU",
+                           records, cpu.results)
+        for r in oracle.results:
+            got = stored[r.key]
+            if (got.request_count, got.slo_attainment) != \
+                    (r.request_count, r.slo_attainment):
+                raise AssertionError(f"{r.key}: requests/attainment "
+                                     f"{got.request_count}/"
+                                     f"{got.slo_attainment}, numpy "
+                                     f"{r.request_count}/{r.slo_attainment}")
+        searches = []
+        for name, (sproc, s_wall) in done.items():
+            lines = sproc.stdout.strip().splitlines()
+            cap, c_s = cpu_caps[name]
+            if lines[:-1] != slo_lines(cap):
+                raise AssertionError(f"slo {name}: the card's search\n"
+                                     f"{lines}\ndiffers from the CPU's\n"
+                                     f"{slo_lines(cap)}")
+            counters = dict(kv.split("=") for kv in lines[-1].split()[2:])
+            searches.append({"experiment": name, "probes": cap["probes"],
+                             "capacity": cap["capacity"],
+                             "cli_wall_s": s_wall, "cpu_wall_s": c_s,
+                             "captures": int(counters["captures"]),
+                             "memory_hits": int(counters["memory_hits"])})
+    finally:
+        XE._CACHE_DEVICES = kept
+    for line in searches:
+        emit("serving_slo", device=device, **line)
+    launched = kernel_launches()
+    if any(launched.values()):
+        raise AssertionError(f"the serving phase launched a model kernel: "
+                             f"{launched}")
+    out = {"cache": cache, "sweep": sweep, "searches": searches,
+           "time": {k: spent[k] for k in ("study", "search")},
+           "study": {"points": len(records), "cli_wall_s": cli_s,
+                     "cpu_wall_s": cpu_s, "oracle_wall_s": oracle_s,
+                     "oracle_checked": len(oracle.results),
+                     "serving_points": cpu.serving_points(),
+                     "cli_says": [ln for ln in proc.stdout.splitlines()
+                                  if ln.startswith("ran ")]},
+           "memory_allocated_with_cache": (torch.cuda.memory_allocated()
+                                           if device == "cuda" else None),
+           "memory_reserved_with_cache": (torch.cuda.memory_reserved()
+                                          if device == "cuda" else None),
+           "graphs_kept": len(telemetry._CACHE),
+           "seconds": time.perf_counter() - t0, "launches": launched}
+    emit("serving", device=device, **out)
+    return out
+
 
 def main():
     smi = phase_device()
@@ -1795,6 +2200,7 @@ def main():
     phase_faults()
     phase_flow()
     phase_trace()
+    phase_serving()
 
     def entry(kernel, path, source, replaces, timing, runs, keys=()):
         """One kernel; ``runs`` are the launch counts of the runs that drive

@@ -5,7 +5,12 @@ numpy, never JAX and nothing of ``repro``.  Ported so far: the LM serving
 path (``models``, ``serving``) for attention and xLSTM models, with the
 hand-written Hopper kernels for flash attention and the chunkwise mLSTM
 scan (``kernels``); the fabric math, schedules and ``Fabric`` objects
-(``core``, ``fabric``); the packet simulator with its torch cycle engine
-and collective replays (``sim``); and the declarative studies with their
-CLI, ``python -m repro_torch.studies`` (``studies``).
+(``core``, ``fabric``); the packet simulator with its torch cycle engine,
+collective replays, serving request metrics and graphs kept across calls
+(``sim``, ``obs``); degraded fabrics and the flow tier (``faults``,
+``flow``); serving arrival processes and their CLI, ``python -m
+repro_torch.workload`` (``workload``); and the declarative studies with
+their CLI, ``python -m repro_torch.studies`` (``studies``).  Still to
+port: LACIN collectives and the rest of the LM substrate (ROADMAP queue
+A, items 9 and 10).
 """

@@ -27,9 +27,7 @@ but not knee-comparable across fidelities.  ``Result.fidelity ==
 Route tracing, demands and capacities are host numpy; the max-min solve
 runs on ``device`` (default ``"cuda"``, which raises where CUDA is
 absent), an argument of every entry point here and never a field of
-:class:`FlowParams`, so specs and records are the reference's.  Serving
-streams (:func:`serving_stats`) need the request-level workload layer,
-which is not ported yet: they raise (ROADMAP queue A, item 8).
+:class:`FlowParams`, so specs and records are the reference's.
 """
 from __future__ import annotations
 
@@ -435,13 +433,74 @@ def serving_stats(topo: SimTopology, routing: str, traffic, *,
                   terminals: int, cycles: int, warmup: int = 0,
                   params: FlowParams | None = None,
                   device="cuda") -> RunStats:
-    """RunStats for a serving request stream at flow fidelity (reference
-    ``repro.flow.serving_stats``).  Its demand matrix comes from the
-    request-level workload layer, which is not ported yet: this raises."""
-    raise NotImplementedError(
-        "flow-fidelity serving streams need the request-level workload "
-        "layer, which is not ported yet (ROADMAP queue A, item 8: "
-        "repro_torch.workload)")
+    """RunStats for a serving request stream at flow fidelity.
+
+    Throughput comes from the max-min solution of the stream's empirical
+    demand matrix (:func:`repro_torch.workload.serving_demands`).
+    Per-request latency is the contention-free lower bound ``hops + P`` (a
+    request's ``P`` packets serialize through one injection FIFO, so the
+    last packet cannot deliver before ``hops + 1 + (P - 1)`` cycles after
+    arrival), and requests on *saturated* pairs — allocated below their
+    demanded rate — count as SLO misses outright.  Flow attainment is
+    therefore an optimistic bound away from the knee and a hard zeroing
+    at it: the same capacity cliff the cycle engines measure, at 10k+
+    switch scale.  The solver runs on ``device``.
+    """
+    from repro_torch.workload.serving import serving_demands
+    params = params or FlowParams()
+    n = topo.num_switches
+    src, dst, rate = serving_demands(traffic, n)
+    sol = solve_flows(topo, routing, src, dst, rate, params=params,
+                      device=device)
+    stats = _stats_from_solution(sol, policy=routing, traffic=traffic.name,
+                                 offered=float(traffic.offered),
+                                 cycles=cycles, warmup=warmup,
+                                 terminals=terminals)
+    slo = getattr(traffic, "slo", None)
+    stats.slo_target = float(slo) if slo is not None else None
+    if traffic.request is None or traffic.num_packets == 0:
+        stats.request_count = 0
+        return stats
+    pair_in = src * n + dst                      # sorted (np.unique output)
+    # Allocated rate per input pair: the solution's flows keep their
+    # originating (src, dst) even when valiant splits them over mids.
+    alloc = np.zeros(pair_in.size)
+    pkey = (np.asarray(sol.problem.src, np.int64) * n
+            + np.asarray(sol.problem.dst, np.int64))
+    idx = np.searchsorted(pair_in, pkey)
+    ok = idx < pair_in.size
+    ok[ok] &= pair_in[idx[ok]] == pkey[ok]
+    np.add.at(alloc, idx[ok], sol.rates[ok])
+    sat_pair = alloc < rate * (1.0 - 1e-6)
+    # Minimal-route hop counts per pair; pairs a degraded fabric dropped
+    # stay untraced and count as misses (the engines mask their packets).
+    keep = np.ones(pair_in.size, dtype=bool)
+    if (topo.meta or {}).get("faults") is not None:
+        from repro_torch.faults import filter_pairs
+        ksrc, kdst, _kr = filter_pairs(topo, src, dst, rate)
+        keep = np.isin(pair_in, ksrc * n + kdst)
+    hops = np.zeros(pair_in.size, dtype=np.int64)
+    if keep.any():
+        _ids, ptr = trace_routes(topo, src[keep], dst[keep])
+        hops[keep] = np.diff(ptr)
+    uniq, first, counts = np.unique(traffic.request, return_index=True,
+                                    return_counts=True)
+    r_pair = (traffic.src[first].astype(np.int64) * n
+              + traffic.dst[first].astype(np.int64))
+    pidx = np.searchsorted(pair_in, r_pair)
+    lat = hops[pidx] + counts                    # hops + 1 + (P - 1)
+    complete = keep[pidx] & ~sat_pair[pidx]
+    stats.request_count = int(uniq.size)
+    done = lat[complete]
+    if done.size:
+        p50, p95, p99 = np.percentile(done, [50, 95, 99])
+        stats.request_latency_p50 = round(float(p50), 3)
+        stats.request_latency_p95 = round(float(p95), 3)
+        stats.request_latency_p99 = round(float(p99), 3)
+    if slo is not None and uniq.size:
+        met = int((done <= float(slo)).sum())
+        stats.slo_attainment = round(met / uniq.size, 4)
+    return stats
 
 
 # ---------------------------------------------------------------------------

@@ -19,16 +19,19 @@ samples at the end of each cycle, and the torch cycle engine
 (:mod:`repro_torch.sim.xengine`) carries statically shaped ring buffers
 in its captured step, one row write per sampled cycle.  On drained
 deterministic workloads the two engines' traces agree exactly.  The
-reference's compile caches are not ported yet (ROADMAP queue A, item 7).
+reference's compile cache becomes :mod:`.telemetry`'s graph cache: the
+cycle engine's captured CUDA graphs, kept in memory across calls.
 """
 from .trace import Trace, TraceConfig, derive_backlog
 from .spans import (counter_events, export_perfetto, packet_events,
                     phase_events, request_events, validate_trace_events)
-from .telemetry import device_clock, provenance, timing_dict
+from .telemetry import (cache_stats, clear_caches, device_clock, provenance,
+                        reset_cache_stats, timing_dict)
 from .export import link_classes, replay_trace_events
 
 __all__ = ["Trace", "TraceConfig", "derive_backlog",
            "counter_events", "export_perfetto", "packet_events",
            "phase_events", "request_events", "validate_trace_events",
-           "device_clock", "provenance", "timing_dict",
+           "cache_stats", "clear_caches", "device_clock", "provenance",
+           "reset_cache_stats", "timing_dict",
            "link_classes", "replay_trace_events"]

@@ -1,11 +1,19 @@
-"""Run telemetry of the torch cycle engine: the canonical timing record.
+"""Run telemetry of the torch cycle engine: the timing record, the graph
+cache and its counters, and the provenance block.
 
 The reference's ``repro.obs.telemetry`` times JAX programs through an
-in-memory and an on-disk AOT compile cache.  A CUDA graph cannot be kept
-across processes, and the port keeps none within one either, so every
-run captures its graph anew: ``compile_cached`` is always ``False`` here.
-``compile_s`` is the graph's warm-up and capture; ``execute_s`` is its
-replay, timed to completion on the device (:func:`device_clock`).
+in-memory and an on-disk AOT compile cache.  Here the program is a CUDA
+graph of the cycle step, and :func:`timed_graph` is the counterpart of
+the reference's ``timed_compiled``: it keeps each captured graph, with
+the buffers it replays onto, in an in-process LRU of
+:data:`_CACHE_LIMIT` entries keyed by the step's static spec, shapes and
+device.  A hit refills those buffers in place and replays
+(``compile_cached="memory"``, ``compile_s`` 0.0); a miss captures
+(``compile_cached`` ``False``, ``compile_s`` the warm-up and capture).  A
+CUDA graph cannot outlive its process, so there is no disk layer:
+:func:`cache_dir` is ``None`` and :func:`disk_cache_entries` empty, and
+the disk counters stay 0.  ``execute_s`` is the refill and the replay,
+timed to completion on the device (:func:`device_clock`).
 :func:`provenance` is the environment block stored with every study
 result, with torch's and CUDA's versions and the card's name where the
 reference records JAX's version.
@@ -15,9 +23,93 @@ from __future__ import annotations
 import os
 import platform
 import time
+from collections import OrderedDict
+from typing import Callable
 
 import numpy as np
 import torch
+
+__all__ = ["timed_graph", "provenance", "timing_dict", "device_clock",
+           "cache_dir", "cache_stats", "reset_cache_stats", "clear_caches",
+           "disk_cache_entries"]
+
+#: Kept graphs, keyed by what the caller's graph depends on, in LRU order
+#: (oldest first).  Bounded like the reference's program cache: each
+#: entry pins its graph's memory pool and buffers on the device.
+_CACHE: OrderedDict = OrderedDict()
+_CACHE_LIMIT = 64
+
+#: The reference's cache counters, under its keys: ``memory_hits`` and
+#: ``misses`` partition graph acquisitions, ``evictions`` counts LRU
+#: drops; ``disk_hits``, ``disk_writes`` and ``disk_errors`` stay 0 (no
+#: disk layer).
+_STATS = {"memory_hits": 0, "disk_hits": 0, "misses": 0, "evictions": 0,
+          "disk_writes": 0, "disk_errors": 0}
+
+
+def cache_stats() -> dict:
+    """A snapshot copy of the cache counters (see :data:`_STATS`)."""
+    return dict(_STATS)
+
+
+def reset_cache_stats() -> None:
+    for k in _STATS:
+        _STATS[k] = 0
+
+
+def cache_dir() -> None:
+    """``None``: a CUDA graph cannot outlive its process, so nothing is
+    kept on disk."""
+    return None
+
+
+def disk_cache_entries() -> list:
+    """``[]``: there is no disk layer (see :func:`cache_dir`)."""
+    return []
+
+
+def clear_caches(*, memory: bool = True, disk: bool = False) -> None:
+    """Drop the kept graphs (``memory``); ``disk`` has nothing to drop."""
+    if memory:
+        _CACHE.clear()
+
+
+def timed_graph(key, capture: Callable, refill: Callable,
+                execute: Callable, *, device: torch.device,
+                grid_points: int = 1) -> tuple:
+    """``execute(entry)`` on a kept or freshly captured entry, returning
+    ``(output, timing)`` (:func:`timing_dict`, backend ``"torch"``).
+
+    With ``key`` in the cache, the entry is ``refill``-ed in place and
+    reused (``compile_cached="memory"``, ``compile_s`` 0.0); otherwise
+    ``capture()`` builds it (``compile_s`` its time) and it is kept under
+    ``key``, evicting the least recently used past :data:`_CACHE_LIMIT`.
+    ``key=None`` keeps nothing and counts nothing (the CPU's eager runs).
+    ``execute_s`` runs from after acquisition to the device's completion,
+    so a hit's refill is in it."""
+    entry = _CACHE.get(key) if key is not None else None
+    if entry is not None:
+        _CACHE.move_to_end(key)
+        _STATS["memory_hits"] += 1
+        compile_s, cached = 0.0, "memory"
+        t1 = device_clock(device)
+        refill(entry)
+    else:
+        t0 = device_clock(device)
+        entry = capture()
+        t1 = device_clock(device)
+        compile_s, cached = t1 - t0, False
+        if key is not None:
+            _STATS["misses"] += 1
+            while len(_CACHE) >= _CACHE_LIMIT:
+                _CACHE.popitem(last=False)
+                _STATS["evictions"] += 1
+            _CACHE[key] = entry
+    out = execute(entry)
+    execute_s = device_clock(device) - t1
+    return out, timing_dict("torch", compile_s=compile_s,
+                            execute_s=execute_s, compile_cached=cached,
+                            grid_points=grid_points)
 
 
 def timing_dict(backend: str, *, compile_s: float = 0.0,
@@ -26,8 +118,8 @@ def timing_dict(backend: str, *, compile_s: float = 0.0,
     """The canonical timing record (reference ``obs/telemetry.py:139``).
     A batched program's dict is shared by every grid point it produced —
     ``grid_points`` says how many, so consumers can amortize.
-    ``compile_cached`` is ``False`` for a fresh compile, else the cache
-    layer that served the program."""
+    ``compile_cached`` is ``False`` for a fresh capture, else the cache
+    layer that served the graph (``"memory"``)."""
     return {
         "backend": backend,
         "compile_s": round(float(compile_s), 6),

@@ -486,8 +486,7 @@ def replay(topo, policy, workload: Workload, *, backend: str = "torch",
     ``backend="torch"`` (the default) runs the cycle engine on ``device``
     (default ``"cuda"``, which raises where CUDA is absent; ``"cpu"`` runs
     the same step eagerly); ``"numpy"`` runs the oracle.  ``failures=``
-    (a replay on a degraded fabric) is not ported yet and raises
-    ``NotImplementedError`` (ROADMAP queue A, item 5).
+    replays on the degraded fabric (:func:`repro_torch.faults.degrade`).
     """
     from .engine import simulate
     from .policies import make_policy

@@ -30,6 +30,19 @@ reference's on every :class:`RunStats` field:
   words of a whole block are drawn at its start (gating is monotone, so
   block step ``k`` that runs is cycle ``c0 + k``).  On the CPU the same
   gated blocks run eagerly.
+* **Graphs kept across calls.**  A captured graph, with the buffers it
+  replays onto, stays in an in-process LRU
+  (:func:`repro_torch.obs.telemetry.timed_graph`, 64 entries) keyed by the
+  step's static spec, the shapes of its tables and packets, and the
+  device; a later sweep of the same key copies its tables, packets, base
+  key and bounds into those buffers in place, resets the state in place
+  and replays (``compile_cached="memory"``).  Shape bucketing (the
+  reference's ``bucket=True``, the default) rounds the copies, the packet
+  axis and the static horizon and cutoff up to :func:`_bucket_count`
+  boundaries, so nearby sweep sizes share one graph.  Padded copies carry
+  no packets, padded packet slots are never eligible, and the host loop
+  stops at the runtime bounds, so a bucketed run is bit-identical to the
+  exact one and runs no extra cycle.
 
 The host side stays numpy, as in the reference: the dense next-hop table
 (:meth:`SimTopology.minimal_port_table`), the index tables
@@ -47,12 +60,11 @@ buffers to the state: each sampled cycle writes one row of each at the
 end of the cycle, read-modify-write under the gate, so an untraced step
 captures exactly the kernels it did before.
 
+Serving traffic (a :class:`Traffic` carrying request ids) gets the
+reference's per-request latency percentiles and SLO attainment, computed
+on the host after the run; the request array never reaches the device.
 Not ported yet, and raising ``NotImplementedError`` from :func:`sweep`:
-serving requests (ROADMAP A3e), shape bucketing (A3h) and sharding the
-copies over several devices.
-The port runs exact shapes, which is the reference's ``bucket=False``
-(pinned bit-identical to its bucketed program by the reference's own
-conformance suite).
+sharding the copies over several devices.
 """
 from __future__ import annotations
 
@@ -63,11 +75,12 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..obs.telemetry import device_clock, timing_dict
+from ..obs.telemetry import timed_graph
 from ..obs.trace import Trace, TraceConfig, derive_backlog
 from .engine import _DRAIN_SLACK
 from .link import LinkLoadCounter, LinkTable
-from .metrics import RunStats, attach_replay, build_stats, replay_timeline
+from .metrics import (RunStats, attach_replay, attach_serving, build_stats,
+                      replay_timeline)
 from .policies import RoutingPolicy, make_policy
 from .threefry import fold_in, prng_key, random_bits
 from .topology import SimTopology
@@ -87,22 +100,41 @@ _MAX_HOPS = 127
 _LOG_ENTRY_BUDGET = 48_000_000
 #: Cycles per captured CUDA graph (and per eager block on the CPU).
 _BLOCK = 16
+#: Device types whose runs keep their graph (and its buffers) in the
+#: cache across calls.  The CPU has no graph and runs uncached; tests add
+#: "cpu" to run the same refill path eagerly.
+_CACHE_DEVICES = ("cuda",)
+#: Blocks run (graph replays on CUDA, eager blocks on the CPU) since the
+#: module was imported: the host loop's trip count, read across a call.
+block_runs = 0
 
 #: What each unported option needs, by ROADMAP item.
 _NOT_PORTED = {
-    "serving": "serving request metrics are not ported yet "
-               "(ROADMAP queue A, item 3e)",
-    "bucket": "bucket=True shape bucketing is not ported yet "
-              "(ROADMAP queue A, item 3h); the port runs exact shapes, "
-              "the reference's bucket=False",
     "devices": "sharding the copies over several devices is not ported "
                "yet (ROADMAP queue A, item 3, last)",
 }
 
 
+def _bucket_count(x: int) -> int:
+    """The shape-bucketing boundary at or above ``x`` (the reference's
+    ``_bucket_count``): exact powers of two up to 8, multiples of 8 up to
+    64, then the {2^k, 1.5 * 2^k} ladder."""
+    x = max(int(x), 1)
+    if x <= 8:
+        return 1 << (x - 1).bit_length()
+    if x <= 64:
+        return (x + 7) // 8 * 8
+    p = 1 << (x - 1).bit_length()          # next pow2 >= x
+    if 3 * p // 4 >= x:
+        return 3 * p // 4                  # the 1.5 * 2^(k-1) rung
+    return p
+
+
 class XSpec(NamedTuple):
     """Static engine configuration: what the step's shapes and branches
-    depend on (the reference's jit cache key)."""
+    depend on (the reference's jit cache key, and with the table and
+    packet shapes the graph cache's).  ``horizon`` and ``cutoff`` are the
+    bucketed static bounds; the runtime ones ride in ``pkt["lim"]``."""
     n: int
     ports: int
     vcs: int
@@ -115,6 +147,7 @@ class XSpec(NamedTuple):
     alpha: float
     drain: bool
     horizon: int
+    cutoff: int
     log_deliveries: bool
     #: Collective-replay mode: > 0 enables the phase barrier (packet
     #: ``gen`` is a phase ordinal, injection gates on completed phases).
@@ -550,6 +583,23 @@ def _block(spec: XSpec, tb: dict, pkt: dict, state: _State,
     pred.copy_(_gate(spec, pkt, state))
 
 
+#: The value every element of a state field holds at cycle 0: -1 marks
+#: an empty ring slot, an undelivered packet, an unwritten ejection-log
+#: or trace row and an open phase; every other field starts at 0.
+_STATE_FILL = {"buf": -1, "deliver": -1, "ej_log": -1, "phase_done": -1,
+               "tr_cycle": -1}
+
+
+def _reset_state(state: _State) -> None:
+    """Every field of ``state`` back to its cycle-0 value, in place: the
+    ring buffers, heads and occupancies, the delivery record and ejection
+    log, the injection counts, the adaptive pressure, the link-load and
+    delivery counters, the phase record, the cycle and the trace rings.
+    A graph replays onto these very tensors, so none may be rebound."""
+    for name, t in zip(_State._fields, state):
+        t.fill_(_STATE_FILL.get(name, 0))
+
+
 def _init_state(spec: XSpec, tb: dict, pkt: dict) -> _State:
     """The state at cycle 0, on the tables' device."""
     n, p, v = spec.n, spec.ports, spec.vcs
@@ -557,39 +607,41 @@ def _init_state(spec: XSpec, tb: dict, pkt: dict) -> _State:
     b = pkt["copy_id"].shape[0]
     bq = b * n * p * v
     m_flat = pkt["src"].shape[0]
-    full = lambda shape, fill, dt: torch.full(  # noqa: E731
-        shape, fill, dtype=dt, device=dev)
+    empty = lambda *shape, dt=_I32: torch.empty(  # noqa: E731
+        shape, dtype=dt, device=dev)
     s = spec.trace_samples if spec.trace_stride else 0
     rows = lambda width: (s, width) if s else (1, 1)  # noqa: E731
-    return _State(
-        buf=full((bq, spec.cap, 2), -1, _I32),
-        head=full((bq,), 0, _I16),
-        occ=full((bq,), 0, _I16),
-        deliver=full((m_flat + 1 if not spec.log_deliveries else 1,), -1,
-                     _I32),
-        ej_log=full((spec.horizon + 1 if spec.log_deliveries else 1, bq),
-                    -1, _I32),
-        term_next=full((b * n * spec.terminals,), 0, _I32),
-        pressure=full((b * n * p,), 0, torch.float32),
-        load_total=full((b * n * p,), 0, _I32),
-        load_window=full((b * n * p,), 0, _I32),
-        delivered_total=full((b,), 0, _I32),
-        delivered_win=full((b,), 0, _I32),
-        phase_done=full((b, spec.num_phases), -1, _I32),
-        cycle=full((), 0, _I32),
-        tr_cycle=full((max(s, 1),), -1, _I32),
-        tr_link=full(rows(b * n * p), 0, _I32),
-        tr_occ=full(rows(b * n), 0, _I32),
-        tr_inj=full(rows(b * n), 0, _I32),
-        tr_del=full(rows(b), 0, _I32))
+    state = _State(
+        buf=empty(bq, spec.cap, 2),
+        head=empty(bq, dt=_I16),
+        occ=empty(bq, dt=_I16),
+        deliver=empty(m_flat + 1 if not spec.log_deliveries else 1),
+        ej_log=empty(spec.horizon + 1 if spec.log_deliveries else 1, bq),
+        term_next=empty(b * n * spec.terminals),
+        pressure=empty(b * n * p, dt=torch.float32),
+        load_total=empty(b * n * p),
+        load_window=empty(b * n * p),
+        delivered_total=empty(b),
+        delivered_win=empty(b),
+        phase_done=empty(b, spec.num_phases),
+        cycle=empty(),
+        tr_cycle=empty(max(s, 1)),
+        tr_link=empty(*rows(b * n * p)),
+        tr_occ=empty(*rows(b * n)),
+        tr_inj=empty(*rows(b * n)),
+        tr_del=empty(*rows(b)))
+    _reset_state(state)
+    return state
 
 
 def _capture(spec: XSpec, tb: dict, pkt: dict, state: _State,
-             pred: torch.Tensor, block: int) -> "torch.cuda.CUDAGraph":
+             pred: torch.Tensor, block: int,
+             keep_graph: bool = False) -> "torch.cuda.CUDAGraph":
     """One ``block``-cycle :func:`_block` captured as a CUDA graph over the
     static ``state``, on its device.  It is warmed up first on a side
     stream with the gate shut (``lim`` = 0: no cycle runs, no state
-    changes)."""
+    changes).  ``keep_graph`` keeps the graph's node list readable
+    (``raw_cuda_graph``) after the capture."""
     dev = state.cycle.device
     lim = pkt["lim"].clone()
     pkt["lim"].zero_()
@@ -599,56 +651,97 @@ def _capture(spec: XSpec, tb: dict, pkt: dict, state: _State,
         with torch.cuda.stream(side):
             _block(spec, tb, pkt, state, pred, block)
         torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         with torch.cuda.graph(graph):
             _block(spec, tb, pkt, state, pred, block)
     pkt["lim"].copy_(lim)
     return graph
 
 
-def _run_loop(spec: XSpec, tb: dict, pkt: dict, *, block: int = _BLOCK
-              ) -> tuple[dict, float, float]:
-    """One run: state init, the gated cycle loop, the output dict (numpy),
-    and ``(compile_s, execute_s)``.  On CUDA the ``block``-cycle step is
-    captured once as a CUDA graph and replayed; on the CPU it runs
-    eagerly."""
-    state = _init_state(spec, tb, pkt)
-    dev = state.cycle.device
-    pred = torch.ones((), dtype=torch.bool, device=dev)
-    t0 = device_clock(dev)
-    if dev.type == "cuda":
-        run = _capture(spec, tb, pkt, state, pred, block).replay
-    else:
-        def run():
-            _block(spec, tb, pkt, state, pred, block)
-    t1 = device_clock(dev)
-    h_eff, cutoff = (int(a) for a in pkt["lim"].tolist())
-    if spec.drain:
-        for _ in range(-(-max(h_eff, cutoff) // block) + 1):
-            run()
-            if not bool(pred.item()):
+class _Graph(NamedTuple):
+    """A captured block and the buffers it replays onto: the tables, the
+    packets, the state and the loop predicate.  ``run`` is the graph's
+    replay on CUDA, the same block run eagerly on the CPU."""
+    tb: dict
+    pkt: dict
+    state: _State
+    pred: torch.Tensor
+    run: Callable[[], None]
+
+
+def _shapes(d: dict) -> tuple:
+    return tuple((k, tuple(t.shape), str(t.dtype)) for k, t in d.items())
+
+
+def _run_loop(spec: XSpec, tb: dict, pkt: dict, *, block: int = _BLOCK,
+              grid_points: int = 1) -> tuple[dict, dict]:
+    """One run: the gated cycle loop and its output dict (numpy), with the
+    timing record.  On CUDA the ``block``-cycle step is captured as a CUDA
+    graph and replayed, and the graph is kept for the next call of the
+    same key (:func:`repro_torch.obs.telemetry.timed_graph`); on the CPU
+    the block runs eagerly.  The loop stops at the runtime bounds in
+    ``pkt["lim"]``, never at the bucketed static horizon."""
+    dev = tb["port_flat"].device
+
+    def capture() -> _Graph:
+        state = _init_state(spec, tb, pkt)
+        pred = torch.ones((), dtype=torch.bool, device=dev)
+        if dev.type == "cuda":
+            run = _capture(spec, tb, pkt, state, pred, block).replay
+        else:
+            def run():
+                _block(spec, tb, pkt, state, pred, block)
+        return _Graph(tb, pkt, state, pred, run)
+
+    def refill(g: _Graph) -> None:
+        # The graph reads only these tensors, at fixed addresses, so every
+        # one is overwritten in place.  g.tb: the topology and index
+        # tables and the threefry base key; g.pkt: src/dst/gen, the
+        # terminal block bounds, copy ids, warm-ups, lim (h_eff, cutoff),
+        # total_m and phase_cum; then g.state (every field, see
+        # _reset_state).  g.pred is written by every block before the
+        # host reads it.
+        for new, old in ((tb, g.tb), (pkt, g.pkt)):
+            for k, t in new.items():
+                old[k].copy_(t)
+        _reset_state(g.state)
+
+    def execute(g: _Graph) -> dict:
+        global block_runs
+        h_eff, cutoff = (int(a) for a in g.pkt["lim"].tolist())
+        if spec.drain:
+            trips = -(-max(h_eff, cutoff) // block) + 1
+        else:
+            trips = -(-h_eff // block)
+        for _ in range(trips):
+            g.run()
+            block_runs += 1
+            if spec.drain and not bool(g.pred.item()):
                 break
-    else:
-        for _ in range(-(-h_eff // block)):
-            run()
-    t2 = device_clock(dev)
-    b = pkt["copy_id"].shape[0]
-    out = {
-        "deliver": state.deliver[:pkt["src"].shape[0]],
-        "ej_log": state.ej_log[:spec.horizon],
-        "load_total": state.load_total,
-        "load_window": state.load_window,
-        "delivered_total": state.delivered_total,
-        "delivered_in_window": state.delivered_win,
-        "phase_done": state.phase_done,
-        "cycle": state.cycle,
-        "in_flight": state.occ.view(b, -1).sum(dim=1, dtype=_I32),
-    }
-    if spec.trace_stride:
-        out.update(tr_cycle=state.tr_cycle, tr_link=state.tr_link,
-                   tr_occ=state.tr_occ, tr_inj=state.tr_inj,
-                   tr_del=state.tr_del)
-    return ({k: a.cpu().numpy() for k, a in out.items()}, t1 - t0, t2 - t1)
+        st = g.state
+        b = g.pkt["copy_id"].shape[0]
+        out = {
+            "deliver": st.deliver[:g.pkt["src"].shape[0]],
+            "ej_log": st.ej_log[:spec.horizon],
+            "load_total": st.load_total,
+            "load_window": st.load_window,
+            "delivered_total": st.delivered_total,
+            "delivered_in_window": st.delivered_win,
+            "phase_done": st.phase_done,
+            "cycle": st.cycle,
+            "in_flight": st.occ.view(b, -1).sum(dim=1, dtype=_I32),
+        }
+        if spec.trace_stride:
+            out.update(tr_cycle=st.tr_cycle, tr_link=st.tr_link,
+                       tr_occ=st.tr_occ, tr_inj=st.tr_inj,
+                       tr_del=st.tr_del)
+        # Copies: the next call of this key overwrites the buffers.
+        return {k: a.to("cpu", copy=True).numpy() for k, a in out.items()}
+
+    key = ((spec, str(dev), block, _shapes(tb), _shapes(pkt))
+           if dev.type in _CACHE_DEVICES else None)
+    return timed_graph(key, capture, refill, execute, device=dev,
+                       grid_points=grid_points)
 
 
 # ---------------------------------------------------------------------------
@@ -766,12 +859,11 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
              trace=None, bucket: bool | None = None, devices=None,
              device="cuda") -> _Prepared | None:
     """The host side of :func:`sweep` up to the run (None for an empty
-    grid): option checks, traffic packing, tables, device upload."""
+    grid): option checks, traffic packing, bucketing, tables, device
+    upload."""
     t_host = time.perf_counter()
     device = _resolve_device(device)
     trace_cfg = TraceConfig.coerce(trace)
-    if bucket:
-        raise NotImplementedError(_NOT_PORTED["bucket"])
     if devices not in (None, 1):
         raise NotImplementedError(_NOT_PORTED["devices"])
     policy = _resolve_policy(policy)
@@ -785,8 +877,6 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
             grid.append((load, seed, tr))
     if not grid:
         return None
-    if any(tr.request is not None for _, _, tr in grid):
-        raise NotImplementedError(_NOT_PORTED["serving"])
 
     resolved_t = {resolve_terminals(tr, terminals) for _, _, tr in grid}
     if len(resolved_t) > 1:
@@ -837,14 +927,19 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
     warmups = [default_warmup if warmup is None else warmup] * len(grid)
     cutoff = int(max_cycles if max_cycles is not None
                  else horizon + _DRAIN_SLACK)
-    b = len(grid)
+    bucket = True if bucket is None else bool(bucket)
+    b_real = len(grid)
+    b = _bucket_count(b_real) if bucket else b_real
+    h_static = _bucket_count(horizon) if bucket else horizon
+    c_static = max(_bucket_count(cutoff) if bucket else cutoff, h_static)
     q_flat = b * n * topo.num_ports * num_vcs
     log_deliveries = (not drain
-                      and horizon * q_flat <= _LOG_ENTRY_BUDGET)
+                      and h_static * q_flat <= _LOG_ENTRY_BUDGET)
     if trace_cfg is not None:
         # A drain run can stop anywhere below the cutoff, so rows are
         # allocated for the worst case (capped by max_samples); unwritten
-        # rows keep the -1 cycle and are dropped on the host.
+        # rows keep the -1 cycle and are dropped on the host.  Budgets
+        # derive from the exact span: padded cycles never run.
         span = cutoff if drain else horizon
         trace_samples = min(trace_cfg.max_samples,
                             (max(span, 1) - 1) // trace_cfg.stride + 1)
@@ -855,7 +950,7 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
         policy=policy.name,
         threshold=float(getattr(policy, "threshold", 0.0)),
         weight=float(getattr(policy, "weight", 0.0)),
-        alpha=0.05, drain=bool(drain), horizon=horizon,
+        alpha=0.05, drain=bool(drain), horizon=h_static, cutoff=c_static,
         log_deliveries=log_deliveries, num_phases=num_phases,
         trace_stride=0 if trace_cfg is None else trace_cfg.stride,
         trace_samples=0 if trace_cfg is None else trace_samples)
@@ -866,13 +961,22 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
                    if packed[0][k].ndim else
                    np.asarray([pk[k] for pk in packed]))
                for k in packed[0]}
-    # At least one packet slot (the all-empty grid's gathers need one in
-    # range); a padded slot's generation time is past any horizon.
+    # Bucket the flat packet axis with inert slots, at least one (the
+    # all-empty grid's gathers need one in range): a padded slot's
+    # generation time is past any horizon.  Padded copies carry empty
+    # source blocks, no real packets, warm-up 0 and empty phases.
     m_total = int(flat_np["src"].size)
-    if m_total == 0:
-        flat_np["src"] = np.zeros(1, np.int32)
-        flat_np["dst"] = np.full(1, min(1, n - 1), np.int32)
-        flat_np["gen"] = np.full(1, _PAD_GEN, np.int32)
+    m_pad = _bucket_count(max(m_total, 1)) if bucket else max(m_total, 1)
+    pad_m, pad_b = m_pad - m_total, b - b_real
+    flat_np["src"] = np.concatenate([flat_np["src"],
+                                     np.zeros(pad_m, np.int32)])
+    flat_np["dst"] = np.concatenate([flat_np["dst"],
+                                     np.full(pad_m, min(1, n - 1), np.int32)])
+    flat_np["gen"] = np.concatenate([flat_np["gen"],
+                                     np.full(pad_m, _PAD_GEN, np.int32)])
+    for k in ("blk_start", "blk_end"):
+        flat_np[k] = np.concatenate([flat_np[k],
+                                     np.zeros(pad_b * n, np.int32)])
     blk = tables.blk_idx
     as_dev = lambda a, dt=_I32: torch.as_tensor(  # noqa: E731
         np.asarray(a), dtype=dt, device=device)
@@ -883,15 +987,16 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
         "term_start": as_dev(flat_np["blk_start"][blk] + tables.slot_of_term),
         "term_end": as_dev(flat_np["blk_end"][blk]),
         "copy_id": as_dev(np.arange(b), _I64),
-        "warmup": as_dev(warmups),
+        "warmup": as_dev(warmups + [0] * pad_b),
         "lim": as_dev([horizon, cutoff]),
         "total_m": as_dev(int(flat_np["m_real"].sum())),
     }
     if replaying:
         # Per-copy cumulative phase sizes, padded to the shared static
         # phase count (padding phases are empty and complete at once).
-        pkt["phase_cum"] = as_dev(
-            np.stack([w.phase_cum(num_phases) for w in wls]))
+        pkt["phase_cum"] = as_dev(np.concatenate(
+            [np.stack([w.phase_cum(num_phases) for w in wls]),
+             np.zeros((pad_b, num_phases))]))
     seed_key = hash(tuple(s for _, s, _ in grid)) & 0x7FFFFFFF
     tb = _device_tables(spec, tables, seed_key, device)
     host_s = time.perf_counter() - t_host
@@ -961,6 +1066,18 @@ def _collect(run: _Prepared, out: dict, timing: dict
             in_flight=int(out["in_flight"][i]))
         if wl is not None:
             attach_replay(stats, wl, phase_done)
+        if tr.request is not None:
+            # Request ids in the engine's packet order: _pack_traffic's
+            # permutation, recomputed (a stable lexsort over the same
+            # inputs, so the same order); the step never sees requests.
+            req = np.asarray(tr.request, dtype=np.int64)
+            src64 = tr.src.astype(np.int64)
+            gen64 = tr.gen.astype(np.int64)
+            sort_key = src64 * (gen64.max(initial=0) + 1) + gen64
+            if not np.all(sort_key[1:] >= sort_key[:-1]):
+                req = req[np.lexsort((tr.gen, tr.src))]
+            attach_serving(stats, req, packed[i]["gen"][:m].astype(np.int64),
+                           deliver, slo=tr.slo)
         stats.timing = timing
         if run.trace is not None:
             # Copy i's columns of the flat ring buffers; block bounds come
@@ -1010,11 +1127,22 @@ def sweep(topo: SimTopology, policy, traffic_factory: Callable,
     otherwise it is the longest generation window of the grid.
 
     Every point's stats carry a shared ``timing`` record: ``compile_s``
-    is the CUDA graph's warm-up and capture (0 on the CPU), ``execute_s``
-    its replay to completion, ``compile_cached`` always ``False``, and
-    ``host_s`` the host-side tables and traffic packing before the run.
+    is the CUDA graph's warm-up and capture (0.0 on the CPU, and on a
+    graph kept from an earlier call, which reports
+    ``compile_cached="memory"``; else ``False``), ``execute_s`` the
+    buffers' refill and the replay to completion, and ``host_s`` the
+    host-side tables and traffic packing before the run.
 
-    Traffic that carries a collective-replay workload runs the phase
+    ``bucket`` (default on) rounds the step's static shapes (copies,
+    packet count, horizon, drain cutoff) up to :func:`_bucket_count`
+    boundaries, so nearby sweep sizes replay one kept graph; the padding
+    is inert and the result bit-identical to ``bucket=False``, which runs
+    exact shapes.
+
+    Serving traffic (``traffic.request`` set, :mod:`repro_torch.workload`)
+    adds per-request latency percentiles and SLO attainment to each
+    point's stats.  Traffic that carries a collective-replay workload
+    runs the phase
     barrier (all points of a grid replay, or none: a mixed grid raises
     ``ValueError``); its warm-up defaults to 0, and each point's stats
     carry ``phase_cycles`` / ``completion_cycles`` / ``ideal_cycles``.
@@ -1026,8 +1154,8 @@ def sweep(topo: SimTopology, policy, traffic_factory: Callable,
     numpy-engine feature and are ignored here).  Degraded topologies
     (``topo.meta["faults"]``) run their fallback tables.
 
-    ``bucket=True``, ``devices`` other than one and serving traffic raise
-    ``NotImplementedError`` (see the module docstring).
+    ``devices`` other than one raises ``NotImplementedError`` (see the
+    module docstring).
     """
     run = _prepare(topo, policy, traffic_factory, loads, seeds=seeds,
                    terminals=terminals, eject_bw=eject_bw, num_vcs=num_vcs,
@@ -1037,10 +1165,8 @@ def sweep(topo: SimTopology, policy, traffic_factory: Callable,
                    device=device)
     if run is None:
         return []
-    out, compile_s, execute_s = _run_loop(run.spec, run.tb, run.pkt)
-    timing = timing_dict("torch", compile_s=compile_s, execute_s=execute_s,
-                         compile_cached=False,
-                         grid_points=len(run.grid))
+    out, timing = _run_loop(run.spec, run.tb, run.pkt,
+                            grid_points=len(run.grid))
     timing["host_s"] = round(run.host_s, 6)
     return _collect(run, out, timing)
 

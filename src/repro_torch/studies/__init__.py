@@ -30,10 +30,12 @@ The same experiment as a file::
 
 Bundled specs under ``repro_torch/studies/specs/`` (copies of the
 reference's) reproduce the paper's CIN-16 / HyperX-256 / Dragonfly-72
-sweeps and the ``collective_replay`` schedule-vs-bound comparison;
-``python -m repro_torch.studies specs`` lists them.  ``failure_sweep``,
-``serving_slo`` and ``flow_scale_smoke`` need modules that are not ported
-yet and raise, naming their ROADMAP item.  The legacy entry points
+sweeps, the ``collective_replay`` schedule-vs-bound comparison, the
+``failure_sweep`` survivability study, the ``flow_scale_smoke`` flow-tier
+grid and the ``serving_slo`` request-latency study
+(:meth:`Study.slo_capacity` bisects its load axis); ``python -m
+repro_torch.studies specs`` lists all nine, and every one runs.  The
+legacy entry points
 (``repro_torch.sim.report.saturation_sweep`` / ``compare_policies`` /
 ``Fabric.sim_sweep``) are thin deprecated shims over this package.
 """

@@ -22,8 +22,9 @@ Commands:
   (``ui.perfetto.dev``).  The torch engine runs on ``--device``;
   ``--backend both`` runs the numpy oracle *and* the torch engine and
   fails unless their traces agree exactly.
-* ``cache`` — the reference's compile-cache command; not ported yet, it
-  fails naming its ROADMAP item (queue A, item 7).
+* ``cache`` — the graph cache's counters in this process (the
+  reference's compile-cache command; a CUDA graph cannot outlive its
+  process, so there is no disk layer).  ``--clear`` empties it.
 
 Examples::
 
@@ -288,18 +289,28 @@ def cmd_trace(args) -> int:
 
 
 def cmd_cache(args) -> int:
-    raise NotImplementedError(
-        "the compile cache is not ported yet (ROADMAP queue A, item 7); the "
-        "torch engine keeps no graph across calls")
+    """The graph cache of this process: the reference's compile-cache
+    command.  A CUDA graph cannot outlive its process, so there is no
+    disk layer to list; the counters are this process's, and ``--clear``
+    empties the memory layer."""
+    from repro_torch.obs.telemetry import cache_stats, clear_caches
+    if args.clear:
+        clear_caches(memory=True)
+        print("cleared the in-process graph cache (no disk layer)")
+        return 0
+    print("dir:     none (CUDA graphs are kept in memory, per process; "
+          "no disk layer)")
+    print("entries: 0")
+    stats = cache_stats()
+    print("this-process counters: " +
+          " ".join(f"{k}={v}" for k, v in sorted(stats.items())))
+    return 0
 
 
 def cmd_specs(_args) -> int:
     for name, path in bundled_specs().items():
-        try:
-            n_exp = f"{len(load_specs(path)):>2} experiments"
-        except NotImplementedError as e:
-            n_exp = f"not runnable: {e}"
-        print(f"{name:<24} {n_exp}   {path}")
+        n_exp = len(load_specs(path))
+        print(f"{name:<24} {n_exp:>2} experiments   {path}")
     return 0
 
 
@@ -362,7 +373,7 @@ def main(argv=None) -> int:
     trace.set_defaults(fn=cmd_trace)
 
     cache = sub.add_parser(
-        "cache", help="inspect the compile cache (not ported yet)")
+        "cache", help="inspect the in-process graph cache")
     cache.add_argument("--clear", action="store_true")
     cache.set_defaults(fn=cmd_cache)
 

@@ -460,11 +460,88 @@ class Study:
                      hi: float = 2.0, tol: float = 0.01,
                      seed: int = 0) -> dict:
         """Largest load scale at which a serving experiment still meets
-        its SLO (reference ``Study.slo_capacity``).  Serving experiments
-        are not ported yet, so this raises."""
-        raise NotImplementedError(
-            "slo_capacity needs serving experiments, which are not ported "
-            "yet (ROADMAP queue A, item 8: repro_torch.workload)")
+        its SLO, by bisection on the load axis (the reference's
+        ``Study.slo_capacity``: the same arguments, probes, rounding and
+        ``capacity`` rules).
+
+        A load is *feasible* when the probed point's SLO attainment is
+        at least ``percentile / 100`` — i.e. the latency ``percentile``
+        sits at or under the traffic's ``slo`` target, with requests
+        that never completed counting as misses.  Probes run outside
+        the study's store (warmup 0, the experiment's own seed policy)
+        on the study's resolved backend: the torch engine on the study's
+        ``device`` for ``"auto"``/``"torch"``, the numpy oracle for
+        ``"numpy"``, the flow model for ``"flow"`` (and for "auto" on
+        flow-sized fabrics).  The reference probes on the numpy oracle
+        unless the experiment resolves to the flow tier; the port never
+        runs the oracle unless asked (ROADMAP C7), so its default probes
+        equal the reference's ``simulate_jax`` at each load and seed.
+        Returns ``{"experiment", "capacity", "percentile", "slo",
+        "probes": [(load, attainment), ...]}``; ``capacity`` is 0.0 when
+        even ``lo`` misses and ``hi`` when the search never found the knee
+        (raise ``hi`` to chase it).
+        """
+        exps = {e.name: e for e in self.experiments}
+        if experiment is None:
+            if len(exps) != 1:
+                raise ValueError(
+                    f"study has {len(exps)} experiments; pass one of "
+                    f"{sorted(exps)}")
+            experiment = next(iter(exps))
+        exp = exps[experiment]
+        if exp.traffic.pattern != "serving":
+            raise ValueError(
+                f"slo_capacity needs a 'serving' traffic pattern; "
+                f"experiment {exp.name!r} uses {exp.traffic.pattern!r}")
+        slo = exp.traffic.params.get("slo")
+        if slo is None:
+            raise ValueError(
+                f"experiment {exp.name!r} sets no params['slo'] target to "
+                f"search against")
+        if not (0.0 < lo <= hi) or tol <= 0:
+            raise ValueError(f"need 0 < lo <= hi and tol > 0; "
+                             f"got lo={lo}, hi={hi}, tol={tol}")
+        backend = _select_backend(self.backend,
+                                  num_switches=exp.fabric.num_switches,
+                                  experiment=exp)
+        topo, tf = self._resolve(exp)
+        target = float(percentile) / 100.0
+        probes: list[tuple[float, float]] = []
+
+        def attainment(load: float) -> float:
+            if backend == "flow":
+                from repro_torch.flow import study_point_stats
+                stats = study_point_stats(exp, topo, tf, load, seed,
+                                          device=self.device)
+            else:
+                from repro_torch.sim.engine import simulate
+                cycles = exp.sweep.cycles or 1
+                stats = simulate(topo, exp.routing.make(), tf(load, seed),
+                                 terminals=exp.terminals, cycles=cycles,
+                                 warmup=0, seed=seed, backend=backend,
+                                 device=self.device, **dict(exp.engine))
+            att = stats.slo_attainment
+            att = 0.0 if att is None else float(att)
+            probes.append((round(float(load), 6), att))
+            return att
+
+        out = {"experiment": exp.name, "percentile": float(percentile),
+               "slo": float(slo), "probes": probes}
+        if attainment(lo) < target:
+            out["capacity"] = 0.0
+            return out
+        if attainment(hi) >= target:
+            out["capacity"] = float(hi)
+            return out
+        good, bad = float(lo), float(hi)
+        while bad - good > tol:
+            mid = (good + bad) / 2.0
+            if attainment(mid) >= target:
+                good = mid
+            else:
+                bad = mid
+        out["capacity"] = round(good, 6)
+        return out
 
     def _run_torch(self, exp: ExperimentSpec,
                    missing: Sequence[tuple[float, int]]) -> list[Result]:

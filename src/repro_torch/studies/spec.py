@@ -16,9 +16,7 @@ be named, persisted, diffed, resumed, and shipped to CI as a file.
 
 The JSON form, :meth:`ExperimentSpec.key` and :meth:`ExperimentSpec.digest`
 are the reference's (``repro.studies.spec``) byte for byte, so a result
-store written by either package resumes in the other.  The ``serving``
-traffic pattern needs a module that is not ported yet and raises
-``NotImplementedError`` when the spec is built (ROADMAP queue A, item 8).
+store written by either package resumes in the other.
 
 Specs are *declarative*: they hold names and parameters, never objects.
 The escape hatch for the legacy shims (``report.saturation_sweep``,
@@ -38,12 +36,6 @@ __all__ = ["FabricSpec", "TrafficSpec", "RoutingSpec", "SweepSpec",
            "ExperimentSpec", "load_specs", "dump_specs"]
 
 _INLINE = "custom"      # kind/pattern/policy marker for non-serializable specs
-
-#: What the unported part of a spec needs, by ROADMAP item.
-_NOT_PORTED = {
-    "serving": "the 'serving' traffic pattern is not ported yet (ROADMAP "
-               "queue A, item 8: repro_torch.workload)",
-}
 
 
 def _canon(v):
@@ -264,7 +256,7 @@ class FabricSpec(_SpecBase):
 
 #: Declarative pattern names: the open-loop generators of
 #: :mod:`repro_torch.sim.traffic`, the closed collective-replay kind, and the
-#: request-level serving kind (not ported yet: it raises).
+#: request-level serving kind (:mod:`repro_torch.workload`).
 _PATTERNS = ("uniform", "permutation", "hotspot", "adversarial", "workload",
              "serving")
 
@@ -296,18 +288,16 @@ class TrafficSpec(_SpecBase):
       :meth:`repro_torch.sim.workloads.Workload.to_dict` payload, replayed
       verbatim (still serializable).
 
-    **Serving streams** (``serving``): open-loop *request* arrivals, in
-    the reference from ``repro.workload``.  Not ported yet: building such
-    a spec raises ``NotImplementedError`` (ROADMAP queue A, item 8).
+    **Serving streams** (``serving``): open-loop *request* arrivals from
+    an :class:`repro_torch.workload.ArrivalSpec` — ``params`` is
+    ``{"arrival": {...spec dict...}, "packets_per_request": p,
+    "slo": cycles}`` and the sweep's ``loads`` scale the arrival rate
+    (:func:`repro_torch.workload.serving_traffic`), so the engines report
+    per-request latency percentiles and SLO attainment per grid point.
     """
     pattern: str
     params: dict = field(default_factory=dict)
     _factory: Callable | None = field(default=None, compare=False, repr=False)
-
-    def __post_init__(self):
-        if self.pattern == "serving":
-            raise NotImplementedError(_NOT_PORTED["serving"])
-        super().__post_init__()
 
     @property
     def is_inline(self) -> bool:
@@ -333,6 +323,25 @@ class TrafficSpec(_SpecBase):
         if self.pattern == "workload":
             tr = self._resolve_workload(topo).traffic()
             return lambda load, seed: tr
+        if self.pattern == "serving":
+            from repro_torch.workload import ArrivalSpec, serving_traffic
+            if cycles is None:
+                raise ValueError("serving traffic needs sweep.cycles to "
+                                 "size its arrival window")
+            kw = dict(self.params)
+            spec = ArrivalSpec.coerce(kw.pop("arrival", None))
+            if spec is None:
+                raise ValueError("serving traffic needs params['arrival'] "
+                                 "(an ArrivalSpec dict)")
+            ppr = int(kw.pop("packets_per_request", 4))
+            slo = kw.pop("slo", None)
+            if kw:
+                raise ValueError(f"unknown serving traffic params: "
+                                 f"{sorted(kw)}")
+            n = topo.num_switches
+            return lambda load, seed: serving_traffic(
+                spec, n, cycles=cycles, load=load, terminals=terminals,
+                packets_per_request=ppr, slo=slo, seed=seed)
         if self.pattern not in _PATTERNS:
             raise ValueError(
                 f"unknown traffic pattern {self.pattern!r}; expected one "
@@ -405,6 +414,15 @@ class TrafficSpec(_SpecBase):
             if isinstance(wl, Mapping):
                 return f"replay-{wl.get('name', 'workload')}"
             return f"replay-{self.params.get('collective', 'all_to_all')}"
+        if self.pattern == "serving":
+            arrival = self.params.get("arrival")
+            if isinstance(arrival, Mapping):
+                from repro_torch.workload import ArrivalSpec
+                try:
+                    return f"serving-{ArrivalSpec.from_dict(arrival).label}"
+                except (TypeError, ValueError):
+                    pass
+            return "serving"
         return self.pattern
 
 

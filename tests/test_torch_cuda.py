@@ -1,6 +1,7 @@
 """The port on the card: the CUDA flash-attention and mLSTM chunk-scan
-kernels against their plain versions, and the models on the card against
-the models on the CPU.
+kernels against their plain versions, the models on the card against
+the models on the CPU, and the cycle engine's CUDA graphs (kept across
+calls: hits, refills and evictions) against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no GPU.  This
 file imports neither jax nor repro, so it runs where only the port is
@@ -277,3 +278,86 @@ def test_cycle_engine_on_the_card_matches_the_cpu(cuda, policy, drain):
             assert np.array_equal(np.asarray(getattr(got, f.name)),
                                   np.asarray(getattr(want, f.name))), f.name
     assert grids[0][0][0].timing["compile_s"] > 0      # a graph was captured
+
+
+def _cache_sweep(cuda, loads, seeds, cycles=50, policy="minimal"):
+    """One sweep of a small Dragonfly on the card and on the CPU."""
+    from repro_torch import sim
+    from repro_torch.core import DragonflyConfig
+
+    topo = sim.dragonfly_topology(DragonflyConfig(4, 2, 2, 9))
+
+    def tf(load, seed):
+        return sim.uniform(36, offered=load, cycles=cycles, terminals=2,
+                           seed=seed)
+    return [sim.sweep(topo, policy, tf, loads, seeds=seeds, terminals=2,
+                      cycles=cycles, warmup=10, device=dev)
+            for dev in (cuda, "cpu")]
+
+
+def _same_grids(got, want):
+    for a, b in zip(sum(got, []), sum(want, [])):
+        for f in dataclasses.fields(a):
+            if f.name in ("timing", "trace"):
+                continue
+            assert np.array_equal(np.asarray(getattr(a, f.name)),
+                                  np.asarray(getattr(b, f.name))), f.name
+
+
+@pytest.mark.cuda
+def test_graph_cache_hit_replays_the_kept_graph(cuda):
+    """A second sweep of one key (other loads and seeds) replays the kept
+    graph: compile_cached "memory", compile_s 0.0, and the CPU's result."""
+    from repro_torch.obs import telemetry
+    telemetry.clear_caches()
+    telemetry.reset_cache_stats()
+    first = _cache_sweep(cuda, [0.3, 0.8], (1, 2))
+    second = _cache_sweep(cuda, [0.4, 0.7], (3, 4))
+    assert first[0][0][0].timing["compile_cached"] is False
+    assert second[0][0][0].timing["compile_cached"] == "memory"
+    assert second[0][0][0].timing["compile_s"] == 0.0
+    assert telemetry.cache_stats()["memory_hits"] == 1
+    _same_grids(*first)
+    _same_grids(*second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["valiant", "adaptive"])
+def test_graph_cache_refill_leaves_nothing_stale(cuda, policy):
+    """Drained and traced replays through a kept graph: after a run that
+    filled the state, the ejection record, phase record and trace rings,
+    a hit of the same key equals the CPU bit for bit."""
+    from repro_torch.fabric import make_fabric
+    from repro_torch.obs import telemetry
+    telemetry.clear_caches()
+    fab = make_fabric("xor", 8)
+    runs = {}
+    for seed in (0, 5):
+        for dev in (cuda, "cpu"):
+            runs[seed, str(dev)] = fab.replay(
+                "all_to_all", message_size=2, policy=policy, seed=seed,
+                trace=True, device=dev)
+    hit = runs[5, "cuda"]
+    assert hit.timing["compile_cached"] == "memory"
+    _same_grids([[hit]], [[runs[5, "cpu"]]])
+    assert hit.trace.equals(runs[5, "cpu"].trace)
+    first = _cache_sweep(cuda, [0.5], (1,), policy=policy)
+    again = _cache_sweep(cuda, [0.55], (2,), policy=policy)  # one bucket
+    assert again[0][0][0].timing["compile_cached"] == "memory"
+    _same_grids(*first)
+    _same_grids(*again)
+
+
+@pytest.mark.cuda
+def test_graph_cache_evicts_past_its_limit(cuda, monkeypatch):
+    from repro_torch.obs import telemetry
+    telemetry.clear_caches()
+    telemetry.reset_cache_stats()
+    monkeypatch.setattr(telemetry, "_CACHE_LIMIT", 2)
+    for cycles in (20, 40, 60, 20):         # horizons 24, 40, 64, 24
+        got, want = _cache_sweep(cuda, [0.5], (1,), cycles=cycles)
+        _same_grids(got, want)
+    assert got[0][0].timing["compile_cached"] is False
+    assert telemetry.cache_stats()["evictions"] == 2
+    assert len(telemetry._CACHE) == 2
+    telemetry.clear_caches()

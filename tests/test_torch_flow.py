@@ -279,7 +279,8 @@ def test_cli_run_backend_flow(tmp_path, capsys):
 
 def test_flow_entry_points_default_to_the_card(monkeypatch):
     """maxmin_rates(solver="auto"), solve_flows, simulate(backend="flow"),
-    Fabric.replay(backend="flow") and Study(backend="flow") run on cuda by
+    Fabric.replay(backend="flow"), Study(backend="flow") and
+    serving_stats run on cuda by
     default and raise without it; nothing falls back to the numpy core,
     which runs only as solver="numpy"."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -300,5 +301,5 @@ def test_flow_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TS.Study([TS.ExperimentSpec.from_dict(_flow_spec())],
                  backend="flow").run()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         TFl.serving_stats(topo, "minimal", tr, terminals=2, cycles=20)

@@ -16,6 +16,9 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert {"repro_torch.workload", "repro_torch.workload.arrivals",
+        "repro_torch.workload.serving",
+        "repro_torch.workload.__main__"} <= set(sys.modules)
 print(len(names), bad)
 """
 
@@ -25,7 +28,7 @@ def test_repro_torch_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     n, bad = out.split(" ", 1)
-    assert int(n) >= 62, out          # every module of the port was imported
+    assert int(n) >= 66, out          # every module of the port was imported
     assert bad.strip() == "[]", out
 
 

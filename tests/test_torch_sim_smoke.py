@@ -1,10 +1,12 @@
-"""``chip_smoke.py``'s ``sim``, ``studies``, ``faults``, ``flow`` and
-``trace`` phases on the CPU at a tiny size, so that the phases the GPU run
-ends with cannot rot between chip runs: they drive ``sim_speed``,
-``xl_scale``, the exactness checks, the studies path (the CLI as a
-subprocess, ``Study.run()``), degraded studies, the flow tier and traced
-sweeps with ``trace export`` through the same code, with the CPU standing
-in for the card (no CUDA graph there), and raise on any difference.
+"""``chip_smoke.py``'s ``sim``, ``studies``, ``faults``, ``flow``,
+``trace`` and ``serving`` phases on the CPU at a tiny size, so that the
+phases the GPU run ends with cannot rot between chip runs: they drive
+``sim_speed``, ``xl_scale``, the exactness checks, the studies path (the
+CLI as a subprocess, ``Study.run()``), degraded studies, the flow tier,
+traced sweeps with ``trace export``, serving studies with the workload
+CLI's SLO searches and the graph cache through the same code, with the
+CPU standing in for the card (no CUDA graph there), and raise on any
+difference.
 Imports neither jax nor repro.
 """
 import importlib.util
@@ -122,3 +124,33 @@ def test_new_phases_run_the_bundled_specs(chip_smoke):
     assert (chip_smoke.FLOW_FULL["spec"], chip_smoke.FLOW_FULL["backend"]) \
         == ("flow_scale_smoke", "auto")
     assert chip_smoke.TRACE_FULL["spec"] == "collective_replay"
+
+
+def test_serving_phase_runs_on_the_cpu_at_a_tiny_size(chip_smoke):
+    out = chip_smoke.phase_serving("cpu", chip_smoke.SERVING_TINY)
+    cache = out["cache"]
+    assert cache["sim_speed_first"]["timing"]["compile_cached"] is False
+    assert cache["sim_speed_second"]["timing"]["compile_cached"] == "memory"
+    assert cache["bucketing"]["True"]["blocks_per_call"] == \
+        cache["bucketing"]["False"]["blocks_per_call"] == 3
+    assert cache["replay_study"]["compile_s_sum"] == 0.0
+    assert out["study"]["points"] == 4 and out["study"]["oracle_checked"] == 2
+    assert "backend=torch" in out["study"]["cli_says"][0]
+    assert [s["capacity"] for s in out["searches"]] == [4.0, 2.51875]
+    assert out["sweep"]["request_count"] == 60
+    assert out["sweep"]["attach_serving_host_s"] > 0
+    assert out["launches"] and not any(out["launches"].values())
+
+
+def test_serving_phase_sizes_are_the_reference_workloads(chip_smoke):
+    """The full serving phase: the bundled serving_slo spec, its two CIN-16
+    experiments against the oracle, the CLI's default search, and MMPP
+    serving traffic on xl_scale's 1040-switch Dragonfly."""
+    full = chip_smoke.SERVING_FULL
+    assert full["spec"] == "serving_slo" and full["slo"] == {}
+    assert all(name.startswith("cin-xor-16/") for name in full["oracle"])
+    sweep = full["sweep"]
+    assert sweep["dragonfly"] == chip_smoke.SIM_FULL["xl_scale"]["dragonfly"]
+    assert (sweep["cycles"], sweep["packets_per_request"], sweep["slo"]) == \
+        (256, 4, 40.0)
+    assert full["cache"]["sim_speed"] == chip_smoke.SIM_FULL["sim_speed"]

@@ -11,6 +11,7 @@ import json
 import os
 import warnings
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,9 +27,7 @@ from repro_torch.studies.__main__ import main as cli
 from repro_torch.studies.store import JsonlStore as T_Store
 from repro_torch.studies.store import Result as T_Result
 
-#: Bundled specs that need unported modules, and the ROADMAP item named.
-UNPORTED = {"serving_slo": "item 8"}
-LOADABLE = sorted(set(TS.bundled_specs()) - set(UNPORTED))
+LOADABLE = sorted(TS.bundled_specs())
 
 
 def fields(result, drop=("backend", "provenance")):
@@ -74,10 +73,19 @@ def test_spec_keys_digests_and_json_equal(name):
         assert b.describe() == a.describe()
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_specs_needing_unported_modules_raise_at_load(name):
-    with pytest.raises(NotImplementedError, match=UNPORTED[name]):
-        TS.load_specs(TS.bundled_spec_path(name))
+def test_serving_slo_builds_the_reference_traffic():
+    """serving_slo, which needed repro_torch.workload: each experiment's
+    traffic factory gives the reference's packets, requests and SLO."""
+    ref = RS.Study(RS.bundled_spec_path("serving_slo"), backend="numpy")
+    port = TS.Study(TS.bundled_spec_path("serving_slo"), backend="numpy")
+    for a, b in zip(ref.experiments, port.experiments):
+        ta = ref._resolve(a)[1](0.5, 7)
+        tb = port._resolve(b)[1](0.5, 7)
+        for f in ("src", "dst", "gen", "request"):
+            assert np.array_equal(getattr(ta, f), getattr(tb, f)), f
+        assert (tb.name, tb.slo, tb.offered, tb.terminals) == \
+            (ta.name, ta.slo, ta.offered, ta.terminals)
+        assert tb.request.size > 0
 
 
 def test_numpy_study_equals_the_reference():
@@ -203,12 +211,19 @@ def test_deprecated_shims_warn_and_equal_the_reference():
                     R_report.to_record(x) | {"timing": None}
 
 
-def test_unported_study_and_cli_parts_raise(tmp_path):
-    study = TS.Study(TS.bundled_spec_path("studies_smoke"), backend="numpy")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        study.slo_capacity()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli(["cache"])
+def test_slo_capacity_and_the_cache_cli_run(capsys):
+    """Study.slo_capacity and the cache command, which raised before the
+    serving slice: a search on serving_slo's CIN-16 Poisson experiment
+    equals the reference's, and cache prints this process's counters."""
+    name = "cin-xor-16/serving-poisson-r0.05/minimal"
+    kw = dict(hi=1.0, tol=0.5)
+    ref = RS.Study(RS.bundled_spec_path("serving_slo"),
+                   backend="numpy").slo_capacity(name, **kw)
+    port = TS.Study(TS.bundled_spec_path("serving_slo"),
+                    backend="numpy").slo_capacity(name, **kw)
+    assert port == ref and port["capacity"] == 1.0
+    assert cli(["cache"]) == 0
+    assert "this-process counters: " in capsys.readouterr().out
 
 
 def test_cli_specs_show_and_run(tmp_path, capsys, monkeypatch):
@@ -217,10 +232,11 @@ def test_cli_specs_show_and_run(tmp_path, capsys, monkeypatch):
     monkeypatch.chdir(tmp_path)
     assert cli(["specs"]) == 0
     out = capsys.readouterr().out
-    assert "studies_smoke" in out and "item 8" in out
-    runnable = [ln for ln in out.splitlines() if "not runnable" not in ln]
-    assert [ln.split()[0] for ln in out.splitlines()
-            if "not runnable" in ln] == ["serving_slo"]
+    assert "studies_smoke" in out and "not runnable" not in out
+    runnable = out.splitlines()
+    assert len(runnable) == 9
+    assert any(ln.startswith("serving_slo ") and "3 experiments" in ln
+               for ln in runnable)
     assert any(ln.startswith("failure_sweep ") and "13 experiments" in ln
                for ln in runnable)
     assert any(ln.startswith("flow_scale_smoke ") for ln in runnable)

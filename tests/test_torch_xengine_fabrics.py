@@ -156,15 +156,17 @@ def test_unported_options_raise_naming_their_roadmap_item():
     topo = T.cin_topology("xor", 8)
     tr = T.uniform(8, offered=0.5, cycles=10, terminals=2)
     run = dict(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3h"):
-        T.simulate_torch(topo, "minimal", tr, bucket=True, **run)
     with pytest.raises(NotImplementedError, match="sharding"):
         T.simulate_torch(topo, "minimal", tr, devices=2, **run)
     with pytest.raises(NotImplementedError, match="sharding"):
         T.simulate_torch(topo, "minimal", tr, devices="auto", **run)
+    # one device is the port's only layout; bucketing and serving traffic
+    # run (tests/test_torch_bucket.py, tests/test_torch_workload.py)
+    exact = T.simulate_torch(topo, "minimal", tr, bucket=False, devices=1,
+                             **run)
+    assert_same_grid([[exact]], [[T.simulate_torch(topo, "minimal", tr,
+                                                   bucket=True, **run)]])
     serving = T.uniform(8, offered=0.5, cycles=10, terminals=2)
     serving.request = np.arange(serving.num_packets)
-    with pytest.raises(NotImplementedError, match="item 3e"):
-        T.simulate_torch(topo, "minimal", serving, **run)
-    # exact shapes are the port's only shapes: bucket=False is accepted
-    T.simulate_torch(topo, "minimal", tr, bucket=False, devices=1, **run)
+    st = T.simulate_torch(topo, "minimal", serving, **run)
+    assert st.request_count == serving.num_packets
