@@ -15,10 +15,14 @@ Phases, one JSON line each:
    tensor-core kernel: fp32 rtol 5e-4 atol 5e-5, bf16 5e-2, on h and on
    the final state) and at the serving shapes, and times kernel, plain
    version and the library call, where there is one, beside its bound, on
-   the device alone through a CUDA graph and per eager call;
+   the device alone through a CUDA graph and per eager call; the
+   attention hazard cases again at head dim 64, and ``"phase":
+   "attention"`` lines at granite-moe-3b-a800m's serving shapes (D = 64);
 4. small   -- the reduced models in fp32 on the card against the CPU (the
-   run that drives the fp32 attention kernel);
-5. serve   -- llama3.2-3b and then xlstm-350m at full width and depth,
+   run that drives the fp32 attention kernel), the reduced MoE among them;
+5. serve   -- llama3.2-3b, xlstm-350m and granite-moe-3b-a800m (its MoE
+   on one card: the single-shard path, 48 stored experts) at full width
+   and depth,
    random weights from a seed, each through ServingEngine: 4 requests
    (prompts 512/384/256/128, one sampled at temperature 0.8) x 32 new
    tokens, with every kernel's launch count in that run (set to 0 just
@@ -27,6 +31,11 @@ Phases, one JSON line each:
    version re-chunked); prefill ms, decode tokens/s and peak memory;
 6. profile -- device time by kernel over prefills and decode steps of each
    model (torch.profiler), and the share of the time the device is idle;
+   then ``"phase": "moe"``: granite's MoE layer alone in bf16 at the
+   prefill (2048 tokens) and decode (4 tokens) shapes, its time split into
+   router and dispatch, expert FFN and combine, beside its bound, with the
+   tokens dropped; and the layer at the reduced width in fp32, card
+   against CPU (slots and validity equal, y within atol 1e-5);
 7. sim     -- the simulator's main path (repro_torch.sim), which runs no
    hand-written kernel: ``sim_speed`` (CIN xor 16, 3 loads x 8 seeds x
    1600 cycles in one sweep) and ``xl_scale`` (a 1040-switch Dragonfly,
@@ -104,6 +113,7 @@ from repro_torch.kernels import mlstm_scan as ms  # noqa: E402
 from repro_torch.kernels.ref import (reference_attention,  # noqa: E402
                                      reference_mlstm_scan)
 from repro_torch.models import get_config, init_params  # noqa: E402
+from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch import sim as S  # noqa: E402
@@ -201,7 +211,8 @@ MLSTM_NO_LIBRARY = "no single PyTorch call computes chunkwise mLSTM"
 # differences that re-chunking the plain version (chunk 256) into each of
 # RECHUNKS makes, their mean plus three standard deviations.
 RECHUNKS = (16, 32, 64, 128, 512)
-LOGITS_CHECK_DTYPE = {"llama3.2-3b": "bfloat16", "xlstm-350m": "float32"}
+LOGITS_CHECK_DTYPE = {"llama3.2-3b": "bfloat16", "xlstm-350m": "float32",
+                      "granite-moe-3b-a800m": "bfloat16"}
 
 # The serving runs: 4 slots, prompts left-padded to 512, a 1024-slot cache.
 PROMPTS = (512, 384, 256, 128)
@@ -357,9 +368,14 @@ def phase_build():
              line for line in ptxas if "0 bytes spill stores" not in line])
 
 
-def phase_hazards():
+def phase_hazards(head_dim=None):
+    """Every case of HAZARDS in both dtypes; with ``head_dim``, every case
+    at that head dim instead (named ``<case>@d<head_dim>``)."""
+    t0 = time.perf_counter()
     worst = {}
     for name, (b, t, s, h, kvh, d, q_pos, causal, window) in HAZARDS.items():
+        if head_dim is not None:
+            name, d = f"{name}@d{head_dim}", head_dim
         for dtype in (torch.float32, torch.bfloat16):
             q, [(k, v)], qp = make_inputs(b, t, s, h, kvh, d, q_pos, dtype,
                                           seed=sum(map(ord, name)))
@@ -381,17 +397,19 @@ def phase_hazards():
             emit("kernel_case", kernel="flash_attention", case=name,
                  path=path, dtype=key, max_abs_err=err, tol=TOL[dtype])
     emit("kernel_hazards", kernel="flash_attention", cases=len(HAZARDS) * 2,
-         max_abs_err=worst)
+         head_dim=head_dim or "as listed", max_abs_err=worst,
+         seconds=time.perf_counter() - t0)
 
 
 def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, phase="kernel_timing", **tags):
     """Kernel, plain version and SDPA at one serving shape, each timed on
     the device alone (``graph_ms``: ``ms``, ``plain_ms``, ``library_ms``)
     and per call with the host's time to issue it (``cuda_ms``: the
     ``*_eager`` keys).  With ``copies`` > 1 the calls cycle over that many
     K/V caches, so that they find the cache in device memory and not in the
     50 MB L2, as each layer of a decode step does."""
+    t0 = time.perf_counter()
     q, kvs, qp = make_inputs(b, t, s, h, kvh, d, q_pos, dtype, seed=t + s,
                              copies=copies)
     kp = torch.arange(s, dtype=torch.int32, device="cuda")
@@ -435,8 +453,9 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
                bound_by=bound_by, ms_eager=times["kernel_eager"],
                ms_eager_repeat=times["kernel_eager_repeat"],
                plain_ms_eager=times["plain_eager"],
-               library_ms_eager=times["library_eager"])
-    emit("kernel_timing", kernel="flash_attention", case=label, **out)
+               library_ms_eager=times["library_eager"],
+               seconds=time.perf_counter() - t0)
+    emit(phase, kernel="flash_attention", case=label, **tags, **out)
     return out
 
 
@@ -668,6 +687,7 @@ def expected_launches(cfg):
 
 
 def phase_serve(arch):
+    phase_t0 = time.perf_counter()
     cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(SEED, cfg, device="cuda")
@@ -711,12 +731,17 @@ def phase_serve(arch):
         toks[i, -len(r.prompt):] = r.prompt
     batch = {"tokens": torch.from_numpy(toks).cuda()}
 
+    # Logits of the vocabulary only: the padding columns (granite: 49,155
+    # of 49,168) are -1e30 by construction and would swamp any norm.
+    vocab = cfg.vocab_size
+
     def prefill(p, c, **plain):
-        run = lambda: TT.prefill(p, batch, c, MAX_SEQ)[0]  # noqa: E731
+        def run():
+            return TT.prefill(p, batch, c, MAX_SEQ)[0][..., :vocab]
         return with_plain_kernels(run, **plain) if plain else run()
     logits, caches = TT.prefill(eng.params, batch, cfg, MAX_SEQ)
     plain_logits = prefill(eng.params, cfg, mlstm_chunk=None)
-    a, b = logits.float(), plain_logits.float()
+    a, b = logits[..., :vocab].float(), plain_logits.float()
     if not torch.isfinite(a).all():
         raise AssertionError("prefill logits are not finite")
     rel = {cfg.dtype: rel_l2(a, b)}
@@ -762,8 +787,15 @@ def phase_serve(arch):
     step_ms = cuda_ms(lambda: TT.decode_step(eng.params, nxt, caches,
                                              DECODE_POS, cfg, MAX_SEQ),
                       iters=20)
+    moe = (dict(experts=cfg.num_experts,
+                experts_stored=TM.expert_store_count(cfg), top_k=cfg.top_k,
+                d_ff=cfg.d_ff, capacity_factor=cfg.capacity_factor,
+                moe_path="single shard (dense)")
+           if cfg.is_moe else {})
     emit("serve", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, vocab=cfg.vocab_size,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.head_dim, vocab=cfg.vocab_size,
+         params_stored=sum(a.numel() for a in _leaves(eng.params)), **moe,
          blocks={k: (cfg.block_pattern or ("attn",) * cfg.num_layers).count(k)
                  for k in ("attn", "mlstm", "slstm")},
          dtype=cfg.dtype, slots=len(PROMPTS), prompts=list(PROMPTS),
@@ -780,13 +812,21 @@ def phase_serve(arch):
          decode_step_ms=step_ms,
          decode_tokens_per_s=len(PROMPTS) / step_ms * 1e3,
          peak_memory_gb=peak_gb,
-         tokens={r.rid: r.out_tokens[:8] for r in done})
+         tokens={r.rid: r.out_tokens[:8] for r in done},
+         seconds=time.perf_counter() - phase_t0)
     phase_profile(arch, "prefill", lambda: TT.prefill(eng.params, batch, cfg,
                                                       MAX_SEQ),
                   prefill_ms, calls=2)
     phase_profile(arch, "decode step", lambda: TT.decode_step(
         eng.params, nxt, caches, DECODE_POS, cfg, MAX_SEQ), step_ms, calls=5)
     return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, (dict, list)):
+        items = tree.values() if isinstance(tree, dict) else tree
+        return [a for v in items for a in _leaves(v)]
+    return [tree]
 
 
 def phase_profile(arch, what, fn, call_ms, calls):
@@ -823,7 +863,8 @@ def phase_profile(arch, what, fn, call_ms, calls):
 
 # name: prompt length; 256 is a multiple of the mLSTM chunk, so the card
 # takes the mlstm_scan kernel and the CPU its plain version.
-SMALL_MODELS = {"llama3.2-3b": 70, "lacin-demo": 70, "xlstm-350m": 256}
+SMALL_MODELS = {"llama3.2-3b": 70, "lacin-demo": 70, "xlstm-350m": 256,
+                "granite-moe-3b-a800m": 70}
 
 
 def phase_small_model():
@@ -864,6 +905,102 @@ def phase_small_model():
     total = kernel_launches()
     emit("small_model_vs_cpu", max_abs_err=worst, tol=1e-4, launches=total)
     return total
+
+
+#: granite-moe-3b-a800m's MoE layer alone: the token counts of one serve
+#: run's prefill (4 prompts x 512) and decode step (4 slots), and the
+#: tokens of the fp32 card-against-CPU check at the reduced width.
+MOE_FULL = {"arch": "granite-moe-3b-a800m", "reduced": False,
+            "tokens": {"prefill": len(PROMPTS) * max(PROMPTS),
+                       "decode": len(PROMPTS)},
+            "iters": {"prefill": 20, "decode": 50}, "check_tokens": 256}
+MOE_TINY = {"arch": "granite-moe-3b-a800m", "reduced": True,
+            "tokens": {"prefill": 64, "decode": 4},
+            "iters": {"prefill": 2, "decode": 2}, "check_tokens": 64}
+
+
+def moe_bound(p, cfg, rows):
+    """Least time of the expert FFN on the card: every stored expert's
+    weights read once (each is computed for its bucket, padding included),
+    and the FFN's multiply-adds on ``rows`` = experts x capacity rows at the
+    bf16 peak."""
+    names = [n for n in ("wi", "wg", "wo") if n in p]
+    nbytes = sum(p[n].numel() * p[n].element_size() for n in names)
+    flops = 2 * len(names) * rows * cfg.d_model * cfg.d_ff
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def phase_moe(device="cuda", sizes=MOE_FULL):
+    """granite's MoE layer (repro_torch.models.moe, single shard) in bf16
+    at the serve run's prefill and decode token counts: ms of
+    ``_moe_local`` and of its three parts, its bound and the tokens
+    dropped; then the layer at the reduced width in fp32 on the card
+    against the CPU."""
+    t0 = time.perf_counter()
+    cfg = get_config(sizes["arch"])
+    if sizes["reduced"]:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p = TM.init_moe(gen, cfg, torch.bfloat16)
+    e, k, d = p["wi"].shape[0], cfg.top_k, cfg.d_model
+    shapes = {}
+    for what, t in sizes["tokens"].items():
+        x = torch.randn((t, d), generator=gen, device=device).to(torch.bfloat16)
+        cap = TM._capacity(t, cfg)
+        _, _, gates, _, slot, valid, buf = TM._route(p, x, cfg, e, cap)
+        xin = buf.reshape(e, cap, d)
+        out_buf = TM._expert_ffn(p, xin, cfg).reshape(e * cap, d)
+        y = TM._combine(out_buf, slot, valid, gates, t, k, x.dtype)
+        whole = TM._moe_local(p, x, cfg, None, None)[0]
+        if not (torch.isfinite(whole).all() and torch.equal(y, whole)):
+            raise AssertionError(f"moe {what}: the parts do not compose to "
+                                 f"_moe_local, or it is not finite")
+        iters = sizes["iters"][what]
+        parts = {
+            "route_dispatch_ms": lambda: TM._route(p, x, cfg, e, cap),
+            "expert_ffn_ms": lambda: TM._expert_ffn(p, xin, cfg),
+            "combine_ms": lambda: TM._combine(out_buf, slot, valid, gates, t,
+                                              k, x.dtype),
+            "ms": lambda: TM._moe_local(p, x, cfg, None, None)}
+        times = {key: wall_ms(fn, iters, device) for key, fn in parts.items()}
+        bound_ms, bound_by, nbytes, flops = moe_bound(p, cfg, e * cap)
+        shapes[what] = dict(tokens=t, capacity=cap, bucket_rows=e * cap,
+                            assignments=t * k,
+                            tokens_dropped=t * k - int(valid.sum()),
+                            **times, bound_ms=bound_ms, bound_by=bound_by,
+                            expert_bytes=nbytes, ffn_flops=flops)
+
+    # The layer at the reduced width in fp32: card against CPU.
+    c32 = dataclasses.replace(get_config(sizes["arch"]).reduced(),
+                              dtype="float32")
+    p32 = TM.init_moe(torch.Generator().manual_seed(SEED), c32, torch.float32)
+    x32 = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=(sizes["check_tokens"], c32.d_model)).astype(np.float32))
+    e32, cap32 = p32["wi"].shape[0], TM._capacity(sizes["check_tokens"], c32)
+    got = {}
+    for dev in ("cpu", device):
+        pd = {n: a.to(dev) for n, a in p32.items()}
+        route = TM._route(pd, x32.to(dev), c32, e32, cap32)
+        y32 = TM._moe_local(pd, x32.to(dev), c32, None, None)[0]
+        got[dev] = (route[4].cpu(), route[5].cpu(), y32.cpu())
+    same_slots = (torch.equal(got["cpu"][0], got[device][0])
+                  and torch.equal(got["cpu"][1], got[device][1]))
+    err = float((got["cpu"][2] - got[device][2]).abs().max())
+    if not (same_slots and err <= 1e-5):
+        raise AssertionError(f"moe fp32 reduced: card and CPU differ (slots "
+                             f"equal: {same_slots}, y by {err})")
+    emit("moe", model=cfg.name, device=device, dtype="bfloat16",
+         d_model=d, d_ff=cfg.d_ff, experts=cfg.num_experts,
+         experts_stored=e, top_k=k, capacity_factor=cfg.capacity_factor,
+         shapes=shapes, reduced_fp32_vs_cpu=dict(
+             tokens=sizes["check_tokens"], slots_equal=same_slots,
+             y_max_abs_err=err, tol=1e-5),
+         seconds=time.perf_counter() - t0)
+    return shapes
 
 
 # ---------------------------------------------------------------------------
@@ -2189,12 +2326,24 @@ def main():
     dec = time_attention("decode", b, 1, MAX_SEQ, h, kvh, d, [DECODE_POS],
                          copies=8)
     fp32 = time_attention("prefill", *serving, copies=1, dtype=torch.float32)
+    # granite-moe-3b-a800m's attention: D = 64 (G = 24/8 = 3)
+    phase_hazards(head_dim=64)
+    g = get_config("granite-moe-3b-a800m")
+    gserving = (b, max(PROMPTS), max(PROMPTS), g.num_heads, g.num_kv_heads,
+                g.head_dim, None)
+    gpre = time_attention("prefill", *gserving, copies=1, phase="attention",
+                          model=g.name)
+    gdec = time_attention("decode", b, 1, MAX_SEQ, g.num_heads,
+                          g.num_kv_heads, g.head_dim, [DECODE_POS], copies=8,
+                          phase="attention", model=g.name)
     phase_mlstm_hazards()
     scan = time_mlstm(torch.bfloat16)
     scan32 = time_mlstm(torch.float32)
     small = phase_small_model()
     llama = phase_serve("llama3.2-3b")
     xlstm = phase_serve("xlstm-350m")
+    granite = phase_serve("granite-moe-3b-a800m")
+    phase_moe()
     phase_sim()
     phase_studies()
     phase_faults()
@@ -2202,7 +2351,8 @@ def main():
     phase_trace()
     phase_serving()
 
-    def entry(kernel, path, source, replaces, timing, runs, keys=()):
+    def entry(kernel, path, source, replaces, timing, runs, keys=(),
+              **more):
         """One kernel; ``runs`` are the launch counts of the runs that drive
         its path."""
         key = f"{kernel}_{path}"
@@ -2215,17 +2365,20 @@ def main():
             "calls_by_run": {name: run[kernel] for name, run in runs.items()},
             **{k: timing[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
-                                      "shape", *keys)}}
-    serve_runs = {"llama3.2-3b": llama, "xlstm-350m": xlstm}
+                                      "shape", *keys)}, **more}
+    serve_runs = {"llama3.2-3b": llama, "xlstm-350m": xlstm,
+                  "granite-moe-3b-a800m": granite}
     fp32_runs = {"reduced models in fp32": small}
     attn = "src/repro/kernels/flash_attention.py:39"
     scan_keys = ("state_max_abs_err", "library_note", "ms_eager",
                  "plain_ms_eager", "bound_ms_fp32_pipe")
+    d64 = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+           "bound_by")
     print(json.dumps({"kernels": [
         entry("flash_attention", "prefill", "flash_attention_prefill.cu",
-              attn, pre, serve_runs),
+              attn, pre, serve_runs, at_d64={k: gpre[k] for k in d64}),
         entry("flash_attention", "decode", "flash_attention_decode.cu", attn,
-              dec, serve_runs),
+              dec, serve_runs, at_d64={k: gdec[k] for k in d64}),
         entry("flash_attention", "fp32", "flash_attention.cu", attn, fp32,
               fp32_runs),
         entry("mlstm_scan", "tc", "mlstm_scan_tc.cu",

@@ -4,9 +4,8 @@ branchless torch twins of the reference's ``jnp`` routers.
 
 Ported: ``port_matrix``, ``factorization``, ``routing``, ``layout``,
 ``hyperx``, ``dragonfly``, ``schedule`` (the 1-factor step schedules) and
-``simulate`` (the closed-form link loads).  The collectives are not
-ported yet (ROADMAP queue A, item 9), and ``schedule_for_axis`` raises
-until they are.
+``simulate`` (the closed-form link loads) and ``collectives`` (the
+1-factor step chains over a ``torch.distributed`` process group).
 """
 from .port_matrix import (IDLE, circle_matrix, circle_neighbor,
                           is_complete, is_isoport, is_power_of_two,
@@ -32,6 +31,9 @@ from .dragonfly import (DragonflyConfig, PartitionedCIN, fig3_16,
                         frontier_like, hpe_dragonfly_group)
 from .schedule import (LacinSchedule, make_schedule, partner_table,
                        schedule_for_axis)
+from .collectives import (all_gather_lacin, all_reduce_lacin,
+                          all_to_all_lacin, psum_or_lacin,
+                          reduce_scatter_lacin, tree_all_reduce_lacin)
 from .simulate import (all_to_all_steps, cin_link_loads,
                        dragonfly_link_loads, hyperx_link_loads,
                        schedule_hop_counts, schedule_step_report,

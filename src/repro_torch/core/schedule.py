@@ -6,9 +6,9 @@ index ``i`` form 1-factor ``i``.  Read as a *communication schedule*, step
 exactly one partner, no link is shared, and both endpoints use the same
 "port"/step index.  This is precisely the step-wise all-to-all discipline
 of the paper's refs [8, 9]: the packet simulator replays these steps
-(:mod:`repro_torch.sim.workloads`), and the reference's LACIN-scheduled
-collectives execute them with ``jax.lax.ppermute`` (their port is ROADMAP
-queue A, item 9).
+(:mod:`repro_torch.sim.workloads`), and the LACIN-scheduled collectives
+(:mod:`repro_torch.core.collectives`) execute them, one
+``torch.distributed.batch_isend_irecv`` per step.
 
 A :class:`LacinSchedule` is static (built from numpy): a ``(steps, n)``
 partner table plus the per-step permutation lists.
@@ -153,9 +153,8 @@ def make_schedule(instance: str, n: int) -> LacinSchedule:
 
 
 def schedule_for_axis(mesh, axis_name: str, instance: str = "auto") -> LacinSchedule:
-    """Schedule for a named mesh axis.  The reference takes a JAX mesh; its
-    torch counterpart comes with the collectives."""
-    raise NotImplementedError(
-        "schedule_for_axis takes a device mesh, which comes with the "
-        "collectives (ROADMAP queue A, item 9); use make_schedule(instance, "
-        "n) for an axis of size n")
+    """Schedule for a named axis of a ``torch.distributed`` ``DeviceMesh``."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis_name not in names:
+        raise ValueError(f"mesh has no axis {axis_name!r} (axes: {names})")
+    return make_schedule(instance, mesh.size(names.index(axis_name)))

@@ -10,14 +10,17 @@
   :func:`make_fabric`): ``neighbor_matrix()``, ``schedule()``,
   ``sim_topology()``, ``link_loads()``, ``deployment()``, ``verify()``
   and ``replay(collective)``, which replays the fabric's own schedule
-  through the torch cycle engine.
-
-The reference's mesh-aware collectives (``LacinCollectives``,
-``all_to_all_grid``, ``all_reduce_two_level``) are not ported yet, and
-``Fabric.collectives`` raises (ROADMAP queue A, item 9).
+  through the torch cycle engine;
+* the **mesh-aware collectives** (:mod:`.collectives`):
+  :class:`LacinCollectives` bound to a ``torch.distributed`` ``DeviceMesh``
+  (``fabric.collectives(mesh, ...)`` checks the mesh against the fabric)
+  and the hierarchical :func:`all_to_all_grid` /
+  :func:`all_reduce_two_level`.
 """
 from repro_torch._compat import LacinDeprecationWarning
 
+from .collectives import (LacinCollectives, all_reduce_two_level,
+                          all_to_all_grid)
 from .registry import (InstanceSpec, get_instance, instance_names,
                        register_instance, registered_instances,
                        unregister_instance)
@@ -29,5 +32,6 @@ __all__ = [
     "LacinDeprecationWarning",
     "InstanceSpec", "register_instance", "unregister_instance",
     "get_instance", "instance_names", "registered_instances",
+    "LacinCollectives", "all_to_all_grid", "all_reduce_two_level",
     "Fabric", "CINFabric", "HyperXFabric", "DragonflyFabric", "make_fabric",
 ]

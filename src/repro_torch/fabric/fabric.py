@@ -13,7 +13,7 @@ CINs (§5/Fig. 3).  :class:`CINFabric`, :class:`HyperXFabric` and
 ``link_loads()``        closed-form uniform-traffic link loads
 ``deployment()``        physical arithmetic (racks / hoses / colours)
 ``verify()``            structural report with an ``"ok"`` verdict
-``collectives(mesh)``   not ported yet: raises (ROADMAP queue A, item 9)
+``collectives(mesh)``   mesh-aware LACIN collectives, shape-checked
 ``replay(collective)``  packet-simulate the fabric's own schedule steps
 ======================  ====================================================
 
@@ -38,6 +38,7 @@ from repro_torch.core.simulate import (cin_link_loads,
                                        dragonfly_link_loads,
                                        hyperx_link_loads, valiant_link_loads)
 
+from .collectives import LacinCollectives
 from .registry import get_instance
 
 __all__ = ["Fabric", "CINFabric", "HyperXFabric", "DragonflyFabric",
@@ -152,12 +153,9 @@ class Fabric(abc.ABC):
     def verify(self) -> dict:
         """Structural verification report; ``report['ok']`` is the verdict."""
 
-    def collectives(self, mesh=None, **axes):
-        """Mesh-aware collectives: not ported yet."""
-        raise NotImplementedError(
-            f"{type(self).__name__}.collectives is not ported yet (ROADMAP "
-            f"queue A, item 9: LACIN-scheduled collectives over "
-            f"torch.distributed)")
+    @abc.abstractmethod
+    def collectives(self, mesh=None, **axes) -> LacinCollectives:
+        """Mesh-aware collectives; checks the mesh matches the fabric."""
 
     def neighbor_matrix(self) -> np.ndarray:
         """(N, P) neighbour matrix (``-1`` = unwired port)."""
@@ -170,6 +168,23 @@ class Fabric(abc.ABC):
     @property
     def num_links(self) -> int:
         return self.sim_topology().num_links
+
+
+def _check_axis(mesh, axis_name: str, want: int, what: str) -> None:
+    """``mesh`` (a ``DeviceMesh``) has an axis ``axis_name`` of size
+    ``want``; ``mesh=None`` checks nothing."""
+    if mesh is None:
+        return
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis_name not in names:
+        raise ValueError(
+            f"mesh has no axis {axis_name!r} (axes: {names}); the {what} "
+            f"needs one of size {want}")
+    have = int(mesh.size(names.index(axis_name)))
+    if have != want:
+        raise ValueError(
+            f"mesh axis {axis_name!r} has size {have} but the {what} "
+            f"needs {want}; bind the fabric to a matching mesh axis")
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +281,15 @@ class CINFabric(Fabric):
                                 and report["schedule_covers_pairs"])
         return report
 
+    def collectives(self, mesh=None, axis_name: str | None = None,
+                    **kw) -> LacinCollectives:
+        if axis_name is not None:
+            _check_axis(mesh, axis_name, self.n, f"{self.name} fabric")
+        inst = self.instance if self.spec.isoport else "auto"
+        axes = ((axis_name, inst),) if axis_name else ()
+        return LacinCollectives(mesh=mesh, instance=inst,
+                                axis_instances=axes, **kw)
+
 
 # ---------------------------------------------------------------------------
 # HyperX: Cartesian product of CINs.
@@ -344,6 +368,20 @@ class HyperXFabric(Fabric):
         report["dor_delivers"] = ok
         report["ok"] = ok
         return report
+
+    def collectives(self, mesh=None, axis_names=None, **kw) -> LacinCollectives:
+        axes = ()
+        if axis_names is not None:
+            names = tuple(axis_names)
+            if len(names) != len(self.config.dims):
+                raise ValueError(
+                    f"{self.name} has {len(self.config.dims)} dimensions "
+                    f"but got axes {names}")
+            for a, k in zip(names, self.config.dims):
+                _check_axis(mesh, a, k, f"{self.name} dimension {a!r}")
+            axes = tuple((a, self.config.instance) for a in names)
+        return LacinCollectives(mesh=mesh, instance=self.config.instance,
+                                axis_instances=axes, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +464,21 @@ class DragonflyFabric(Fabric):
         report["lgl_delivers"] = ok
         report["ok"] = ok
         return report
+
+    def collectives(self, mesh=None, local_axis: str | None = None,
+                    global_axis: str | None = None, **kw) -> LacinCollectives:
+        c = self.config
+        axes = []
+        if local_axis is not None:
+            _check_axis(mesh, local_axis, c.group_size,
+                        f"{self.name} local CIN")
+            axes.append((local_axis, c.local_instance))
+        if global_axis is not None:
+            _check_axis(mesh, global_axis, c.num_groups,
+                        f"{self.name} global CIN")
+            axes.append((global_axis, c.global_instance))
+        return LacinCollectives(mesh=mesh, instance="auto",
+                                axis_instances=tuple(axes), **kw)
 
 
 # ---------------------------------------------------------------------------

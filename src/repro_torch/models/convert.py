@@ -4,7 +4,9 @@ The caller turns the reference's pytree into numpy first
 (``jax.tree_util.tree_map(np.asarray, params)``), so this module imports
 nothing of JAX.  Layouts are the same in both packages, so each leaf is a
 copy; the reference's per-run stacks (leading axis ``run.count``) become
-one dict per layer.
+one dict per layer, a MoE layer's ``moe`` subtree (router (d, E), wi/wg
+(E_store, d, f), wo (E_store, f, d)) with the rest.  :func:`expert_shard`
+gives one rank of an expert-parallel mesh its slice of every MoE layer.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .moe import expert_slice
 from .transformer import _layer_specs, build_runs, resolve_device
 
 
@@ -44,3 +47,12 @@ def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+def expert_shard(params: dict, rank: int, n: int) -> dict:
+    """``params`` with every MoE layer's expert store cut to rank
+    ``rank``'s slice of ``n`` (:func:`~.moe.expert_slice`, the reference's
+    ``P(tp)`` in-spec); every other leaf is shared, not copied."""
+    layers = [dict(layer, moe=expert_slice(layer["moe"], rank, n))
+              if "moe" in layer else layer for layer in params["layers"]]
+    return dict(params, layers=layers)

@@ -2,18 +2,48 @@
 
 Port of ``repro.models.layers``.  Plain functions on tensors and on
 parameter dicts whose layouts are the JAX package's (``wq (d, h, dh)``,
-``wo (h, dh, d)``, ``wi (d, f)``), so converting weights is a copy.  One
-card has no mesh, so the reference's ``AxisRules`` sharding constraints
-are left out.
+``wo (h, dh, d)``, ``wi (d, f)``), so converting weights is a copy.
+:class:`AxisRules` names the mesh axes as the reference's does, over a
+``torch.distributed`` ``DeviceMesh``; only the expert-parallel MoE reads
+it (the reference's sharding constraints have no counterpart on one card).
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+
+
+# ---------------------------------------------------------------------------
+# Mesh axes.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class AxisRules:
+    """Logical-to-mesh axis mapping.
+
+    ``dp``   — batch-parallel axes (("pod","data") on the multi-pod mesh).
+    ``tp``   — tensor/expert-parallel axis ("model").
+    ``mesh`` — the ``torch.distributed`` ``DeviceMesh`` the axes name
+               (needed by the LACIN expert-parallel MoE dispatch).
+    Default-constructed rules mean a single device.
+    """
+    dp: tuple[str, ...] = ()
+    tp: str | None = None
+    mesh: object = None
+
+    def axis_size(self, axis: str) -> int:
+        return int(self.mesh.size(self.mesh.mesh_dim_names.index(axis)))
+
+    @property
+    def tp_size(self) -> int:
+        if self.tp is None or self.mesh is None:
+            return 1
+        return self.axis_size(self.tp)
 
 
 # ---------------------------------------------------------------------------

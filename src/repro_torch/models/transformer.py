@@ -1,8 +1,8 @@
 """Model assembly for stacks of attention and xLSTM blocks: init, prefill
 and decode.
 
-Port of ``repro.models.transformer`` for ``ATTN``, ``MLSTM`` and ``SLSTM``
-blocks.  The reference scans stacked per-run parameters with ``lax.scan``;
+Port of ``repro.models.transformer`` for ``ATTN`` (with a dense MLP or a
+MoE, :mod:`.moe`), ``MLSTM`` and ``SLSTM`` blocks.  The reference scans stacked per-run parameters with ``lax.scan``;
 here the layers are a Python loop over one parameter dict per layer, in
 layer order, dispatching on each layer's kind.  Each attention layer's
 window and RoPE theta come from :func:`build_runs` as plain Python numbers,
@@ -13,6 +13,7 @@ Parameter trees (layouts as in the reference)::
     {"embed": {"table": (Vp, d)},
      "layers": [{"ln1": {"scale"}, "attn": {"wq", "wk", "wv", "wo"},
                  "ln2": {"scale"}, "mlp": {"wi", "wg", "wo"}}   # ATTN
+                 # (MoE configs: "moe": {"router", "wi", "wg", "wo"})
                 | {"up", "conv_w", "wq", ..., "down"}           # MLSTM
                 | {"w_gates", "r_gates", ..., "ffn_wo"}, ...],  # SLSTM
      "final_norm": {"scale"}, "lm_head": {"w": (d, Vp)}  # untied only}
@@ -21,7 +22,8 @@ Caches are one dict per layer: ``{"k", "v"}`` of (B, seq_len, KV, dh)
 tensors for attention, ``{"conv", "C", "n", "m"}`` for mLSTM and
 ``{"h", "c", "n", "m"}`` for sLSTM.  Entry points take a ``device`` that
 defaults to ``"cuda"`` and raise when CUDA is absent unless the caller asks
-for ``"cpu"``.
+for ``"cpu"``.  ``rules`` (:class:`~.layers.AxisRules`, keyword-only, a
+single device by default) reaches the expert-parallel MoE.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ import torch.nn.functional as F
 
 from .config import ATTN, MLSTM, SLSTM, ModelConfig
 from . import layers as L
+from .layers import AxisRules
+from .moe import apply_moe, init_moe
 from .xlstm import (apply_mlstm_block, apply_slstm_block, init_mlstm_block,
                     init_mlstm_cache, init_slstm_block, init_slstm_cache)
 
@@ -85,8 +89,6 @@ def build_runs(cfg: ModelConfig) -> tuple[RunSpec, ...]:
 def _layer_specs(cfg: ModelConfig) -> list[tuple[str, int, float]]:
     """(kind, window, theta) per layer; raises for model parts not ported
     yet."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are {_NOT_PORTED}")
     if cfg.is_encdec or cfg.num_meta_tokens or cfg.num_patch_tokens:
         raise NotImplementedError(
             f"{cfg.name}: encoders, cross-attention, meta tokens and patch "
@@ -150,8 +152,11 @@ def init_block(kind: str, gen: torch.Generator, cfg: ModelConfig,
         "ln1": L.init_norm(cfg, dtype, gen.device),
         "attn": L.init_attention(gen, cfg, dtype),
         "ln2": L.init_norm(cfg, dtype, gen.device),
-        "mlp": L.init_mlp(gen, cfg, dtype),
     }
+    if cfg.is_moe:
+        p["moe"] = init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, dtype)
     if cfg.qk_norm:
         p["q_scale"] = torch.zeros((cfg.head_dim,), dtype=dtype, device=gen.device)
         p["k_scale"] = torch.zeros((cfg.head_dim,), dtype=dtype, device=gen.device)
@@ -237,21 +242,33 @@ def _self_attention(p, y, cfg, *, window: int, theta: float, q_pos, kv_pos,
 
 
 def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
-                     cache=None, pos: int | None = None):
+                     cache=None, pos: int | None = None,
+                     rules: AxisRules = AxisRules()):
+    """Returns (x, cache, metrics): ``{"moe_aux", "moe_z"}`` for a MoE
+    block, else empty."""
+    metrics = {}
     y = L.apply_norm(p["ln1"], x)
     attn_out, new_cache = _self_attention(
         p, y, cfg, window=window, theta=theta, q_pos=q_pos, kv_pos=kv_pos,
         cache=cache, pos=pos)
     x = x + attn_out
     y = L.apply_norm(p["ln2"], x)
-    return x + L.apply_mlp(p["mlp"], y, cfg), new_cache
+    if cfg.is_moe:
+        m, metrics = apply_moe(p["moe"], y, cfg, rules)
+    else:
+        m = L.apply_mlp(p["mlp"], y, cfg)
+    return x + m, new_cache, metrics
 
 
-def _apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None):
-    """All layers in order.  Prefill (``caches`` None) passes no state into
-    the recurrent blocks, as the reference does; decode passes each layer
-    its cache."""
+def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
+                rules: AxisRules = AxisRules()):
+    """All layers in order; returns (x, caches, aux (2,)): ``aux`` sums
+    every MoE layer's ``[moe_aux, moe_z]`` in float32, as the reference's
+    stack does (zeros without MoE).  Prefill (``caches`` None) passes no
+    state into the recurrent blocks, as the reference does; decode passes
+    each layer its cache."""
     new_caches = []
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     for i, (kind, window, theta) in enumerate(_layer_specs(cfg)):
         p = params["layers"][i]
         cache = None if caches is None else caches[i]
@@ -260,11 +277,14 @@ def _apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None):
         elif kind == SLSTM:
             x, c = apply_slstm_block(p, x, cfg, cache=cache)
         else:
-            x, c = apply_attn_block(p, x, cfg, window=window, theta=theta,
-                                    q_pos=q_pos, kv_pos=kv_pos, cache=cache,
-                                    pos=pos)
+            x, c, metrics = apply_attn_block(
+                p, x, cfg, window=window, theta=theta, q_pos=q_pos,
+                kv_pos=kv_pos, cache=cache, pos=pos, rules=rules)
+            if metrics:
+                aux = aux + torch.stack([metrics["moe_aux"],
+                                         metrics["moe_z"]])
         new_caches.append(c)
-    return x, new_caches
+    return x, new_caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +297,8 @@ def _check_batch(batch):
         raise NotImplementedError(f"batch entries {extra} are {_NOT_PORTED}")
 
 
-def prefill(params, batch, cfg: ModelConfig, seq_len: int):
+def prefill(params, batch, cfg: ModelConfig, seq_len: int, *,
+            rules: AxisRules = AxisRules()):
     """Prefill caches of length ``seq_len``; returns (last_logits, caches).
 
     ``params``: as :func:`cast_params` returns them.
@@ -291,7 +312,8 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int):
     x = L.embed_tokens(params["embed"], tokens, cfg)
     t = x.shape[1]
     pos = torch.arange(t, dtype=torch.int32, device=x.device)
-    x, states = _apply_stack(params, x, cfg, q_pos=pos, kv_pos=pos)
+    x, states, _ = apply_stack(params, x, cfg, q_pos=pos, kv_pos=pos,
+                               rules=rules)
     # k, v: (B, T, KV, dh) -> (B, seq_len, KV, dh), zeros after T
     caches = [{n: F.pad(a, (0, 0, 0, 0, 0, seq_len - t)) if n in ("k", "v")
                else a for n, a in c.items()} for c in states]
@@ -302,7 +324,7 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int):
 
 
 def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig,
-                seq_len: int):
+                seq_len: int, *, rules: AxisRules = AxisRules()):
     """One decode step.  tokens: (B, 1); pos: Python int cache fill level.
 
     ``params``: as :func:`cast_params` returns them.  Writes the new k and
@@ -313,8 +335,8 @@ def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig,
     x = L.embed_tokens(params["embed"], tokens, cfg)
     kv_pos = torch.arange(seq_len, dtype=torch.int32, device=x.device)
     q_pos = torch.tensor([pos], dtype=torch.int32, device=x.device)
-    x, caches = _apply_stack(params, x, cfg, q_pos=q_pos, kv_pos=kv_pos,
-                             caches=caches, pos=pos)
+    x, caches, _ = apply_stack(params, x, cfg, q_pos=q_pos, kv_pos=kv_pos,
+                               caches=caches, pos=pos, rules=rules)
     x = L.apply_norm(params["final_norm"], x)
     logits = L.logits_from_hidden(x, params["embed"], params.get("lm_head"),
                                   cfg)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import AxisRules
 from repro_torch.models.transformer import (cast_params, decode_step,
                                             init_caches, prefill,
                                             resolve_device)
@@ -35,9 +36,11 @@ class ServingEngine:
     """Fixed-slot continuous batching engine (one model, one device)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
-                 max_seq: int = 256, seed: int = 0, device="cuda"):
+                 max_seq: int = 256, rules: AxisRules = AxisRules(),
+                 seed: int = 0, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.rules = rules
         # compute-dtype copies on the device, made once here
         self.params = cast_params(params, cfg, self.device)
         self.slots = slots
@@ -74,7 +77,7 @@ class ServingEngine:
                 toks[i, -len(r.prompt):] = r.prompt  # left-pad
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         logits, self.caches = prefill(self.params, batch, self.cfg,
-                                      self.max_seq)
+                                      self.max_seq, rules=self.rules)
         self.pos = tlen
         # the first token is fed to the next step, not appended
         self._last_tok = torch.from_numpy(self._sample(logits[:, -1])).to(
@@ -103,7 +106,7 @@ class ServingEngine:
         """One decode step for the whole batch."""
         logits, self.caches = decode_step(
             self.params, self._last_tok, self.caches, self.pos, self.cfg,
-            self.max_seq)
+            self.max_seq, rules=self.rules)
         self.pos += 1
         tok = self._sample(logits[:, 0])
         self._last_tok = torch.from_numpy(tok).to(self.device)

@@ -18,7 +18,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert {"repro_torch.workload", "repro_torch.workload.arrivals",
         "repro_torch.workload.serving",
-        "repro_torch.workload.__main__"} <= set(sys.modules)
+        "repro_torch.workload.__main__", "repro_torch.core.collectives",
+        "repro_torch.fabric.collectives", "repro_torch.models.moe",
+        "repro_torch.configs.granite_moe_3b_a800m"} <= set(sys.modules)
 print(len(names), bad)
 """
 

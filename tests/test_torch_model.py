@@ -305,7 +305,7 @@ def test_cuda_is_the_default_device(monkeypatch):
 
 def test_unported_parts_raise():
     base = get_config("llama3.2-3b").reduced()
-    for cfg in (dataclasses.replace(base, num_experts=4, top_k=2),
+    for cfg in (dataclasses.replace(base, encoder_layers=2),
                 dataclasses.replace(base, block_pattern=("attn", "hymba") * 2),
                 dataclasses.replace(base, num_meta_tokens=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -121,9 +121,28 @@ def test_wire_lengths_and_table1_equal(n):
                     T_layout.circle_predicted_crossings(n))
 
 
+class _Mesh:
+    """What the port reads of a ``torch.distributed`` ``DeviceMesh``."""
+
+    def __init__(self, **axes):
+        self.mesh_dim_names = tuple(axes)
+        self._sizes = tuple(axes.values())
+
+    def size(self, dim):
+        return self._sizes[dim]
+
+
 def test_schedule_for_axis_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T_sched.schedule_for_axis(None, "x")
+    """Ported (ROADMAP queue A, item 9): schedule_for_axis reads the axis's
+    size from a DeviceMesh and equals the reference's on a mesh of that
+    shape; an axis the mesh lacks raises, naming the mesh's axes."""
+    mesh = _Mesh(data=2, model=8)
+    for inst in ("auto", "xor", "circle", "cyclic"):
+        assert_same(R_sched.make_schedule(inst, 8),
+                    T_sched.schedule_for_axis(mesh, "model", inst))
+    assert T_sched.schedule_for_axis(mesh, "data").n == 2
+    with pytest.raises(ValueError, match="data"):
+        T_sched.schedule_for_axis(mesh, "pod")
 
 
 #: (name, reference fabric, port fabric): small CIN, HyperX and Dragonfly.
@@ -166,6 +185,29 @@ def test_fabrics_equal(name):
 
 
 def test_fabric_collectives_raise_naming_their_roadmap_item():
-    for name in ("cin-xor-8", "hyperx-4x4", "dragonfly-a4h2g9"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            FABRICS[name][1]().collectives()
+    """Ported (ROADMAP queue A, item 9): every fabric's collectives() binds
+    the instances the reference's binds, per axis, and raises where the
+    mesh's axes do not match the fabric (the reference's _check_axis)."""
+    axes = {"cin-xor-8": dict(axis_name="x"),
+            "cin-circle-9": dict(axis_name="x"),
+            "cin-swap-8": dict(axis_name="x"),
+            "hyperx-4x4": dict(axis_names=("a", "b")),
+            "hyperx-3x3-circle": dict(axis_names=("a", "b")),
+            "dragonfly-a4h2g9": dict(local_axis="l", global_axis="g")}
+    for name, kw in axes.items():
+        ra, tb = (f() for f in FABRICS[name])
+        for call in ({}, kw):
+            want, got = ra.collectives(None, **call), tb.collectives(None, **call)
+            assert (got.instance, got.impl, got.axis_instances) == \
+                (want.instance, want.impl, want.axis_instances), (name, call)
+    good = _Mesh(a=4, b=4)
+    coll = FABRICS["hyperx-4x4"][1]().collectives(good, axis_names=("a", "b"))
+    assert coll.mesh is good and coll.axis_size("b") == 4
+    with pytest.raises(ValueError, match="size 2"):
+        FABRICS["hyperx-4x4"][1]().collectives(_Mesh(a=4, b=2),
+                                               axis_names=("a", "b"))
+    with pytest.raises(ValueError, match="no axis 'g'"):
+        FABRICS["dragonfly-a4h2g9"][1]().collectives(
+            _Mesh(l=4, x=9), local_axis="l", global_axis="g")
+    with pytest.raises(ValueError, match="no axis"):
+        coll.axis_size("c")
