@@ -33,8 +33,9 @@ Phases, one JSON line each:
    model (torch.profiler), and the share of the time the device is idle;
    then ``"phase": "moe"``: granite's MoE layer alone in bf16 at the
    prefill (2048 tokens) and decode (4 tokens) shapes, its time split into
-   router and dispatch, expert FFN and combine, beside its bound, with the
-   tokens dropped; and the layer at the reduced width in fp32, card
+   router and dispatch, expert FFN and combine, with and without the aux
+   and z losses, beside the bound of the work it does and of the work it
+   needs, with the tokens dropped; and the layer at the reduced width in fp32, card
    against CPU (slots and validity equal, y within atol 1e-5);
 7. sim     -- the simulator's main path (repro_torch.sim), which runs no
    hand-written kernel: ``sim_speed`` (CIN xor 16, 3 loads x 8 seeds x
@@ -919,13 +920,13 @@ MOE_TINY = {"arch": "granite-moe-3b-a800m", "reduced": True,
             "iters": {"prefill": 2, "decode": 2}, "check_tokens": 64}
 
 
-def moe_bound(p, cfg, rows):
-    """Least time of the expert FFN on the card: every stored expert's
-    weights read once (each is computed for its bucket, padding included),
-    and the FFN's multiply-adds on ``rows`` = experts x capacity rows at the
-    bf16 peak."""
+def moe_bound(p, cfg, rows, experts):
+    """Least time of the expert FFN on the card: the weights of
+    ``experts`` stored experts read once, and the FFN's multiply-adds on
+    ``rows`` rows at the bf16 peak."""
     names = [n for n in ("wi", "wg", "wo") if n in p]
-    nbytes = sum(p[n].numel() * p[n].element_size() for n in names)
+    nbytes = experts * sum(p[n][0].numel() * p[n].element_size()
+                           for n in names)
     flops = 2 * len(names) * rows * cfg.d_model * cfg.d_ff
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
@@ -936,9 +937,13 @@ def moe_bound(p, cfg, rows):
 def phase_moe(device="cuda", sizes=MOE_FULL):
     """granite's MoE layer (repro_torch.models.moe, single shard) in bf16
     at the serve run's prefill and decode token counts: ms of
-    ``_moe_local`` and of its three parts, its bound and the tokens
-    dropped; then the layer at the reduced width in fp32 on the card
-    against the CPU."""
+    ``_moe_local`` (without the losses, as serving runs it; and with
+    them, as training does) and of its three parts, the tokens dropped
+    and two bounds: ``bound_ms`` for the work the layer does (every
+    stored expert read, padding included, and ``e*cap`` bucket rows) and
+    ``needed_bound_ms`` for the work the function needs (the experts this
+    run's tokens select, and one row per assignment kept); then the layer
+    at the reduced width in fp32 on the card against the CPU."""
     t0 = time.perf_counter()
     cfg = get_config(sizes["arch"])
     if sizes["reduced"]:
@@ -951,11 +956,11 @@ def phase_moe(device="cuda", sizes=MOE_FULL):
     for what, t in sizes["tokens"].items():
         x = torch.randn((t, d), generator=gen, device=device).to(torch.bfloat16)
         cap = TM._capacity(t, cfg)
-        _, _, gates, _, slot, valid, buf = TM._route(p, x, cfg, e, cap)
+        _, _, gates, flat_e, slot, valid, buf = TM._route(p, x, cfg, e, cap)
         xin = buf.reshape(e, cap, d)
         out_buf = TM._expert_ffn(p, xin, cfg).reshape(e * cap, d)
         y = TM._combine(out_buf, slot, valid, gates, t, k, x.dtype)
-        whole = TM._moe_local(p, x, cfg, None, None)[0]
+        whole = TM._moe_local(p, x, cfg, None, None, losses=False)[0]
         if not (torch.isfinite(whole).all() and torch.equal(y, whole)):
             raise AssertionError(f"moe {what}: the parts do not compose to "
                                  f"_moe_local, or it is not finite")
@@ -965,14 +970,23 @@ def phase_moe(device="cuda", sizes=MOE_FULL):
             "expert_ffn_ms": lambda: TM._expert_ffn(p, xin, cfg),
             "combine_ms": lambda: TM._combine(out_buf, slot, valid, gates, t,
                                               k, x.dtype),
-            "ms": lambda: TM._moe_local(p, x, cfg, None, None)}
+            "ms": lambda: TM._moe_local(p, x, cfg, None, None,
+                                        losses=False),
+            "ms_with_losses": lambda: TM._moe_local(p, x, cfg, None, None)}
         times = {key: wall_ms(fn, iters, device) for key, fn in parts.items()}
-        bound_ms, bound_by, nbytes, flops = moe_bound(p, cfg, e * cap)
+        bound_ms, bound_by, nbytes, flops = moe_bound(p, cfg, e * cap, e)
+        kept = int(valid.sum())
+        touched = int(flat_e[valid].unique().numel())
+        need_ms, need_by, need_bytes, need_flops = moe_bound(p, cfg, kept,
+                                                             touched)
         shapes[what] = dict(tokens=t, capacity=cap, bucket_rows=e * cap,
-                            assignments=t * k,
-                            tokens_dropped=t * k - int(valid.sum()),
+                            assignments=t * k, tokens_dropped=t * k - kept,
                             **times, bound_ms=bound_ms, bound_by=bound_by,
-                            expert_bytes=nbytes, ffn_flops=flops)
+                            expert_bytes=nbytes, ffn_flops=flops,
+                            experts_selected=touched,
+                            needed_bound_ms=need_ms, needed_bound_by=need_by,
+                            needed_expert_bytes=need_bytes,
+                            needed_ffn_flops=need_flops)
 
     # The layer at the reduced width in fp32: card against CPU.
     c32 = dataclasses.replace(get_config(sizes["arch"]).reduced(),
@@ -985,7 +999,8 @@ def phase_moe(device="cuda", sizes=MOE_FULL):
     for dev in ("cpu", device):
         pd = {n: a.to(dev) for n, a in p32.items()}
         route = TM._route(pd, x32.to(dev), c32, e32, cap32)
-        y32 = TM._moe_local(pd, x32.to(dev), c32, None, None)[0]
+        y32 = TM._moe_local(pd, x32.to(dev), c32, None, None,
+                            losses=False)[0]
         got[dev] = (route[4].cpu(), route[5].cpu(), y32.cpu())
     same_slots = (torch.equal(got["cpu"][0], got[device][0])
                   and torch.equal(got["cpu"][1], got[device][1]))

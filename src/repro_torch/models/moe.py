@@ -146,8 +146,26 @@ def _combine(out_buf, slot, valid, gates, t: int, k: int, dtype):
     return (picked.reshape(t, k, d) * gates[..., None].to(dtype)).sum(dim=1)
 
 
-def _moe_local(p, x, cfg, coll: LacinCollectives | None, axis_name):
-    """The per-rank MoE body.  x: (Tloc, d) local tokens.
+def moe_losses(logits, probs, flat_e, t: int, k: int):
+    """Switch-style load-balance aux loss and router z-loss from one
+    call's router statistics (local to this rank)."""
+    e_real = probs.shape[1]
+    me = probs.mean(dim=0)                                # (E_real,)
+    ce = torch.zeros((e_real,), dtype=torch.float32,
+                     device=probs.device).index_add(
+        0, flat_e.clamp(0, e_real - 1),
+        torch.ones(flat_e.shape, dtype=torch.float32, device=probs.device)
+    ) / max(t * k, 1)
+    aux = e_real * (me * ce).sum()
+    zloss = torch.logsumexp(logits, dim=-1).square().mean()
+    return aux, zloss
+
+
+def _moe_local(p, x, cfg, coll: LacinCollectives | None, axis_name, *,
+               losses: bool = True):
+    """The per-rank MoE body.  x: (Tloc, d) local tokens.  Returns
+    (y, aux, z); ``losses=False`` skips :func:`moe_losses` (aux and z are
+    None), as serving does: the reference's jit drops them as dead code.
 
     ``coll`` is the mesh-bound LACIN collective set (None = dense / single
     shard); the EP shard count comes from the mesh axis it is bound to,
@@ -163,7 +181,6 @@ def _moe_local(p, x, cfg, coll: LacinCollectives | None, axis_name):
     k = cfg.top_k
     # Bucket count: local expert rows times shards (== padded global count).
     e = p["wi"].shape[0] * n_shards
-    e_real = p["router"].shape[1]
     cap = _capacity(t, cfg)
 
     logits, probs, gates, flat_e, slot, valid, buf = _route(p, x, cfg, e, cap)
@@ -188,19 +205,13 @@ def _moe_local(p, x, cfg, coll: LacinCollectives | None, axis_name):
         out_buf = yout.reshape(e * cap, d)
 
     y = _combine(out_buf, slot, valid, gates, t, k, x.dtype)
-
-    # Switch-style load-balance aux loss + router z-loss (local stats).
-    me = probs.mean(dim=0)                                # (E_real,)
-    ce = torch.zeros((e_real,), dtype=torch.float32, device=x.device).index_add(
-        0, flat_e.clamp(0, e_real - 1),
-        torch.ones(flat_e.shape, dtype=torch.float32, device=x.device)
-    ) / max(t * k, 1)
-    aux = e_real * (me * ce).sum()
-    zloss = torch.logsumexp(logits, dim=-1).square().mean()
-    return y, aux, zloss
+    if not losses:
+        return y, None, None
+    return (y, *moe_losses(logits, probs, flat_e, t, k))
 
 
-def apply_moe(p: dict, x, cfg, rules: AxisRules = AxisRules()):
+def apply_moe(p: dict, x, cfg, rules: AxisRules = AxisRules(), *,
+              losses: bool = True):
     """x: (B, T, d) -> (y, aux_metrics dict).
 
     The EP path runs on every rank of the ``rules.tp`` group: ``x`` is this
@@ -208,12 +219,16 @@ def apply_moe(p: dict, x, cfg, rules: AxisRules = AxisRules()):
     (:func:`expert_slice`; ``repro_torch.models.convert.expert_shard`` for
     a whole model).  ``moe_aux`` and ``moe_z`` are then averaged over the
     ``rules.dp`` axes (the reference's ``lax.pmean``).  The dense path
-    runs inline (single shard, the whole store).
+    runs inline (single shard, the whole store).  ``losses=False`` (prefill
+    and decode) computes neither loss and returns an empty dict, so the
+    data shards need not step together.
     """
     b, t, d = x.shape
     if cfg.moe_impl == "dense" or rules.tp is None or rules.tp_size == 1:
-        y2, aux, z = _moe_local(p, x.reshape(b * t, d), cfg, None, None)
-        return y2.reshape(b, t, d), {"moe_aux": aux, "moe_z": z}
+        y2, aux, z = _moe_local(p, x.reshape(b * t, d), cfg, None, None,
+                                losses=losses)
+        return y2.reshape(b, t, d), ({"moe_aux": aux, "moe_z": z}
+                                     if losses else {})
 
     # EP shard count and schedule both come from the mesh axis (the
     # mesh-aware API): no hand-threaded axis_size to disagree with it.
@@ -224,7 +239,10 @@ def apply_moe(p: dict, x, cfg, rules: AxisRules = AxisRules()):
         raise ValueError(
             f"this rank holds {p['wi'].shape[0]} experts, not its slice of "
             f"{e_loc} of the store over {n_shards} shards (expert_slice)")
-    y2, aux, z = _moe_local(p, x.reshape(b * t, d), cfg, coll, rules.tp)
+    y2, aux, z = _moe_local(p, x.reshape(b * t, d), cfg, coll, rules.tp,
+                            losses=losses)
+    if not losses:
+        return y2.reshape(b, t, d), {}
     for axis in rules.dp:
         n = rules.axis_size(axis)
         group = rules.mesh.get_group(axis)

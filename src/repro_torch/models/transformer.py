@@ -243,9 +243,9 @@ def _self_attention(p, y, cfg, *, window: int, theta: float, q_pos, kv_pos,
 
 def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
                      cache=None, pos: int | None = None,
-                     rules: AxisRules = AxisRules()):
+                     rules: AxisRules = AxisRules(), losses: bool = True):
     """Returns (x, cache, metrics): ``{"moe_aux", "moe_z"}`` for a MoE
-    block, else empty."""
+    block when ``losses``, else empty."""
     metrics = {}
     y = L.apply_norm(p["ln1"], x)
     attn_out, new_cache = _self_attention(
@@ -254,21 +254,24 @@ def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
     x = x + attn_out
     y = L.apply_norm(p["ln2"], x)
     if cfg.is_moe:
-        m, metrics = apply_moe(p["moe"], y, cfg, rules)
+        m, metrics = apply_moe(p["moe"], y, cfg, rules, losses=losses)
     else:
         m = L.apply_mlp(p["mlp"], y, cfg)
     return x + m, new_cache, metrics
 
 
 def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
-                rules: AxisRules = AxisRules()):
+                rules: AxisRules = AxisRules(), losses: bool = True):
     """All layers in order; returns (x, caches, aux (2,)): ``aux`` sums
     every MoE layer's ``[moe_aux, moe_z]`` in float32, as the reference's
-    stack does (zeros without MoE).  Prefill (``caches`` None) passes no
-    state into the recurrent blocks, as the reference does; decode passes
-    each layer its cache."""
+    stack does (zeros without MoE).  ``losses=False`` computes no MoE loss
+    and returns ``aux`` None: prefill and decode drop it, and the
+    reference's jit drops its work as dead code.  Prefill (``caches``
+    None) passes no state into the recurrent blocks, as the reference
+    does; decode passes each layer its cache."""
     new_caches = []
-    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    aux = (torch.zeros((2,), dtype=torch.float32, device=x.device)
+           if losses else None)
     for i, (kind, window, theta) in enumerate(_layer_specs(cfg)):
         p = params["layers"][i]
         cache = None if caches is None else caches[i]
@@ -279,7 +282,8 @@ def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
         else:
             x, c, metrics = apply_attn_block(
                 p, x, cfg, window=window, theta=theta, q_pos=q_pos,
-                kv_pos=kv_pos, cache=cache, pos=pos, rules=rules)
+                kv_pos=kv_pos, cache=cache, pos=pos, rules=rules,
+                losses=losses)
             if metrics:
                 aux = aux + torch.stack([metrics["moe_aux"],
                                          metrics["moe_z"]])
@@ -313,7 +317,7 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int, *,
     t = x.shape[1]
     pos = torch.arange(t, dtype=torch.int32, device=x.device)
     x, states, _ = apply_stack(params, x, cfg, q_pos=pos, kv_pos=pos,
-                               rules=rules)
+                               rules=rules, losses=False)
     # k, v: (B, T, KV, dh) -> (B, seq_len, KV, dh), zeros after T
     caches = [{n: F.pad(a, (0, 0, 0, 0, 0, seq_len - t)) if n in ("k", "v")
                else a for n, a in c.items()} for c in states]
@@ -336,7 +340,8 @@ def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig,
     kv_pos = torch.arange(seq_len, dtype=torch.int32, device=x.device)
     q_pos = torch.tensor([pos], dtype=torch.int32, device=x.device)
     x, caches, _ = apply_stack(params, x, cfg, q_pos=q_pos, kv_pos=kv_pos,
-                               caches=caches, pos=pos, rules=rules)
+                               caches=caches, pos=pos, rules=rules,
+                               losses=False)
     x = L.apply_norm(params["final_norm"], x)
     logits = L.logits_from_hidden(x, params["embed"], params.get("lm_head"),
                                   cfg)

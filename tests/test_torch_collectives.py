@@ -28,7 +28,6 @@ import pytest
 import torch
 
 from repro_torch.core import schedule as T_sched
-from repro_torch.fabric import make_fabric
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -424,11 +423,3 @@ def test_collectives_need_a_process_group():
     from repro_torch.core import all_to_all_lacin
     with pytest.raises((RuntimeError, ValueError)):
         all_to_all_lacin(torch.zeros(2, 3))
-
-
-def test_fabric_collectives_bind_their_instances_without_a_mesh():
-    """CIN, HyperX and Dragonfly fabrics bind their instances per axis as
-    the reference's do; the mesh check needs a mesh."""
-    cin = make_fabric("circle", 9).collectives(None, "x")
-    assert (cin.instance, cin.axis_instance("x")) == ("circle", "circle")
-    assert make_fabric("swap", 8).collectives().instance == "auto"

@@ -13,7 +13,11 @@ the JAX reference repro.models.moe / repro.models.transformer, on the CPU.
   (nothing dropped) within rtol 2e-4 / atol 2e-5, as tests/test_moe.py
   holds the reference; against the reference's EP path on 8 forced host
   devices at capacity factor 1.25 (per-shard capacities drop the same
-  tokens) within the same tolerance; gradients finite.
+  tokens) within the same tolerance; gradients finite.  The reduced
+  granite with ``rules=AxisRules(dp=("data",), tp="model", mesh)`` and
+  ``expert_shard`` params on the same mesh: prefill, a decode step and
+  ServingEngine's greedy tokens against the dense model on each data
+  shard's requests, within the same tolerance.
 * The reduced granite (4 layers, 8 experts, top-2) in float32: prefill and
   decode logits and k/v caches against the reference with
   ``attention_impl="reference"`` (ROADMAP C4), atol 1e-4; ServingEngine's
@@ -230,6 +234,16 @@ import numpy as np
 EP_CASES = (("even_cf8", 8, 8.0), ("even_cf125", 8, 1.25),
             ("offspec_cf8", 6, 8.0))
 X = np.random.default_rng(5).normal(size=(4, 8, 32)).astype(np.float32)
+#: The reduced granite over the same mesh: prompts of 9 tokens and a cache
+#: of 16 for prefill and one decode step; four prompts of unequal length
+#: for the serving engine, 4 greedy tokens each.  Data shard i takes rows
+#: (requests) 2i and 2i + 1.
+MODEL_SEED, MODEL_T, MODEL_SEQ = 0, 9, 16
+MODEL_TOKENS = np.random.default_rng(11).integers(0, 256, (4, MODEL_T))
+ENGINE_PROMPTS = [np.random.default_rng(12 + n).integers(0, 256, n,
+                                                         dtype=np.int32)
+                  for n in (5, 9, 3, 7)]
+ENGINE_NEW, ENGINE_SEQ = 4, 24
 """
 
 _EP_REF = _EP_INPUTS + r"""
@@ -272,7 +286,10 @@ dist.init_process_group("gloo", store=dist.FileStore(store, world),
 from repro_torch.core import collectives as C
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import AxisRules
+from repro_torch.models import (cast_params, decode_step, expert_shard,
+                                get_config, init_params, prefill)
 from repro_torch.models.moe import apply_moe, expert_slice
+from repro_torch.serving import Request, ServingEngine
 
 mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
 rules = AxisRules(dp=("data",), tp="model", mesh=mesh)
@@ -298,6 +315,30 @@ for name, e, cf in EP_CASES:
     out[name + "_z"] = aux["moe_z"].detach().numpy()
     out[name + "_grads_finite"] = np.bool_(all(
         torch.isfinite(v.grad).all() for v in p.values()))
+
+# The reduced granite, this rank's token shard and expert slice.
+import dataclasses
+mcfg = dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(),
+                           dtype="float32")
+pm = expert_shard(cast_params(init_params(MODEL_SEED, mcfg, device="cpu"),
+                              mcfg), j, 4)
+before = C.exchanges
+with torch.no_grad():
+    logits, caches = prefill(
+        pm, {"tokens": torch.from_numpy(MODEL_TOKENS[2 * i:2 * i + 2])},
+        mcfg, MODEL_SEQ, rules=rules)
+    step, _ = decode_step(pm, logits.argmax(-1), caches, MODEL_T, mcfg,
+                          MODEL_SEQ, rules=rules)
+out["model_exchanges"] = np.int64(C.exchanges - before)
+out["model_prefill"] = logits.numpy()
+out["model_step"] = step.numpy()
+eng = ServingEngine(mcfg, pm, slots=2, max_seq=ENGINE_SEQ, rules=rules,
+                    device="cpu")
+for r in (2 * i, 2 * i + 1):
+    eng.submit(Request(rid=r, prompt=ENGINE_PROMPTS[r],
+                       max_new_tokens=ENGINE_NEW))
+out["engine_tokens"] = np.array([req.out_tokens for req in
+                                 sorted(eng.run(), key=lambda q: q.rid)])
 dist.barrier()
 dist.destroy_process_group()
 np.savez(f"{outdir}/out_{rank}.npz", **out)
@@ -355,6 +396,54 @@ def test_ep_equals_dense(ep_runs, name):
     x = np.random.default_rng(5).normal(size=(4, 8, 32)).astype(np.float32)
     y, _ = TM.apply_moe(p, torch.from_numpy(x), cfg, AxisRules())
     np.testing.assert_allclose(_ep_output(outs, name), _f32(y), **EP_TOL)
+
+
+def _model_shards():
+    """The reduced granite as every EP rank initialises it, and data
+    shard i's inputs."""
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), dtype="float32")
+    params = TT.cast_params(TT.init_params(0, cfg, device="cpu"), cfg)
+    g = {}
+    exec(_EP_INPUTS, g)
+    return cfg, params, g
+
+
+def test_ep_model_prefill_and_decode_equal_dense(ep_runs):
+    """The reduced granite's prefill and one decode step with
+    ``rules=AxisRules(dp=("data",), tp="model", mesh)`` and
+    ``expert_shard`` params on the (2, 4) mesh equal the dense model on
+    each data shard's tokens (so the per-shard capacity drops the same
+    assignments); each rank posts 3 + 3 exchanges a MoE layer a call."""
+    _, outs = ep_runs
+    cfg, params, g = _model_shards()
+    for i in range(2):
+        toks = torch.from_numpy(g["MODEL_TOKENS"][2 * i:2 * i + 2])
+        logits, caches = TT.prefill(params, {"tokens": toks}, cfg,
+                                    g["MODEL_SEQ"])
+        step, _ = TT.decode_step(params, logits.argmax(-1), caches,
+                                 g["MODEL_T"], cfg, g["MODEL_SEQ"])
+        for j in range(4):
+            o = outs[4 * i + j]
+            np.testing.assert_allclose(o["model_prefill"], _f32(logits),
+                                       **EP_TOL)
+            np.testing.assert_allclose(o["model_step"], _f32(step), **EP_TOL)
+            assert int(o["model_exchanges"]) == 2 * cfg.num_layers * 6
+
+
+def test_ep_serving_engine_equals_dense(ep_runs):
+    """ServingEngine with the EP rules on every rank (2 slots, each data
+    shard its own 2 requests) gives the dense engine's greedy tokens."""
+    _, outs = ep_runs
+    cfg, params, g = _model_shards()
+    for i in range(2):
+        eng = ServingEngine(cfg, params, slots=2, max_seq=g["ENGINE_SEQ"],
+                            device="cpu")
+        for r in (2 * i, 2 * i + 1):
+            eng.submit(Request(rid=r, prompt=g["ENGINE_PROMPTS"][r],
+                               max_new_tokens=g["ENGINE_NEW"]))
+        want = [q.out_tokens for q in sorted(eng.run(), key=lambda q: q.rid)]
+        for j in range(4):
+            assert outs[4 * i + j]["engine_tokens"].tolist() == want
 
 
 # ---------------------------------------------------------------------------

@@ -200,6 +200,8 @@ def test_fabric_collectives_raise_naming_their_roadmap_item():
             want, got = ra.collectives(None, **call), tb.collectives(None, **call)
             assert (got.instance, got.impl, got.axis_instances) == \
                 (want.instance, want.impl, want.axis_instances), (name, call)
+            for axis in want.axis_instances:
+                assert got.axis_instance(axis) == want.axis_instance(axis)
     good = _Mesh(a=4, b=4)
     coll = FABRICS["hyperx-4x4"][1]().collectives(good, axis_names=("a", "b"))
     assert coll.mesh is good and coll.axis_size("b") == 4

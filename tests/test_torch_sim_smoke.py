@@ -1,12 +1,12 @@
 """``chip_smoke.py``'s ``sim``, ``studies``, ``faults``, ``flow``,
-``trace`` and ``serving`` phases on the CPU at a tiny size, so that the
-phases the GPU run ends with cannot rot between chip runs: they drive
-``sim_speed``, ``xl_scale``, the exactness checks, the studies path (the
-CLI as a subprocess, ``Study.run()``), degraded studies, the flow tier,
-traced sweeps with ``trace export``, serving studies with the workload
-CLI's SLO searches and the graph cache through the same code, with the
-CPU standing in for the card (no CUDA graph there), and raise on any
-difference.
+``trace``, ``serving`` and ``moe`` phases on the CPU at a tiny size, so
+that the phases the GPU run ends with cannot rot between chip runs: they
+drive ``sim_speed``, ``xl_scale``, the exactness checks, the studies path
+(the CLI as a subprocess, ``Study.run()``), degraded studies, the flow
+tier, traced sweeps with ``trace export``, serving studies with the
+workload CLI's SLO searches and the graph cache, and granite-moe-3b-a800m's
+MoE layer (reduced) through the same code, with the CPU standing in for
+the card (no CUDA graph there), and raise on any difference.
 Imports neither jax nor repro.
 """
 import importlib.util
@@ -154,3 +154,36 @@ def test_serving_phase_sizes_are_the_reference_workloads(chip_smoke):
     assert (sweep["cycles"], sweep["packets_per_request"], sweep["slo"]) == \
         (256, 4, 40.0)
     assert full["cache"]["sim_speed"] == chip_smoke.SIM_FULL["sim_speed"]
+
+
+def test_moe_phase_rehearses_on_the_cpu(chip_smoke):
+    """granite's MoE layer at the reduced width: the parts compose to
+    ``_moe_local``, and the bound of the work the function needs is no
+    more than that of the work the layer does."""
+    from repro_torch.models import get_config
+    from repro_torch.models import moe as TM
+    tiny = chip_smoke.MOE_TINY
+    shapes = chip_smoke.phase_moe("cpu", tiny)
+    cfg = get_config(tiny["arch"]).reduced()
+    stored = TM.expert_store_count(cfg)
+    assert set(shapes) == set(tiny["tokens"])
+    for what, t in tiny["tokens"].items():
+        s = shapes[what]
+        assert s["tokens"] == t and s["assignments"] == t * cfg.top_k
+        assert s["capacity"] == TM._capacity(t, cfg)
+        assert s["bucket_rows"] == stored * s["capacity"]
+        assert 0 <= s["tokens_dropped"] < s["assignments"]
+        assert 0 < s["experts_selected"] <= cfg.num_experts
+        assert s["needed_ffn_flops"] <= s["ffn_flops"]
+        assert s["needed_expert_bytes"] <= s["expert_bytes"]
+        assert 0 < s["needed_bound_ms"] <= s["bound_ms"]
+        assert all(s[k] > 0 for k in ("ms", "route_dispatch_ms",
+                                      "expert_ffn_ms", "combine_ms"))
+
+
+def test_moe_phase_sizes_are_the_serve_runs(chip_smoke):
+    """The full moe phase: granite at full width, the serve run's prefill
+    tokens (4 prompts of at most 512) and one decode step of 4 slots."""
+    full = chip_smoke.MOE_FULL
+    assert (full["arch"], full["reduced"]) == ("granite-moe-3b-a800m", False)
+    assert full["tokens"] == {"prefill": 2048, "decode": 4}
