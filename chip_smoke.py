@@ -37,6 +37,20 @@ Phases, one JSON line each:
    and z losses, beside the bound of the work it does and of the work it
    needs, with the tokens dropped; and the layer at the reduced width in fp32, card
    against CPU (slots and validity equal, y within atol 1e-5);
+   then ``"phase": "train"``: the fp32 and the bf16 prefill kernel's lse
+   and the flash-attention autograd Function (repro_torch.models.flash) on
+   hazard cases against the plain version's autograd (o, lse, dq, dk, dv;
+   bf16 calls with T <= 16 take the prefill kernel), the forward with lse
+   and the plain backward at the training shape (B2 T1024 H24 KV8 D128)
+   beside SDPA's forward and backward and their bounds, the reduced
+   llama3.2-3b and granite-moe-3b-a800m in fp32 card against CPU (loss,
+   every gradient, two train steps), and llama3.2-3b at full width and
+   depth (fp32 parameters, bf16 compute, remat "full") through
+   runtime.trainer.make_train_step for 4 steps of data.host_batch (B2
+   T1024): step 1 against the same step with the plain kernels, finite
+   losses and gradients, non-zero attention gradients in every layer, 56
+   prefill launches and 28 backward calls a step, step ms, tokens/s, peak
+   memory and the idle share of a profiled step beside the step's bound;
 7. sim     -- the simulator's main path (repro_torch.sim), which runs no
    hand-written kernel: ``sim_speed`` (CIN xor 16, 3 loads x 8 seeds x
    1600 cycles in one sweep) and ``xl_scale`` (a 1040-switch Dragonfly,
@@ -91,6 +105,7 @@ numpy and repro_torch.
 import collections
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -113,7 +128,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mlstm_scan as ms  # noqa: E402
 from repro_torch.kernels.ref import (reference_attention,  # noqa: E402
                                      reference_mlstm_scan)
+from repro_torch.data import DataConfig, host_batch  # noqa: E402
 from repro_torch.models import get_config, init_params  # noqa: E402
+from repro_torch.models import flash as MF  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
@@ -124,6 +141,8 @@ from repro_torch.sim import xengine as XE  # noqa: E402
 from repro_torch import studies as ST  # noqa: E402
 from repro_torch import workload as W  # noqa: E402
 from repro_torch.obs import telemetry  # noqa: E402
+from repro_torch.optim import OptConfig, adamw_update  # noqa: E402
+from repro_torch.runtime import trainer as TR  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
@@ -1016,6 +1035,442 @@ def phase_moe(device="cuda", sizes=MOE_FULL):
              y_max_abs_err=err, tol=1e-5),
          seconds=time.perf_counter() - t0)
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# Training (repro_torch.runtime.trainer): the flash-attention autograd
+# Function's forward is the prefill kernel (bf16) or the fp32 kernel with
+# its log-sum-exp; its backward is plain PyTorch, as the reference's is
+# jnp.  llama3.2-3b trains at full width and depth.
+# ---------------------------------------------------------------------------
+
+#: name: (b, t, s, h, kvh, d, q_pos, kv_pos, causal, window); q_pos None =
+#: arange(t), "tail" = the last t of s positions; kv_pos None = arange(s),
+#: negative entries masked.  The last is the training shape of
+#: llama3.2-3b (B2 T1024).
+TRAIN_HAZARDS = {
+    "gqa3_d128_odd_t": (2, 131, 131, 6, 2, 128, None, None, True, 0),
+    "gqa4_window33_d64": (1, 150, 150, 8, 2, 64, None, None, True, 33),
+    "mqa_window7_d32": (2, 100, 100, 4, 1, 32, None, None, True, 7),
+    "noncausal_tail_d128": (1, 70, 190, 6, 2, 128, "tail", None, False, 0),
+    "padded_keys_d64": (2, 100, 128, 6, 2, 64, "tail",
+                        list(range(100)) + [-1] * 28, True, 0),
+    "rows_see_nothing_d64": (1, 80, 80, 6, 2, 64, list(range(-40, 40)),
+                             None, True, 0),
+    "mha_g1_d128": (2, 150, 150, 4, 4, 128, None, None, True, 0),
+    # bf16 with T <= 16 takes the prefill kernel when it needs the lse
+    "t16_d128": (2, 16, 300, 6, 2, 128, "tail", None, True, 0),
+    "t5_gqa8_d16": (1, 5, 90, 16, 2, 16, "tail", None, True, 0),
+    "t1_d64": (2, 1, 200, 6, 2, 64, [150], None, True, 0),
+    "training_shape": (2, 1024, 1024, 24, 8, 128, None, None, True, 0),
+}
+#: The lse: fp32 kernel as its output (2e-5); bf16 kernel 1e-3, its
+#: scores are fp32 sums of exact bf16 products in another order and its
+#: exponent runs on ex2.approx.  dq, dk, dv of the Function against the
+#: plain version's autograd, relative L2 per tensor: fp32 1e-4 (the
+#: backward recomputes P from the kernel's lse and o); bf16 2e-2 (the
+#: backward reads o as the kernel rounded it to bf16).
+LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
+GRAD_REL_L2 = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+TRAIN_FULL = {
+    "hazards": tuple(TRAIN_HAZARDS), "timing_case": "training_shape",
+    "timing_iters": 16, "reduced": ("llama3.2-3b", "granite-moe-3b-a800m"),
+    "reduced_seq": 64, "model": "llama3.2-3b", "model_reduced": False,
+    "seq": 1024, "batch": 2, "steps": 4}
+TRAIN_TINY = {
+    "hazards": ("gqa3_d128_odd_t", "rows_see_nothing_d64", "t1_d64"),
+    "timing_case": "t16_d128", "timing_iters": 2,
+    "reduced": ("llama3.2-3b", "granite-moe-3b-a800m"), "reduced_seq": 16,
+    "model": "llama3.2-3b", "model_reduced": True, "seq": 32, "batch": 2,
+    "steps": 3}
+#: The reduced models in fp32, card against CPU: the loss (rtol 1e-5) and
+#: every gradient leaf (relative L2 1e-4: the fp32 kernel is held to its
+#: plain version at 2e-5); parameters after two train steps of lr 1e-3
+#: within atol 1e-4, a tenth of a step (tests/test_torch_train.py).
+#: llama3.2-3b at full depth in bf16, the kernels against their plain
+#: versions at step 1: the loss (relative 1e-2) and every gradient leaf
+#: (relative L2 5e-2, the measure and bound the serve phase holds prefill
+#: logits to).
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100)
+FULL_GRAD_REL_L2 = 5e-2
+#: llama3.2-3b trains with the reference's defaults (lr 3e-4 after 200
+#: warm-up steps): at lr 1e-3 from step 1 its loss swung up and down.
+FULL_OPT = {}
+
+
+def _train_inputs(name, dtype, device):
+    b, t, s, h, kvh, d, q_pos, kv_pos, causal, window = TRAIN_HAZARDS[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            device=device, dtype=dtype)
+    q, k, v, do = draw(b, t, h, d), draw(b, s, kvh, d), draw(b, s, kvh, d), \
+        draw(b, t, h, d)
+    if q_pos == "tail":
+        q_pos = list(range(s - t, s))
+    pos = [torch.tensor(list(range(n)) if p is None else p, dtype=torch.int32,
+                        device=device) for p, n in ((q_pos, t), (kv_pos, s))]
+    return (q, k, v, do, *pos), dict(causal=causal, window=window)
+
+
+def attention_backward_bound(q, k, qp, kp, causal, window):
+    """Least time of the attention backward on the card: q, k, v, o, dO
+    and the lse read once, dq, dk, dv written once, and FlashAttention-2's
+    five products over the visible pairs (S recomputed, dP, dV, dQ, dK) at
+    the peak of the inputs' type; also that bound on the fp32 pipe, where
+    the plain backward computes."""
+    ok = visible(qp, kp, causal, window)
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    pairs = int(ok.sum())
+    nbytes = (6 * q.numel() * q.element_size()
+              + 4 * b * k.shape[1] * kvh * d * k.element_size()
+              + 4 * b * h * t)
+    flops = 10 * b * h * d * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, flops / PEAK_FLOPS[torch.float32] * 1e3))
+
+
+def rel_or_abs(a, b):
+    """Relative L2 of ``a`` against ``b``; where ``b`` is all zeros, the
+    largest |a|."""
+    return rel_l2(a, b) if b.any() else float(a.float().abs().max())
+
+
+def _leaf_grads(*tensors):
+    return [x.detach().clone().requires_grad_(True) for x in tensors]
+
+
+def train_hazards(device, sizes):
+    """The lse and the Function on each hazard case in fp32 and bf16: o and
+    lse of the kernel against the plain version, dq, dk, dv of the
+    Function against the plain version's autograd; the kernel each call
+    took (never decode)."""
+    worst = {}
+    for name in sizes["hazards"]:
+        for dtype in (torch.float32, torch.bfloat16):
+            (q, k, v, do, qp, kp), kw = _train_inputs(name, dtype, device)
+            before = kernel_launches()
+            with torch.no_grad():
+                o, lse = ops.flash_attention(q, k, v, q_pos=qp, kv_pos=kp,
+                                             return_lse=True, **kw)
+            launched = {key: n - before[key]
+                        for key, n in kernel_launches().items()}
+            path = "fp32" if dtype == torch.float32 else "prefill"
+            if device == "cuda" and (launched["flash_attention"] != 1 or
+                                     launched[f"flash_attention_{path}"] != 1):
+                raise AssertionError(f"lse {name} {dtype}: took {launched}, "
+                                     f"not the {path} kernel")
+            o_ref, lse_ref = reference_attention(q, k, v, q_pos=qp,
+                                                 kv_pos=kp, return_lse=True,
+                                                 **kw)
+            err_o = check_close(f"lse-path o {name}", o, o_ref, dtype)
+            empty = lse_ref >= 1e29
+            if not torch.equal(lse >= 1e29, empty):
+                raise AssertionError(f"lse {name} {dtype}: rows that see no "
+                                     f"key differ")
+            err_lse = float((lse - lse_ref)[~empty].abs().max()) \
+                if (~empty).any() else 0.0
+            if not err_lse <= LSE_TOL[dtype] * (1 + float(
+                    lse_ref[~empty].abs().max() if (~empty).any() else 0)):
+                raise AssertionError(f"lse {name} {dtype}: differs by "
+                                     f"{err_lse} (tol {LSE_TOL[dtype]})")
+            live = _leaf_grads(q, k, v)
+            MF.flash_attention(*live, q_pos=qp, kv_pos=kp, **kw).backward(do)
+            plain = _leaf_grads(q, k, v)
+            reference_attention(*plain, q_pos=qp, kv_pos=kp,
+                                **kw).backward(do)
+            rel = {n: rel_or_abs(a.grad, b.grad)
+                   for n, a, b in zip(("dq", "dk", "dv"), live, plain)}
+            if not max(rel.values()) <= GRAD_REL_L2[dtype]:
+                raise AssertionError(f"Function {name} {dtype}: gradients "
+                                     f"differ from the plain version's by "
+                                     f"{rel} (tol {GRAD_REL_L2[dtype]})")
+            if name.startswith("rows_see_nothing") and live[0].grad[
+                    :, :40].any():
+                raise AssertionError(f"{name}: a row that sees no key has "
+                                     f"a gradient")
+            key = str(dtype).removeprefix("torch.")
+            w = worst.setdefault(key, {"o": 0.0, "lse": 0.0, "grad": 0.0})
+            w["o"], w["lse"] = max(w["o"], err_o), max(w["lse"], err_lse)
+            w["grad"] = max(w["grad"], max(rel.values()))
+            emit("train_case", case=name, dtype=key, path=path,
+                 o_max_abs_err=err_o, lse_max_abs_err=err_lse,
+                 grad_rel_l2=rel, tol=dict(o=TOL[dtype], lse=LSE_TOL[dtype],
+                                           grad_rel_l2=GRAD_REL_L2[dtype]))
+    return worst
+
+
+def time_training_attention(device, sizes):
+    """At the training shape: the kernel forward with lse, its plain
+    version and SDPA's forward (``graph_ms``), the plain backward
+    (``flash_backward``) and SDPA's backward (``cuda_ms``: autograd cannot
+    be captured here), beside their bounds."""
+    (q, k, v, do, qp, kp), kw = _train_inputs(sizes["timing_case"],
+                                              torch.bfloat16, device)
+    iters = sizes["timing_iters"]
+    fwd = lambda: ops.flash_attention(q, k, v, q_pos=qp, kv_pos=kp,  # noqa
+                                      return_lse=True, **kw)
+    plain = lambda: reference_attention(q, k, v, q_pos=qp, kv_pos=kp,  # noqa
+                                        return_lse=True, **kw)
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    o, lse = fwd()
+    bwd = lambda: MF.flash_backward(q, k, v, qp, kp, o, lse, do,  # noqa
+                                    **kw)
+    sq, sk, sv = _leaf_grads(qs, ks, vs)
+    with torch.enable_grad():
+        s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+                                               enable_gqa=True)
+    s_do = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        s_out, (sq, sk, sv), s_do, retain_graph=True)
+    timer = (lambda fn, n: graph_ms(fn, n)) if device == "cuda" else (
+        lambda fn, n: wall_ms(fn, n, device))
+    eager = lambda fn, n: wall_ms(fn, n, device)  # noqa: E731
+    times = {"fwd_ms": timer(fwd, iters), "fwd_plain_ms": timer(plain, iters),
+             "fwd_library_ms": timer(sdpa, iters),
+             "fwd_ms_repeat": timer(fwd, iters),
+             "bwd_plain_ms": timer(bwd, max(iters // 4, 1)),
+             "bwd_plain_ms_eager": eager(bwd, max(iters // 4, 1)),
+             "bwd_library_ms_eager": eager(sdpa_bwd, max(iters // 2, 1)),
+             "fwd_ms_eager": eager(fwd, iters)}
+    fb, fb_by = bound(q, k, qp, kp, kw["causal"], kw["window"])
+    bb, bb_by, bb32 = attention_backward_bound(q, k, qp, kp, kw["causal"],
+                                               kw["window"])
+    b, t, h, d = q.shape
+    return dict(shape=f"B{b} T{t} S{k.shape[1]} H{h} KV{k.shape[2]} D{d} "
+                      f"bf16 causal", **times, fwd_bound_ms=fb,
+                fwd_bound_by=fb_by, bwd_bound_ms=bb, bwd_bound_by=bb_by,
+                bwd_bound_ms_fp32_pipe=bb32)
+
+
+def _to(tree, device):
+    """A copy of ``tree`` on ``device`` (train steps update in place)."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _named_leaves(tree[k],
+                                                       f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def train_reduced(device, sizes):
+    """The reduced models in fp32 on the card against the CPU: loss and
+    every gradient of loss_and_grads, then two make_train_step steps."""
+    out = {}
+    for arch in sizes["reduced"]:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        data = DataConfig(vocab_size=cfg.vocab_size,
+                          seq_len=sizes["reduced_seq"], global_batch=2)
+        state = TR.init_train_state(SEED, cfg, device="cpu")
+        got = {}
+        for dev in ("cpu", device):
+            st = _to(state, dev)
+            loss, _, grads = TR.loss_and_grads(
+                st["params"], TR.on_device(host_batch(data, 0), dev), cfg)
+            step = TR.make_train_step(cfg, TR.make_rules(None),
+                                      OptConfig(**TRAIN_OPT))
+            losses = []
+            for i in range(2):
+                st, m = step(st, host_batch(data, i))
+                losses.append(float(m["loss"]))
+            got[dev] = (float(loss), _to(grads, "cpu"), losses,
+                        _to(st["params"], "cpu"))
+        (l0, g0, s0, p0), (l1, g1, s1, p1) = got["cpu"], got[device]
+        rel = max(rel_or_abs(a, b) for (_, a), (_, b) in zip(
+            _named_leaves(g1), _named_leaves(g0)))
+        dp = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+            _named_leaves(p1), _named_leaves(p0)))
+        if not (abs(l1 - l0) <= 1e-5 * abs(l0) and rel <= 1e-4
+                and np.allclose(s1, s0, rtol=1e-5, atol=0) and dp <= 1e-4):
+            raise AssertionError(f"{arch} reduced training: card and CPU "
+                                 f"differ (loss {l1} vs {l0}, gradients "
+                                 f"relative L2 {rel}, losses {s1} vs {s0}, "
+                                 f"parameters by {dp})")
+        out[arch] = dict(loss=l1, loss_cpu=l0, grad_rel_l2_max=rel,
+                         step_losses=s1, step_losses_cpu=s0,
+                         params_max_abs_diff=dp)
+    return out
+
+
+def train_full(device, sizes):
+    """llama3.2-3b (full width and depth on the card; reduced on the CPU
+    rehearsal) in bf16 compute, fp32 parameters, remat "full": step 1's
+    gradients with the kernels against the plain versions, then ``steps``
+    steps of make_train_step, timed, with every count set to 0 before."""
+    cfg = get_config(sizes["model"])
+    if sizes["model_reduced"]:
+        cfg = dataclasses.replace(cfg.reduced(), remat="full")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=sizes["seq"],
+                      global_batch=sizes["batch"])
+    attn_layers = cfg.block_pattern.count("attn")
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = TT.init_params(SEED, cfg, device=device)
+    n_params = sum(a.numel() for _, a in _named_leaves(params))
+    first = TR.on_device(host_batch(data, 0), device)
+    loss_k, _, g_k = TR.loss_and_grads(params, first, cfg)
+    loss_p, _, g_p = with_plain_kernels(
+        lambda: TR.loss_and_grads(params, first, cfg))
+    named_k, named_p = _named_leaves(g_k), _named_leaves(g_p)
+    rel = {n: rel_or_abs(a, b) for (n, a), (_, b) in zip(named_k, named_p)}
+    worst_leaf = max(rel, key=rel.get)
+    finite = bool(torch.stack([torch.isfinite(a).all()
+                               for _, a in named_k]).all())
+    zero_attn = [n for n, a in named_k
+                 if n.split("/")[-1] in ("wq", "wk", "wv", "wo")
+                 and "/attn/" in n and not a.any()]
+    n_attn = sum(1 for n, _ in named_k if "/attn/" in n
+                 and n.split("/")[-1] in ("wq", "wk", "wv", "wo"))
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not (finite and not zero_attn and n_attn == 4 * attn_layers):
+        raise AssertionError(f"step 1 gradients: finite {finite}, zero "
+                             f"attention gradients {zero_attn}")
+    if not (loss_rel <= 1e-2 and rel[worst_leaf] <= FULL_GRAD_REL_L2):
+        raise AssertionError(
+            f"step 1 with the kernels and with the plain versions differ: "
+            f"loss {float(loss_k)} vs {float(loss_p)}, gradient {worst_leaf}"
+            f" by relative L2 {rel[worst_leaf]} (tol {FULL_GRAD_REL_L2})")
+    del g_k, g_p, named_k, named_p, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    state = TR.init_train_state(SEED, cfg, device=device)
+    step = TR.make_train_step(cfg, TR.make_rules(None), OptConfig(**FULL_OPT))
+    setup_s = time.perf_counter() - t0
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    MF.backward_calls = 0
+    losses, step_ms, norms = [], [], []
+    want = {"flash_attention_prefill": 2 * attn_layers,
+            "flash_attention_decode": 0, "flash_attention_fp32": 0}
+    for i in range(sizes["steps"]):
+        before, bwd_before = kernel_launches(), MF.backward_calls
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, host_batch(data, i))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        launched = {key: n - before[key]
+                    for key, n in kernel_launches().items()}
+        bwd = MF.backward_calls - bwd_before
+        if bwd != attn_layers or (device == "cuda" and any(
+                launched[key] != n for key, n in want.items())):
+            raise AssertionError(f"train step {i}: launches {launched}, "
+                                 f"backward calls {bwd}; want {want} and "
+                                 f"{attn_layers}")
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])):
+            raise AssertionError(f"train step {i}: loss {losses[-1]}, "
+                                 f"gradient norm {norms[-1]}")
+    launches = dict(kernel_launches(), flash_attention_backward=(
+        MF.backward_calls))
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device == "cuda" else None)
+    rows, busy_us, wall_us = device_ops(
+        lambda: step(state, host_batch(data, sizes["steps"])), device)
+    # Where a step's time goes: the gradients (forward, recompute and
+    # backward) and the AdamW update, each timed alone.
+    batch = TR.on_device(host_batch(data, 0), device)
+    grads = TR.loss_and_grads(state["params"], batch, cfg)[2]
+    parts = {"loss_and_grads_ms": wall_ms(
+        lambda: TR.loss_and_grads(state["params"], batch, cfg), 2, device),
+        "adamw_ms": wall_ms(lambda: adamw_update(
+            state["params"], grads, state["opt"], OptConfig(**FULL_OPT)), 2,
+            device)}
+    del grads
+    tokens = sizes["batch"] * sizes["seq"]
+    mean_ms = statistics.mean(step_ms[1:])
+    flops, nbytes = train_step_work(cfg, sizes["batch"], sizes["seq"],
+                                    n_params)
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    return dict(
+        model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=n_params, remat=cfg.remat,
+        dtype=cfg.dtype, param_dtype=cfg.param_dtype, batch=sizes["batch"],
+        seq=sizes["seq"], steps=sizes["steps"], losses=losses,
+        grad_norms=norms, step1_loss_with_kernels=float(loss_k),
+        step1_loss_plain=float(loss_p), step1_loss_rel_diff=loss_rel,
+        step1_grad_rel_l2_max=rel[worst_leaf],
+        step1_grad_worst_leaf=worst_leaf,
+        step1_grad_rel_l2_median=statistics.median(rel.values()),
+        step1_grad_tol_rel_l2=FULL_GRAD_REL_L2,
+        attention_weight_grads_nonzero=n_attn, step_ms=step_ms,
+        step_ms_mean_2_on=mean_ms, tokens_per_s=tokens / mean_ms * 1e3,
+        bound_ms=t_ops + t_bytes, bound_flops=flops, bound_ops_ms=t_ops,
+        bound_optimizer_bytes=nbytes, bound_bytes_ms=t_bytes,
+        peak_memory_gb=peak_gb, launches=launches,
+        launches_per_step={k: v / sizes["steps"] for k, v in launches.items()},
+        profiled_step_wall_us=wall_us, profiled_device_busy_us=busy_us,
+        device_idle_share=1 - busy_us / wall_us,
+        device_idle_share_unprofiled=1 - busy_us / (mean_ms * 1e3),
+        profiled_kernels=sum(c for _, _, c in rows),
+        top=[{"kernel": k[:80], "us": t, "calls": c} for k, t, c in top],
+        **parts, setup_s=setup_s)
+
+
+def train_step_work(cfg, batch, seq, n_params):
+    """The least work of one train step: the products of the layers'
+    weights forward, recomputed (remat "full") and backward (2 + 2 + 4
+    FLOP a weight and token), of the unembedding forward and backward (6),
+    causal attention's products (forward twice, 2.5x in the backward), and
+    AdamW's bytes: p, g, m, v read and p, m, v written in fp32 (28 bytes a
+    parameter)."""
+    d, f, h, kv, dh = (cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim)
+    gated = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    per_layer = d * (h + 2 * kv) * dh + h * dh * d + gated * d * f
+    tokens = batch * seq
+    recompute = 2 if cfg.remat == "full" else 0
+    weights = (6 + recompute) * cfg.num_layers * per_layer * tokens
+    head = 6 * cfg.vocab_padded * d * tokens
+    pairs = seq * (seq + 1) // 2
+    attn = 4 * batch * h * dh * pairs * (1 + recompute / 2 + 2.5) \
+        * cfg.num_layers
+    return weights + head + attn, 28 * n_params
+
+
+def phase_train(device="cuda", sizes=TRAIN_FULL):
+    """The training path: hazards of the lse and the Function, attention
+    forward and backward at the training shape, the reduced models card
+    against CPU, llama3.2-3b's train steps.  Returns the launches of the
+    llama run (counts set to 0 just before its steps) and the timings."""
+    t0 = time.perf_counter()
+    worst = train_hazards(device, sizes)
+    timing = time_training_attention(device, sizes)
+    emit("train_attention", device=device, **timing)
+    reduced = train_reduced(device, sizes)
+    emit("train_reduced_vs_cpu", device=device, models=reduced)
+    full = train_full(device, sizes)
+    emit("train", device=device, hazards=dict(
+        cases=len(sizes["hazards"]) * 2, worst=worst), **full,
+        attention_backward_ms_per_step=timing["bwd_plain_ms"]
+        * full["layers"], seconds=time.perf_counter() - t0)
+    return full["launches"], timing
 
 
 # ---------------------------------------------------------------------------
@@ -2359,6 +2814,7 @@ def main():
     xlstm = phase_serve("xlstm-350m")
     granite = phase_serve("granite-moe-3b-a800m")
     phase_moe()
+    train, train_attn = phase_train()
     phase_sim()
     phase_studies()
     phase_faults()
@@ -2383,6 +2839,7 @@ def main():
                                       "shape", *keys)}, **more}
     serve_runs = {"llama3.2-3b": llama, "xlstm-350m": xlstm,
                   "granite-moe-3b-a800m": granite}
+    prefill_runs = dict(serve_runs, **{"train llama3.2-3b": train})
     fp32_runs = {"reduced models in fp32": small}
     attn = "src/repro/kernels/flash_attention.py:39"
     scan_keys = ("state_max_abs_err", "library_note", "ms_eager",
@@ -2391,7 +2848,13 @@ def main():
            "bound_by")
     print(json.dumps({"kernels": [
         entry("flash_attention", "prefill", "flash_attention_prefill.cu",
-              attn, pre, serve_runs, at_d64={k: gpre[k] for k in d64}),
+              attn, pre, prefill_runs, at_d64={k: gpre[k] for k in d64},
+              at_training_shape_with_lse=dict(
+                  shape=train_attn["shape"], ms=train_attn["fwd_ms"],
+                  plain_ms=train_attn["fwd_plain_ms"],
+                  library_ms=train_attn["fwd_library_ms"],
+                  bound_ms=train_attn["fwd_bound_ms"],
+                  bound_by=train_attn["fwd_bound_by"])),
         entry("flash_attention", "decode", "flash_attention_decode.cu", attn,
               dec, serve_runs, at_d64={k: gdec[k] for k in d64}),
         entry("flash_attention", "fp32", "flash_attention.cu", attn, fp32,

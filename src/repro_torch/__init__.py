@@ -10,7 +10,10 @@ collective replays, serving request metrics and graphs kept across calls
 (``sim``, ``obs``); degraded fabrics and the flow tier (``faults``,
 ``flow``); serving arrival processes and their CLI, ``python -m
 repro_torch.workload`` (``workload``); and the declarative studies with
-their CLI, ``python -m repro_torch.studies`` (``studies``).  Still to
-port: LACIN collectives and the rest of the LM substrate (ROADMAP queue
-A, items 9 and 10).
+their CLI, ``python -m repro_torch.studies`` (``studies``); the LACIN
+collectives (``core.collectives``, ``fabric.collectives``); and training of
+attention models (``models.forward_train`` with the flash-attention
+autograd Function ``models.flash``, ``optim``, ``data``, ``checkpoint``,
+``runtime.{trainer,loop,manual_dp}``).  Still to port: the rest of the LM
+substrate (ROADMAP queue A, item 10).
 """

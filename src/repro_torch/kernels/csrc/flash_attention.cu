@@ -16,7 +16,10 @@
 // window.  Online softmax in fp32; a row that sees no key is zeros.  q_pos
 // holds T entries and kv_pos S: the last tiles are padded here, not by the
 // caller, with zero rows of q, k and v, query position 0 and key position
-// -1, so a padded key is masked as in the reference's padding.
+// -1, so a padded key is masked as in the reference's padding.  With a
+// non-null `lse` the kernel also writes each row's log-sum-exp of the scaled
+// scores, m + log(l) from the online softmax, fp32 (B,H,T), and 1e30 for a
+// row that sees no key: what the training backward recomputes P from.
 //
 // What bounds it on the H100.  fp32 attention cannot use the bf16 tensor
 // cores, and TF32 would not hold the fp32 tolerance (2e-5) that this path
@@ -65,7 +68,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, const int* __restrict__ q_pos,
                            const int* __restrict__ kv_pos, float* __restrict__ out,
-                           int t_len, int s_len, int n_heads, int n_kv_heads,
+                           float* __restrict__ lse, int t_len, int s_len,
+                           int n_heads, int n_kv_heads,
                            int n_k_tiles, int causal, int window, float scale) {
   constexpr int RI = BQ / 8;    // rows per thread
   constexpr int CJ = kBK / 16;  // key columns per thread
@@ -203,6 +207,9 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
   for (int i = 0; i < RI; ++i) {
     const int t = q0 + ty + 8 * i;
     if (t >= t_len) continue;
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * n_heads + h) * t_len + t] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : 1e30f;
     const float denom = l[i] == 0.f ? 1.f : l[i];
     float* o = out + ((size_t)b * t_len + t) * q_stride + (size_t)h * D;
 #pragma unroll
@@ -214,6 +221,7 @@ struct Args {
   const void *q, *k, *v;
   const int *q_pos, *kv_pos;
   void* out;
+  float* lse;
   int batch, t_len, s_len, n_heads, n_kv_heads, causal, window;
   float scale;
   cudaStream_t stream;
@@ -231,8 +239,8 @@ cudaError_t launch(const Args& a) {
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.q_pos, a.kv_pos, static_cast<float*>(a.out),
-      a.t_len, a.s_len, a.n_heads, a.n_kv_heads, n_k_tiles, a.causal, a.window,
-      a.scale);
+      a.lse, a.t_len, a.s_len, a.n_heads, a.n_kv_heads, n_k_tiles, a.causal,
+      a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -259,13 +267,13 @@ cudaError_t dispatch_block_q(int block_q, int head_dim, const Args& a) {
 
 // Returns the cudaError_t of the launch (0 on success).  q_pos holds T
 // entries and kv_pos S.  block_q is 16 or 64, head_dim 16, 32, 64 or 128;
-// q, k, v and out are fp32.
+// q, k, v and out are fp32; lse is null or fp32 (B,H,T).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, const int* q_pos,
-    const int* kv_pos, void* out, int batch, int t_len, int s_len, int n_heads,
-    int n_kv_heads, int head_dim, int block_q, int causal, int window,
-    float scale, void* stream) {
-  const Args a{q, k, v, q_pos, kv_pos, out, batch, t_len, s_len, n_heads,
+    const int* kv_pos, void* out, float* lse, int batch, int t_len, int s_len,
+    int n_heads, int n_kv_heads, int head_dim, int block_q, int causal,
+    int window, float scale, void* stream) {
+  const Args a{q, k, v, q_pos, kv_pos, out, lse, batch, t_len, s_len, n_heads,
                n_kv_heads, causal, window, scale,
                static_cast<cudaStream_t>(stream)};
   return dispatch_block_q(block_q, head_dim, a);

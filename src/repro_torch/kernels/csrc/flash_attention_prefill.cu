@@ -15,7 +15,12 @@
 // (causal) kv_pos[s] <= q_pos[t], and (window > 0) q_pos[t] - kv_pos[s] <
 // window.  Online softmax in fp32; P is rounded to bf16 for P.V; a row that
 // sees no key is exactly zero.  T and S are padded here: TMA fills the rows
-// past T and S with zeros, and a key past S has position -1.
+// past T and S with zeros, and a key past S has position -1.  With a
+// non-null `lse` the kernel also writes each row's log-sum-exp of the scaled
+// scores, fp32 (B,H,T): m/sqrt(D) + log(l) from the online softmax it keeps
+// (l summed from the fp32 P, before P is rounded to bf16), and 1e30 for a
+// row that sees no key.  Training saves it for the backward, which
+// recomputes P = exp(s - lse); serving passes null.
 //
 // What bounds it on the H100.  At the llama3.2-3b serving shape (B4, T = S =
 // 512, H24, KV8, D128, causal) one launch moves 33.6 MB and does 6.4 GFLOP
@@ -63,6 +68,7 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs =
     (65536 - 128 * kProducerRegs) / kConsumers / 8 * 8;
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x on the special-function unit, one instruction (exp2f adds a
 // denormal fix-up that this softmax does not need).
@@ -98,7 +104,8 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
                                const __grid_constant__ CUtensorMap v_map,
                                const int* __restrict__ q_pos,
                                const int* __restrict__ kv_pos,
-                               __nv_bfloat16* __restrict__ out, int batch,
+                               __nv_bfloat16* __restrict__ out,
+                               float* __restrict__ lse, int batch,
                                int t_len, int s_len, int n_heads,
                                int n_kv_heads, int positions, int causal,
                                int window, float scale_log2) {
@@ -367,6 +374,9 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
     const int r = row0 + 8 * i, t = t0 + r / group;
     const int h = kvh * group + r % group;
     __nv_bfloat16* orow = out + ((size_t)(b * t_len + t) * n_heads + h) * D;
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((size_t)b * n_heads + h) * t_len + t] =
+          l[i] > 0.f ? (m[i] * scale_log2 + log2f(l[i])) * kLn2 : 1e30f;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
     for (int c = 0; c < L::kColBlocks; ++c)
@@ -383,6 +393,7 @@ struct Args {
   const void *q, *k, *v;
   const int *q_pos, *kv_pos;
   void* out;
+  float* lse;
   int batch, t_len, s_len, n_heads, n_kv_heads, positions, causal, window;
   float scale_log2;
   cudaStream_t stream;
@@ -408,7 +419,7 @@ cudaError_t launch(const Args& a) {
   const int n_q_tiles = (a.t_len + a.positions - 1) / a.positions;
   kernel<<<a.batch * a.n_kv_heads * n_q_tiles, kThreads, L::kSmem, a.stream>>>(
       q_map, k_map, v_map, a.q_pos, a.kv_pos,
-      static_cast<__nv_bfloat16*>(a.out), a.batch, a.t_len, a.s_len,
+      static_cast<__nv_bfloat16*>(a.out), a.lse, a.batch, a.t_len, a.s_len,
       a.n_heads, a.n_kv_heads, a.positions, a.causal, a.window, a.scale_log2);
   return cudaGetLastError();
 }
@@ -417,16 +428,17 @@ cudaError_t launch(const Args& a) {
 
 // Returns the cudaError_t of the launch (0 on success).  q_pos holds T
 // entries and kv_pos S; `positions` query positions per block, with
-// positions x (n_heads / n_kv_heads) <= 192; head_dim 16, 32, 64 or 128.
+// positions x (n_heads / n_kv_heads) <= 192; head_dim 16, 32, 64 or 128;
+// lse is null or fp32 (B,H,T).
 extern "C" int repro_flash_attention_prefill(
     const void* q, const void* k, const void* v, const int* q_pos,
-    const int* kv_pos, void* out, int batch, int t_len, int s_len, int n_heads,
-    int n_kv_heads, int head_dim, int positions, int causal, int window,
-    float scale, void* stream) {
+    const int* kv_pos, void* out, float* lse, int batch, int t_len, int s_len,
+    int n_heads, int n_kv_heads, int head_dim, int positions, int causal,
+    int window, float scale, void* stream) {
   if (n_kv_heads <= 0 || n_heads % n_kv_heads || positions <= 0 ||
       positions * (n_heads / n_kv_heads) > kRows || positions > 256)
     return cudaErrorInvalidValue;
-  const Args a{q, k, v, q_pos, kv_pos, out, batch, t_len, s_len, n_heads,
+  const Args a{q, k, v, q_pos, kv_pos, out, lse, batch, t_len, s_len, n_heads,
                n_kv_heads, positions, causal, window,
                scale * 1.4426950408889634f, static_cast<cudaStream_t>(stream)};
   switch (head_dim) {

@@ -6,6 +6,15 @@ version: GQA attention on q (B,T,H,D) and k/v (B,S,KV,D) with causal,
 sliding-window and ``kv_pos < 0`` masking by absolute positions, an fp32
 online softmax, zeros for rows that see no key, and the output in q's
 dtype.  ``window`` is a plain Python int passed to the kernel at run time.
+With ``return_lse`` the fp32 and prefill kernels also write each row's
+log-sum-exp (fp32, (B, H, T), 1e30 where a row sees no key), which the
+training backward (:mod:`repro_torch.models.flash`) recomputes the
+probabilities from.
+
+The kernels' outputs are tensors autograd cannot see, so a call with grad
+mode on and an input that requires grad raises: training reaches the
+kernels only through :class:`repro_torch.models.flash.FlashAttention`,
+whose forward runs with grad mode off.
 
 Which kernel runs is a fixed rule on dtype and T, made by :func:`plan`
 (pure Python, no device):
@@ -17,7 +26,9 @@ Which kernel runs is a fixed rule on dtype and T, made by :func:`plan`
   positions) holds all G = H/KV query heads of the group.
 - bfloat16, T <= 16 (decode): ``csrc/flash_attention_decode.cu``, the
   keys cut in splits, one block per (batch, KV head, split), and a combine
-  pass over the splits' fp32 scratch, which is allocated here.
+  pass over the splits' fp32 scratch, which is allocated here.  A call
+  that asks for the log-sum-exp takes the prefill kernel instead, whatever
+  its T: the decode kernel writes none.
 
 No path reads a position back to the host.  The kernels pad T and S to
 their tiles themselves, the way the reference pads them: zero rows, query
@@ -49,9 +60,9 @@ H100_SMS = 132
 
 # path: (source under csrc/, C entry point, pointer and int arguments
 # before the float scale and the stream)
-_KERNELS = {"fp32": ("flash_attention", "repro_flash_attention_fwd", 6, 9),
+_KERNELS = {"fp32": ("flash_attention", "repro_flash_attention_fwd", 7, 9),
             "prefill": ("flash_attention_prefill",
-                        "repro_flash_attention_prefill", 6, 9),
+                        "repro_flash_attention_prefill", 7, 9),
             "decode": ("flash_attention_decode",
                        "repro_flash_attention_decode", 7, 10)}
 _fns: dict[str, object] = {}
@@ -76,14 +87,15 @@ class Plan:
 
 
 def plan(b: int, t: int, s: int, h: int, kvh: int, d: int, dtype,
-         sms: int = H100_SMS) -> Plan:
+         sms: int = H100_SMS, lse: bool = False) -> Plan:
     """The kernel, tiles and splits for q (b,t,h,d), k/v (b,s,kvh,d) of
-    ``dtype`` on a card with ``sms`` SMs."""
+    ``dtype`` on a card with ``sms`` SMs; ``lse``: the call also wants the
+    log-sum-exp, which the decode kernel does not write."""
     g = h // kvh
     if dtype == torch.float32:
         bq = 16 if t <= 16 else 64
         return Plan("fp32", bq, -(-t // bq) * b * h)
-    if t > DECODE_MAX_T:
+    if t > DECODE_MAX_T or lse:
         if g > PREFILL_ROWS:
             raise ValueError(f"H/KV = {g} query heads per KV head; the "
                              f"prefill kernel holds at most {PREFILL_ROWS}")
@@ -136,9 +148,15 @@ def _positions(pos, n, device, name):
 
 
 def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
-                    window: int = 0):
-    """q: (B, T, H, D); k/v: (B, S, KV, D) on the card -> (B, T, H, D)."""
+                    window: int = 0, return_lse: bool = False):
+    """q: (B, T, H, D); k/v: (B, S, KV, D) on the card -> (B, T, H, D),
+    and with ``return_lse`` the log-sum-exp, fp32 (B, H, T), beside it."""
     global launches
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention's kernels return tensors autograd cannot see; "
+            "under grad call repro_torch.models.flash.flash_attention (the "
+            "autograd Function), or run under torch.no_grad()")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention runs on CUDA tensors, all on one "
                          "device; CPU tensors go to ops.flash_attention")
@@ -164,11 +182,13 @@ def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
         raise ValueError("q, k and v must start on a 16-byte boundary")
     if not isinstance(window, int):
         raise TypeError(f"window must be a Python int, got {type(window)}")
-    p = _plan(b, t, s, h, kvh, d, q.dtype, _sms(q.device.index))
+    p = _plan(b, t, s, h, kvh, d, q.dtype, _sms(q.device.index), return_lse)
     fn = _kernel(p.path)
     qp = _positions(q_pos, t, q.device, "q_pos")
     kp = _positions(kv_pos, s, q.device, "kv_pos")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     # the raw handle of the current stream, without building a Stream object
     # (a few microseconds a call, as much as a decode launch takes)
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
@@ -180,11 +200,11 @@ def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
         err = fn(*head, part.data_ptr(), b, t, s, h, kvh, d, p.splits,
                  p.tiles_per_split, int(causal), window, scale, stream)
     else:
-        err = fn(*head, b, t, s, h, kvh, d, p.block_q, int(causal), window,
-                 scale, stream)
+        err = fn(*head, None if lse is None else lse.data_ptr(), b, t, s, h,
+                 kvh, d, p.block_q, int(causal), window, scale, stream)
     if err:
         raise RuntimeError(f"flash_attention {p.path} kernel launch failed: "
                            f"error {err}")
     launches += 1
     launches_by_path[p.path] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -21,6 +21,10 @@ Which kernel runs is a fixed rule on dtype and chunk, made by :func:`plan`
   hi + lo; n, m and the chunk's cumulative log_f in fp32), then an output
   pass over every (chunk, 128 rows, 128 columns of h) at once.
 - any other bfloat16 call: ``csrc/mlstm_scan.cu`` (path ``"fma"``).
+
+The kernels are forward-only: a call with grad mode on and an input that
+requires grad raises, since their outputs are tensors autograd cannot see
+(the scan's backward is ROADMAP queue A, item 10(g)).
 """
 from __future__ import annotations
 
@@ -119,6 +123,11 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
     (h (B,T,H,D) in q's dtype, (C, n, m) float32)."""
     global launches
     tensors = (q, k, v, log_i, log_f)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise RuntimeError(
+            "mlstm_scan's kernels are forward-only and return tensors "
+            "autograd cannot see; the scan has no backward yet (ROADMAP "
+            "queue A, item 10(g)), so call it under torch.no_grad()")
     if not (q.is_cuda and all(x.device == q.device for x in tensors)):
         raise ValueError("mlstm_scan runs on CUDA tensors, all on one device; "
                          "CPU tensors go to ops.mlstm_scan")

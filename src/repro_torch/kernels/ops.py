@@ -12,13 +12,16 @@ from .ref import reference_attention, reference_mlstm_scan
 
 
 def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
-                    window: int = 0):
-    """q: (B,T,H,D); k/v: (B,S,KV,D) -> (B,T,H,D).  See :mod:`.ref`."""
+                    window: int = 0, return_lse: bool = False):
+    """q: (B,T,H,D); k/v: (B,S,KV,D) -> (B,T,H,D), and with ``return_lse``
+    the (B,H,T) fp32 log-sum-exp beside it.  See :mod:`.ref`."""
     if q.is_cuda:
         return _fa.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                                   causal=causal, window=window)
+                                   causal=causal, window=window,
+                                   return_lse=return_lse)
     return reference_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                               causal=causal, window=window)
+                               causal=causal, window=window,
+                               return_lse=return_lse)
 
 
 def mlstm_scan(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):

@@ -12,13 +12,17 @@ import torch
 
 
 def reference_attention(q, k, v, *, q_pos=None, kv_pos=None,
-                        causal: bool = True, window: int = 0):
+                        causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
     """q: (B,T,H,D); k/v: (B,S,KV,D) -> (B,T,H,D).  fp32 softmax.
 
     Query head h reads KV head ``h // (H/KV)``.  A key is visible iff
     ``kv_pos >= 0``, and with ``causal`` iff ``kv_pos <= q_pos``, and with
     ``window > 0`` iff ``q_pos - kv_pos < window``.  Rows that see no key
-    are zeros.  Port of ``repro.kernels.ref.reference_attention``.
+    are zeros.  With ``return_lse`` also the log-sum-exp of each row's
+    visible scaled scores, fp32 (B, H, T), 1e30 for a row that sees no
+    key (as ``repro.models.flash`` keeps it).  Port of
+    ``repro.kernels.ref.reference_attention``.
     """
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -37,8 +41,12 @@ def reference_attention(q, k, v, *, q_pos=None, kv_pos=None,
     logits = logits.masked_fill(~ok, -1e30)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgts,bskd->btkgd", w, v.float())
-    o = o * ok.any(dim=-1)[None, :, None, None, None]
-    return o.reshape(b, t, h, d).to(q.dtype)
+    seen = ok.any(dim=-1)
+    o = (o * seen[None, :, None, None, None]).reshape(b, t, h, d).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(logits, dim=-1).masked_fill(~seen, 1e30)
+    return o, lse.reshape(b, h, t)
 
 
 def reference_mlstm(q, k, v, log_i, log_f, state=None):

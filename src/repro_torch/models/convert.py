@@ -1,14 +1,21 @@
-"""Parameters of the JAX reference, as numpy arrays, into the port.
+"""Parameters and train states of the JAX reference, as numpy arrays, into
+the port, and back.
 
 The caller turns the reference's pytree into numpy first
 (``jax.tree_util.tree_map(np.asarray, params)``), so this module imports
 nothing of JAX.  Layouts are the same in both packages, so each leaf is a
 copy; the reference's per-run stacks (leading axis ``run.count``) become
 one dict per layer, a MoE layer's ``moe`` subtree (router (d, E), wi/wg
-(E_store, d, f), wo (E_store, f, d)) with the rest.  :func:`expert_shard`
-gives one rank of an expert-parallel mesh its slice of every MoE layer.
+(E_store, d, f), wo (E_store, f, d)) with the rest.
+:func:`numpy_from_params` is the inverse of :func:`params_from_numpy`, and
+:func:`train_state_to_numpy` / :func:`train_state_from_numpy` apply both to
+a whole train state (parameters, AdamW's m and v, the step counters), the
+layout the checkpoints of both packages hold.  :func:`expert_shard` gives
+one rank of an expert-parallel mesh its slice of every MoE layer.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,6 +48,105 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
     if "lm_head" in tree:
         out["lm_head"] = _to_torch(tree["lm_head"], device)
     return out
+
+
+class ShapeDtype(NamedTuple):
+    """A leaf's shape and dtype without its data (the reference's
+    ``jax.ShapeDtypeStruct``), for ``CheckpointManager.restore``'s
+    ``like``."""
+    shape: tuple
+    dtype: object
+
+
+def _host(x) -> np.ndarray:
+    """A numpy copy of ``x``, which later in-place updates of ``x`` leave
+    alone."""
+    return x.detach().to("cpu", copy=True).numpy()
+
+
+def _shape(x) -> ShapeDtype:
+    return ShapeDtype(tuple(x.shape), x.dtype)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(group, fn):
+    """One run's per-layer dicts as one dict of stacked leaves."""
+    if isinstance(group[0], dict):
+        return {k: _stack([g[k] for g in group], fn) for k in group[0]}
+    return fn(group)
+
+
+def _reference_layout(params, cfg: ModelConfig, leaf, stack) -> dict:
+    _layer_specs(cfg)                 # raises for parts not ported yet
+    stacked, i = [], 0
+    for run in build_runs(cfg):
+        stacked.append(_stack(params["layers"][i:i + run.count], stack))
+        i += run.count
+    if i != len(params["layers"]):
+        raise ValueError(f"{len(params['layers'])} layers for the {i} of "
+                         f"{cfg.name}")
+    out = {"embed": _map(params["embed"], leaf), "stack": stacked,
+           "final_norm": _map(params["final_norm"], leaf)}
+    if "lm_head" in params:
+        out["lm_head"] = _map(params["lm_head"], leaf)
+    return out
+
+
+def numpy_from_params(params, cfg: ModelConfig) -> dict:
+    """The port's parameters (or any tree of their layout, such as AdamW's
+    m) as the reference's tree of numpy arrays: the layers of each run
+    stacked along a leading axis.  The inverse of
+    :func:`params_from_numpy`.  A bf16 leaf raises (numpy has no bf16)."""
+    return _reference_layout(
+        params, cfg, _host,
+        lambda xs: np.stack([x.detach().cpu().numpy() for x in xs]))
+
+
+def shapes_from_params(params, cfg: ModelConfig) -> dict:
+    """The tree :func:`numpy_from_params` would give, as :class:`ShapeDtype`
+    leaves: no data moves."""
+    return _reference_layout(
+        params, cfg, _shape,
+        lambda xs: ShapeDtype((len(xs),) + tuple(xs[0].shape), xs[0].dtype))
+
+
+def train_state_to_numpy(state, cfg: ModelConfig) -> dict:
+    """A train state (``runtime.trainer.init_train_state``) in the
+    reference's layout, numpy leaves: what both packages' checkpoints
+    hold."""
+    opt = state["opt"]
+    return {"params": numpy_from_params(state["params"], cfg),
+            "opt": {"m": numpy_from_params(opt["m"], cfg),
+                    "v": numpy_from_params(opt["v"], cfg),
+                    "step": _host(opt["step"])},
+            "step": _host(state["step"])}
+
+
+def train_state_like(state, cfg: ModelConfig) -> dict:
+    """:func:`train_state_to_numpy`'s tree as :class:`ShapeDtype` leaves."""
+    opt = state["opt"]
+    return {"params": shapes_from_params(state["params"], cfg),
+            "opt": {"m": shapes_from_params(opt["m"], cfg),
+                    "v": shapes_from_params(opt["v"], cfg),
+                    "step": _shape(opt["step"])},
+            "step": _shape(state["step"])}
+
+
+def train_state_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
+    """The inverse of :func:`train_state_to_numpy`: the reference's train
+    state, numpy leaves, as the port's on ``device``."""
+    device = resolve_device(device)
+    opt = tree["opt"]
+    return {"params": params_from_numpy(tree["params"], cfg, device),
+            "opt": {"m": params_from_numpy(opt["m"], cfg, device),
+                    "v": params_from_numpy(opt["v"], cfg, device),
+                    "step": _to_torch(opt["step"], device)},
+            "step": _to_torch(tree["step"], device)}
 
 
 def _index(tree, i):

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from . import flash
 
 
 # ---------------------------------------------------------------------------
@@ -169,12 +170,20 @@ def out_proj(p, o):
 
 
 def attention(q, k, v, *, q_pos, kv_pos, window: int = 0, causal=True):
-    """GQA attention, prefill and decode alike.  q: (B,T,H,D), k/v: (B,S,KV,D).
+    """GQA attention, prefill, decode and training alike.  q: (B,T,H,D),
+    k/v: (B,S,KV,D).
 
     On the card this is always the flash-attention kernel, whatever
     ``cfg.attention_impl`` says; on the CPU it is the kernel's plain
-    version (:mod:`repro_torch.kernels.ops`).
+    version (:mod:`repro_torch.kernels.ops`).  With grad mode on and an
+    input that requires grad it goes through the autograd Function
+    :func:`repro_torch.models.flash.flash_attention` (the same forward,
+    with its log-sum-exp saved for the blocked backward).
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                     window=window, causal=causal)
     return kops.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                 window=window, causal=causal)
 

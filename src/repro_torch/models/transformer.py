@@ -1,5 +1,5 @@
-"""Model assembly for stacks of attention and xLSTM blocks: init, prefill
-and decode.
+"""Model assembly for stacks of attention and xLSTM blocks: init, prefill,
+decode and the teacher-forced training forward.
 
 Port of ``repro.models.transformer`` for ``ATTN`` (with a dense MLP or a
 MoE, :mod:`.moe`), ``MLSTM`` and ``SLSTM`` blocks.  The reference scans stacked per-run parameters with ``lax.scan``;
@@ -24,6 +24,13 @@ tensors for attention, ``{"conv", "C", "n", "m"}`` for mLSTM and
 defaults to ``"cuda"`` and raise when CUDA is absent unless the caller asks
 for ``"cpu"``.  ``rules`` (:class:`~.layers.AxisRules`, keyword-only, a
 single device by default) reaches the expert-parallel MoE.
+
+:func:`forward_train` takes the parameters as stored (``param_dtype``,
+fp32) and casts each layer's to ``cfg.dtype`` inside the layer,
+differentiably, as the reference's ``_cast`` does; ``cfg.remat`` picks
+what the backward recomputes, as the reference's ``jax.checkpoint`` does.
+It trains attention stacks (dense MLP or MoE); the xLSTM blocks raise,
+since the mLSTM scan kernel has no backward yet.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from .config import ATTN, MLSTM, SLSTM, ModelConfig
 from . import layers as L
@@ -41,8 +49,12 @@ from .xlstm import (apply_mlstm_block, apply_slstm_block, init_mlstm_block,
 
 #: Model parts the port does not have yet, and the ROADMAP item that ports
 #: them.
-_NOT_PORTED = "not ported yet (ROADMAP queue A, item 10)"
+_NOT_PORTED = "not ported yet (ROADMAP queue A, item 10(a))"
 _PORTED_KINDS = (ATTN, MLSTM, SLSTM)
+#: Why xLSTM stacks do not train yet, and the ROADMAP item that lets them.
+_NO_XLSTM_TRAINING = ("the mLSTM scan kernel is forward-only: xLSTM "
+                      "training waits for its backward (ROADMAP queue A, "
+                      "item 10(g))")
 
 
 def resolve_device(device) -> torch.device:
@@ -127,6 +139,14 @@ def cast_params(params, cfg: ModelConfig, device=None):
                     else a.dtype)
     return {k: go(v, None if k == "final_norm" else dtype)
             for k, v in params.items()}
+
+
+def _cast(p: dict, dtype) -> dict:
+    """One layer's float leaves in ``dtype``, differentiably, but for the
+    leaves the reference's ``_cast`` keeps (``_KEEP_DTYPE``)."""
+    return {k: _cast(a, dtype) if isinstance(a, dict)
+            else a if k in _KEEP_DTYPE or not a.is_floating_point()
+            else a.to(dtype) for k, a in p.items()}
 
 
 def _check_cast(params, cfg: ModelConfig):
@@ -260,15 +280,56 @@ def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
     return x + m, new_cache, metrics
 
 
+#: What ``cfg.remat = "dots"`` keeps for the backward: the outputs of the
+#: matrix products without batch dimensions (the weight products), as the
+#: reference's ``dots_with_no_batch_dims_saveable`` policy keeps them.
+#: Everything else in a layer is recomputed.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _train_layer(p, x, cfg, *, window: int, theta: float, q_pos, rules):
+    """One attention layer of the training forward, under ``cfg.remat``:
+    "full" recomputes the whole layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant), "dots" keeps the weight
+    products' outputs and recomputes the rest, "none" keeps everything.
+    Returns (x, ``[moe_aux, moe_z]`` or zeros)."""
+    def body(x):
+        x, _, metrics = apply_attn_block(
+            _cast(p, getattr(torch, cfg.dtype)), x, cfg, window=window,
+            theta=theta, q_pos=q_pos, kv_pos=q_pos, rules=rules)
+        aux = (torch.stack([metrics["moe_aux"], metrics["moe_z"]])
+               if metrics else torch.zeros((2,), dtype=torch.float32,
+                                           device=x.device))
+        return x, aux
+    if cfg.remat == "none":
+        return body(x)
+    if cfg.remat == "full":
+        return _ckpt.checkpoint(body, x, use_reentrant=False,
+                                preserve_rng_state=False)
+    if cfg.remat == "dots":
+        return _ckpt.checkpoint(
+            body, x, use_reentrant=False, preserve_rng_state=False,
+            context_fn=lambda: _ckpt.create_selective_checkpoint_contexts(
+                list(_SAVED_DOTS)))
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
-                rules: AxisRules = AxisRules(), losses: bool = True):
+                rules: AxisRules = AxisRules(), losses: bool = True,
+                train: bool = False):
     """All layers in order; returns (x, caches, aux (2,)): ``aux`` sums
     every MoE layer's ``[moe_aux, moe_z]`` in float32, as the reference's
     stack does (zeros without MoE).  ``losses=False`` computes no MoE loss
     and returns ``aux`` None: prefill and decode drop it, and the
     reference's jit drops its work as dead code.  Prefill (``caches``
     None) passes no state into the recurrent blocks, as the reference
-    does; decode passes each layer its cache."""
+    does; decode passes each layer its cache.
+
+    ``train``: the reference's mode "train": ``params`` as stored, cast
+    inside each layer, each layer under ``cfg.remat``, aligned positions
+    (``kv_pos`` is ``q_pos``), no caches (returned as None)."""
+    if train:
+        return _train_stack(params, x, cfg, q_pos=q_pos, rules=rules)
     new_caches = []
     aux = (torch.zeros((2,), dtype=torch.float32, device=x.device)
            if losses else None)
@@ -291,14 +352,66 @@ def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
     return x, new_caches, aux
 
 
+def _train_stack(params, x, cfg, *, q_pos, rules):
+    specs = _layer_specs(cfg)
+    if any(kind != ATTN for kind, _, _ in specs):
+        raise NotImplementedError(f"{cfg.name}: {_NO_XLSTM_TRAINING}")
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    for p, (_, window, theta) in zip(params["layers"], specs):
+        x, layer_aux = _train_layer(p, x, cfg, window=window, theta=theta,
+                                    q_pos=q_pos, rules=rules)
+        aux = aux + layer_aux
+    return x, None, aux
+
+
 # ---------------------------------------------------------------------------
 # Entry points.
 # ---------------------------------------------------------------------------
 
-def _check_batch(batch):
-    extra = sorted(set(batch) - {"tokens"})
+def _check_batch(batch, known=("tokens",)):
+    extra = sorted(set(batch) - set(known))
     if extra:
         raise NotImplementedError(f"batch entries {extra} are {_NOT_PORTED}")
+
+
+def forward_train(params, batch, cfg: ModelConfig, *,
+                  rules: AxisRules = AxisRules()):
+    """Teacher-forced forward: returns (loss, metrics).
+
+    ``params``: as stored (``init_params``, fp32), not cast.
+    ``batch``: ``{"tokens", "labels"}``, (B, T) integer tensors on the
+    parameters' device; labels < 0 are ignored.  ``loss`` is the mean
+    cross entropy plus ``0.01 * aux + 0.001 * z`` of the MoE layers;
+    ``metrics`` holds ``ce_loss``, ``aux_loss`` and ``tokens`` (the labels
+    counted).  Port of ``repro.models.transformer.forward_train``.
+    """
+    _check_batch(batch, ("tokens", "labels"))
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    t = x.shape[1]
+    pos = torch.arange(t, dtype=torch.int32, device=x.device)
+    x, _, aux = apply_stack(params, x, cfg, q_pos=pos, kv_pos=pos,
+                            rules=rules, train=True)
+    x = L.apply_norm(params["final_norm"], x)
+    logits = L.logits_from_hidden(x, params["embed"], params.get("lm_head"),
+                                  cfg)
+    loss, n_tok = cross_entropy(logits, batch["labels"])
+    aux_loss = 0.01 * aux[0] + 0.001 * aux[1]
+    metrics = {"ce_loss": loss, "aux_loss": aux_loss, "tokens": n_tok}
+    return loss + aux_loss, metrics
+
+
+def cross_entropy(logits, labels):
+    """Masked mean cross entropy in fp32; labels < 0 are ignored.  Returns
+    (loss, tokens counted).  The vocabulary's padding columns arrive at
+    -1e30 (``logits_from_hidden``), so they add nothing to the log-sum-exp.
+    Port of ``repro.models.transformer.cross_entropy``."""
+    mask = labels >= 0
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    ce = (lse - picked) * mask
+    n = mask.sum().clamp_min(1)
+    return ce.sum() / n, n
 
 
 def prefill(params, batch, cfg: ModelConfig, seq_len: int, *,

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA flash-attention and mLSTM chunk-scan
-kernels against their plain versions, the models on the card against
-the models on the CPU, and the cycle engine's CUDA graphs (kept across
-calls: hits, refills and evictions) against the CPU.
+kernels against their plain versions, the flash-attention autograd
+Function and its log-sum-exp, the models on the card against the models on
+the CPU (serving and training), and the cycle engine's CUDA graphs (kept
+across calls: hits, refills and evictions) against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no GPU.  This
 file imports neither jax nor repro, so it runs where only the port is
@@ -123,6 +124,93 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
                            v[..., :24].contiguous(), **kw)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
+    """A kernel's output is a tensor autograd cannot see: under grad the
+    wrappers raise; the Function is the way in."""
+    qkv, kw = _inputs("gqa2_d32", "bfloat16", cuda)
+    q = qkv[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        fa.flash_attention(q, *qkv[1:], **kw)
+    from repro_torch.models import flash as MF
+    o = MF.flash_attention(q, *qkv[1:], q_pos=kw["q_pos"],
+                           kv_pos=torch.arange(qkv[1].shape[1],
+                                               dtype=torch.int32,
+                                               device=cuda),
+                           causal=kw["causal"], window=kw["window"])
+    assert o.grad_fn is not None
+    x = torch.zeros((1, 16, 1, 16), device=cuda, requires_grad=True)
+    gate = torch.zeros((1, 16, 1), device=cuda)
+    with pytest.raises(RuntimeError, match="autograd"):
+        ms.mlstm_scan(x, x, x, gate, gate, chunk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["gqa3_d128_odd", "window7", "noncausal",
+                                  "some_rows_masked", "fully_masked_rows",
+                                  "decode_t16", "decode_t2_d64", "decode_g1"])
+def test_function_and_lse_match_plain_version(cuda, name, dtype):
+    """The Function's forward on the card (the fp32 kernel, or the prefill
+    kernel in bf16 whatever T is) and its lse against the plain version;
+    dq, dk, dv against the plain version's autograd: lse atol 2e-5 (fp32)
+    and 1e-3 (bf16), gradients relative L2 1e-4 and 2e-2."""
+    from repro_torch.models import flash as MF
+    qkv, kw = _inputs(name, dtype, cuda)
+    s = qkv[1].shape[1]
+    kw = dict(kw, kv_pos=torch.arange(s, dtype=torch.int32, device=cuda))
+    before = dict(fa.launches_by_path)
+    with torch.no_grad():
+        o, lse = fa.flash_attention(*qkv, **kw, return_lse=True)
+    path = "fp32" if dtype == "float32" else "prefill"
+    assert fa.launches_by_path[path] == before[path] + 1
+    assert fa.launches_by_path["decode"] == before["decode"]
+    o_ref, lse_ref = reference_attention(*qkv, **kw, return_lse=True)
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               o_ref.float().cpu().numpy(), **TOL[dtype])
+    assert torch.equal(lse >= 1e29, lse_ref >= 1e29)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               rtol=0, atol=2e-5 if dtype == "float32"
+                               else 1e-3)
+    do = torch.randn(qkv[0].shape, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda).to(qkv[0].dtype)
+    grads = []
+    for fn in (MF.flash_attention, reference_attention):
+        leaves = [x.detach().clone().requires_grad_(True) for x in qkv]
+        fn(*leaves, **kw).backward(do)
+        grads.append([x.grad.float() for x in leaves])
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for a, b in zip(*grads):
+        assert float((a - b).norm()) <= tol * max(float(b.norm()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m"])
+def test_training_on_the_card_matches_the_cpu(cuda, arch):
+    """loss_and_grads of the reduced model in fp32, card (the fp32 kernel
+    through the Function) against CPU: loss rtol 1e-5, every gradient leaf
+    relative L2 1e-4."""
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.runtime.trainer import loss_and_grads
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              remat="full")
+    params = init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+             for k in ("tokens", "labels")}
+    before = fa.launches_by_path["fp32"]
+    loss_c, _, g_c = loss_and_grads(
+        tree_map(lambda _, a: a.to(cuda), params),
+        {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    # remat "full": every layer's attention runs again in the backward
+    assert fa.launches_by_path["fp32"] - before == 2 * cfg.num_layers
+    loss, _, g = loss_and_grads(params, batch, cfg)
+    np.testing.assert_allclose(float(loss_c), float(loss), rtol=1e-5)
+    for a, b in zip(tree_leaves(g_c), tree_leaves(g)):
+        a = a.cpu()
+        assert float((a - b).norm()) <= 1e-4 * max(float(b.norm()), 1e-30)
 
 
 # Prompt length per model: 256 is a multiple of the mLSTM chunk, so the

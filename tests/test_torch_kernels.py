@@ -275,3 +275,63 @@ def test_mlstm_plan_scratch_covers_the_chunk_states(nc, has_state):
 def test_mlstm_counts_launches_by_path():
     assert set(ms.launches_by_path) == {"fma", "tc"}
     assert isinstance(ms.launches, int)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_never_sends_a_call_that_needs_lse_to_decode(shape):
+    """The decode kernel writes no log-sum-exp: a bf16 call that asks for
+    it takes the prefill kernel whatever its T; fp32 stays on its kernel."""
+    b, t, s, h, kvh, d = shape
+    p = fa.plan(b, t, s, h, kvh, d, torch.bfloat16, lse=True)
+    g = h // kvh
+    assert p.path == "prefill" and p.block_q == fa.PREFILL_ROWS // g
+    assert fa.plan(b, t, s, h, kvh, d, torch.float32, lse=True) == \
+        fa.plan(b, t, s, h, kvh, d, torch.float32)
+
+
+def test_kernel_wrappers_refuse_grad_before_anything_else():
+    """A kernel's output is a tensor autograd cannot see, so the wrappers
+    raise when grad mode is on and an input requires grad, before the
+    device check (this CPU tensor would otherwise be refused for its
+    device); under no_grad the device check is what refuses it."""
+    tq, tkw, _, _ = _inputs("tiny_d32", "float32")
+    q = tq[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        fa.flash_attention(q, *tq[1:], **tkw)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, *tq[1:], **tkw)
+    x = torch.zeros((1, 16, 1, 16), requires_grad=True)
+    gate = torch.zeros((1, 16, 1))
+    with pytest.raises(RuntimeError, match="autograd"):
+        ms.mlstm_scan(x, x, x, gate, gate, chunk=16)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        ms.mlstm_scan(x, x, x, gate, gate, chunk=16)
+
+
+@pytest.mark.parametrize("name", ["gqa3_d128_odd", "window7", "noncausal",
+                                  "some_rows_masked"])
+def test_plain_attention_lse_matches_reference_logsumexp(name):
+    """ops.flash_attention(return_lse=True) on the CPU: the log-sum-exp of
+    each row's visible scaled scores, from repro.kernels.ref's logits, and
+    1e30 where a row sees nothing; o unchanged."""
+    tq, tkw, _, _ = _inputs(name, "float32")
+    o, lse = ops.flash_attention(*tq, **tkw, return_lse=True)
+    assert torch.equal(o, ops.flash_attention(*tq, **tkw))
+    b, t, h, d = tq[0].shape
+    s, kvh = tq[1].shape[1], tq[1].shape[2]
+    qp = tkw["q_pos"].numpy()
+    kp = np.arange(s)
+    ok = kp[None, :] >= 0
+    if tkw["causal"]:
+        ok = ok & (kp[None, :] <= qp[:, None])
+    if tkw["window"] > 0:
+        ok = ok & (qp[:, None] - kp[None, :] < tkw["window"])
+    qg = tq[0].numpy().astype(np.float64).reshape(b, t, kvh, h // kvh, d)
+    logits = np.einsum("btkgd,bskd->bkgts", qg,
+                       tq[1].numpy().astype(np.float64)) / np.sqrt(d)
+    logits = np.where(ok, logits, -np.inf)
+    mx = logits.max(-1, keepdims=True)
+    want = (np.log(np.exp(logits - np.where(np.isfinite(mx), mx, 0)).sum(-1))
+            + np.where(np.isfinite(mx[..., 0]), mx[..., 0], 0))
+    want = np.where(ok.any(-1), want, 1e30).reshape(b, h, t)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)

@@ -187,3 +187,44 @@ def test_moe_phase_sizes_are_the_serve_runs(chip_smoke):
     full = chip_smoke.MOE_FULL
     assert (full["arch"], full["reduced"]) == ("granite-moe-3b-a800m", False)
     assert full["tokens"] == {"prefill": 2048, "decode": 4}
+
+
+def test_train_phase_rehearses_on_the_cpu(chip_smoke):
+    """The train phase at a tiny size on the CPU (plain versions in place
+    of the kernels): every hazard case passes, the reduced models' card
+    check runs CPU against CPU, the reduced llama trains its steps with
+    one backward call per layer a step, and the step's bound counts the
+    products and AdamW's bytes.  On one torch thread: beside the suite's
+    other test processes, torch's thread pool made it many times
+    slower."""
+    import torch
+    tiny = chip_smoke.TRAIN_TINY
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, timing = chip_smoke.phase_train("cpu", tiny)
+    finally:
+        torch.set_num_threads(threads)
+    steps, layers = tiny["steps"], 4
+    assert launches["flash_attention_backward"] == steps * layers
+    assert timing["fwd_bound_ms"] > 0 and timing["bwd_bound_ms"] > 0
+
+
+def test_train_phase_sizes_are_the_training_shape(chip_smoke):
+    """The full phase: llama3.2-3b at full width and depth, B2 T1024, 4
+    steps; its bound is about 8 x params x tokens FLOP plus 28
+    bytes a parameter, about 80 ms on the H100."""
+    from repro_torch.models import get_config
+    full = chip_smoke.TRAIN_FULL
+    assert (full["model"], full["model_reduced"], full["batch"],
+            full["seq"], full["steps"]) == ("llama3.2-3b", False, 2, 1024, 4)
+    assert chip_smoke.TRAIN_HAZARDS[full["timing_case"]][:6] == (
+        2, 1024, 1024, 24, 8, 128)
+    cfg = get_config("llama3.2-3b")
+    n = 3_212_749_824
+    flops, nbytes = chip_smoke.train_step_work(cfg, 2, 1024, n)
+    assert nbytes == 28 * n
+    assert abs(flops / (8 * n * 2048) - 1) < 0.05
+    ms = (flops / chip_smoke.PEAK_FLOPS[chip_smoke.torch.bfloat16]
+          + nbytes / chip_smoke.HBM_BYTES_PER_S) * 1e3
+    assert 75 < ms < 85

@@ -1,0 +1,276 @@
+"""The port's training path against the JAX reference, on the CPU:
+``models.transformer.forward_train`` (loss, metrics, every gradient),
+``runtime.trainer.make_train_step``, the train state across packages
+(``models.convert``), and the crash-only loop ``runtime.loop``.
+
+The same weights (the reference's ``init_params(PRNGKey(0))`` through
+``params_from_numpy``) and the same numpy batches go through both, in
+fp32.  Tolerances: the loss and every gradient leaf rtol 1e-4, atol 1e-5
+(fp32 sums in other orders through a few layers).  Train steps: losses
+rtol 1e-5, m and v rtol 1e-3 atol 1e-7 (sums of gradients), and the
+parameters after 3 AdamW steps of lr 1e-3 within atol 1e-4, a tenth of
+what one step can move an entry: AdamW moves an entry by lr * m / sqrt(v),
+a ratio of gradients, and for the few entries whose gradient is near 0 the
+two packages' rounding moves that ratio by percents (the largest
+difference scales with lr); 99.9% of the entries are held to 1e-6.  Conversions are exact.
+"""
+import dataclasses
+import functools
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.data.pipeline import DataConfig as JData
+from repro.models import get_config as jax_get_config
+from repro.models import transformer as JT
+from repro.models.layers import AxisRules as JRules
+from repro.optim import OptConfig as JOpt
+from repro.runtime import loop as JL
+from repro.runtime import trainer as JTR
+
+from repro_torch.data import DataConfig
+from repro_torch.models import (get_config, numpy_from_params,
+                                params_from_numpy, train_state_from_numpy,
+                                train_state_to_numpy)
+from repro_torch.models import transformer as TT
+from repro_torch.optim import OptConfig
+from repro_torch.runtime import loop as TL
+from repro_torch.runtime import trainer as TTR
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+ARCHS = ["llama3.2-3b", "granite-moe-3b-a800m", "lacin-demo"]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small models run on one thread: the suite runs several test
+    processes on the CPU at once, and torch's thread pool competing across
+    them made these tests many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _configs(arch, **kw):
+    kw.setdefault("dtype", "float32")
+    return (dataclasses.replace(jax_get_config(arch).reduced(), **kw),
+            dataclasses.replace(get_config(arch).reduced(), **kw))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_params(arch):
+    cj, _ = _configs(arch)
+    return jax.tree_util.tree_map(
+        np.asarray, JT.init_params(jax.random.PRNGKey(0), cj))
+
+
+def _batch(vocab, b=2, t=24, seed=0):
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, vocab, (b, t)).astype(np.int32)
+    lab = rng.integers(0, vocab, (b, t)).astype(np.int32)
+    lab[0, :3] = -100                                 # ignored labels
+    return {"tokens": tok, "labels": lab}
+
+
+def _leaves_close(got, want, **tol):
+    gl, wl = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(gl) == len(wl)
+    for a, b in zip(gl, wl):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), **tol)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_forward_train(arch):
+    """(loss, metrics, grads) of jax.value_and_grad of the reference's
+    forward_train on ``_batch``, jitted once per config: a remat policy
+    changes what is recomputed, not the value, so the port's three
+    policies are held to the one reference."""
+    cj, _ = _configs(arch)
+    batch = {k: jnp.asarray(v) for k, v in _batch(cj.vocab_size).items()}
+    (lj, mj), gj = jax.jit(jax.value_and_grad(
+        lambda p, b: JT.forward_train(p, b, cj, JRules()), has_aux=True))(
+        _reference_params(arch), batch)
+    return lj, mj, gj
+
+
+@pytest.mark.parametrize("arch,remat", [
+    ("llama3.2-3b", "none"), ("llama3.2-3b", "full"), ("llama3.2-3b", "dots"),
+    ("granite-moe-3b-a800m", "full"), ("granite-moe-3b-a800m", "dots")])
+def test_forward_train_matches_reference(arch, remat):
+    """Loss, metrics and every gradient against jax.value_and_grad of
+    repro.models.transformer.forward_train, under each remat policy."""
+    _, ct = _configs(arch, remat=remat)
+    pn = _reference_params(arch)
+    batch = _batch(ct.vocab_size)
+    lj, mj, gj = _reference_forward_train(arch)
+    pt = params_from_numpy(pn, ct, device="cpu")
+    lt, mt, gt = TTR.loss_and_grads(
+        pt, {k: torch.from_numpy(v) for k, v in batch.items()}, ct)
+    np.testing.assert_allclose(float(lt), float(lj), **GRAD_TOL)
+    assert set(mt) == set(mj) == {"ce_loss", "aux_loss", "tokens"}
+    assert int(mt["tokens"]) == int(mj["tokens"]) == 2 * 24 - 3
+    for k in ("ce_loss", "aux_loss"):
+        np.testing.assert_allclose(float(mt[k]), float(mj[k]), **GRAD_TOL)
+    if ct.is_moe:
+        assert float(mt["aux_loss"]) > 0
+    _leaves_close(numpy_from_params(gt, ct), gj, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("arch,grad_accum", [
+    ("llama3.2-3b", 1), ("llama3.2-3b", 2), ("granite-moe-3b-a800m", 1)])
+def test_make_train_step_matches_reference(arch, grad_accum):
+    """3 steps of make_train_step against the reference's on the same
+    weights and batches: losses, then every parameter, m and v."""
+    cj, ct = _configs(arch)
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    jstep = jax.jit(JTR.make_train_step(cj, JRules(), JOpt(
+        **dataclasses.asdict(opt)), grad_accum=grad_accum))
+    tstep = TTR.make_train_step(ct, TTR.make_rules(None), opt,
+                                grad_accum=grad_accum)
+    pn = _reference_params(arch)
+    jst = {"params": pn, "opt": jax.tree_util.tree_map(
+        np.asarray, JTR.init_opt_state(pn)), "step": np.int32(0)}
+    tst = train_state_from_numpy(jax.tree_util.tree_map(np.asarray, jst), ct,
+                                 device="cpu")
+    for i in range(3):
+        batch = _batch(cj.vocab_size, b=4, seed=i)
+        jst, jm = jstep(jst, {k: jnp.asarray(v) for k, v in batch.items()})
+        tst, tm = tstep(tst, batch)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]),
+                                   rtol=1e-6)
+    assert int(tst["step"]) == int(tst["opt"]["step"]) == 3
+    got = train_state_to_numpy(tst, ct)
+    _leaves_close(got["params"], jst["params"], rtol=0, atol=1e-4)
+    diff = np.concatenate([np.abs(a - np.asarray(b)).ravel() for a, b in zip(
+        jax.tree_util.tree_leaves(got["params"]),
+        jax.tree_util.tree_leaves(jst["params"]))])
+    assert np.mean(diff > 1e-6) < 1e-3, np.mean(diff > 1e-6)
+    _leaves_close(got["opt"], jst["opt"], rtol=1e-3, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_state_round_trip_is_exact(arch):
+    """reference -> port -> reference, parameters and AdamW state (random
+    m and v), leaf for leaf, dtype and shape."""
+    cj, ct = _configs(arch)
+    pn = _reference_params(arch)
+    rng = np.random.default_rng(1)
+    noise = lambda: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: rng.normal(size=a.shape).astype(np.float32), pn)
+    state = {"params": pn, "opt": {"m": noise(), "v": noise(),
+                                   "step": np.asarray(5, np.int32)},
+             "step": np.asarray(5, np.int32)}
+    ported = train_state_from_numpy(state, ct, device="cpu")
+    assert len(ported["params"]["layers"]) == ct.num_layers
+    back = train_state_to_numpy(ported, ct)
+    assert (jax.tree_util.tree_structure(back)
+            == jax.tree_util.tree_structure(state))
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(state)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(numpy_from_params(ported["params"], ct)["stack"][0]
+                          ["ln1"]["scale"], pn["stack"][0]["ln1"]["scale"])
+
+
+def test_untrainable_configs_raise():
+    """xLSTM stacks raise in forward_train (the mLSTM scan kernel has no
+    backward: ROADMAP A10(g)) on either device; parts not ported raise
+    naming ROADMAP item 10(a); sharded steps name the sharding item."""
+    cfg = dataclasses.replace(get_config("xlstm-350m").reduced(),
+                              dtype="float32")
+    params = TT.init_params(0, cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab_size,
+                                                       t=16).items()}
+    with pytest.raises(NotImplementedError, match=r"10\(g\)"):
+        TTR.loss_and_grads(params, batch, cfg)
+    base = get_config("llama3.2-3b").reduced()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP .*10\(a\)"):
+        TTR.init_train_state(0, dataclasses.replace(base, num_meta_tokens=2),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match=r"10\(b\)"):
+        TTR.make_train_step(base, TTR.make_rules(None), OptConfig(),
+                            grad_specs={})
+
+
+def test_train_state_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TTR.init_train_state(0, get_config("lacin-demo").reduced())
+
+
+@pytest.mark.parametrize("arch,batch,seq", [("llama3.2-3b", 256, 4096),
+                                            ("granite-moe-3b-a800m", 64,
+                                             4096), ("lacin-demo", 8, 1024)])
+def test_suggest_grad_accum_matches_reference(arch, batch, seq):
+    for dp in (1, 8):
+        assert TTR.suggest_grad_accum(get_config(arch), batch, seq, dp) == \
+            JTR.suggest_grad_accum(jax_get_config(arch), batch, seq, dp)
+
+
+def test_serve_steps_are_prefill_and_decode():
+    _, ct = _configs("lacin-demo")
+    params = TT.cast_params(TT.init_params(0, ct, device="cpu"), ct)
+    prefill_fn, decode_fn = TTR.make_serve_steps(ct, TTR.make_rules(None), 16)
+    tokens = torch.from_numpy(_batch(ct.vocab_size, t=8)["tokens"])
+    logits, caches = prefill_fn(params, {"tokens": tokens})
+    want, _ = TT.prefill(params, {"tokens": tokens}, ct, 16)
+    assert torch.equal(logits, want)
+    step, _ = decode_fn(params, logits.argmax(-1), caches, 8)
+    assert step.shape == (2, 1, ct.vocab_padded)
+
+
+# -- the crash-only loop ------------------------------------------------------
+
+def _loop_setup(tmp_path, name, **kw):
+    _, ct = _configs("lacin-demo")
+    data = DataConfig(vocab_size=ct.vocab_size, seq_len=16, global_batch=4)
+    loop = TL.LoopConfig(ckpt_dir=str(tmp_path / name), log_every=1, **kw)
+    return ct, data, loop
+
+
+def test_injected_failures_give_the_uninterrupted_losses(tmp_path):
+    """Two injected crashes: the run restarts from the checkpoints of
+    steps 4 and 8 and logs the same losses, bit for bit, as a run without
+    failures (the data is a function of the step)."""
+    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=12)
+    ct, data, loop = _loop_setup(tmp_path, "fail", total_steps=12,
+                                 ckpt_every=4, fail_at_steps=(6, 9))
+    report = TL.run_training(ct, opt, loop, data, device="cpu")
+    ct, data, clean = _loop_setup(tmp_path, "clean", total_steps=12,
+                                  ckpt_every=4)
+    base = TL.run_training(ct, opt, clean, data, device="cpu")
+    assert report.restarts == 2 and report.restored_from == [4, 8]
+    assert base.restarts == 0 and base.steps_run == 12
+    assert report.steps_run == 12 + 2 + 1      # steps 4-5 and 8 run twice
+    steps = dict(report.losses)
+    assert sorted(steps) == list(range(12))
+    assert all(steps[s] == loss for s, loss in base.losses)
+    assert TL.CheckpointManager(clean.ckpt_dir).steps() == [4, 8, 12]
+
+
+def test_reference_checkpoint_resumes_in_the_port(tmp_path):
+    """A reference run of 4 steps, its checkpoint directory cut back to
+    step 2: the port resumes from step 2 and logs steps 2-3 within rtol
+    1e-4 of the reference's."""
+    cj, _ = _configs("lacin-demo")
+    opt = dict(lr=1e-3, warmup_steps=2, total_steps=4)
+    jdata = JData(vocab_size=cj.vocab_size, seq_len=16, global_batch=4)
+    jloop = JL.LoopConfig(total_steps=4, ckpt_every=2, log_every=1,
+                          ckpt_dir=str(tmp_path / "ref"))
+    ref = JL.run_training(cj, JOpt(**opt), jloop, jdata)
+    shutil.rmtree(tmp_path / "ref" / "step_00000004")
+    ct, data, loop = _loop_setup(tmp_path, "ref", total_steps=4,
+                                 ckpt_every=2)
+    report = TL.run_training(ct, OptConfig(**opt), loop, data, device="cpu")
+    assert report.restored_from == [2] and report.steps_run == 2
+    want = dict(ref.losses)
+    for step, loss in report.losses:
+        np.testing.assert_allclose(loss, want[step], rtol=1e-4)
+    assert [s for s, _ in report.losses] == [2, 3]
