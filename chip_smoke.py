@@ -16,12 +16,16 @@ Phases, one JSON line each:
    the final state) and at the serving shapes, and times kernel, plain
    version and the library call, where there is one, beside its bound, on
    the device alone through a CUDA graph and per eager call; the
-   attention hazard cases again at head dim 64, and ``"phase":
-   "attention"`` lines at granite-moe-3b-a800m's serving shapes (D = 64);
+   attention hazard cases again at head dim 64 and at 256, and ``"phase":
+   "attention"`` lines at granite-moe-3b-a800m's serving shapes (D = 64)
+   and gemma3-1b's (D = 256: prefill, decode and the fp32 kernel), each
+   naming the SDPA backend that ran;
 4. small   -- the reduced models in fp32 on the card against the CPU (the
-   run that drives the fp32 attention kernel), the reduced MoE among them;
-5. serve   -- llama3.2-3b, xlstm-350m and granite-moe-3b-a800m (its MoE
-   on one card: the single-shard path, 48 stored experts) at full width
+   run that drives the fp32 attention kernel), the reduced MoE among them,
+   and the reduced gemma3-1b also at its published head dim, 256;
+5. serve   -- llama3.2-3b, xlstm-350m, granite-moe-3b-a800m (its MoE
+   on one card: the single-shard path, 48 stored experts) and gemma3-1b
+   (head dim 256, a 512-key window on 22 of its 26 layers) at full width
    and depth,
    random weights from a seed, each through ServingEngine: 4 requests
    (prompts 512/384/256/128, one sampled at temperature 0.8) x 32 new
@@ -40,17 +44,19 @@ Phases, one JSON line each:
    then ``"phase": "train"``: the fp32 and the bf16 prefill kernel's lse
    and the flash-attention autograd Function (repro_torch.models.flash) on
    hazard cases against the plain version's autograd (o, lse, dq, dk, dv;
-   bf16 calls with T <= 16 take the prefill kernel), the forward with lse
-   and the plain backward at the training shape (B2 T1024 H24 KV8 D128)
-   beside SDPA's forward and backward and their bounds, the reduced
-   llama3.2-3b and granite-moe-3b-a800m in fp32 card against CPU (loss,
-   every gradient, two train steps), and llama3.2-3b at full width and
+   bf16 calls with T <= 16 take the prefill kernel; head dims 16 to 256),
+   the forward with lse and the plain backward at the training shapes
+   (B2 T1024 H24 KV8 D128 and H4 KV1 D256) beside SDPA's forward and
+   backward and their bounds, the reduced llama3.2-3b and
+   granite-moe-3b-a800m in fp32 card against CPU (loss, every gradient,
+   two train steps), and llama3.2-3b and gemma3-1b at full width and
    depth (fp32 parameters, bf16 compute, remat "full") through
    runtime.trainer.make_train_step for 4 steps of data.host_batch (B2
    T1024): step 1 against the same step with the plain kernels, finite
-   losses and gradients, non-zero attention gradients in every layer, 56
-   prefill launches and 28 backward calls a step, step ms, tokens/s, peak
-   memory and the idle share of a profiled step beside the step's bound;
+   losses and gradients, non-zero attention gradients in every layer, two
+   prefill launches and one backward call a layer a step (llama 56 and
+   28, gemma 52 and 26), step ms, tokens/s, peak memory and the idle share
+   of a profiled step beside the step's bound;
 7. sim     -- the simulator's main path (repro_torch.sim), which runs no
    hand-written kernel: ``sim_speed`` (CIN xor 16, 3 loads x 8 seeds x
    1600 cycles in one sweep) and ``xl_scale`` (a 1040-switch Dragonfly,
@@ -232,7 +238,8 @@ MLSTM_NO_LIBRARY = "no single PyTorch call computes chunkwise mLSTM"
 # RECHUNKS makes, their mean plus three standard deviations.
 RECHUNKS = (16, 32, 64, 128, 512)
 LOGITS_CHECK_DTYPE = {"llama3.2-3b": "bfloat16", "xlstm-350m": "float32",
-                      "granite-moe-3b-a800m": "bfloat16"}
+                      "granite-moe-3b-a800m": "bfloat16",
+                      "gemma3-1b": "bfloat16"}
 
 # The serving runs: 4 slots, prompts left-padded to 512, a 1024-slot cache.
 PROMPTS = (512, 384, 256, 128)
@@ -359,15 +366,16 @@ def phase_device():
 
 def ptxas_summary(text):
     """One line per compiled kernel of an ``nvcc -Xptxas -v`` report: its
-    name and template arguments as mangled (``ILi128EE``: 128), registers,
-    and spills."""
+    name and all its template arguments as mangled (``ILi32ELi256EE``: 32,
+    256), registers, and spills."""
     lines, name, spill = [], "?", ""
     for line in text.splitlines():
         if "entry function" in line:
             # the kernel's name is the one preceded by its length
             for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel))", line):
                 if len(m.group(2)) == int(m.group(1)):
-                    args = re.match(r"I\w*?E", line[m.end(2):])
+                    args = re.match(r"I(?:Li-?\d+E|\d+__nv_bfloat16|[a-z])+E",
+                                    line[m.end(2):])
                     name = m.group(2) + (args.group(0) if args else "")
                     break
         elif "spill" in line:
@@ -390,17 +398,24 @@ def phase_build():
 
 def phase_hazards(head_dim=None):
     """Every case of HAZARDS in both dtypes; with ``head_dim``, every case
-    at that head dim instead (named ``<case>@d<head_dim>``)."""
+    at that head dim instead (named ``<case>@d<head_dim>``).  Rows that see
+    no key must be zeros; at least one decode case must span more than one
+    row chunk (at D = 256: G x T > 32)."""
     t0 = time.perf_counter()
     worst = {}
-    for name, (b, t, s, h, kvh, d, q_pos, causal, window) in HAZARDS.items():
+    chunked = []
+    for case, (b, t, s, h, kvh, d, q_pos, causal, window) in HAZARDS.items():
+        name = case
         if head_dim is not None:
-            name, d = f"{name}@d{head_dim}", head_dim
+            name, d = f"{case}@d{head_dim}", head_dim
         for dtype in (torch.float32, torch.bfloat16):
             q, [(k, v)], qp = make_inputs(b, t, s, h, kvh, d, q_pos, dtype,
                                           seed=sum(map(ord, name)))
             kw = dict(q_pos=qp, causal=causal, window=window)
-            path = fa.plan(b, t, s, h, kvh, d, dtype).path
+            plan = fa.plan(b, t, s, h, kvh, d, dtype)
+            path = plan.path
+            if path == "decode" and plan.row_chunks > 1:
+                chunked.append(name)
             before = fa.launches, fa.launches_by_path[path]
             got = fa.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -409,16 +424,31 @@ def phase_hazards(head_dim=None):
                 raise AssertionError("the wrapper did not count its launch")
             err = check_close(name, got, reference_attention(q, k, v, **kw),
                               dtype)
-            if name in ALL_MASKED and got.any():
+            if case in ALL_MASKED and got.any():
                 raise AssertionError(f"{name}: fully masked rows are not "
                                      f"zeros")
             key = str(dtype).removeprefix("torch.")
             worst[key] = max(worst.get(key, 0.0), err)
             emit("kernel_case", kernel="flash_attention", case=name,
-                 path=path, dtype=key, max_abs_err=err, tol=TOL[dtype])
+                 path=path, dtype=key, block_q=plan.block_q,
+                 row_chunks=plan.row_chunks, max_abs_err=err, tol=TOL[dtype])
+    if not chunked:
+        raise AssertionError("no decode case spans more than one row chunk")
     emit("kernel_hazards", kernel="flash_attention", cases=len(HAZARDS) * 2,
          head_dim=head_dim or "as listed", max_abs_err=worst,
+         decode_cases_over_row_chunks=sorted(set(chunked)),
          seconds=time.perf_counter() - t0)
+
+
+def sdpa_backend(q, k, v, attn_mask=None, is_causal=False):
+    """The backend ``F.scaled_dot_product_attention`` picks for these
+    (B, H, T, D) inputs with GQA on: PyTorch's own choice
+    (``torch._fused_sdp_choice``, the function its dispatcher asks), by
+    name: CUDNN_ATTENTION, FLASH_ATTENTION, EFFICIENT_ATTENTION or MATH."""
+    from torch.nn.attention import SDPBackend
+    choice = torch._fused_sdp_choice(q, k, v, attn_mask, 0.0, is_causal,
+                                     enable_gqa=True)
+    return SDPBackend(choice).name
 
 
 def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
@@ -447,8 +477,9 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
             return fn(q, k_, v_)
         return call
 
+    sdpa_kw = dict(is_causal=True) if t == s else dict(attn_mask=mask)
+
     def sdpa(q_, k_, v_):
-        sdpa_kw = dict(is_causal=True) if t == s else dict(attn_mask=mask)
         return F.scaled_dot_product_attention(
             q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
             enable_gqa=True, **sdpa_kw)
@@ -464,12 +495,15 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
             times[key + ("_repeat" if key in times else "")] = timer(
                 calls[name], iters)
     bound_ms, bound_by = bound(q, k, qp, kp, True, 0)
+    backend = sdpa_backend(*(x.transpose(1, 2) for x in (q, k, v)),
+                           **sdpa_kw)
     key = str(dtype).removeprefix("torch.")
     out = dict(shape=f"B{b} T{t} S{s} H{h} KV{kvh} D{d} {key} causal",
                path=fa.plan(b, t, s, h, kvh, d, dtype).path,
                max_abs_err=err, tol=TOL[dtype], ms=times["kernel"],
                ms_repeat=times["kernel_repeat"], plain_ms=times["plain"],
-               library_ms=times["library"], bound_ms=bound_ms,
+               library_ms=times["library"], library_backend=backend,
+               bound_ms=bound_ms,
                bound_by=bound_by, ms_eager=times["kernel_eager"],
                ms_eager_repeat=times["kernel_eager_repeat"],
                plain_ms_eager=times["plain_eager"],
@@ -881,10 +915,17 @@ def phase_profile(arch, what, fn, call_ms, calls):
          top=[{"kernel": k[:80], "us": t, "calls": c} for k, t, c in top])
 
 
-# name: prompt length; 256 is a multiple of the mLSTM chunk, so the card
-# takes the mlstm_scan kernel and the CPU its plain version.
-SMALL_MODELS = {"llama3.2-3b": 70, "lacin-demo": 70, "xlstm-350m": 256,
-                "granite-moe-3b-a800m": 70}
+# name: (arch, prompt length, fields replaced in the reduced config); 256
+# is a multiple of the mLSTM chunk, so the card takes the mlstm_scan kernel
+# and the CPU its plain version.  gemma3-1b reduced has head dim 16; at its
+# published 256 the fp32 kernel runs its <32, 256> and <16, 256> instances.
+SMALL_MODELS = {"llama3.2-3b": ("llama3.2-3b", 70, {}),
+                "lacin-demo": ("lacin-demo", 70, {}),
+                "xlstm-350m": ("xlstm-350m", 256, {}),
+                "granite-moe-3b-a800m": ("granite-moe-3b-a800m", 70, {}),
+                "gemma3-1b": ("gemma3-1b", 70, {}),
+                "gemma3-1b head_dim 256": ("gemma3-1b", 70,
+                                           {"head_dim": 256})}
 
 
 def phase_small_model():
@@ -894,8 +935,9 @@ def phase_small_model():
     path that runs the fp32 attention kernel."""
     worst = {}
     reset_launches()
-    for arch, t in SMALL_MODELS.items():
-        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    for name, (arch, t, fields) in SMALL_MODELS.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                                  **fields)
         params = init_params(SEED, cfg, device="cpu")
         tokens = torch.from_numpy(
             np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, t)))
@@ -910,7 +952,7 @@ def phase_small_model():
             launched = {k: v - before[k] for k, v in kernel_launches().items()}
             out[dev] = torch.cat([logits, step], 1).cpu()
         if launched["flash_attention_fp32"] != launched["flash_attention"]:
-            raise AssertionError(f"{arch} reduced: fp32 attention left the "
+            raise AssertionError(f"{name} reduced: fp32 attention left the "
                                  f"fp32 kernel: {launched}")
         if arch == "xlstm-350m" and (
                 launched["mlstm_scan"], launched["mlstm_scan_fma"],
@@ -920,8 +962,8 @@ def phase_small_model():
                                  f"FMA kernel: {launched}")
         err = float((out["cuda"] - out["cpu"]).abs().max())
         if not (torch.isfinite(out["cuda"]).all() and err <= 1e-4):
-            raise AssertionError(f"{arch} reduced: card and CPU differ by {err}")
-        worst[arch] = err
+            raise AssertionError(f"{name} reduced: card and CPU differ by {err}")
+        worst[name] = err
     total = kernel_launches()
     emit("small_model_vs_cpu", max_abs_err=worst, tol=1e-4, launches=total)
     return total
@@ -1063,6 +1105,11 @@ TRAIN_HAZARDS = {
     "t5_gqa8_d16": (1, 5, 90, 16, 2, 16, "tail", None, True, 0),
     "t1_d64": (2, 1, 200, 6, 2, 64, [150], None, True, 0),
     "training_shape": (2, 1024, 1024, 24, 8, 128, None, None, True, 0),
+    # head dim 256 (gemma3-1b: H4 KV1, 512-key windows on local layers)
+    "gqa3_d256_odd_t": (2, 131, 131, 6, 2, 256, None, None, True, 0),
+    "mqa_window512_d256": (1, 700, 700, 4, 1, 256, None, None, True, 512),
+    "t5_d256": (1, 5, 90, 4, 1, 256, "tail", None, True, 0),
+    "training_shape_d256": (2, 1024, 1024, 4, 1, 256, None, None, True, 0),
 }
 #: The lse: fp32 kernel as its output (2e-5); bf16 kernel 1e-3, its
 #: scores are fp32 sums of exact bf16 products in another order and its
@@ -1073,17 +1120,21 @@ TRAIN_HAZARDS = {
 LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
 GRAD_REL_L2 = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
+#: ``models`` train in order, each beside the timing case of the same index
+#: (its training shape).
 TRAIN_FULL = {
-    "hazards": tuple(TRAIN_HAZARDS), "timing_case": "training_shape",
+    "hazards": tuple(TRAIN_HAZARDS),
+    "timing_cases": ("training_shape", "training_shape_d256"),
     "timing_iters": 16, "reduced": ("llama3.2-3b", "granite-moe-3b-a800m"),
-    "reduced_seq": 64, "model": "llama3.2-3b", "model_reduced": False,
-    "seq": 1024, "batch": 2, "steps": 4}
+    "reduced_seq": 64, "models": ("llama3.2-3b", "gemma3-1b"),
+    "model_reduced": False, "seq": 1024, "batch": 2, "steps": 4}
 TRAIN_TINY = {
-    "hazards": ("gqa3_d128_odd_t", "rows_see_nothing_d64", "t1_d64"),
-    "timing_case": "t16_d128", "timing_iters": 2,
+    "hazards": ("gqa3_d128_odd_t", "rows_see_nothing_d64", "t1_d64",
+                "t5_d256"),
+    "timing_cases": ("t16_d128", "t5_d256"), "timing_iters": 2,
     "reduced": ("llama3.2-3b", "granite-moe-3b-a800m"), "reduced_seq": 16,
-    "model": "llama3.2-3b", "model_reduced": True, "seq": 32, "batch": 2,
-    "steps": 3}
+    "models": ("llama3.2-3b", "gemma3-1b"), "model_reduced": True, "seq": 32,
+    "batch": 2, "steps": 3}
 #: The reduced models in fp32, card against CPU: the loss (rtol 1e-5) and
 #: every gradient leaf (relative L2 1e-4: the fp32 kernel is held to its
 #: plain version at 2e-5); parameters after two train steps of lr 1e-3
@@ -1205,13 +1256,13 @@ def train_hazards(device, sizes):
     return worst
 
 
-def time_training_attention(device, sizes):
-    """At the training shape: the kernel forward with lse, its plain
-    version and SDPA's forward (``graph_ms``), the plain backward
-    (``flash_backward``) and SDPA's backward (``cuda_ms``: autograd cannot
-    be captured here), beside their bounds."""
-    (q, k, v, do, qp, kp), kw = _train_inputs(sizes["timing_case"],
-                                              torch.bfloat16, device)
+def time_training_attention(device, sizes, case):
+    """At a training shape (TRAIN_HAZARDS ``case``): the kernel forward
+    with lse, its plain version and SDPA's forward (``graph_ms``), the
+    plain backward (``flash_backward``) and SDPA's backward (``cuda_ms``:
+    autograd cannot be captured here), beside their bounds, and the SDPA
+    backend that ran the forward."""
+    (q, k, v, do, qp, kp), kw = _train_inputs(case, torch.bfloat16, device)
     iters = sizes["timing_iters"]
     fwd = lambda: ops.flash_attention(q, k, v, q_pos=qp, kv_pos=kp,  # noqa
                                       return_lse=True, **kw)
@@ -1243,9 +1294,23 @@ def time_training_attention(device, sizes):
     fb, fb_by = bound(q, k, qp, kp, kw["causal"], kw["window"])
     bb, bb_by, bb32 = attention_backward_bound(q, k, qp, kp, kw["causal"],
                                                kw["window"])
+    backend = (sdpa_backend(qs, ks, vs, is_causal=True)
+               if device == "cuda" else None)
+    # the memory one plain backward takes beyond its inputs: its (T, S)
+    # blocks of 1024 x 1024 fp32 and the fp32 copies of q, k, v, o, dO
+    bwd_extra_mib = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bwd()
+        torch.cuda.synchronize()
+        bwd_extra_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
     b, t, h, d = q.shape
-    return dict(shape=f"B{b} T{t} S{k.shape[1]} H{h} KV{k.shape[2]} D{d} "
-                      f"bf16 causal", **times, fwd_bound_ms=fb,
+    return dict(case=case, shape=f"B{b} T{t} S{k.shape[1]} H{h} "
+                                 f"KV{k.shape[2]} D{d} bf16 causal", **times,
+                fwd_library_backend=backend,
+                bwd_plain_peak_extra_mib=bwd_extra_mib, fwd_bound_ms=fb,
                 fwd_bound_by=fb_by, bwd_bound_ms=bb, bwd_bound_by=bb_by,
                 bwd_bound_ms_fp32_pipe=bb32)
 
@@ -1308,12 +1373,12 @@ def train_reduced(device, sizes):
     return out
 
 
-def train_full(device, sizes):
-    """llama3.2-3b (full width and depth on the card; reduced on the CPU
+def train_full(device, sizes, arch):
+    """``arch`` (full width and depth on the card; reduced on the CPU
     rehearsal) in bf16 compute, fp32 parameters, remat "full": step 1's
     gradients with the kernels against the plain versions, then ``steps``
     steps of make_train_step, timed, with every count set to 0 before."""
-    cfg = get_config(sizes["model"])
+    cfg = get_config(arch)
     if sizes["model_reduced"]:
         cfg = dataclasses.replace(cfg.reduced(), remat="full")
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=sizes["seq"],
@@ -1433,13 +1498,23 @@ def train_full(device, sizes):
         **parts, setup_s=setup_s)
 
 
+def visible_pairs(seq, window):
+    """(query, key) pairs a causal layer of ``seq`` aligned positions
+    sees, with a sliding ``window`` (0: none): each query t sees min(t + 1,
+    window) keys."""
+    if window <= 0 or window >= seq:
+        return seq * (seq + 1) // 2
+    return window * (window + 1) // 2 + (seq - window) * window
+
+
 def train_step_work(cfg, batch, seq, n_params):
     """The least work of one train step: the products of the layers'
     weights forward, recomputed (remat "full") and backward (2 + 2 + 4
     FLOP a weight and token), of the unembedding forward and backward (6),
-    causal attention's products (forward twice, 2.5x in the backward), and
-    AdamW's bytes: p, g, m, v read and p, m, v written in fp32 (28 bytes a
-    parameter)."""
+    causal attention's products over each layer's visible pairs, which its
+    window bounds (gemma3-1b's local layers see 512 keys), forward twice
+    and 2.5x in the backward, and AdamW's bytes: p, g, m, v read and p, m,
+    v written in fp32 (28 bytes a parameter)."""
     d, f, h, kv, dh = (cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads,
                        cfg.head_dim)
     gated = 3 if cfg.mlp in ("swiglu", "geglu") else 2
@@ -1448,29 +1523,37 @@ def train_step_work(cfg, batch, seq, n_params):
     recompute = 2 if cfg.remat == "full" else 0
     weights = (6 + recompute) * cfg.num_layers * per_layer * tokens
     head = 6 * cfg.vocab_padded * d * tokens
-    pairs = seq * (seq + 1) // 2
-    attn = 4 * batch * h * dh * pairs * (1 + recompute / 2 + 2.5) \
-        * cfg.num_layers
+    pairs = sum(visible_pairs(seq, w) for w in cfg.windows)
+    attn = 4 * batch * h * dh * pairs * (1 + recompute / 2 + 2.5)
     return weights + head + attn, 28 * n_params
 
 
 def phase_train(device="cuda", sizes=TRAIN_FULL):
     """The training path: hazards of the lse and the Function, attention
-    forward and backward at the training shape, the reduced models card
-    against CPU, llama3.2-3b's train steps.  Returns the launches of the
-    llama run (counts set to 0 just before its steps) and the timings."""
+    forward and backward at the training shapes (head dims 128 and 256),
+    the reduced models card against CPU, then llama3.2-3b's and
+    gemma3-1b's train steps.  Returns the launches of each model's run
+    (counts set to 0 just before its steps) and the timings by case."""
     t0 = time.perf_counter()
     worst = train_hazards(device, sizes)
-    timing = time_training_attention(device, sizes)
-    emit("train_attention", device=device, **timing)
+    timing = {}
+    for case in sizes["timing_cases"]:
+        timing[case] = time_training_attention(device, sizes, case)
+        emit("train_attention", device=device, **timing[case])
     reduced = train_reduced(device, sizes)
     emit("train_reduced_vs_cpu", device=device, models=reduced)
-    full = train_full(device, sizes)
-    emit("train", device=device, hazards=dict(
-        cases=len(sizes["hazards"]) * 2, worst=worst), **full,
-        attention_backward_ms_per_step=timing["bwd_plain_ms"]
-        * full["layers"], seconds=time.perf_counter() - t0)
-    return full["launches"], timing
+    launches = {}
+    for arch, case in zip(sizes["models"], sizes["timing_cases"]):
+        t1 = time.perf_counter()
+        full = train_full(device, sizes, arch)
+        emit("train", device=device, hazards=dict(
+            cases=len(sizes["hazards"]) * 2, worst=worst), **full,
+            attention_backward_ms_per_step=timing[case]["bwd_plain_ms"]
+            * full["layers"], attention_timed_at=timing[case]["shape"],
+            seconds=time.perf_counter() - t1)
+        launches[arch] = full["launches"]
+    emit("train_phase", device=device, seconds=time.perf_counter() - t0)
+    return launches, timing
 
 
 # ---------------------------------------------------------------------------
@@ -2806,6 +2889,19 @@ def main():
     gdec = time_attention("decode", b, 1, MAX_SEQ, g.num_heads,
                           g.num_kv_heads, g.head_dim, [DECODE_POS], copies=8,
                           phase="attention", model=g.name)
+    # gemma3-1b's attention: D = 256 (G = 4/1 = 4)
+    phase_hazards(head_dim=256)
+    m = get_config("gemma3-1b")
+    mserving = (b, max(PROMPTS), max(PROMPTS), m.num_heads, m.num_kv_heads,
+                m.head_dim, None)
+    mpre = time_attention("prefill", *mserving, copies=1, phase="attention",
+                          model=m.name)
+    mdec = time_attention("decode", b, 1, MAX_SEQ, m.num_heads,
+                          m.num_kv_heads, m.head_dim, [DECODE_POS], copies=8,
+                          phase="attention", model=m.name)
+    mfp32 = time_attention("prefill", *mserving, copies=1,
+                           dtype=torch.float32, phase="attention",
+                           model=m.name)
     phase_mlstm_hazards()
     scan = time_mlstm(torch.bfloat16)
     scan32 = time_mlstm(torch.float32)
@@ -2813,6 +2909,7 @@ def main():
     llama = phase_serve("llama3.2-3b")
     xlstm = phase_serve("xlstm-350m")
     granite = phase_serve("granite-moe-3b-a800m")
+    gemma = phase_serve("gemma3-1b")
     phase_moe()
     train, train_attn = phase_train()
     phase_sim()
@@ -2838,27 +2935,35 @@ def main():
                                       "bound_ms", "bound_by", "library_ms",
                                       "shape", *keys)}, **more}
     serve_runs = {"llama3.2-3b": llama, "xlstm-350m": xlstm,
-                  "granite-moe-3b-a800m": granite}
-    prefill_runs = dict(serve_runs, **{"train llama3.2-3b": train})
+                  "granite-moe-3b-a800m": granite, "gemma3-1b": gemma}
+    prefill_runs = dict(serve_runs, **{f"train {arch}": run
+                                       for arch, run in train.items()})
     fp32_runs = {"reduced models in fp32": small}
     attn = "src/repro/kernels/flash_attention.py:39"
     scan_keys = ("state_max_abs_err", "library_note", "ms_eager",
                  "plain_ms_eager", "bound_ms_fp32_pipe")
-    d64 = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-           "bound_by")
+    at = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+          "library_backend", "bound_ms", "bound_by")
+
+    def with_lse(case):
+        t = train_attn[case]
+        return dict(shape=t["shape"], ms=t["fwd_ms"],
+                    plain_ms=t["fwd_plain_ms"],
+                    library_ms=t["fwd_library_ms"],
+                    library_backend=t["fwd_library_backend"],
+                    bound_ms=t["fwd_bound_ms"], bound_by=t["fwd_bound_by"])
     print(json.dumps({"kernels": [
         entry("flash_attention", "prefill", "flash_attention_prefill.cu",
-              attn, pre, prefill_runs, at_d64={k: gpre[k] for k in d64},
-              at_training_shape_with_lse=dict(
-                  shape=train_attn["shape"], ms=train_attn["fwd_ms"],
-                  plain_ms=train_attn["fwd_plain_ms"],
-                  library_ms=train_attn["fwd_library_ms"],
-                  bound_ms=train_attn["fwd_bound_ms"],
-                  bound_by=train_attn["fwd_bound_by"])),
+              attn, pre, prefill_runs, at_d64={k: gpre[k] for k in at},
+              at_d256={k: mpre[k] for k in at},
+              at_training_shape_with_lse=with_lse("training_shape"),
+              at_training_shape_with_lse_d256=with_lse(
+                  "training_shape_d256")),
         entry("flash_attention", "decode", "flash_attention_decode.cu", attn,
-              dec, serve_runs, at_d64={k: gdec[k] for k in d64}),
+              dec, serve_runs, at_d64={k: gdec[k] for k in at},
+              at_d256={k: mdec[k] for k in at}),
         entry("flash_attention", "fp32", "flash_attention.cu", attn, fp32,
-              fp32_runs),
+              fp32_runs, at_d256={k: mfp32[k] for k in at}),
         entry("mlstm_scan", "tc", "mlstm_scan_tc.cu",
               "src/repro/kernels/mlstm_scan.py:32", scan, serve_runs,
               scan_keys + ("fma_ms",)),

@@ -129,10 +129,10 @@ class Fabric(abc.ABC):
         ``backend`` is a :func:`repro_torch.sim.engine.simulate` backend:
         ``"torch"`` (the default: the cycle engine on ``device``, default
         ``"cuda"``, which raises where CUDA is absent) or ``"numpy"`` (the
-        oracle) measure the replay cycle-accurately.  The reference's
-        ``"flow"`` backend and ``failures=`` (replays on a degraded
-        fabric) are not ported yet and raise ``NotImplementedError``
-        (ROADMAP queue A, items 6 and 5).
+        oracle) measure the replay cycle-accurately; ``"flow"`` solves it
+        at flow fidelity.  ``failures=`` replays on a degraded fabric, as
+        the reference's does.  Both go to
+        :func:`repro_torch.sim.workloads.replay` as they are.
         """
         from repro_torch.sim.workloads import collective_workload
         from repro_torch.sim.workloads import replay as replay_workload

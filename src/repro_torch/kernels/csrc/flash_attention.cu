@@ -9,9 +9,9 @@
 // PyTorch version all three are held against is
 // src/repro_torch/kernels/ref.py::reference_attention.
 //
-// Contract.  q (B,T,H,D), k/v (B,S,KV,D), contiguous fp32; output (B,T,H,D)
-// fp32.  Query head h reads KV head h / (H/KV).  q is scaled by 1/sqrt(D)
-// in fp32 before q.k.  Key s is visible to query t iff kv_pos[s] >= 0, and
+// Contract.  q (B,T,H,D), k/v (B,S,KV,D), contiguous fp32, D in {16, 32, 64,
+// 128, 256}; output (B,T,H,D) fp32.  Query head h reads KV head h / (H/KV).
+// q is scaled by 1/sqrt(D) in fp32 before q.k.  Key s is visible to query t iff kv_pos[s] >= 0, and
 // (causal) kv_pos[s] <= q_pos[t], and (window > 0) q_pos[t] - kv_pos[s] <
 // window.  Online softmax in fp32; a row that sees no key is zeros.  q_pos
 // holds T entries and kv_pos S: the last tiles are padded here, not by the
@@ -35,6 +35,10 @@
 // cache slot past the fill position) is skipped before it is loaded, which is
 // exact: a fully masked tile changes neither max, sum nor accumulator.
 // Decode (T <= 16) uses BQ = 16 so that a one-row query wastes less work.
+// At D = 256 (gemma3-1b) a prefill block takes BQ = 32 rows, not 64: its
+// acc would be 8 x 16 = 128 fp32 registers a thread at BQ 64 beside the
+// scores and operands; at 32 it is 64 (shared memory 107,392 bytes).  The
+// wrapper's plan() picks BQ by the same rule.
 #include <cuda_runtime.h>
 
 namespace {
@@ -244,21 +248,22 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int BQ>
-cudaError_t dispatch_head_dim(int head_dim, const Args& a) {
-  switch (head_dim) {
-    case 16: return launch<BQ, 16>(a);
-    case 32: return launch<BQ, 32>(a);
-    case 64: return launch<BQ, 64>(a);
-    case 128: return launch<BQ, 128>(a);
-    default: return cudaErrorInvalidValue;
-  }
+// The instances at head dim D: BQ 16, and BQ 64 (32 at D = 256).
+template <int D>
+cudaError_t dispatch_block_q(int block_q, const Args& a) {
+  constexpr int kBQ = D == 256 ? 32 : 64;
+  if (block_q == 16) return launch<16, D>(a);
+  if (block_q == kBQ) return launch<kBQ, D>(a);
+  return cudaErrorInvalidValue;
 }
 
-cudaError_t dispatch_block_q(int block_q, int head_dim, const Args& a) {
-  switch (block_q) {
-    case 16: return dispatch_head_dim<16>(head_dim, a);
-    case 64: return dispatch_head_dim<64>(head_dim, a);
+cudaError_t dispatch(int block_q, int head_dim, const Args& a) {
+  switch (head_dim) {
+    case 16: return dispatch_block_q<16>(block_q, a);
+    case 32: return dispatch_block_q<32>(block_q, a);
+    case 64: return dispatch_block_q<64>(block_q, a);
+    case 128: return dispatch_block_q<128>(block_q, a);
+    case 256: return dispatch_block_q<256>(block_q, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -266,7 +271,8 @@ cudaError_t dispatch_block_q(int block_q, int head_dim, const Args& a) {
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  q_pos holds T
-// entries and kv_pos S.  block_q is 16 or 64, head_dim 16, 32, 64 or 128;
+// entries and kv_pos S.  head_dim 16, 32, 64 or 128 with block_q 16 or 64;
+// head_dim 256 with block_q 16 or 32;
 // q, k, v and out are fp32; lse is null or fp32 (B,H,T).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, const int* q_pos,
@@ -276,5 +282,5 @@ extern "C" int repro_flash_attention_fwd(
   const Args a{q, k, v, q_pos, kv_pos, out, lse, batch, t_len, s_len, n_heads,
                n_kv_heads, causal, window, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch_block_q(block_q, head_dim, a);
+  return dispatch(block_q, head_dim, a);
 }

@@ -10,10 +10,10 @@
 // src/repro_torch/kernels/ref.py::reference_attention.
 //
 // Contract.  As the prefill kernel (flash_attention_prefill.cu): q (B,T,H,D),
-// k/v (B,S,KV,D), contiguous bf16, 16-byte aligned, D in {16, 32, 64, 128};
-// masks by kv_pos >= 0, causal and window on absolute positions; fp32 scores
-// scaled by 1/sqrt(D) and fp32 online softmax; a row that sees no key is
-// exactly zero; output bf16.  S is padded here: keys past S are zero rows at
+// k/v (B,S,KV,D), contiguous bf16, 16-byte aligned, D in {16, 32, 64, 128,
+// 256}; masks by kv_pos >= 0, causal and window on absolute positions; fp32
+// scores scaled by 1/sqrt(D) and fp32 online softmax; a row that sees no key
+// is exactly zero; output bf16.  S is padded here: keys past S are zero rows at
 // position -1.
 //
 // What bounds it on the H100.  A decode step of llama3.2-3b (B4, T1, a
@@ -35,6 +35,14 @@
 // scratch; the combine kernel merges the splits of each row, and a row whose
 // splits all have l = 0 is zeros.  The arithmetic (a few rows against 64
 // keys) runs on the fp32 pipe from shared memory.
+//
+// At D = 256 (gemma3-1b) a block holds at most 32 query rows, not 64: two
+// stages of K and V tiles are 135 KB there, and with 64 rows q, acc and
+// scores take the block to 251,648 bytes, over the 227 KB a block may use;
+// 32 rows need 193,664.  The wrapper's plan() chunks the G x T rows of a
+// group by the same rule (flash_attention.py, D256_DECODE_ROWS).  The
+// combine pass runs D = 256 threads a row.  A decode step of gemma3-1b (B4, T1, a
+// 1024-slot cache filled to 527, H4, KV1) reads 2.2 MB: 0.65 us.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
@@ -44,7 +52,9 @@ namespace {
 
 constexpr int kBN = 64;         // keys per tile
 constexpr int kThreads = 128;
-constexpr int kMaxRows = 64;    // query rows of a block
+// Query rows of a block at most: 64, or 32 at D = 256 (shared memory).
+template <int D>
+constexpr int kMaxRows = D == 256 ? 32 : 64;
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDevices = 64;
 
@@ -64,7 +74,7 @@ struct Layout {
   // `stages` x (K, V) tiles and q (rows x D bf16), 16-byte aligned; then the
   // key positions of each stage, acc (rows x D fp32), scores (rows x kSP),
   // and m, l, alpha and the position of each row.
-  static size_t smem(int rows, int stages) {
+  static constexpr size_t smem(int rows, int stages) {
     return 2 * (size_t(stages) * 2 * kTile + size_t(rows) * D) +
            4 * (size_t(stages) * kBN + size_t(rows) * (D + kSP + 4));
   }
@@ -90,8 +100,8 @@ flash_attention_decode_kernel(const __nv_bfloat16* __restrict__ q,
   idx /= n_splits;
   const int kvh = idx % n_kv_heads, b = idx / n_kv_heads;
   const int group = n_heads / n_kv_heads;
-  const int r0 = chunk * kMaxRows;
-  const int rows = min(kMaxRows, group * t_len - r0);
+  const int r0 = chunk * kMaxRows<D>;
+  const int rows = min(kMaxRows<D>, group * t_len - r0);
   const int stages = tiles_per_split > 1 ? 2 : 1;
   // Row r of the block is query row r0 + r of the group, position t, head
   // g: row (b T + t) H + kvh G + g of q, of the output and of the scratch.
@@ -360,9 +370,11 @@ template <int D>
 cudaError_t launch(const Args& a) {
   using L = Layout<D>;
   const int group_rows = a.n_heads / a.n_kv_heads * a.t_len;
-  const int n_chunks = (group_rows + kMaxRows - 1) / kMaxRows;
-  const int rows = group_rows < kMaxRows ? group_rows : kMaxRows;
+  const int n_chunks = (group_rows + kMaxRows<D> - 1) / kMaxRows<D>;
+  const int rows = group_rows < kMaxRows<D> ? group_rows : kMaxRows<D>;
   const size_t smem = L::smem(rows, a.tiles_per_split > 1 ? 2 : 1);
+  static_assert(Layout<D>::smem(kMaxRows<D>, 2) <= 232448,
+                "a block's shared memory exceeds the H100's");
   auto kernel = flash_attention_decode_kernel<D>;
   // The shared memory the kernel may use so far, per device: raising it is
   // a driver call, too slow for every decode step.
@@ -396,7 +408,8 @@ cudaError_t launch(const Args& a) {
 
 // Returns the cudaError_t of the launches (0 on success).  q_pos holds T
 // entries and kv_pos S; the keys go in n_splits splits of tiles_per_split
-// tiles of 64; part is fp32 scratch of n_splits x (B T H) x (head_dim + 2).
+// tiles of 64; part is fp32 scratch of n_splits x (B T H) x (head_dim + 2);
+// head_dim 16, 32, 64, 128 or 256.
 extern "C" int repro_flash_attention_decode(
     const void* q, const void* k, const void* v, const int* q_pos,
     const int* kv_pos, void* out, float* part, int batch, int t_len,
@@ -414,6 +427,7 @@ extern "C" int repro_flash_attention_decode(
     case 32: return launch<32>(a);
     case 64: return launch<64>(a);
     case 128: return launch<128>(a);
+    case 256: return launch<256>(a);
     default: return cudaErrorInvalidValue;
   }
 }

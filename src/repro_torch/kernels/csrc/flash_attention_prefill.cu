@@ -9,7 +9,8 @@
 // src/repro_torch/kernels/ref.py::reference_attention.
 //
 // Contract.  q (B,T,H,D), k/v (B,S,KV,D), contiguous bf16, 16-byte aligned,
-// D in {16, 32, 64, 128}, G = H/KV at most 192; output (B,T,H,D) bf16.
+// D in {16, 32, 64, 128, 256}, G = H/KV at most 192 (64 at D = 256);
+// output (B,T,H,D) bf16.
 // Query head h reads KV head h / G.  Scores q.k are fp32 and scaled by
 // 1/sqrt(D) there.  Key s is visible to query t iff kv_pos[s] >= 0, and
 // (causal) kv_pos[s] <= q_pos[t], and (window > 0) q_pos[t] - kv_pos[s] <
@@ -46,9 +47,25 @@
 // into the exponent; P goes to bf16 in registers as the A operand of O +=
 // P.V (wgmma m64nNk16, N = min(D, 64), V read transposed from shared
 // memory).  Q, K and V tiles are stored with the TMA swizzle that the wgmma
-// descriptors name (128, 64 or 32 bytes wide by D).  Left for later:
-// overlapping one warpgroup's softmax with another's products (ping-pong),
-// and a persistent grid that packs the uneven causal blocks onto the SMs.
+// descriptors name (128, 64 or 32 bytes wide by D).
+//
+// At D = 256 (gemma3-1b) a warpgroup's O of 64 rows x 256 columns is 128
+// fp32 registers a thread, and with S, P and the rest beside it ptxas does
+// not fit the consumer code of a three-warpgroup block into the registers
+// it gives that region, though setmaxnreg grants 232: O spills and the
+// wgmma serialize (ptxas C7512).  So at D = 256 (Layout<D>) the two consumer
+// warpgroups share the same 64 rows (P = 64 / G positions) and split O's
+// columns: each holds 128 of them (64 registers) and computes the same S
+// and softmax for its half of P.V.  Q.K^T runs 16 k16 steps across the K
+// tile's four 64-column swizzled blocks.  Q is 32 KB and the 3-stage K/V
+// ring 192 KB.  At gemma3-1b's serving shape (B4, T = S = 512, H4, KV1,
+// D256) one launch moves 10.5 MB (3.1 us at 3.35 TB/s, against 2.2 us for
+// its 2.15 GFLOP), and at G = 4 a block holds 16 positions: 128 blocks on
+// the 132 SMs.
+//
+// Left for later: overlapping one warpgroup's softmax with another's
+// products (ping-pong), and a persistent grid that packs the uneven causal
+// blocks onto the SMs.
 #include "hopper.cuh"
 
 #include <climits>
@@ -56,17 +73,11 @@
 namespace {
 
 constexpr int kBN = 64;                      // keys per K/V tile
-constexpr int kWarpgroups = 3;               // consumer warpgroups
-constexpr int kRows = 64 * kWarpgroups;      // (position, head) rows of a block
-constexpr int kConsumers = 128 * kWarpgroups;
-constexpr int kThreads = kConsumers + 128;   // and a producer warpgroup
 constexpr int kStages = 3;                   // K/V tiles in flight
 // Registers a thread: the producer warpgroup gives most of its share to the
 // consumers, whose accumulators (O and S, 96 fp32 at D = 128) need more
 // than the 128 an even split of the SM's 65,536 leaves.
 constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs =
-    (65536 - 128 * kProducerRegs) / kConsumers / 8 * 8;
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -80,8 +91,19 @@ __device__ __forceinline__ float ex2(float x) {
 
 template <int D>
 struct Layout {
+  // Consumer warpgroups, and how many of them share a row, each holding
+  // 1 / kColSplit of O's columns: three with a row each up to D = 128,
+  // two sharing 64 rows at D = 256.
+  static constexpr int kWarpgroups = D == 256 ? 2 : 3;
+  static constexpr int kColSplit = D == 256 ? 2 : 1;
+  static constexpr int kRows = 64 * kWarpgroups / kColSplit;  // (position, head)
+  static constexpr int kConsumers = 128 * kWarpgroups;
+  static constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+  static constexpr int kConsumerRegs =
+      (65536 - 128 * kProducerRegs) / kConsumers / 8 * 8;
   static constexpr int kCol = D < 64 ? D : 64;   // columns of a swizzled block
   static constexpr int kColBlocks = D / kCol;
+  static constexpr int kOBlocks = kColBlocks / kColSplit;  // of O, a warpgroup
   static constexpr uint32_t kRowBytes = kCol * 2;
   static constexpr uint32_t kGroup = 8 * kRowBytes;       // one 8-row group
   static constexpr uint64_t kSwizzle =
@@ -95,10 +117,11 @@ struct Layout {
   // the start.
   static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kTile +
                                   8 * (2 * kStages + 1) + 4 * kStages * (1 + kBN);
+  static_assert(kSmem <= 232448, "a block's shared memory exceeds the H100's");
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Layout<D>::kThreads, 1)
 flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
                                const __grid_constant__ CUtensorMap k_map,
                                const __grid_constant__ CUtensorMap v_map,
@@ -134,16 +157,16 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], kConsumers);
+      mbar_init(&empty[i], L::kConsumers);
     }
     mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= kConsumers / 32) {
+  if (warp >= L::kConsumers / 32) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
-    if (warp != kConsumers / 32) return;  // one warp of it does the work
+    if (warp != L::kConsumers / 32) return;  // one warp of it does the work
     // Producer.  The least and greatest query position of the block bound
     // what any of its rows can see.
     int q_lo = INT_MAX, q_hi = INT_MIN;
@@ -222,11 +245,14 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
     return;
   }
 
-  // Consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63; this thread rows
-  // row0 and row0 + 8 (row r is position r / G, head r % G of the group).
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  // Consumers: warpgroup wg owns rows 64 rg .. 64 rg + 63 (rg = wg /
+  // kColSplit) and O's column blocks kOBlocks cg .. (cg = wg % kColSplit);
+  // this thread rows row0 and row0 + 8 (row r is position r / G, head r % G
+  // of the group).
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(L::kConsumerRegs));
   const int wg = warp / 4;
-  const int row0 = 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int rg = wg / L::kColSplit, cg = wg % L::kColSplit;
+  const int row0 = 64 * rg + 16 * (warp % 4) + lane / 4;
   int qp[2];
   bool live[2];
 #pragma unroll
@@ -235,13 +261,13 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
     live[i] = r < used_rows && t < t_len;
     qp[i] = live[i] ? q_pos[t] : 0;
   }
-  float o[L::kColBlocks][L::kCol / 2];
+  float o[L::kOBlocks][L::kCol / 2];
 #pragma unroll
-  for (int c = 0; c < L::kColBlocks; ++c)
+  for (int c = 0; c < L::kOBlocks; ++c)
 #pragma unroll
     for (int j = 0; j < L::kCol / 2; ++j) o[c][j] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const uint8_t* q_wg = q_s + 64 * wg * L::kRowBytes;
+  const uint8_t* q_wg = q_s + 64 * rg * L::kRowBytes;
 
   mbar_wait(q_full, 0);
   int stage = 0;
@@ -334,26 +360,27 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
     // Rescale O where the max moved in some row of the warp.
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int c = 0; c < L::kColBlocks; ++c)
+      for (int c = 0; c < L::kOBlocks; ++c)
 #pragma unroll
         for (int j = 0; j < L::kCol / 2; ++j) o[c][j] *= alpha[(j / 2) % 2];
     }
 
-    // O += P.V over the 64 keys in steps of 16.
+    // O += P.V over the 64 keys in steps of 16, this warpgroup's columns.
 #pragma unroll
-    for (int c = 0; c < L::kColBlocks; ++c) fence_regs(o[c]);
+    for (int c = 0; c < L::kOBlocks; ++c) fence_regs(o[c]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
-      for (int c = 0; c < L::kColBlocks; ++c)
+      for (int c = 0; c < L::kOBlocks; ++c)
         wgmma_rs<L::kCol>(o[c], pa[kk],
-                          smem_desc(vt_s + c * L::kKVBlock + kk * 16 * L::kRowBytes,
+                          smem_desc(vt_s + (cg * L::kOBlocks + c) * L::kKVBlock +
+                                        kk * 16 * L::kRowBytes,
                                     L::kGroup, L::kSwizzle));
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int c = 0; c < L::kColBlocks; ++c) fence_regs(o[c]);
+    for (int c = 0; c < L::kOBlocks; ++c) fence_regs(o[c]);
 
     mbar_arrive(&empty[stage]);
     if (++stage == kStages) {
@@ -374,15 +401,15 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap q_map,
     const int r = row0 + 8 * i, t = t0 + r / group;
     const int h = kvh * group + r % group;
     __nv_bfloat16* orow = out + ((size_t)(b * t_len + t) * n_heads + h) * D;
-    if (lse != nullptr && lane % 4 == 0)
+    if (lse != nullptr && cg == 0 && lane % 4 == 0)
       lse[((size_t)b * n_heads + h) * t_len + t] =
           l[i] > 0.f ? (m[i] * scale_log2 + log2f(l[i])) * kLn2 : 1e30f;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
-    for (int c = 0; c < L::kColBlocks; ++c)
+    for (int c = 0; c < L::kOBlocks; ++c)
 #pragma unroll
       for (int j = 0; j < L::kCol / 8; ++j) {
-        const int col = c * L::kCol + 8 * j + 2 * (lane % 4);
+        const int col = (cg * L::kOBlocks + c) * L::kCol + 8 * j + 2 * (lane % 4);
         *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
             o[c][4 * j + 2 * i] * inv, o[c][4 * j + 2 * i + 1] * inv);
       }
@@ -403,6 +430,7 @@ template <int D>
 cudaError_t launch(const Args& a) {
   using L = Layout<D>;
   const int group = a.n_heads / a.n_kv_heads;
+  if (a.positions * group > L::kRows) return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
   if (!tensor_map(&q_map, a.q, a.batch, a.t_len, a.n_heads, D, L::kCol, group,
                   a.positions) ||
@@ -417,7 +445,8 @@ cudaError_t launch(const Args& a) {
   const cudaError_t err = allow_smem(kernel, L::kSmem, allowed);
   if (err != cudaSuccess) return err;
   const int n_q_tiles = (a.t_len + a.positions - 1) / a.positions;
-  kernel<<<a.batch * a.n_kv_heads * n_q_tiles, kThreads, L::kSmem, a.stream>>>(
+  kernel<<<a.batch * a.n_kv_heads * n_q_tiles, L::kThreads, L::kSmem,
+           a.stream>>>(
       q_map, k_map, v_map, a.q_pos, a.kv_pos,
       static_cast<__nv_bfloat16*>(a.out), a.lse, a.batch, a.t_len, a.s_len,
       a.n_heads, a.n_kv_heads, a.positions, a.causal, a.window, a.scale_log2);
@@ -428,15 +457,15 @@ cudaError_t launch(const Args& a) {
 
 // Returns the cudaError_t of the launch (0 on success).  q_pos holds T
 // entries and kv_pos S; `positions` query positions per block, with
-// positions x (n_heads / n_kv_heads) <= 192; head_dim 16, 32, 64 or 128;
-// lse is null or fp32 (B,H,T).
+// positions x (n_heads / n_kv_heads) <= 192 (64 at head_dim 256); head_dim
+// 16, 32, 64, 128 or 256; lse is null or fp32 (B,H,T).
 extern "C" int repro_flash_attention_prefill(
     const void* q, const void* k, const void* v, const int* q_pos,
     const int* kv_pos, void* out, float* lse, int batch, int t_len, int s_len,
     int n_heads, int n_kv_heads, int head_dim, int positions, int causal,
     int window, float scale, void* stream) {
   if (n_kv_heads <= 0 || n_heads % n_kv_heads || positions <= 0 ||
-      positions * (n_heads / n_kv_heads) > kRows || positions > 256)
+      positions > 256)
     return cudaErrorInvalidValue;
   const Args a{q, k, v, q_pos, kv_pos, out, lse, batch, t_len, s_len, n_heads,
                n_kv_heads, positions, causal, window,
@@ -446,6 +475,7 @@ extern "C" int repro_flash_attention_prefill(
     case 32: return launch<32>(a);
     case 64: return launch<64>(a);
     case 128: return launch<128>(a);
+    case 256: return launch<256>(a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -17,18 +17,27 @@ kernels only through :class:`repro_torch.models.flash.FlashAttention`,
 whose forward runs with grad mode off.
 
 Which kernel runs is a fixed rule on dtype and T, made by :func:`plan`
-(pure Python, no device):
+(pure Python, no device); the block sizes also follow D, which may be 16,
+32, 64, 128 or 256:
 
 - float32: ``csrc/flash_attention.cu``, on the fp32 FMA pipe.  The fp32
   tolerance it is held to (2e-5) is out of reach of the tensor cores.
+  Blocks of 64 query positions (32 at D = 256), 16 for T <= 16.
 - bfloat16, T > 16 (prefill): ``csrc/flash_attention_prefill.cu``,
   tensor cores (wgmma) fed by TMA; one block per (batch, KV head, tile of
-  positions) holds all G = H/KV query heads of the group.
+  positions) holds all G = H/KV query heads of the group: 192 (position,
+  head) rows, 64 at D = 256, where its two consumer warpgroups split O's
+  columns over the same rows.
 - bfloat16, T <= 16 (decode): ``csrc/flash_attention_decode.cu``, the
-  keys cut in splits, one block per (batch, KV head, split), and a combine
-  pass over the splits' fp32 scratch, which is allocated here.  A call
-  that asks for the log-sum-exp takes the prefill kernel instead, whatever
-  its T: the decode kernel writes none.
+  keys cut in splits, one block per (batch, KV head, split, chunk of at
+  most 64 of the group's G x T rows, 32 at D = 256),
+  and a combine pass over the splits' fp32 scratch, which is allocated
+  here.  A call that asks for the log-sum-exp takes the prefill kernel
+  instead, whatever its T: the decode kernel writes none.
+
+At D = 256 (gemma3-1b) the blocks shrink because Q, the K/V tiles and the
+accumulators of a D <= 128 block would not fit an SM's shared memory and
+registers; each kernel's source says how.
 
 No path reads a position back to the host.  The kernels pad T and S to
 their tiles themselves, the way the reference pads them: zero rows, query
@@ -51,11 +60,14 @@ launches = 0
 #: its combine pass); set each to 0 with ``launches``.
 launches_by_path = {"fp32": 0, "prefill": 0, "decode": 0}
 
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 KEY_TILE = 64          # keys per K/V tile, in every kernel
 PREFILL_ROWS = 192     # (position, head) rows of a prefill block: 3 x 64
 DECODE_MAX_T = 16      # bf16 calls with at most this many positions decode
 DECODE_ROWS = 64       # (position, head) rows of a decode block at most
+# At D = 256: prefill rows 64, decode rows 32, fp32 blocks of 32 positions
+# (each kernel's source says why).
+D256_PREFILL_ROWS, D256_DECODE_ROWS, D256_FP32_BLOCK_Q = 64, 32, 32
 H100_SMS = 132
 
 # path: (source under csrc/, C entry point, pointer and int arguments
@@ -70,13 +82,13 @@ _fns: dict[str, object] = {}
 
 @dataclass(frozen=True)
 class Plan:
-    """How one call runs.  ``block_q``: query positions per block (fp32
-    and prefill) or the call's T (decode).  ``blocks``: thread blocks of
-    the main kernel.  Decode only: the keys go in ``splits`` splits of
-    ``tiles_per_split`` tiles of ``KEY_TILE``, the G x T rows of a KV group
-    in ``row_chunks`` chunks of at most ``DECODE_ROWS``, and ``scratch`` is
-    the fp32 (splits, B*T*H, D + 2) tensor of each (row, split)'s acc, m
-    and l."""
+    """How one call runs.  ``block_q``: query positions per block (fp32;
+    prefill: the prefill rows at this D over G) or the call's T (decode).
+    ``blocks``: thread blocks of the main kernel.  Decode only: the keys go
+    in ``splits`` splits of ``tiles_per_split`` tiles of ``KEY_TILE``, the
+    G x T rows of a KV group in ``row_chunks`` chunks of at most the
+    decode rows at this D, and ``scratch`` is the fp32 (splits, B*T*H,
+    D + 2) tensor of each (row, split)'s acc, m and l."""
     path: str
     block_q: int
     blocks: int
@@ -92,16 +104,19 @@ def plan(b: int, t: int, s: int, h: int, kvh: int, d: int, dtype,
     ``dtype`` on a card with ``sms`` SMs; ``lse``: the call also wants the
     log-sum-exp, which the decode kernel does not write."""
     g = h // kvh
+    d256 = d == 256
     if dtype == torch.float32:
-        bq = 16 if t <= 16 else 64
+        bq = 16 if t <= 16 else D256_FP32_BLOCK_Q if d256 else 64
         return Plan("fp32", bq, -(-t // bq) * b * h)
     if t > DECODE_MAX_T or lse:
-        if g > PREFILL_ROWS:
+        rows = D256_PREFILL_ROWS if d256 else PREFILL_ROWS
+        if g > rows:
             raise ValueError(f"H/KV = {g} query heads per KV head; the "
-                             f"prefill kernel holds at most {PREFILL_ROWS}")
-        positions = PREFILL_ROWS // g
+                             f"prefill kernel holds at most {rows} at head "
+                             f"dim {d}")
+        positions = rows // g
         return Plan("prefill", positions, b * kvh * -(-t // positions))
-    chunks = -(-g * t // DECODE_ROWS)
+    chunks = -(-g * t // (D256_DECODE_ROWS if d256 else DECODE_ROWS))
     tiles = -(-s // KEY_TILE)
     # Enough splits that about 4 blocks per SM are in flight, none empty.
     per_split = max(1, tiles * b * kvh * chunks // (4 * sms))

@@ -61,8 +61,20 @@ CASES = {
     "decode_window_edge": (2, 1, 1024, 6, 2, 128, [700], True, 97),
     "decode_all_masked": (2, 1, 512, 6, 2, 128, [-3], True, 0),
     "decode_bkv1": (1, 1, 2048, 4, 1, 128, [1500], True, 0),
+    # head dim 256 (gemma3-1b: H4 KV1, local layers windowed at 512): the
+    # prefill kernel's two-warpgroup instance, decode blocks of 32 rows
+    # (G x T = 48 and 128 rows: 2 and 4 chunks), the fp32 kernel's BQ 32
+    "mqa_d256": (2, 150, 150, 4, 1, 256, None, True, 0),
+    "mqa_d256_window_tail": (1, 100, 700, 4, 1, 256, "tail", True, 512),
+    "gqa3_d256_odd": (2, 131, 131, 6, 2, 256, None, True, 0),
+    "noncausal_d256": (1, 70, 190, 6, 2, 256, None, False, 0),
+    "decode_d256_window": (4, 1, 1024, 4, 1, 256, [527], True, 512),
+    "decode_t16_d256": (2, 16, 300, 6, 2, 256, "tail", True, 0),
+    "decode_gqa8_t16_d256": (1, 16, 200, 16, 2, 256, "tail", True, 0),
+    "fully_masked_rows_d256": (1, 16, 40, 4, 1, 256, [-5] * 16, True, 0),
 }
-ALL_MASKED = ("fully_masked_rows", "decode_all_masked")
+ALL_MASKED = ("fully_masked_rows", "decode_all_masked",
+              "fully_masked_rows_d256")
 
 
 @pytest.fixture
@@ -151,7 +163,9 @@ def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ["gqa3_d128_odd", "window7", "noncausal",
                                   "some_rows_masked", "fully_masked_rows",
-                                  "decode_t16", "decode_t2_d64", "decode_g1"])
+                                  "decode_t16", "decode_t2_d64", "decode_g1",
+                                  "mqa_d256_window_tail", "gqa3_d256_odd",
+                                  "decode_t16_d256"])
 def test_function_and_lse_match_plain_version(cuda, name, dtype):
     """The Function's forward on the card (the fp32 kernel, or the prefill
     kernel in bf16 whatever T is) and its lse against the plain version;
@@ -187,7 +201,8 @@ def test_function_and_lse_match_plain_version(cuda, name, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m",
+                                  "gemma3-1b"])
 def test_training_on_the_card_matches_the_cpu(cuda, arch):
     """loss_and_grads of the reduced model in fp32, card (the fp32 kernel
     through the Function) against CPU: loss rtol 1e-5, every gradient leaf
@@ -215,15 +230,21 @@ def test_training_on_the_card_matches_the_cpu(cuda, arch):
 
 # Prompt length per model: 256 is a multiple of the mLSTM chunk, so the
 # xLSTM's prefill takes the mlstm_scan kernel on the card.
-PROMPT = {"llama3.2-3b": 70, "lacin-demo": 70, "xlstm-350m": 256}
+PROMPT = {"llama3.2-3b": 70, "lacin-demo": 70, "xlstm-350m": 256,
+          "gemma3-1b": 70}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "lacin-demo", "xlstm-350m"])
-def test_model_on_the_card_matches_the_cpu(cuda, arch):
+@pytest.mark.parametrize("arch,head_dim", [
+    ("llama3.2-3b", None), ("lacin-demo", None), ("xlstm-350m", None),
+    ("gemma3-1b", None), ("gemma3-1b", 256)])
+def test_model_on_the_card_matches_the_cpu(cuda, arch, head_dim):
     """prefill + decode_step with the kernels (card) vs with the plain
-    versions (CPU), reduced config in float32: atol 1e-4."""
+    versions (CPU), reduced config in float32: atol 1e-4.  gemma3-1b also
+    at its published head dim, 256 (the fp32 kernel's D = 256 instances)."""
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
     params = init_params(0, cfg, device="cpu")
     on_card = TT.cast_params(params, cfg, cuda)
     t = PROMPT[arch]

@@ -56,9 +56,11 @@ CASES = {
                          True, 0),
     "padded_keys": (2, 20, 27, 4, 2, 16, "tail",
                     list(range(20)) + [-1] * 7, True, 0),
+    # gemma3-1b's head dim and group (H4 KV1), a window
+    "mqa_d256_window": (1, 24, 24, 4, 1, 256, None, None, True, 5),
 }
 ALL_SEEN = ["gqa3_causal", "gqa2_window5", "mha_d64",
-            "mqa_tail_noncausal_window"]
+            "mqa_tail_noncausal_window", "mqa_d256_window"]
 
 
 def _case(name):

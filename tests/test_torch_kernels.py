@@ -25,6 +25,17 @@ from repro_torch.kernels.ref import reference_attention
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The plain versions run on one thread: the suite runs several test
+    processes on the CPU at once, and torch's thread pool competing across
+    them slows them all."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # name: (b, t, s, h, kvh, d, q_pos, causal, window); q_pos None = arange(t),
 # "tail" = the last t of s positions (queries over a cache prefix).
 CASES = {
@@ -47,10 +58,15 @@ CASES = {
     "decode_window": (2, 1, 200, 6, 2, 32, [150], True, 40),
     "fully_masked_rows": (1, 16, 32, 2, 2, 32, [-5] * 16, True, 0),
     "some_rows_masked": (1, 16, 32, 6, 2, 32, list(range(-8, 8)), True, 0),
+    # head dim 256 (gemma3-1b: H4 KV1, a 512-key window on local layers)
+    "prefill_tail_d256": (1, 37, 70, 4, 1, 256, "tail", True, 0),
+    "decode_d256": (2, 1, 90, 4, 1, 256, [70], True, 0),
+    "window7_d256": (1, 70, 70, 4, 1, 256, None, True, 7),
+    "gqa4_d256": (2, 33, 33, 8, 2, 256, None, True, 0),
 }
 # Interpret mode runs the Pallas kernel body in Python: keep these few.
 PALLAS_CASES = ["gqa3_d128_odd", "gqa3_window5", "noncausal_gqa3_window",
-                "decode_gqa3_d128", "some_rows_masked"]
+                "decode_gqa3_d128", "some_rows_masked", "window7_d256"]
 
 
 def _inputs(name, dtype):
@@ -157,7 +173,17 @@ PLAN_SHAPES = [  # (b, t, s, h, kvh, d)
     (1, 1, 2048, 4, 1, 128), (1, 16, 200, 16, 2, 64),
     (3, 8, 257, 8, 2, 32), (2, 1, 40, 6, 2, 64), (1, 90, 90, 16, 2, 64),
     (2, 150, 150, 4, 4, 16), (1, 1, 100_000, 32, 8, 128),
+    # head dim 256: gemma3-1b's prefill, decode step and training shape;
+    # decode rows of a group over 1, 2 and 4 chunks; G = 64 in prefill
+    (4, 512, 512, 4, 1, 256), (4, 1, 1024, 4, 1, 256),
+    (2, 1024, 1024, 4, 1, 256), (2, 16, 300, 6, 2, 256),
+    (1, 16, 200, 16, 2, 256), (2, 8, 257, 8, 2, 256), (1, 40, 70, 64, 1, 256),
 ]
+# (position, head) rows of a prefill block and of a decode block at most,
+# by head dim; fp32 query positions of a prefill block, by head dim.
+PREFILL_ROWS = {16: 192, 32: 192, 64: 192, 128: 192, 256: 64}
+DECODE_ROWS = {16: 64, 32: 64, 64: 64, 128: 64, 256: 32}
+FP32_BLOCK_Q = {16: 64, 32: 64, 64: 64, 128: 64, 256: 32}
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
@@ -165,7 +191,7 @@ def test_plan_fp32_always_takes_the_fma_kernel(shape):
     b, t, s, h, kvh, d = shape
     p = fa.plan(b, t, s, h, kvh, d, torch.float32)
     assert p.path == "fp32" and p.scratch == ()
-    assert p.block_q == (16 if t <= 16 else 64)
+    assert p.block_q == (16 if t <= 16 else FP32_BLOCK_Q[d])
     assert p.blocks == -(-t // p.block_q) * b * h
 
 
@@ -177,8 +203,8 @@ def test_plan_bf16_decodes_up_to_t16_and_prefills_above(shape):
     if p.path == "prefill":
         # one block holds every query head of its KV group
         g = h // kvh
-        assert p.block_q * g <= fa.PREFILL_ROWS and p.block_q >= 1
-        assert p.block_q == fa.PREFILL_ROWS // g
+        assert p.block_q * g <= PREFILL_ROWS[d] and p.block_q >= 1
+        assert p.block_q == PREFILL_ROWS[d] // g
         assert p.blocks == b * kvh * -(-t // p.block_q)
 
 
@@ -206,14 +232,64 @@ def test_plan_scratch_covers_every_row_and_split(shape):
     assert p.splits * p.tiles_per_split >= tiles
     # the row chunks cover the G x T rows of a KV group
     g = h // kvh
-    assert (p.row_chunks - 1) * fa.DECODE_ROWS < g * t
-    assert p.row_chunks * fa.DECODE_ROWS >= g * t
+    assert (p.row_chunks - 1) * DECODE_ROWS[d] < g * t
+    assert p.row_chunks * DECODE_ROWS[d] >= g * t
     assert p.blocks == b * kvh * p.splits * p.row_chunks
 
 
 def test_plan_refuses_a_group_larger_than_a_prefill_block():
     with pytest.raises(ValueError, match="prefill"):
         fa.plan(1, 64, 64, 2 * fa.PREFILL_ROWS, 1, 64, torch.bfloat16)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 16, 33, 64])
+def test_plan_prefill_rows_at_d256(g):
+    """At head dim 256 a prefill block holds 64 (position, head) rows, not
+    192: positions x G <= 64, as many positions as fit."""
+    for lse in (False, True):
+        p = fa.plan(2, 300, 300, 2 * g, 2, 256, torch.bfloat16, lse=lse)
+        assert p.path == "prefill" and p.block_q == 64 // g
+        assert p.block_q * g <= 64 < (p.block_q + 1) * g
+        assert p.blocks == 2 * 2 * -(-300 // p.block_q)
+
+
+def test_plan_refuses_a_group_above_64_at_d256():
+    """G = 65 fits a block at head dim 128 (192 rows) but not at 256."""
+    assert fa.plan(1, 64, 64, 65, 1, 128, torch.bfloat16).path == "prefill"
+    with pytest.raises(ValueError, match="prefill.*256"):
+        fa.plan(1, 64, 64, 65, 1, 256, torch.bfloat16)
+    with pytest.raises(ValueError, match="prefill"):
+        fa.plan(1, 1, 64, 65, 1, 256, torch.bfloat16, lse=True)
+
+
+@pytest.mark.parametrize("g,t,chunks", [(4, 1, 1), (32, 1, 1), (33, 1, 2),
+                                        (3, 16, 2), (8, 16, 4), (4, 8, 1),
+                                        (16, 16, 8)])
+def test_plan_decode_row_chunks_at_d256(g, t, chunks):
+    """At head dim 256 a decode block holds at most 32 of the G x T rows
+    of a KV group (64 below): the chunks cover every row, each full but
+    the last, and every chunk of every split is a block."""
+    b, s, kvh = 2, 700, 2
+    p = fa.plan(b, t, s, g * kvh, kvh, 256, torch.bfloat16)
+    assert p.path == "decode" and p.row_chunks == chunks
+    assert (chunks - 1) * 32 < g * t <= chunks * 32
+    assert p.blocks == b * kvh * p.splits * chunks
+    assert p.scratch == (p.splits, b * t * g * kvh, 258)
+    at_128 = fa.plan(b, t, s, g * kvh, kvh, 128, torch.bfloat16)
+    assert at_128.row_chunks == -(-g * t // 64)
+
+
+@pytest.mark.parametrize("t,bq", [(1, 16), (16, 16), (17, 32), (512, 32),
+                                  (1024, 32)])
+def test_plan_fp32_block_q_at_d256(t, bq):
+    """fp32 blocks at head dim 256 hold 32 query positions (16 for T <=
+    16), where D <= 128 holds 64: the kernel's instances are <16, 256>
+    and <32, 256>."""
+    p = fa.plan(2, t, 1024, 4, 1, 256, torch.float32)
+    assert p.path == "fp32" and p.block_q == bq
+    assert p.blocks == -(-t // bq) * 2 * 4
+    assert fa.plan(2, t, 1024, 4, 1, 128, torch.float32).block_q == (
+        16 if t <= 16 else 64)
 
 
 # The mLSTM scan's plan: which kernel and grid a call gets, and the scratch
@@ -284,7 +360,7 @@ def test_plan_never_sends_a_call_that_needs_lse_to_decode(shape):
     b, t, s, h, kvh, d = shape
     p = fa.plan(b, t, s, h, kvh, d, torch.bfloat16, lse=True)
     g = h // kvh
-    assert p.path == "prefill" and p.block_q == fa.PREFILL_ROWS // g
+    assert p.path == "prefill" and p.block_q == PREFILL_ROWS[d] // g
     assert fa.plan(b, t, s, h, kvh, d, torch.float32, lse=True) == \
         fa.plan(b, t, s, h, kvh, d, torch.float32)
 

@@ -33,12 +33,23 @@ from repro_torch.models import get_config, params_from_numpy
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 
-ARCHS = ["llama3.2-3b", "lacin-demo", "xlstm-350m"]
+ARCHS = ["llama3.2-3b", "lacin-demo", "xlstm-350m", "gemma3-1b"]
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": dict(rtol=0, atol=1e-5), "bfloat16": dict(rtol=0, atol=2e-2)}
 CACHE_TOL = dict(TOL, bfloat16=dict(rtol=0, atol=6.25e-2))
 STATE_TOL = 1e-5
 STATE_REL_L2 = 5e-2
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small models run on one thread: the suite runs several test
+    processes on the CPU at once, and torch's thread pool competing across
+    them made these tests many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _f32(a):
@@ -53,14 +64,14 @@ def _pair(x, dtype):
     return jnp.asarray(t.float().numpy(), dtype), t
 
 
-def _configs(arch, dtype):
-    j = dataclasses.replace(jax_get_config(arch).reduced(), dtype=dtype)
-    t = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+def _configs(arch, dtype, **kw):
+    j = dataclasses.replace(jax_get_config(arch).reduced(), dtype=dtype, **kw)
+    t = dataclasses.replace(get_config(arch).reduced(), dtype=dtype, **kw)
     return j, t
 
 
-def _models(arch, dtype):
-    cj, ct = _configs(arch, dtype)
+def _models(arch, dtype, **kw):
+    cj, ct = _configs(arch, dtype, **kw)
     pj = JT.init_params(jax.random.PRNGKey(0), cj)
     pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), ct,
                            device="cpu")
@@ -185,8 +196,8 @@ def _assert_caches_match(port_caches, ref_caches, cfg, dtype):
                 assert rel <= STATE_REL_L2, (n, rel)
 
 
-def _check_prefill_and_decode(arch, dtype, t, seq_len):
-    cj, ct, pj, pt = _models(arch, dtype)
+def _check_prefill_and_decode(arch, dtype, t, seq_len, **kw):
+    cj, ct, pj, pt = _models(arch, dtype, **kw)
     pt = TT.cast_params(pt, ct)
     tokens = np.random.default_rng(9).integers(0, cj.vocab_size, (2, t))
     lj, cache_j = JT.prefill(pj, {"tokens": jnp.asarray(tokens, jnp.int32)},
@@ -224,6 +235,15 @@ def test_chunkwise_prefill_and_decode_match_reference(dtype):
     the chunkwise path (ops.mlstm_scan) on both sides, then two decode
     steps continue from its state."""
     _check_prefill_and_decode("xlstm-350m", dtype, t=256, seq_len=264)
+
+
+def test_head_dim_256_prefill_and_decode_match_reference():
+    """The reduced gemma3-1b at its published head dim, 256 (the reduced
+    config's is 16): the D = 256 path of the attention kernels' plain
+    version, with the local layers' window (8 reduced) passed by the
+    decode steps at T = 11."""
+    _check_prefill_and_decode("gemma3-1b", "float32", t=11, seq_len=24,
+                              head_dim=256)
 
 
 def test_decode_past_the_cache_raises():

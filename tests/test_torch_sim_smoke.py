@@ -191,12 +191,12 @@ def test_moe_phase_sizes_are_the_serve_runs(chip_smoke):
 
 def test_train_phase_rehearses_on_the_cpu(chip_smoke):
     """The train phase at a tiny size on the CPU (plain versions in place
-    of the kernels): every hazard case passes, the reduced models' card
-    check runs CPU against CPU, the reduced llama trains its steps with
-    one backward call per layer a step, and the step's bound counts the
-    products and AdamW's bytes.  On one torch thread: beside the suite's
-    other test processes, torch's thread pool made it many times
-    slower."""
+    of the kernels): every hazard case passes (head dim 256 among them),
+    the reduced models' card check runs CPU against CPU, the reduced llama
+    and gemma3-1b train their steps with one backward call per layer a
+    step, and each timed shape has its bounds.  On one torch thread:
+    beside the suite's other test processes, torch's thread pool made it
+    many times slower."""
     import torch
     tiny = chip_smoke.TRAIN_TINY
     threads = torch.get_num_threads()
@@ -206,20 +206,27 @@ def test_train_phase_rehearses_on_the_cpu(chip_smoke):
     finally:
         torch.set_num_threads(threads)
     steps, layers = tiny["steps"], 4
-    assert launches["flash_attention_backward"] == steps * layers
-    assert timing["fwd_bound_ms"] > 0 and timing["bwd_bound_ms"] > 0
+    assert set(launches) == {"llama3.2-3b", "gemma3-1b"}
+    for arch in launches:
+        assert launches[arch]["flash_attention_backward"] == steps * layers
+    assert set(timing) == set(tiny["timing_cases"])
+    for t in timing.values():
+        assert t["fwd_bound_ms"] > 0 and t["bwd_bound_ms"] > 0
 
 
 def test_train_phase_sizes_are_the_training_shape(chip_smoke):
-    """The full phase: llama3.2-3b at full width and depth, B2 T1024, 4
-    steps; its bound is about 8 x params x tokens FLOP plus 28
-    bytes a parameter, about 80 ms on the H100."""
+    """The full phase: llama3.2-3b, then gemma3-1b, at full width and
+    depth, B2 T1024, 4 steps, attention timed at each one's training
+    shape; llama's bound is about 8 x params x tokens FLOP plus 28 bytes
+    a parameter, about 80 ms on the H100."""
     from repro_torch.models import get_config
     full = chip_smoke.TRAIN_FULL
-    assert (full["model"], full["model_reduced"], full["batch"],
-            full["seq"], full["steps"]) == ("llama3.2-3b", False, 2, 1024, 4)
-    assert chip_smoke.TRAIN_HAZARDS[full["timing_case"]][:6] == (
-        2, 1024, 1024, 24, 8, 128)
+    assert (full["models"], full["model_reduced"], full["batch"],
+            full["seq"], full["steps"]) == (("llama3.2-3b", "gemma3-1b"),
+                                             False, 2, 1024, 4)
+    assert [chip_smoke.TRAIN_HAZARDS[case][:6]
+            for case in full["timing_cases"]] == [
+        (2, 1024, 1024, 24, 8, 128), (2, 1024, 1024, 4, 1, 256)]
     cfg = get_config("llama3.2-3b")
     n = 3_212_749_824
     flops, nbytes = chip_smoke.train_step_work(cfg, 2, 1024, n)
@@ -228,3 +235,34 @@ def test_train_phase_sizes_are_the_training_shape(chip_smoke):
     ms = (flops / chip_smoke.PEAK_FLOPS[chip_smoke.torch.bfloat16]
           + nbytes / chip_smoke.HBM_BYTES_PER_S) * 1e3
     assert 75 < ms < 85
+
+
+def test_train_step_work_counts_each_layers_window(chip_smoke):
+    """The bound's attention counts each layer's visible (query, key)
+    pairs: gemma3-1b's 22 local layers see at most 512 keys at T1024, its
+    4 global layers every earlier key; a model without windows (llama)
+    counts every layer fully causal, as before.  Pairs counted here from
+    the masks themselves."""
+    import numpy as np
+    from repro_torch.models import get_config
+    t = 1024
+    q = np.arange(t)[:, None]
+    k = np.arange(t)[None, :]
+    causal = int((k <= q).sum())
+    local = int(((k <= q) & (q - k < 512)).sum())
+    assert chip_smoke.visible_pairs(t, 0) == causal
+    assert chip_smoke.visible_pairs(t, 512) == local
+    assert chip_smoke.visible_pairs(t, 4096) == causal
+    for arch, pairs in (("gemma3-1b", 22 * local + 4 * causal),
+                        ("llama3.2-3b", 28 * causal)):
+        cfg = get_config(arch)
+        flops, _ = chip_smoke.train_step_work(cfg, 2, t, 1)
+        no_attn, _ = chip_smoke.train_step_work(
+            chip_smoke.dataclasses.replace(cfg, num_heads=0), 2, t, 1)
+        # attention: 4 B H dh a pair, forward, remat recompute and 2.5x
+        # in the backward; the rest of the work does not depend on H
+        # except through the q and o projections
+        attn = 4 * 2 * cfg.num_heads * cfg.head_dim * pairs * 4.5
+        proj = 8 * cfg.num_layers * 2 * cfg.num_heads * cfg.head_dim * \
+            cfg.d_model * 2 * t
+        assert flops - no_attn == attn + proj

@@ -100,7 +100,8 @@ def _reference_forward_train(arch):
 
 @pytest.mark.parametrize("arch,remat", [
     ("llama3.2-3b", "none"), ("llama3.2-3b", "full"), ("llama3.2-3b", "dots"),
-    ("granite-moe-3b-a800m", "full"), ("granite-moe-3b-a800m", "dots")])
+    ("granite-moe-3b-a800m", "full"), ("granite-moe-3b-a800m", "dots"),
+    ("gemma3-1b", "full")])
 def test_forward_train_matches_reference(arch, remat):
     """Loss, metrics and every gradient against jax.value_and_grad of
     repro.models.transformer.forward_train, under each remat policy."""
