@@ -57,6 +57,22 @@ Phases, one JSON line each:
    prefill launches and one backward call a layer a step (llama 56 and
    28, gemma 52 and 26), step ms, tokens/s, peak memory and the idle share
    of a profiled step beside the step's bound;
+   then ``"phase": "extract"``: the collectives of a training step,
+   recorded as the step posts them (repro_torch.workload.extract) in one
+   process as rank 0 of an 8-rank recording group (torch's "fake"
+   backend: every call posted, no data moved, outputs not results),
+   lowered into a phased workload and replayed on CIN-xor-8 on the card, on
+   the CPU and on the numpy oracle, all equal and at least the bound:
+   granite-moe-3b-a800m's MoE layer forward (B4 T512 a rank, 6 of 48
+   experts a rank: 14 permutes of 9,437,184 B, 2,016 cycles at 64 KiB a
+   packet) and llama3.2-3b's manual-DP train step (B8 T1024, B1 a rank:
+   2(N-1) permutes a leaf and one all-reduce of 4 B, at 1 MiB a packet; its
+   56 prefill launches, counts set to 0 just before it); ``python -m
+   repro_torch.workload extract`` and ``replay --backend both`` for the
+   reference's three steps as processes of their own (moe 14 phases, 896
+   packets, 112 cycles; dp 182, 3,360, 420; pipeline 11, 84, 26); and the
+   llama serve run's ``arrival_trace()`` as serving traffic on CIN-16,
+   swept card against CPU;
 7. sim     -- the simulator's main path (repro_torch.sim), which runs no
    hand-written kernel: ``sim_speed`` (CIN xor 16, 3 loads x 8 seeds x
    1600 cycles in one sweep) and ``xl_scale`` (a 1040-switch Dragonfly,
@@ -146,6 +162,7 @@ from repro_torch.core.simulate import cin_link_loads  # noqa: E402
 from repro_torch.sim import xengine as XE  # noqa: E402
 from repro_torch import studies as ST  # noqa: E402
 from repro_torch import workload as W  # noqa: E402
+from repro_torch.workload import extract as XT  # noqa: E402
 from repro_torch.obs import telemetry  # noqa: E402
 from repro_torch.optim import OptConfig, adamw_update  # noqa: E402
 from repro_torch.runtime import trainer as TR  # noqa: E402
@@ -873,7 +890,7 @@ def phase_serve(arch):
                   prefill_ms, calls=2)
     phase_profile(arch, "decode step", lambda: TT.decode_step(
         eng.params, nxt, caches, DECODE_POS, cfg, MAX_SEQ), step_ms, calls=5)
-    return launches
+    return launches, eng.arrival_trace(done)
 
 
 def _leaves(tree):
@@ -1554,6 +1571,270 @@ def phase_train(device="cuda", sizes=TRAIN_FULL):
         launches[arch] = full["launches"]
     emit("train_phase", device=device, seconds=time.perf_counter() - t0)
     return launches, timing
+
+
+# ---------------------------------------------------------------------------
+# Extraction (repro_torch.workload.extract): a training step's collectives,
+# recorded as the step posts them, lowered into a phased Workload and
+# replayed on the card, on the CPU and on the numpy oracle.  One card hosts
+# one NCCL rank, so the full-width steps run as rank 0 of an 8-rank
+# recording group (torch's "fake" backend): every call is posted with its
+# real shape and order, no data moves, and the step's outputs are not
+# results.
+# ---------------------------------------------------------------------------
+
+#: granite's MoE layer at published width (B4 T512 a rank, 48 stored
+#: experts over 8 EP ranks: 6 a rank, capacity 512) and llama3.2-3b's
+#: manual-DP step at published width and depth (B8 T1024, B1 a rank);
+#: ``cli`` are the reference-size extractions as processes of their own:
+#: (step, devices, phases, packets, ideal = completion cycles).  The
+#: pipeline's 84 packets and 26 cycles are the port's bf16 shift; the
+#: reference's CPU HLO widens it to f32, 144 and 46
+#: (tests/test_torch_extract.py).
+EXTRACT_FULL = {
+    "moe": {"arch": "granite-moe-3b-a800m", "reduced": False, "devices": 8,
+            "batch": 4, "seq": 512, "bytes_per_packet": 65536, "iters": 10},
+    "dp": {"arch": "llama3.2-3b", "reduced": False, "devices": 8,
+           "batch": 8, "seq": 1024, "bytes_per_packet": 1048576},
+    "cli": (("moe", 8, 14, 896, 112), ("dp", 8, 182, 3360, 420),
+            ("pipeline", 4, 11, 84, 26)),
+    "serving": {"n": 16, "cycles": 64, "packets_per_request": 4,
+                "slo": 40.0}}
+#: The same phase at a size the CPU runs in seconds.
+EXTRACT_TINY = dict(
+    EXTRACT_FULL,
+    moe=dict(EXTRACT_FULL["moe"], reduced=True, seq=16, bytes_per_packet=256,
+             iters=1),
+    dp=dict(EXTRACT_FULL["dp"], reduced=True, seq=32, bytes_per_packet=256))
+
+
+def replay_three(w, n, device):
+    """``w`` replayed on CIN-xor-``n`` on the card, the CPU and the numpy
+    oracle: completion and every phase's cycles equal, completion at
+    least the bound; the cycles and each replay's wall seconds."""
+    topo = S.cin_topology("xor", n)
+    runs, wall = {}, {}
+    for name, kw in (("card", dict(backend="torch", device=device)),
+                     ("cpu", dict(backend="torch", device="cpu")),
+                     ("oracle", dict(backend="numpy"))):
+        t0 = time.perf_counter()
+        runs[name] = S.replay(topo, "minimal", w, **kw)
+        wall[name] = time.perf_counter() - t0
+    a = runs["oracle"]
+    for name, st in runs.items():
+        if (st.completion_cycles != a.completion_cycles
+                or list(st.phase_cycles) != list(a.phase_cycles)):
+            raise AssertionError(f"{w.name}: the {name} replay differs from "
+                                 f"the oracle's ({st.completion_cycles} vs "
+                                 f"{a.completion_cycles} cycles)")
+    if not a.completion_cycles >= a.ideal_cycles == w.ideal_cycles:
+        raise AssertionError(f"{w.name}: completion {a.completion_cycles} "
+                             f"below the bound {a.ideal_cycles}")
+    return {"phases": w.num_phases, "packets": w.num_packets,
+            "ideal_cycles": a.ideal_cycles,
+            "completion_cycles": a.completion_cycles,
+            "replay_wall_s": wall}
+
+
+def lower(ops, n, bpp, name):
+    t0 = time.perf_counter()
+    w = XT.workload_from_ops(ops, ("xor", n), bytes_per_packet=bpp,
+                             name=name)
+    return w, time.perf_counter() - t0
+
+
+def extract_moe(device, sizes):
+    """granite's MoE layer forward as rank 0 of the EP group: 2(N-1)
+    permutes of one rank's dispatch bucket (e_loc x capacity x d_model)."""
+    cfg = get_config(sizes["arch"])
+    if sizes["reduced"]:
+        cfg = cfg.reduced()
+    n, b, t = sizes["devices"], sizes["batch"], sizes["seq"]
+    e_loc = TM.expert_store_count(cfg) // n
+    cap = TM._capacity(b * t, cfg)
+    chunk = e_loc * cap * cfg.d_model * getattr(torch, cfg.dtype).itemsize
+    with XT.recording_group(n):
+        run = XT.moe_step(n, cfg=cfg, batch=b, seq=t, device=device)
+        t0 = time.perf_counter()
+        ops = XT.record(run)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        record_s = time.perf_counter() - t0
+        layer_ms = wall_ms(run, sizes["iters"], device)
+    want = [("collective-permute", chunk, n)] * (2 * (n - 1))
+    if [(o.kind, o.raw_bytes, o.group_size) for o in ops] != want:
+        raise AssertionError(f"moe: recorded {ops[:3]}..., not "
+                             f"{2 * (n - 1)} permutes of {chunk} B")
+    w, lower_s = lower(ops, n, sizes["bytes_per_packet"], f"{cfg.name}-moe")
+    ideal = 2 * (n - 1) * math.ceil(chunk / sizes["bytes_per_packet"])
+    out = replay_three(w, n, device)
+    if out["ideal_cycles"] != ideal:
+        raise AssertionError(f"moe: ideal {out['ideal_cycles']}, not {ideal}")
+    return dict(model=cfg.name, d_model=cfg.d_model, experts=cfg.num_experts,
+                experts_stored=TM.expert_store_count(cfg), experts_a_rank=e_loc,
+                top_k=cfg.top_k, capacity=cap, dtype=cfg.dtype,
+                tokens_a_rank=b * t, ops=len(ops), permute_bytes=chunk,
+                bytes_per_packet=sizes["bytes_per_packet"],
+                messages_a_pair=math.ceil(chunk / sizes["bytes_per_packet"]),
+                record_host_s=record_s, layer_ms=layer_ms, lower_s=lower_s,
+                **out)
+
+
+def extract_dp(device, sizes):
+    """llama3.2-3b's manual-DP train step as rank 0 of the DP group: the
+    LACIN gradient all-reduce, 2(N-1) permutes a leaf, and the loss's one
+    library all-reduce; the step's kernel launches (counts set to 0 just
+    before it)."""
+    cfg = get_config(sizes["arch"])
+    if sizes["reduced"]:
+        cfg = dataclasses.replace(cfg.reduced(), remat="full")
+    n = sizes["devices"]
+    data = host_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=sizes["seq"],
+                                 global_batch=sizes["batch"]), 0)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with XT.recording_group(n):
+        run = XT.dp_step(n, cfg=cfg, data=data, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        reset_launches()
+        MF.backward_calls = 0
+        t0 = time.perf_counter()
+        ops = XT.record(run)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernel_launches(),
+                        flash_attention_backward=MF.backward_calls)
+        del run
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device == "cuda" else None)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    attn_layers = cfg.block_pattern.count("attn")
+    if device == "cuda" and (launches["flash_attention_prefill"]
+                             != 2 * attn_layers
+                             or launches["flash_attention_decode"]
+                             or launches["flash_attention_fp32"]):
+        raise AssertionError(f"dp step: launches {launches}; want "
+                             f"{2 * attn_layers} prefill, no other")
+    reduces = [o for o in ops if o.kind != "collective-permute"]
+    permutes = [o for o in ops if o.kind == "collective-permute"]
+    if ([(o.kind, o.raw_bytes, o.group_size) for o in reduces]
+            != [("all-reduce", 4, n)] or not permutes
+            or len(permutes) % (2 * (n - 1))
+            or any(len(o.pairs) != n or o.group_size != n
+                   for o in permutes)):
+        raise AssertionError(f"dp step: recorded {len(permutes)} permutes "
+                             f"and {reduces}")
+    w, lower_s = lower(ops, n, sizes["bytes_per_packet"], f"{cfg.name}-dp")
+    out = replay_three(w, n, device)
+    reduced_params = (sum(o.raw_bytes for o in permutes) * n
+                      // (2 * (n - 1) * 4))
+    return launches, dict(
+        model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        batch=sizes["batch"], batch_a_rank=sizes["batch"] // n,
+        seq=sizes["seq"], remat=cfg.remat, dtype=cfg.dtype,
+        param_dtype=cfg.param_dtype, ops=len(ops),
+        permutes=len(permutes), leaves=len(permutes) // (2 * (n - 1)),
+        parameters_reduced_with_padding=reduced_params,
+        loss_all_reduce_bytes=reduces[0].raw_bytes,
+        bytes_per_packet=sizes["bytes_per_packet"], launches=launches,
+        step_ms_not_a_result=step_ms, peak_memory_gb=peak_gb,
+        lower_s=lower_s, **out)
+
+
+def extract_arrivals(device, trace, cfg):
+    """The serving engine's arrival trace as serving traffic on CIN-xor-n,
+    swept drained on the card and on the CPU, record for record."""
+    n = cfg["n"]
+    topo = S.cin_topology("xor", n)
+
+    def tf(load, seed):
+        return W.serving_traffic(trace, n, cycles=cfg["cycles"], load=load,
+                                 packets_per_request=cfg[
+                                     "packets_per_request"],
+                                 slo=cfg["slo"], seed=seed)
+    grids, wall = {}, {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        grids[dev] = S.sweep(topo, "minimal", tf, [1.0], seeds=(0,),
+                             cycles=cfg["cycles"], warmup=0, drain=True,
+                             device=dev)
+        wall[dev] = time.perf_counter() - t0
+    check_same_grid("arrival trace sweep against the CPU", grids[device],
+                    grids["cpu"])
+    st = grids[device][0][0]
+    if st.request_count != len(trace.times):
+        raise AssertionError(f"the trace's {len(trace.times)} requests gave "
+                             f"{st.request_count}")
+    return dict(times=list(trace.times), switches=n, cycles=cfg["cycles"],
+                packets=int(st.packets_generated),
+                **{f: getattr(st, f) for f in SERVING_FIELDS},
+                wall_s=wall[device], cpu_wall_s=wall["cpu"])
+
+
+def phase_extract(device="cuda", sizes=EXTRACT_FULL, trace=None, card=None):
+    """The extraction path: the reference-size steps through ``python -m
+    repro_torch.workload extract`` and ``replay --backend both`` as
+    processes of their own (started first, waited for last), granite's
+    MoE layer and llama3.2-3b's DP step at full width as rank 0 of the
+    recording group, each lowered and replayed card = CPU = oracle, and
+    ``trace`` (the serving engine's arrivals) swept card against CPU.
+    ``card`` (nvidia-smi's name and power limit) stands in every line.
+    Returns the DP step's kernel launches."""
+    t0 = time.perf_counter()
+    flags = [] if device == "cuda" else ["--device", "cpu"]
+    tmp = tempfile.mkdtemp(prefix="extract-")
+    paths = {step: os.path.join(tmp, f"{step}{n}.json")
+             for step, n, *_ in sizes["cli"]}
+    started = [cli_start("repro_torch.workload", "extract", "--step", step,
+                         "--devices", str(n), "--bytes-per-packet", "256",
+                         "-o", paths[step], *flags)
+               for step, n, *_ in sizes["cli"]]
+    moe = extract_moe(device, sizes["moe"])
+    emit("extract", what="moe layer forward", device=device, card=card,
+         recording_group="fake", **moe)
+    cli = {}
+    for (step, n, phases, packets, ideal), st in zip(sizes["cli"], started):
+        done, seconds = cli_wait(st)
+        want = (f"wrote {paths[step]}: workload 'cin-xor-{n}-ops', {n} "
+                f"switches, {phases} phases, {packets} packets")
+        if done.stdout.strip().splitlines()[-1] != want:
+            raise AssertionError(f"extract {step}: {done.stdout!r}, not "
+                                 f"{want!r}")
+        cli[step] = {"devices": n, "phases": phases, "packets": packets,
+                     "extract_wall_s": seconds}
+    started = [cli_start("repro_torch.workload", "replay", paths[step],
+                         "--backend", "both", *flags)
+               for step, *_ in sizes["cli"]]
+    launches, dp = extract_dp(device, sizes["dp"])
+    emit("extract", what="manual-DP train step", device=device, card=card,
+         recording_group="fake", **dp)
+    for (step, n, phases, packets, ideal), st in zip(sizes["cli"], started):
+        done, seconds = cli_wait(st)
+        want = [f"numpy: completion={ideal} ideal={ideal} ratio=1.000",
+                f"torch: completion={ideal} ideal={ideal} ratio=1.000",
+                "cross-engine replay agrees exactly"]
+        if done.stdout.strip().splitlines() != want:
+            raise AssertionError(f"replay {step}: {done.stdout!r}")
+        cli[step].update(ideal_cycles=ideal, completion_cycles=ideal,
+                         replay_wall_s=seconds)
+    emit("extract", what="reference-size steps (CLI)", device=device,
+         card=card, recording_group="fake", bytes_per_packet=256, steps=cli)
+    if trace is not None:
+        emit("extract", what="serving arrival trace", device=device,
+             card=card, **extract_arrivals(device, trace, sizes["serving"]))
+    for path in paths.values():
+        os.remove(path)
+    os.rmdir(tmp)
+    emit("extract_phase", device=device, card=card,
+         seconds=time.perf_counter() - t0)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2906,12 +3187,13 @@ def main():
     scan = time_mlstm(torch.bfloat16)
     scan32 = time_mlstm(torch.float32)
     small = phase_small_model()
-    llama = phase_serve("llama3.2-3b")
-    xlstm = phase_serve("xlstm-350m")
-    granite = phase_serve("granite-moe-3b-a800m")
-    gemma = phase_serve("gemma3-1b")
+    llama, llama_trace = phase_serve("llama3.2-3b")
+    xlstm, _ = phase_serve("xlstm-350m")
+    granite, _ = phase_serve("granite-moe-3b-a800m")
+    gemma, _ = phase_serve("gemma3-1b")
     phase_moe()
     train, train_attn = phase_train()
+    extract_dp_launches = phase_extract(trace=llama_trace, card=smi)
     phase_sim()
     phase_studies()
     phase_faults()
@@ -2937,7 +3219,8 @@ def main():
     serve_runs = {"llama3.2-3b": llama, "xlstm-350m": xlstm,
                   "granite-moe-3b-a800m": granite, "gemma3-1b": gemma}
     prefill_runs = dict(serve_runs, **{f"train {arch}": run
-                                       for arch, run in train.items()})
+                                       for arch, run in train.items()},
+                        **{"extract dp llama3.2-3b": extract_dp_launches})
     fp32_runs = {"reduced models in fp32": small}
     attn = "src/repro/kernels/flash_attention.py:39"
     scan_keys = ("state_max_abs_err", "library_note", "ms_eager",

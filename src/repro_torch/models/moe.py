@@ -25,8 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.nn.functional import all_reduce as _all_reduce
-
+from repro_torch.core.collectives import library_all_reduce
 from repro_torch.fabric import LacinCollectives
 from .layers import AxisRules, dense_init
 
@@ -246,6 +245,6 @@ def apply_moe(p: dict, x, cfg, rules: AxisRules = AxisRules(), *,
     for axis in rules.dp:
         n = rules.axis_size(axis)
         group = rules.mesh.get_group(axis)
-        aux = _all_reduce(aux, group=group) / n
-        z = _all_reduce(z, group=group) / n
+        aux = library_all_reduce(aux, group) / n
+        z = library_all_reduce(z, group) / n
     return y2.reshape(b, t, d), {"moe_aux": aux, "moe_z": z}

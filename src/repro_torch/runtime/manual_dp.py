@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import library_all_reduce
 from repro_torch.fabric import LacinCollectives
 from repro_torch.models import ModelConfig
 from repro_torch.models.layers import AxisRules
@@ -92,7 +93,8 @@ def make_manual_dp_train_step(cfg: ModelConfig, mesh, opt: OptConfig,
         loss, _, grads = loss_and_grads(params, rows, cfg, inner_rules)
         grads = lacin_grad_allreduce(grads, axis_name, coll,
                                      compress=compress)
-        loss = coll.all_reduce(loss.reshape(1), axis_name)[0] / n
+        # the reference's lax.pmean: the library's all-reduce, not a chain
+        loss = library_all_reduce(loss, coll.group(axis_name)) / n
         params, new_opt, om = adamw_update(params, grads, state["opt"], opt)
         new_state = {"params": params, "opt": new_opt,
                      "step": state["step"] + 1}

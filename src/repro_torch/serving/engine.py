@@ -30,6 +30,7 @@ class Request:
     temperature: float = 0.0
     out_tokens: list = field(default_factory=list)
     done: bool = False
+    arrived: int | None = None         # decode step at submit time
 
 
 class ServingEngine:
@@ -50,13 +51,39 @@ class ServingEngine:
         self.active: list[Request | None] = [None] * slots
         self.queue: list[Request] = []
         self.rng = np.random.default_rng(seed)
+        self.steps_total = 0              # decode steps across all runs
         self._last_tok = torch.zeros((slots, 1), dtype=torch.int64,
                                      device=self.device)
 
     # -- request management ---------------------------------------------------
-    def submit(self, req: Request):
-        """Queue a request."""
+    def submit(self, req: Request, *, at: int | None = None):
+        """Queue a request.  ``at`` overrides the recorded arrival step
+        (defaults to the engine's decode-step clock) so replayed logs
+        keep their original timestamps."""
+        req.arrived = self.steps_total if at is None else int(at)
         self.queue.append(req)
+
+    def arrival_trace(self, requests=None):
+        """The submitted requests' arrival times as a replayable
+        ``kind="trace"`` :class:`repro_torch.workload.ArrivalSpec` — feed
+        it to :func:`repro_torch.workload.serving_traffic` (or a
+        ``"serving"`` study spec) to drive a fabric simulation with this
+        engine's real admission timing.  Sources are left empty: the
+        fabric draws them uniformly at replay, since engine slots are not
+        switch ids.
+
+        ``requests`` defaults to everything queued or active now; pass
+        the list :meth:`run` returned to trace a completed batch.
+        """
+        from repro_torch.workload import ArrivalSpec
+        if requests is None:
+            requests = [r for r in self.active if r is not None] + self.queue
+        times = tuple(int(r.arrived) for r in requests
+                      if r.arrived is not None)
+        if not times:
+            raise ValueError("no requests with recorded arrival steps; "
+                             "submit() some first")
+        return ArrivalSpec(kind="trace", times=times)
 
     def _admit(self):
         """Lockstep admission: fill empty slots at a batch boundary."""
@@ -108,6 +135,7 @@ class ServingEngine:
             self.params, self._last_tok, self.caches, self.pos, self.cfg,
             self.max_seq, rules=self.rules)
         self.pos += 1
+        self.steps_total += 1
         tok = self._sample(logits[:, 0])
         self._last_tok = torch.from_numpy(tok).to(self.device)
         for i, r in enumerate(self.active):
@@ -125,8 +153,10 @@ class ServingEngine:
         As in the reference, requests queued beyond the slots are admitted
         only by a later run: a prefill mid-run would desynchronise the
         shared position.  The reference goes on stepping empty slots until
-        ``max_steps``, which changes nothing it returns; the loop here stops
-        once every slot is empty.
+        ``max_steps`` while requests wait in the queue, which changes
+        nothing it returns; the loop here stops once every slot is empty,
+        and advances :attr:`steps_total`, the arrival clock, by the steps
+        the reference would have taken.
         """
         self._admit()
         self._prefill_all()
@@ -135,4 +165,6 @@ class ServingEngine:
         while any(r is not None for r in self.active) and steps < max_steps:
             self.step()
             steps += 1
+        if any(not r.done for r in all_reqs):
+            self.steps_total += max_steps - steps
         return [r for r in all_reqs if r.done]

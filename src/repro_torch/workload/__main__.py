@@ -2,8 +2,8 @@
 
 Commands:
 
-* ``replay`` — replay a workload JSON (:meth:`Workload.to_dict`, as the
-  reference's ``extract`` writes it) on a fabric through the cycle
+* ``replay`` — replay a workload JSON (:meth:`Workload.to_dict`, as
+  ``extract`` writes it) on a fabric through the cycle
   engines.  ``--backend both`` runs the numpy oracle *and* the torch
   engine, asserts ``measured >= ideal`` (the contention-free bound) and
   exact cross-engine agreement.  The torch engine runs on ``--device``
@@ -14,11 +14,18 @@ Commands:
   auto: the torch engine on ``--device``).  Prints the reference's lines,
   then the graph cache's captures and hits over the search (nearby
   probes share a bucketed graph).
-* ``extract`` — the reference's HLO extraction of a training step; not
-  ported yet, it fails naming its ROADMAP item (queue A, item 10(f)).
+* ``extract`` — run a training step (``--step moe | dp | pipeline``)
+  once as rank 0 of a ``--devices``-rank recording group (torch's
+  ``"fake"`` process group: every call posted, no data moved) on
+  ``--device`` (default ``cuda``, which fails where CUDA is absent;
+  ``cpu`` on request), lower the collectives it posts onto a CIN fabric
+  of the same size, and write the resulting
+  :class:`~repro_torch.sim.workloads.Workload` as JSON.
 
 Examples::
 
+    python -m repro_torch.workload extract --step moe --devices 8 \\
+        --bytes-per-packet 256 -o moe8.workload.json
     python -m repro_torch.workload replay moe8.workload.json --backend both
     python -m repro_torch.workload slo serving_slo \\
         --experiment cin-xor-16/serving-poisson-r0.05/minimal
@@ -30,10 +37,24 @@ import json
 import sys
 
 
-def cmd_extract(_args) -> int:
-    raise SystemExit("extract is not ported yet (ROADMAP queue A, item "
-                     "10(f)): it needs the torch training steps of the LM "
-                     "substrate to record collectives from")
+def cmd_extract(args) -> int:
+    from repro_torch.workload.extract import extract_ops, workload_from_ops
+    step_kw = {"dp": args.dp} if args.step == "moe" and args.dp > 1 else {}
+    ops = extract_ops(args.step, args.devices, group="fake",
+                      device=args.device, **step_kw)
+    w = workload_from_ops(ops, (args.fabric, args.n or args.devices),
+                          bytes_per_packet=args.bytes_per_packet,
+                          strict=not args.lenient, name=args.name)
+    wd = w.to_dict()
+    out = args.out or f"{args.step}{args.devices}.workload.json"
+    with open(out, "w") as f:
+        json.dump(wd, f, indent=2, sort_keys=True)
+        f.write("\n")
+    total = sum(len(p["src"]) * p["messages"] for p in wd["phases"])
+    print(f"wrote {out}: workload {wd['name']!r}, "
+          f"{wd['num_switches']} switches, {len(wd['phases'])} phases, "
+          f"{total} packets")
+    return 0
 
 
 def cmd_replay(args) -> int:
@@ -98,8 +119,30 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     ex = sub.add_parser("extract",
-                        help="lower a training step to a replayable "
-                             "workload JSON (not ported yet)")
+                        help="run a training step and lower its "
+                             "collectives to a replayable workload JSON")
+    ex.add_argument("--step", choices=["moe", "dp", "pipeline"],
+                    required=True)
+    ex.add_argument("--devices", type=int, required=True,
+                    help="ranks of the recording group")
+    ex.add_argument("--dp", type=int, default=1,
+                    help="data-parallel axis size for --step moe")
+    ex.add_argument("--fabric", default="xor",
+                    help="CIN instance to lower onto (default: xor)")
+    ex.add_argument("--n", type=int, default=None,
+                    help="fabric switch count (default: --devices)")
+    ex.add_argument("--bytes-per-packet", type=int, default=8192,
+                    help="simulated link payload per cycle")
+    ex.add_argument("--lenient", action="store_true",
+                    help="skip (rather than fail on) collectives whose "
+                         "group size mismatches the fabric")
+    ex.add_argument("--name", default=None)
+    ex.add_argument("-o", "--out", default=None,
+                    help="output path (default: "
+                         "<step><devices>.workload.json)")
+    ex.add_argument("--device", default="cuda",
+                    help="where the step runs (default: cuda; 'cpu' runs "
+                         "it on the CPU)")
     ex.set_defaults(fn=cmd_extract)
 
     rp = sub.add_parser("replay",

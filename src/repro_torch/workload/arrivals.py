@@ -23,8 +23,7 @@ Processes
   :attr:`mean_rate` — so a Poisson and an MMPP spec with equal
   ``mean_rate`` offer the same load and differ only in burstiness.
 * ``"trace"`` — explicit ``(times, sources)`` arrays, e.g. recorded by
-  the reference's ``ServingEngine.arrival_trace`` (not ported yet: ROADMAP
-  queue A, item 10(d)).  Deterministic:
+  :meth:`repro_torch.serving.ServingEngine.arrival_trace`.  Deterministic:
   replaying a trace ignores the seed, and rate scaling is refused (a
   trace is evidence, not a distribution — resample the fitted process
   to scale).

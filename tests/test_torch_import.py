@@ -24,7 +24,8 @@ assert {"repro_torch.workload", "repro_torch.workload.arrivals",
         "repro_torch.optim.adamw", "repro_torch.data.pipeline",
         "repro_torch.checkpoint.manager", "repro_torch.runtime.trainer",
         "repro_torch.runtime.loop",
-        "repro_torch.runtime.manual_dp"} <= set(sys.modules)
+        "repro_torch.runtime.manual_dp", "repro_torch.runtime.pipeline",
+        "repro_torch.workload.extract"} <= set(sys.modules)
 print(len(names), bad)
 """
 
@@ -34,7 +35,7 @@ def test_repro_torch_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     n, bad = out.split(" ", 1)
-    assert int(n) >= 81, out          # every module of the port was imported
+    assert int(n) >= 83, out          # every module of the port was imported
     assert bad.strip() == "[]", out
 
 

@@ -111,6 +111,7 @@ dist.init_process_group("gloo", store=dist.FileStore(store, world),
                         rank=rank, world_size=world,
                         timeout=datetime.timedelta(seconds=120))
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.collectives import record_collectives
 from repro_torch.fabric import LacinCollectives
 from repro_torch.models import get_config
 from repro_torch.models.convert import (numpy_from_params,
@@ -140,8 +141,15 @@ for compress in (False, True):
                                      compress=compress)
     st = train_state_from_numpy(mgr.restore(0, like), cfg, device="cpu")
     losses = []
-    for b in make_batches():
-        st, m = step(st, b)
+    for i, b in enumerate(make_batches()):
+        if i == 0 and not compress:
+            with record_collectives() as ops:
+                st, m = step(st, b)
+            out["recorded"] = np.asarray(
+                [[o.kind == "all-reduce", o.raw_bytes, o.group_size]
+                 for o in ops])
+        else:
+            st, m = step(st, b)
         losses.append(float(m["loss"]))
     out[f"loss_{compress}"] = np.asarray(losses)
     for i, leaf in enumerate(leaves(numpy_from_params(st["params"], cfg))):
@@ -203,3 +211,17 @@ def test_lacin_grad_allreduce_matches_reference(runs):
     scale = np.abs(plain).max()
     assert np.abs(packed - plain).max() / scale < 0.02
     assert np.abs(ref["ar_True"] - ref["ar_False"]).max() / scale < 0.02
+
+
+def test_manual_dp_loss_is_one_library_all_reduce(runs):
+    """The loss is averaged as the reference's ``lax.pmean`` is: one
+    library all-reduce of 4 B, where its HLO has one; the gradients go
+    through the LACIN chains, 2(N-1) matching steps a leaf."""
+    _, ranks = runs
+    for out in ranks:
+        rec = out["recorded"]
+        reduces = rec[rec[:, 0] == 1]
+        assert reduces.tolist() == [[1, 4, WORLD]]
+        permutes = rec[rec[:, 0] == 0]
+        assert len(permutes) > 0 and len(permutes) % (2 * (WORLD - 1)) == 0
+        assert np.array_equal(rec, ranks[0]["recorded"])

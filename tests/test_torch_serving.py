@@ -145,7 +145,7 @@ def test_oversubscribed_run_returns_what_reference_returns():
     pj = jax_init_params(jax.random.PRNGKey(0), cj)
     pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), ct,
                            device="cpu")
-    runs = []
+    runs, clocks = [], []
     for eng, cls in ((JServingEngine(cj, pj, slots=1, max_seq=12), JRequest),
                      (ServingEngine(ct, pt, slots=1, max_seq=12, device="cpu"),
                       Request)):
@@ -153,7 +153,46 @@ def test_oversubscribed_run_returns_what_reference_returns():
             eng.submit(r)
         runs.append([{r.rid: r.out_tokens for r in eng.run(max_steps=20)}
                      for _ in range(2)])
+        late = cls(rid=2, prompt=np.array([1], np.int32))
+        eng.submit(late)
+        clocks.append((eng.steps_total, late.arrived))
     want, got = runs
+    # the arrival clock advances as the reference's: 20 steps in the run
+    # that left a request queued, 3 in the one that did not
+    assert clocks[1] == clocks[0] == (23, 23)
     assert got == want
     assert [sorted(r) for r in got] == [[0], [1]]
     assert all(len(toks) == 3 for r in got for toks in r.values())
+
+
+def test_serving_engine_arrival_trace():
+    """Port of tests/test_workload.py::test_serving_engine_arrival_trace:
+    submitted requests record their decode-step arrival and export a
+    replayable trace-kind ArrivalSpec, whose arrays equal the
+    reference's."""
+    from repro.models import ModelConfig as JModelConfig
+    from repro_torch.models import ModelConfig
+    kw = dict(name="t", family="dense", num_layers=1, d_model=16,
+              num_heads=2, num_kv_heads=1, d_ff=32, vocab_size=32)
+    cfg = ModelConfig(**kw)
+    traces = []
+    for eng, cls in ((JServingEngine(JModelConfig(**kw), None, slots=2,
+                                     max_seq=16), JRequest),
+                     (ServingEngine(cfg, init_params(0, cfg, device="cpu"),
+                                    slots=2, max_seq=16, device="cpu"),
+                      Request)):
+        eng.submit(cls(0, np.array([1, 2], np.int32)), at=3)
+        eng.submit(cls(1, np.array([1], np.int32)))        # clock is 0
+        traces.append(eng.arrival_trace())
+    want, got = traces
+    assert got.kind == "trace" and got.times == (0, 3)
+    assert got.to_dict() == want.to_dict()
+    for n, horizon, seed in ((4, 8, 0), (16, 40, 3)):
+        for a, b in zip(got.arrivals(n=n, horizon=horizon, seed=seed),
+                        want.arrivals(n=n, horizon=horizon, seed=seed)):
+            np.testing.assert_array_equal(a, b)
+    src, gen = got.arrivals(n=4, horizon=8, seed=0)
+    assert gen.size == 2 and src.size == 2
+    with pytest.raises(ValueError, match="submit"):
+        ServingEngine(cfg, init_params(0, cfg, device="cpu"), slots=2,
+                      max_seq=16, device="cpu").arrival_trace()

@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s ``sim``, ``studies``, ``faults``, ``flow``,
-``trace``, ``serving`` and ``moe`` phases on the CPU at a tiny size, so
+``trace``, ``serving``, ``moe``, ``train`` and ``extract`` phases on the
+CPU at a tiny size, so
 that the phases the GPU run ends with cannot rot between chip runs: they
 drive ``sim_speed``, ``xl_scale``, the exactness checks, the studies path
 (the CLI as a subprocess, ``Study.run()``), degraded studies, the flow
@@ -266,3 +267,42 @@ def test_train_step_work_counts_each_layers_window(chip_smoke):
         proj = 8 * cfg.num_layers * 2 * cfg.num_heads * cfg.head_dim * \
             cfg.d_model * 2 * t
         assert flops - no_attn == attn + proj
+
+
+def test_extract_phase_rehearses_on_the_cpu(chip_smoke):
+    """The extract phase at a tiny size on the CPU: the reduced granite
+    MoE layer and llama DP step recorded through the fake group and
+    replayed on both engines (card = CPU = oracle, here CPU thrice), the
+    CLI's three reference-size extractions and replays as processes of
+    their own at the table's numbers, and an arrival trace swept."""
+    import torch
+    trace = chip_smoke.W.ArrivalSpec(kind="trace", times=(0, 0, 3))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.phase_extract(
+            "cpu", chip_smoke.EXTRACT_TINY, trace=trace, card="CPU")
+    finally:
+        torch.set_num_threads(threads)
+    assert launches["flash_attention_backward"] == 4    # reduced: 4 layers
+
+
+def test_extract_phase_sizes_are_the_published_widths(chip_smoke):
+    """granite's MoE layer at B4 T512 a rank over 8 EP ranks: 6 of 48
+    stored experts a rank, capacity 512, 9,437,184 B a permute, 144
+    messages a pair at 64 KiB; llama3.2-3b's DP step at B8 T1024."""
+    from repro_torch.models import get_config
+    from repro_torch.models import moe as TM
+    full = chip_smoke.EXTRACT_FULL
+    moe, dp = full["moe"], full["dp"]
+    cfg = get_config(moe["arch"])
+    e_loc = TM.expert_store_count(cfg) // moe["devices"]
+    cap = TM._capacity(moe["batch"] * moe["seq"], cfg)
+    chunk = e_loc * cap * cfg.d_model * 2
+    assert (e_loc, cap, chunk) == (6, 512, 9_437_184)
+    assert -(-chunk // moe["bytes_per_packet"]) == 144
+    assert (dp["arch"], dp["reduced"], dp["batch"], dp["seq"],
+            dp["devices"]) == ("llama3.2-3b", False, 8, 1024, 8)
+    assert full["cli"] == (("moe", 8, 14, 896, 112),
+                           ("dp", 8, 182, 3360, 420),
+                           ("pipeline", 4, 11, 84, 26))

@@ -427,7 +427,9 @@ def test_workload_cli_slo_on_the_cpu(capsys):
 
 def test_workload_cli_replay_both_engines_on_the_cpu(tmp_path, capsys):
     """replay --backend both on a workload JSON the port's sim/workloads.py
-    writes: numpy and torch agree, at the contention-free bound."""
+    writes: numpy and torch agree, at the contention-free bound; extract
+    --device cpu writes the reference's MoE workload (BENCH
+    workload.extract: 14 phases, 896 packets)."""
     w = T.collective_workload(t_make_fabric("xor", 8), "all_to_all",
                               message_size=2)
     path = tmp_path / "a2a8.workload.json"
@@ -438,8 +440,18 @@ def test_workload_cli_replay_both_engines_on_the_cpu(tmp_path, capsys):
     assert out == ["numpy: completion=14 ideal=14 ratio=1.000",
                    "torch: completion=14 ideal=14 ratio=1.000",
                    "cross-engine replay agrees exactly"]
-    with pytest.raises(SystemExit, match="item 10\\(f\\)"):
-        workload_cli(["extract"])
+    moe8 = tmp_path / "moe8.json"
+    assert workload_cli(["extract", "--step", "moe", "--devices", "8",
+                         "--bytes-per-packet", "256", "-o", str(moe8),
+                         "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.splitlines() == [
+        f"wrote {moe8}: workload 'cin-xor-8-ops', 8 switches, 14 phases, "
+        f"896 packets"]
+    assert workload_cli(["replay", str(moe8), "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.splitlines() == [
+        "numpy: completion=112 ideal=112 ratio=1.000",
+        "torch: completion=112 ideal=112 ratio=1.000",
+        "cross-engine replay agrees exactly"]
 
 
 def test_workload_cli_runs_on_cuda_by_default(monkeypatch, tmp_path):
@@ -455,6 +467,9 @@ def test_workload_cli_runs_on_cuda_by_default(monkeypatch, tmp_path):
     path.write_text(json.dumps(w.to_dict()))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         workload_cli(["replay", str(path), "--backend", "torch"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        workload_cli(["extract", "--step", "moe", "--devices", "8", "-o",
+                      str(tmp_path / "never.json")])
 
 
 # ---------------------------------------------------------------------------
