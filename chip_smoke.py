@@ -16,17 +16,19 @@ Phases, one JSON line each:
    the final state) and at the serving shapes, and times kernel, plain
    version and the library call, where there is one, beside its bound, on
    the device alone through a CUDA graph and per eager call; the
-   attention hazard cases again at head dim 64 and at 256, and ``"phase":
-   "attention"`` lines at granite-moe-3b-a800m's serving shapes (D = 64)
-   and gemma3-1b's (D = 256: prefill, decode and the fp32 kernel), each
+   attention hazard cases again at head dim 64 and at 256 (G = H/KV of 1
+   to 12 among them), and ``"phase": "attention"`` lines at
+   granite-moe-3b-a800m's serving shapes (D = 64), gemma3-1b's (D = 256:
+   prefill, decode and the fp32 kernel) and starcoder2-3b's (G = 12), each
    naming the SDPA backend that ran;
 4. small   -- the reduced models in fp32 on the card against the CPU (the
    run that drives the fp32 attention kernel), the reduced MoE among them,
    and the reduced gemma3-1b also at its published head dim, 256;
 5. serve   -- llama3.2-3b, xlstm-350m, granite-moe-3b-a800m (its MoE
-   on one card: the single-shard path, 48 stored experts) and gemma3-1b
-   (head dim 256, a 512-key window on 22 of its 26 layers) at full width
-   and depth,
+   on one card: the single-shard path, 48 stored experts), gemma3-1b
+   (head dim 256, a 512-key window on 22 of its 26 layers) and
+   starcoder2-3b (layernorm, gelu and biases; 12 query heads a KV head) at
+   full width and depth,
    random weights from a seed, each through ServingEngine: 4 requests
    (prompts 512/384/256/128, one sampled at temperature 0.8) x 32 new
    tokens, with every kernel's launch count in that run (set to 0 just
@@ -44,19 +46,30 @@ Phases, one JSON line each:
    then ``"phase": "train"``: the fp32 and the bf16 prefill kernel's lse
    and the flash-attention autograd Function (repro_torch.models.flash) on
    hazard cases against the plain version's autograd (o, lse, dq, dk, dv;
-   bf16 calls with T <= 16 take the prefill kernel; head dims 16 to 256),
-   the forward with lse and the plain backward at the training shapes
-   (B2 T1024 H24 KV8 D128 and H4 KV1 D256) beside SDPA's forward and
-   backward and their bounds, the reduced llama3.2-3b and
-   granite-moe-3b-a800m in fp32 card against CPU (loss, every gradient,
-   two train steps), and llama3.2-3b and gemma3-1b at full width and
-   depth (fp32 parameters, bf16 compute, remat "full") through
-   runtime.trainer.make_train_step for 4 steps of data.host_batch (B2
-   T1024): step 1 against the same step with the plain kernels, finite
-   losses and gradients, non-zero attention gradients in every layer, two
-   prefill launches and one backward call a layer a step (llama 56 and
-   28, gemma 52 and 26), step ms, tokens/s, peak memory and the idle share
-   of a profiled step beside the step's bound;
+   bf16 calls with T <= 16 take the prefill kernel; head dims 16 to 256,
+   G up to 12), the mLSTM scan's autograd Function
+   (repro_torch.models.xlstm.MLSTMScan: the scan kernel forward, the plain
+   chunkwise backward) on its hazard cases against the plain version's
+   autograd (h, dq, dk, dv, dlog_i, dlog_f), the attention forward with lse
+   and the plain backward at the training shapes (B2 T1024 H24 KV8 D128,
+   H4 KV1 D256 and H24 KV2 D128) beside SDPA's forward and backward and
+   their bounds, the scan's forward and plain backward at xlstm-350m's (B2
+   T1024 H4 D512, bf16 and fp32) beside their bounds, the reduced
+   llama3.2-3b and granite-moe-3b-a800m in fp32 card against CPU (loss,
+   every gradient, two train steps), and llama3.2-3b, gemma3-1b,
+   starcoder2-3b and xlstm-350m at full width and depth (fp32 parameters,
+   bf16 compute, remat "full") through runtime.trainer.make_train_step for
+   4 steps of data.host_batch (B2 T1024): step 1 against the same step
+   with the plain versions, the mLSTM scan differentiated by autograd, at
+   the plain run's side of each mLSTM denominator near its kink
+   (xlstm-350m in fp32 too; in bf16 its mLSTM layers one by one at the
+   plain run's inputs), finite losses and gradients, non-zero weight
+   gradients in every layer, two kernel launches and one backward call an
+   attention or mLSTM layer a step (llama 56 and 28, gemma 52 and 26,
+   starcoder 60 and 30, xlstm 42 scans and 21), step ms, tokens/s, peak
+   memory and the idle share of a profiled step beside the step's bound
+   (launch/analytic.py's ``train_cost``; for the attention models also
+   ``train_step_work``);
    then ``"phase": "extract"``: the collectives of a training step,
    recorded as the step posts them (repro_torch.workload.extract) in one
    process as rank 0 of an 8-rank recording group (torch's "fake"
@@ -123,8 +136,16 @@ Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 without that last line; so does a machine without CUDA.  Imports only torch,
 numpy and repro_torch.
+
+Two more runs, each alone: ``python3 chip_smoke.py --xlstm-witness
+[OUT.json]`` reads xlstm-350m's step 1 in float64, fp32 and bf16, with the
+kernels and the plain versions and mixes of the two precisions, layer by
+layer against float64 (every reading into OUT.json); ``python3
+chip_smoke.py --gelu-ab`` times gemma3-1b's prefill, decode step and
+train step with each way of computing its gelu.
 """
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -153,6 +174,10 @@ from repro_torch.kernels.ref import (reference_attention,  # noqa: E402
 from repro_torch.data import DataConfig, host_batch  # noqa: E402
 from repro_torch.models import get_config, init_params  # noqa: E402
 from repro_torch.models import flash as MF  # noqa: E402
+from repro_torch.models import layers as ML  # noqa: E402
+from repro_torch.models import xlstm as MX  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
+from repro_torch.launch import analytic  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
@@ -213,6 +238,12 @@ HAZARDS = {
     "decode_window_edge": (2, 1, 1024, 6, 2, 128, [700], True, 97),
     "decode_all_masked": (2, 1, 512, 6, 2, 128, [-3], True, 0),
     "decode_bkv1": (1, 1, 2048, 4, 1, 128, [1500], True, 0),
+    # G = 12 (starcoder2-3b, H24 KV2): prefill blocks of 16 positions (5 at
+    # D = 256), decode rows of a group over 1 and 2 chunks
+    "gqa12_odd_t": (2, 150, 150, 24, 2, 128, None, True, 0),
+    "gqa12_window_tail": (1, 100, 300, 24, 2, 128, "tail", True, 50),
+    "decode_gqa12": (4, 1, 1024, 24, 2, 128, [527], True, 0),
+    "decode_gqa12_t8": (2, 8, 300, 24, 2, 128, "tail", True, 0),
 }
 ALL_MASKED = ("fully_masked_rows", "decode_all_masked")
 
@@ -256,7 +287,7 @@ MLSTM_NO_LIBRARY = "no single PyTorch call computes chunkwise mLSTM"
 RECHUNKS = (16, 32, 64, 128, 512)
 LOGITS_CHECK_DTYPE = {"llama3.2-3b": "bfloat16", "xlstm-350m": "float32",
                       "granite-moe-3b-a800m": "bfloat16",
-                      "gemma3-1b": "bfloat16"}
+                      "gemma3-1b": "bfloat16", "starcoder2-3b": "bfloat16"}
 
 # The serving runs: 4 slots, prompts left-padded to 512, a 1024-slot cache.
 PROMPTS = (512, 384, 256, 128)
@@ -904,21 +935,8 @@ def phase_profile(arch, what, fn, call_ms, calls):
     """Device time by kernel over a few calls of ``fn`` (torch.profiler), and
     the share of the time in which the device ran no kernel: under the
     profiler, and against ``call_ms`` measured without it."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side rows only: an aten op's row repeats its kernels' time
-    dev = [(e.key, e.self_device_time_total, e.count)
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(t for _, t, _ in dev)
+    dev, busy_us, wall_us = device_ops(fn, "cuda", calls)
     ours = {name: sum(t for k, t, _ in dev if name in k)
             for name in ("flash_attention", "mlstm_scan")}
     top = sorted(dev, key=lambda e: -e[1])[:8]
@@ -1127,6 +1145,11 @@ TRAIN_HAZARDS = {
     "mqa_window512_d256": (1, 700, 700, 4, 1, 256, None, None, True, 512),
     "t5_d256": (1, 5, 90, 4, 1, 256, "tail", None, True, 0),
     "training_shape_d256": (2, 1024, 1024, 4, 1, 256, None, None, True, 0),
+    # G = 12 (starcoder2-3b: H24 KV2 D128)
+    "gqa12_odd_t": (2, 131, 131, 24, 2, 128, None, None, True, 0),
+    "gqa12_t5_tail": (1, 5, 90, 24, 2, 128, "tail", None, True, 0),
+    "training_shape_gqa12": (2, 1024, 1024, 24, 2, 128, None, None, True,
+                             0),
 }
 #: The lse: fp32 kernel as its output (2e-5); bf16 kernel 1e-3, its
 #: scores are fp32 sums of exact bf16 products in another order and its
@@ -1137,20 +1160,48 @@ TRAIN_HAZARDS = {
 LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
 GRAD_REL_L2 = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
-#: ``models`` train in order, each beside the timing case of the same index
-#: (its training shape).
+#: The scan under autograd (repro_torch.models.xlstm.MLSTMScan): name: (b,
+#: t, h, d, chunk, gates); log_i ~ N(0, 2) and the forget pre-activation ~
+#: N(1, 2), with "input_x30" (log_i scaled by 30), "forget_minus40" (the
+#: forget pre-activation shifted by -40: each step forgets nearly all) and
+#: "first_gate_minus100" (every sequence opens with log_i = -100, where
+#: exp(-m) is beyond float32).  The last is xlstm-350m's training shape.
+MLSTM_TRAIN_HAZARDS = {
+    "one_chunk_d64": (2, 64, 2, 64, 64, "normal"),
+    "four_chunks_d64": (2, 256, 2, 64, 64, "normal"),
+    "d512_two_chunks": (1, 512, 2, 512, 256, "normal"),
+    "input_x30": (2, 256, 2, 64, 64, "input_x30"),
+    "forget_minus40": (2, 256, 2, 64, 64, "forget_minus40"),
+    "first_gate_minus100": (2, 128, 2, 64, 64, "first_gate_minus100"),
+    "bh1_d128": (1, 256, 1, 128, 64, "normal"),
+    "training_shape": (2, 1024, 4, 512, 256, "normal"),
+}
+
+#: ``models`` train in order, each beside its timing case (its training
+#: shape; None: the mLSTM scan's, ``mlstm_timing_case``).
 TRAIN_FULL = {
     "hazards": tuple(TRAIN_HAZARDS),
-    "timing_cases": ("training_shape", "training_shape_d256"),
+    "mlstm_hazards": tuple(MLSTM_TRAIN_HAZARDS),
+    "timing_cases": ("training_shape", "training_shape_d256",
+                     "training_shape_gqa12"),
+    "mlstm_timing_case": "training_shape",
     "timing_iters": 16, "reduced": ("llama3.2-3b", "granite-moe-3b-a800m"),
-    "reduced_seq": 64, "models": ("llama3.2-3b", "gemma3-1b"),
+    "reduced_seq": 64,
+    "models": (("llama3.2-3b", "training_shape"),
+               ("gemma3-1b", "training_shape_d256"),
+               ("starcoder2-3b", "training_shape_gqa12"),
+               ("xlstm-350m", None)),
     "model_reduced": False, "seq": 1024, "batch": 2, "steps": 4}
 TRAIN_TINY = {
     "hazards": ("gqa3_d128_odd_t", "rows_see_nothing_d64", "t1_d64",
-                "t5_d256"),
-    "timing_cases": ("t16_d128", "t5_d256"), "timing_iters": 2,
+                "t5_d256", "gqa12_t5_tail"),
+    "mlstm_hazards": ("one_chunk_d64", "first_gate_minus100"),
+    "timing_cases": ("t16_d128", "t5_d256", "gqa12_t5_tail"),
+    "mlstm_timing_case": "one_chunk_d64", "timing_iters": 2,
     "reduced": ("llama3.2-3b", "granite-moe-3b-a800m"), "reduced_seq": 16,
-    "models": ("llama3.2-3b", "gemma3-1b"), "model_reduced": True, "seq": 32,
+    "models": (("llama3.2-3b", "t16_d128"), ("gemma3-1b", "t5_d256"),
+               ("starcoder2-3b", "gqa12_t5_tail"), ("xlstm-350m", None)),
+    "model_reduced": True, "seq": 32, "seq_by_model": {"xlstm-350m": 256},
     "batch": 2, "steps": 3}
 #: The reduced models in fp32, card against CPU: the loss (rtol 1e-5) and
 #: every gradient leaf (relative L2 1e-4: the fp32 kernel is held to its
@@ -1273,6 +1324,133 @@ def train_hazards(device, sizes):
     return worst
 
 
+def mlstm_train_inputs(name, dtype, device):
+    """q, k, v (and dh, the output gradient) in ``dtype``, log_i and log_f
+    in fp32, of MLSTM_TRAIN_HAZARDS ``name``; and its chunk."""
+    b, t, h, d, chunk, gates = MLSTM_TRAIN_HAZARDS[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            device)
+    q, k, v, dh = (draw(b, t, h, d).to(dtype) for _ in range(4))
+    li, pre_f = draw(b, t, h) * 2, draw(b, t, h) * 2 + 1
+    if gates == "input_x30":
+        li = li * 30
+    if gates == "forget_minus40":
+        pre_f = pre_f - 40
+    if gates == "first_gate_minus100":
+        li[:, 0] = -100.0
+    return (q, k, v, li, F.logsigmoid(pre_f)), dh, chunk
+
+
+def train_mlstm_hazards(device, sizes):
+    """The scan's Function on each case in fp32 and bf16: h of the kernel
+    forward, and dq, dk, dv, dlog_i, dlog_f of the plain backward, against
+    autograd through the plain version (each at MLSTM_TOL of the dtype,
+    element by element, and finite); one launch of the dtype's kernel and
+    one backward call a Function call."""
+    worst = {}
+    for name in sizes["mlstm_hazards"]:
+        for dtype in (torch.float32, torch.bfloat16):
+            args, dh, chunk = mlstm_train_inputs(name, dtype, device)
+            b, t, h, d = args[0].shape
+            path = ms.plan(b, t, h, d, chunk, dtype).path
+            outs = {}
+            for how, fn in (("function", MX.mlstm_scan_grad),
+                            ("plain", reference_mlstm_scan)):
+                leaves = _leaf_grads(*args)
+                before, bwd = kernel_launches(), MX.backward_calls
+                out, _ = fn(*leaves, chunk=chunk)
+                grads = torch.autograd.grad(out, leaves, dh)
+                launched = {key: n - before[key]
+                            for key, n in kernel_launches().items()}
+                want = (1, 1) if how == "function" else (0, 0)
+                got = (launched["mlstm_scan"], MX.backward_calls - bwd)
+                if device == "cuda" and (got != want or launched[
+                        f"mlstm_scan_{path}"] != want[0]):
+                    raise AssertionError(f"Function {name} {dtype} ({how}): "
+                                         f"launches {launched}, backward "
+                                         f"calls {got[1]}")
+                outs[how] = (out, *grads)
+            errs = {}
+            tol = MLSTM_TOL[dtype]
+            for what, g, w in zip(("h", "dq", "dk", "dv", "dlog_i",
+                                   "dlog_f"), *outs.values()):
+                err = (g.float() - w.float()).abs()
+                if not (torch.isfinite(g).all() and float(
+                        (err - tol["rtol"] * w.float().abs()).max())
+                        <= tol["atol"]):
+                    raise AssertionError(
+                        f"Function {name} {dtype}: {what} differs from the "
+                        f"plain version's by up to {float(err.max())} "
+                        f"({tol}), or is not finite")
+                errs[what] = float(err.max())
+            key = str(dtype).removeprefix("torch.")
+            worst[key] = max(worst.get(key, 0.0), *errs.values())
+            emit("train_case", kernel="mlstm_scan", case=name, dtype=key,
+                 path=path, shape=f"B{b} T{t} H{h} D{d} chunk {chunk} "
+                                  f"{MLSTM_TRAIN_HAZARDS[name][-1]}",
+                 max_abs_err=errs, tol=tol)
+    return worst
+
+
+def mlstm_backward_bound(q, chunk):
+    """Least time of the scan's backward on the card: q, k, v, dh and the
+    two gates read once, dq, dk, dv and the two gate gradients written
+    once, and three times the forward's multiply-adds (the recompute, and
+    two products for each of the forward's) at the peak of q's type; also
+    that bound on the fp32 pipe, where the plain backward computes."""
+    macs = mlstm_bound(q, chunk, None)[3]
+    b, t, h, _ = q.shape
+    nbytes = 7 * q.numel() * q.element_size() + 4 * b * t * h * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 6 * macs / PEAK_FLOPS[q.dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, 6 * macs / PEAK_FLOPS[torch.float32] * 1e3))
+
+
+def time_training_mlstm(device, sizes, dtype):
+    """At xlstm-350m's training shape (``mlstm_timing_case``): the kernel
+    forward and its plain version (``graph_ms`` on the card) and the plain
+    backward of the Function, recompute and autograd (``cuda_ms``: autograd
+    cannot be captured here), each beside its bound, and the backward's
+    memory beyond its inputs."""
+    args, dh, chunk = mlstm_train_inputs(sizes["mlstm_timing_case"], dtype,
+                                         device)
+    iters = sizes["timing_iters"]
+    fwd = lambda: ops.mlstm_scan(*args, chunk=chunk)  # noqa: E731
+    plain = lambda: reference_mlstm_scan(*args, chunk=chunk)  # noqa: E731
+    bwd = lambda: MX.mlstm_backward(*args, dh, chunk=chunk)  # noqa: E731
+    timer = (lambda fn, n: graph_ms(fn, n)) if device == "cuda" else (
+        lambda fn, n: wall_ms(fn, n, device))
+    eager = lambda fn, n: wall_ms(fn, n, device)  # noqa: E731
+    times = {"fwd_ms": timer(fwd, iters), "fwd_plain_ms": timer(plain, iters),
+             "fwd_ms_repeat": timer(fwd, iters),
+             "bwd_plain_ms": eager(bwd, max(iters // 4, 1)),
+             "fwd_ms_eager": eager(fwd, iters)}
+    fb, fb_by, fb32 = mlstm_bound(args[0], chunk, None)[:3]
+    bb, bb_by, bb32 = mlstm_backward_bound(args[0], chunk)
+    bwd_extra_mib = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bwd()
+        torch.cuda.synchronize()
+        bwd_extra_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    b, t, h, d = args[0].shape
+    key = str(dtype).removeprefix("torch.")
+    return dict(case=sizes["mlstm_timing_case"], dtype=key,
+                path=ms.plan(b, t, h, d, chunk, dtype).path,
+                shape=f"B{b} T{t} H{h} D{d} chunk {chunk} {key}", **times,
+                library_ms=None, library_note=MLSTM_NO_LIBRARY,
+                bwd_plain_peak_extra_mib=bwd_extra_mib, fwd_bound_ms=fb,
+                fwd_bound_by=fb_by, fwd_bound_ms_fp32_pipe=fb32,
+                bwd_bound_ms=bb, bwd_bound_by=bb_by,
+                bwd_bound_ms_fp32_pipe=bb32)
+
+
 def time_training_attention(device, sizes, case):
     """At a training shape (TRAIN_HAZARDS ``case``): the kernel forward
     with lse, its plain version and SDPA's forward (``graph_ms``), the
@@ -1390,17 +1568,228 @@ def train_reduced(device, sizes):
     return out
 
 
+#: The weights whose step-1 gradient must be non-zero in every layer of
+#: each block kind.
+GRAD_LEAVES = {"attn": ("attn/wq", "attn/wk", "attn/wv", "attn/wo"),
+               "mlstm": ("wq", "wk", "wv", "w_i", "w_f"),
+               "slstm": ("w_gates", "r_gates")}
+#: The mLSTM's h is continuous where its denominator max(|q n|, exp(-m))
+#: switches sides, but its gradient jumps there, and rounding moves a few
+#: positions across: at xlstm-350m's full depth, 15 of 172,032 positions in
+#: fp32 moved its step-1 gate-bias gradients by up to 0.19 against float64,
+#: 0.0088 with float64's sides (``--xlstm-witness`` on an H100; PERF.md).  So
+#: the kernels' step 1 takes the plain run's side wherever its own margin
+#: log|q n| - log exp(-m) is within this band of 0, by compute dtype: a
+#: denominator so moved changes by a factor e^band at most.
+SIDE_BAND = {"float32": 1e-2}
+#: In bf16 the kernels' and the plain run's forwards part by relative L2
+#: 0.00045 at xlstm-350m's first layer and 0.3 at its 22nd (the plain
+#: version re-chunked: 0.25), 14,462 denominator sides differ, most far from
+#: the kink (median margin 0.4), and every gradient leaf differs by about 1
+#: with sides matched or not (``--xlstm-witness`` on an H100; PERF.md): two
+#: correct runs of a model with mLSTM layers are not comparable as a whole
+#: in these dtypes, so its step 1 is held there layer by layer.
+LAYERWISE = {"bfloat16"}
+@contextlib.contextmanager
+def patched(*patches):
+    """Within: each (object, name, value) of ``patches`` set."""
+    kept = [(o, n, getattr(o, n)) for o, n, _ in patches]
+    for o, n, v in patches:
+        setattr(o, n, v)
+    try:
+        yield
+    finally:
+        for o, n, v in reversed(kept):
+            setattr(o, n, v)
+
+
+class DenominatorBranches:
+    """Stands in for repro_torch.models.xlstm._denominator while set.  In
+    every chunkwise mLSTM scan computed under grad (the backward's
+    recompute: one call a chunk, the layers in backward order) it records
+    each (batch, position, head)'s margin log|q n| - log exp(-m), whose
+    sign is the side of max(|q n|, exp(-m)) taken, as one (B, T, H) tensor
+    a layer (``taken``).  With ``force`` (another run's ``taken``) a
+    position whose own margin is within ``band`` of 0 takes that run's
+    side, and ``moved`` counts by layer the positions that then change
+    side; a position is never moved further from its own side than a
+    factor e^band in the denominator.  Outside grad, and on other shapes,
+    it is the max."""
+
+    def __init__(self, seq, force=None, band=0.0):
+        self.seq, self.force, self.band = seq, force, band
+        self.taken, self.moved, self._chunks = [], [], []
+
+    def __call__(self, dot, m):
+        floor = torch.exp(torch.clamp_max(-m, MX.EXP_MAX))
+        if not torch.is_grad_enabled() or dot.dim() != 3:
+            return torch.maximum(dot.abs(), floor)
+        margin = (torch.log(dot.abs()) - torch.clamp_max(-m, MX.EXP_MAX)
+                  ).detach().to(torch.float32)
+        start = sum(c.shape[1] for c in self._chunks)
+        self._chunks.append(margin)
+        side = margin >= 0
+        if self.force is not None:
+            forced = self.force[len(self.taken)][
+                :, start:start + margin.shape[1]] >= 0
+            side = torch.where(margin.abs() <= self.band, forced, side)
+            self._moved = getattr(self, "_moved", 0) + int(
+                (side != (margin >= 0)).sum())
+        if start + margin.shape[1] == self.seq:
+            self.taken.append(torch.cat(self._chunks, dim=1))
+            self._chunks = []
+            if self.force is not None:
+                self.moved.append(self._moved)
+                self._moved = 0
+        if self.force is None:
+            return torch.maximum(dot.abs(), floor)
+        return torch.where(side, dot.abs(), floor)
+
+
+def _step1(params, batch, cfg, **plain):
+    """(loss, {leaf name: gradient}) of loss_and_grads, with the kernels or
+    (``plain``: with_plain_kernels' arguments) their plain versions."""
+    def run():
+        return TR.loss_and_grads(params, batch, cfg)
+    loss, _, grads = with_plain_kernels(run, **plain) if plain else run()
+    return float(loss), dict(_named_leaves(grads))
+
+
+def _grad_stats(got, want):
+    """The largest and the median leaf's relative L2 of ``got`` against
+    ``want``, the largest's name, and the leaves over FULL_GRAD_REL_L2."""
+    rel = {n: rel_or_abs(a, want[n]) for n, a in got.items()}
+    worst = max(rel, key=rel.get)
+    return {"max": rel[worst], "leaf": worst,
+            "median": statistics.median(rel.values()),
+            "leaves_over_tol": sum(r > FULL_GRAD_REL_L2 for r in rel.values())}
+
+
+def _plain_step1(params, batch, cfg, seq):
+    """Step 1 with the plain versions, the mLSTM scan differentiated by
+    autograd as the reference differentiates it (without MLSTMScan):
+    (loss, gradients, the DenominatorBranches that recorded its sides in
+    forward order, {mLSTM layer: (its input, the loss's gradient at its
+    output)})."""
+    sides, at = DenominatorBranches(seq), {}
+    layer = TT._train_layer
+
+    def recorded(p, x, cfg, **kw):
+        y, aux = layer(p, x, cfg, **kw)
+        if kw["kind"] == "mlstm":
+            i = len(at)
+            at[i] = [x.detach(), None]
+            y.register_hook(lambda g: at[i].__setitem__(1, g.detach()))
+        return y, aux
+    with patched((MX, "_denominator", sides),
+                 (MX, "mlstm_scan_grad", reference_mlstm_scan),
+                 (TT, "_train_layer", recorded)):
+        loss, grads = _step1(params, batch, cfg, mlstm_chunk=None)
+    return loss, grads, sides, at
+
+
+def mlstm_layers_check(params, cfg, at):
+    """Each mLSTM layer of step 1 alone, at the plain run's own input and
+    output gradient (``at``): the block's output, its input gradient and
+    its parameters' gradients with the kernels (the scan kernel forward,
+    MLSTMScan's backward) against the plain versions (the plain scan,
+    differentiated by autograd), each within FULL_GRAD_REL_L2 (relative
+    L2).  Both see the same inputs, so they take the same denominator
+    sides.  Returns the worst leaf of each layer."""
+    layers = [i for i, k in enumerate(cfg.block_pattern) if k == "mlstm"]
+    worst = {}
+    for i, (x, dy) in zip(layers, at.values()):
+        p = TT._cast(params["layers"][i], getattr(torch, cfg.dtype))
+        got = {}
+        for how in ("kernels", "plain"):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            xin = x.clone().requires_grad_(True)
+
+            def run():
+                return MX.apply_mlstm_block(leaves, xin, cfg)[0]
+            with torch.enable_grad():
+                if how == "plain":
+                    with patched((MX, "mlstm_scan_grad",
+                                  reference_mlstm_scan)):
+                        y = with_plain_kernels(run)
+                else:
+                    y = run()
+                g = torch.autograd.grad(y, [xin, *leaves.values()], dy)
+            got[how] = {"out": y.detach(), "d_in": g[0],
+                        **dict(zip(leaves, g[1:]))}
+        rel = {k: rel_or_abs(a, got["plain"][k])
+               for k, a in got["kernels"].items()}
+        leaf = max(rel, key=rel.get)
+        worst[f"/layers/{i}"] = (leaf, rel[leaf])
+        if not rel[leaf] <= FULL_GRAD_REL_L2:
+            raise AssertionError(
+                f"mLSTM layer {i} ({cfg.dtype}) with the kernels and with "
+                f"the plain versions at the same inputs: {leaf} differs by "
+                f"relative L2 {rel[leaf]} (tol {FULL_GRAD_REL_L2}); {rel}")
+    return worst
+
+
+def step1_check(params, batch, cfg, seq):
+    """Step 1 in ``cfg.dtype`` (remat "none": on the card remat moves no
+    gradient by a bit) with the kernels against the plain versions
+    (_plain_step1).  The kernels' run takes the plain run's side of each
+    mLSTM denominator within SIDE_BAND of the kink (DenominatorBranches:
+    the plain run records its layers in forward order, the kernels'
+    recompute in backward order).  The loss within relative 1e-2 and
+    every gradient leaf within FULL_GRAD_REL_L2, but in the dtypes of
+    LAYERWISE for a model with mLSTM layers, whose whole-model gradients
+    are reported only; and each mLSTM layer alone (mlstm_layers_check).
+    Returns (the kernels' gradients, their launches, the line's
+    fields)."""
+    cfg = dataclasses.replace(cfg, remat="none")
+    loss_p, g_p, plain, at = _plain_step1(params, batch, cfg, seq)
+    band = SIDE_BAND.get(cfg.dtype, 0.0)
+    kernels = DenominatorBranches(seq, plain.taken[::-1] or None, band)
+    with patched((MX, "_denominator", kernels)):
+        reset_launches()
+        loss_k, g_k = _step1(params, batch, cfg)
+        launches = kernel_launches()
+    if len(kernels.taken) != len(plain.taken):
+        raise AssertionError(f"step 1: the kernels' run computed "
+                             f"{len(kernels.taken)} mLSTM layers' sides, "
+                             f"the plain run {len(plain.taken)}")
+    got = _grad_stats(g_k, g_p)
+    del g_p
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    whole = not (at and cfg.dtype in LAYERWISE)
+    if not (loss_rel <= 1e-2 and (got["max"] <= FULL_GRAD_REL_L2
+                                  or not whole)):
+        raise AssertionError(
+            f"step 1 ({cfg.dtype}) with the kernels and with the plain "
+            f"versions differ: loss {loss_k} vs {loss_p}, gradient "
+            f"{got['leaf']} by relative L2 {got['max']} (tol "
+            f"{FULL_GRAD_REL_L2})")
+    by_layer = mlstm_layers_check(params, cfg, at) if at else None
+    return g_k, launches, dict(
+        loss_with_kernels=loss_k, loss_plain=loss_p, loss_rel_diff=loss_rel,
+        grad_rel_l2=got, whole_model_gated=whole,
+        grad_tol_rel_l2=FULL_GRAD_REL_L2,
+        denominator_positions=sum(t.numel() for t in plain.taken),
+        denominator_sides_moved=sum(kernels.moved), side_band=band,
+        mlstm_layers_worst=by_layer,
+        mlstm_layers_max=max(r for _, r in by_layer.values())
+        if by_layer else None, remat=cfg.remat)
+
+
 def train_full(device, sizes, arch):
     """``arch`` (full width and depth on the card; reduced on the CPU
     rehearsal) in bf16 compute, fp32 parameters, remat "full": step 1's
-    gradients with the kernels against the plain versions, then ``steps``
-    steps of make_train_step, timed, with every count set to 0 before."""
+    gradients with the kernels against the plain versions (step1_check;
+    a model with mLSTM layers also in fp32 compute), then ``steps`` steps
+    of make_train_step, timed, with every count set to 0 before."""
     cfg = get_config(arch)
     if sizes["model_reduced"]:
         cfg = dataclasses.replace(cfg.reduced(), remat="full")
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=sizes["seq"],
+    seq = sizes.get("seq_by_model", {}).get(arch, sizes["seq"])
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                       global_batch=sizes["batch"])
-    attn_layers = cfg.block_pattern.count("attn")
+    kinds = cfg.block_pattern
+    layers = {k: kinds.count(k) for k in GRAD_LEAVES}
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -1408,29 +1797,28 @@ def train_full(device, sizes, arch):
     params = TT.init_params(SEED, cfg, device=device)
     n_params = sum(a.numel() for _, a in _named_leaves(params))
     first = TR.on_device(host_batch(data, 0), device)
-    loss_k, _, g_k = TR.loss_and_grads(params, first, cfg)
-    loss_p, _, g_p = with_plain_kernels(
-        lambda: TR.loss_and_grads(params, first, cfg))
-    named_k, named_p = _named_leaves(g_k), _named_leaves(g_p)
-    rel = {n: rel_or_abs(a, b) for (n, a), (_, b) in zip(named_k, named_p)}
-    worst_leaf = max(rel, key=rel.get)
-    finite = bool(torch.stack([torch.isfinite(a).all()
-                               for _, a in named_k]).all())
-    zero_attn = [n for n, a in named_k
-                 if n.split("/")[-1] in ("wq", "wk", "wv", "wo")
-                 and "/attn/" in n and not a.any()]
-    n_attn = sum(1 for n, _ in named_k if "/attn/" in n
-                 and n.split("/")[-1] in ("wq", "wk", "wv", "wo"))
-    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    if not (finite and not zero_attn and n_attn == 4 * attn_layers):
-        raise AssertionError(f"step 1 gradients: finite {finite}, zero "
-                             f"attention gradients {zero_attn}")
-    if not (loss_rel <= 1e-2 and rel[worst_leaf] <= FULL_GRAD_REL_L2):
-        raise AssertionError(
-            f"step 1 with the kernels and with the plain versions differ: "
-            f"loss {float(loss_k)} vs {float(loss_p)}, gradient {worst_leaf}"
-            f" by relative L2 {rel[worst_leaf]} (tol {FULL_GRAD_REL_L2})")
-    del g_k, g_p, named_k, named_p, params
+    need = [f"/layers/{i}/{leaf}" for i, kind in enumerate(kinds)
+            for leaf in GRAD_LEAVES[kind]]
+
+    def check_grads(grads, dtype):
+        finite = bool(torch.stack([torch.isfinite(a).all()
+                                   for a in grads.values()]).all())
+        zero = [n for n in need if n not in grads or not grads[n].any()]
+        if not (finite and not zero):
+            raise AssertionError(f"step 1 gradients ({dtype}): finite "
+                                 f"{finite}, zero or missing {zero}")
+    # the FMA scan kernel runs in fp32 compute only
+    dtypes = ("float32", cfg.dtype) if layers["mlstm"] else (cfg.dtype,)
+    step1 = {}
+    for dtype in dtypes:
+        g_k, launched, step1[f"step1_{dtype}"] = step1_check(
+            params, first, dataclasses.replace(cfg, dtype=dtype), seq)
+        check_grads(g_k, dtype)
+        step1[f"step1_{dtype}"]["launches"] = launched
+        del g_k
+    step1.update(step1_launches=step1[f"step1_{dtypes[0]}"]["launches"],
+                 weight_grads_nonzero=len(need))
+    del params
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -1441,12 +1829,15 @@ def train_full(device, sizes, arch):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    MF.backward_calls = 0
+    MF.backward_calls = MX.backward_calls = 0
     losses, step_ms, norms = [], [], []
-    want = {"flash_attention_prefill": 2 * attn_layers,
-            "flash_attention_decode": 0, "flash_attention_fp32": 0}
+    want = {"flash_attention_prefill": 2 * layers["attn"],
+            "flash_attention_decode": 0, "flash_attention_fp32": 0,
+            "mlstm_scan_tc": 2 * layers["mlstm"], "mlstm_scan_fma": 0}
+    want_bwd = (layers["attn"], layers["mlstm"])
     for i in range(sizes["steps"]):
-        before, bwd_before = kernel_launches(), MF.backward_calls
+        before = kernel_launches()
+        bwd_before = MF.backward_calls, MX.backward_calls
         if device == "cuda":
             torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -1456,56 +1847,76 @@ def train_full(device, sizes, arch):
         step_ms.append((time.perf_counter() - t1) * 1e3)
         launched = {key: n - before[key]
                     for key, n in kernel_launches().items()}
-        bwd = MF.backward_calls - bwd_before
-        if bwd != attn_layers or (device == "cuda" and any(
+        bwd = (MF.backward_calls - bwd_before[0],
+               MX.backward_calls - bwd_before[1])
+        if bwd != want_bwd or (device == "cuda" and any(
                 launched[key] != n for key, n in want.items())):
             raise AssertionError(f"train step {i}: launches {launched}, "
-                                 f"backward calls {bwd}; want {want} and "
-                                 f"{attn_layers}")
+                                 f"backward calls (attention, mLSTM) {bwd};"
+                                 f" want {want} and {want_bwd}")
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])):
             raise AssertionError(f"train step {i}: loss {losses[-1]}, "
                                  f"gradient norm {norms[-1]}")
-    launches = dict(kernel_launches(), flash_attention_backward=(
-        MF.backward_calls))
+    launches = dict(kernel_launches(),
+                    flash_attention_backward=MF.backward_calls,
+                    mlstm_scan_backward=MX.backward_calls)
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9
                if device == "cuda" else None)
     rows, busy_us, wall_us = device_ops(
         lambda: step(state, host_batch(data, sizes["steps"])), device)
+    if not busy_us > 0:
+        raise AssertionError(f"{arch}: the profiled step shows no device time")
     # Where a step's time goes: the gradients (forward, recompute and
-    # backward) and the AdamW update, each timed alone.
+    # backward), timed once (the steps above warmed it up), and the AdamW
+    # update on those gradients.
     batch = TR.on_device(host_batch(data, 0), device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
     grads = TR.loss_and_grads(state["params"], batch, cfg)[2]
-    parts = {"loss_and_grads_ms": wall_ms(
-        lambda: TR.loss_and_grads(state["params"], batch, cfg), 2, device),
-        "adamw_ms": wall_ms(lambda: adamw_update(
-            state["params"], grads, state["opt"], OptConfig(**FULL_OPT)), 2,
-            device)}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    parts = {"loss_and_grads_ms": (time.perf_counter() - t1) * 1e3,
+             "adamw_ms": wall_ms(lambda: adamw_update(
+                 state["params"], grads, state["opt"],
+                 OptConfig(**FULL_OPT)), 2, device)}
     del grads
-    tokens = sizes["batch"] * sizes["seq"]
+    tokens = sizes["batch"] * seq
     mean_ms = statistics.mean(step_ms[1:])
-    flops, nbytes = train_step_work(cfg, sizes["batch"], sizes["seq"],
-                                    n_params)
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    # The executed-FLOPs model of the reference (launch/analytic.py): the
+    # larger of its FLOPs at the bf16 peak and its HBM bytes.
+    cost = analytic.train_cost(cfg, ShapeConfig("chip", seq,
+                                                sizes["batch"], "train"),
+                               1, remat=cfg.remat)
+    a_ops = cost.exec_flops_total / PEAK_FLOPS[torch.bfloat16] * 1e3
+    a_bytes = cost.hbm_bytes_per_dev / HBM_BYTES_PER_S * 1e3
+    bound = dict(analytic_bound_ms=max(a_ops, a_bytes),
+                 analytic_bound_by="operations" if a_ops >= a_bytes
+                 else "bytes", analytic_exec_flops=cost.exec_flops_total,
+                 analytic_hbm_bytes=cost.hbm_bytes_per_dev,
+                 analytic_ops_ms=a_ops, analytic_bytes_ms=a_bytes)
+    if layers["attn"] == len(kinds):
+        flops, nbytes = train_step_work(cfg, sizes["batch"], seq,
+                                        n_params)
+        t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound.update(bound_ms=t_ops + t_bytes, bound_source="train_step_work",
+                     bound_flops=flops, bound_ops_ms=t_ops,
+                     bound_optimizer_bytes=nbytes, bound_bytes_ms=t_bytes)
+    else:
+        bound.update(bound_ms=bound["analytic_bound_ms"],
+                     bound_source="analytic.train_cost")
     top = sorted(rows, key=lambda r: -r[1])[:8]
     return dict(
-        model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-        vocab=cfg.vocab_size, params=n_params, remat=cfg.remat,
-        dtype=cfg.dtype, param_dtype=cfg.param_dtype, batch=sizes["batch"],
-        seq=sizes["seq"], steps=sizes["steps"], losses=losses,
-        grad_norms=norms, step1_loss_with_kernels=float(loss_k),
-        step1_loss_plain=float(loss_p), step1_loss_rel_diff=loss_rel,
-        step1_grad_rel_l2_max=rel[worst_leaf],
-        step1_grad_worst_leaf=worst_leaf,
-        step1_grad_rel_l2_median=statistics.median(rel.values()),
-        step1_grad_tol_rel_l2=FULL_GRAD_REL_L2,
-        attention_weight_grads_nonzero=n_attn, step_ms=step_ms,
+        model=cfg.name, layers=cfg.num_layers, blocks=layers,
+        d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params,
+        remat=cfg.remat, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+        batch=sizes["batch"], seq=seq, steps=sizes["steps"],
+        losses=losses, grad_norms=norms, **step1, step_ms=step_ms,
         step_ms_mean_2_on=mean_ms, tokens_per_s=tokens / mean_ms * 1e3,
-        bound_ms=t_ops + t_bytes, bound_flops=flops, bound_ops_ms=t_ops,
-        bound_optimizer_bytes=nbytes, bound_bytes_ms=t_bytes,
-        peak_memory_gb=peak_gb, launches=launches,
+        **bound, peak_memory_gb=peak_gb, launches=launches,
         launches_per_step={k: v / sizes["steps"] for k, v in launches.items()},
         profiled_step_wall_us=wall_us, profiled_device_busy_us=busy_us,
         device_idle_share=1 - busy_us / wall_us,
@@ -1546,31 +1957,375 @@ def train_step_work(cfg, batch, seq, n_params):
 
 
 def phase_train(device="cuda", sizes=TRAIN_FULL):
-    """The training path: hazards of the lse and the Function, attention
-    forward and backward at the training shapes (head dims 128 and 256),
-    the reduced models card against CPU, then llama3.2-3b's and
-    gemma3-1b's train steps.  Returns the launches of each model's run
-    (counts set to 0 just before its steps) and the timings by case."""
+    """The training path: hazards of the lse and the attention Function and
+    of the mLSTM scan's Function, attention forward and backward at the
+    training shapes (head dims 128 and 256, 12 query heads a KV head), the
+    mLSTM scan forward and backward at xlstm-350m's, the reduced models card
+    against CPU, then the train steps of llama3.2-3b, gemma3-1b,
+    starcoder2-3b and xlstm-350m.  Returns each model's train line (its
+    launches: counts set to 0 just before its steps) and the timings by
+    case (the mLSTM scan's by dtype)."""
     t0 = time.perf_counter()
     worst = train_hazards(device, sizes)
+    worst_mlstm = train_mlstm_hazards(device, sizes)
     timing = {}
     for case in sizes["timing_cases"]:
         timing[case] = time_training_attention(device, sizes, case)
         emit("train_attention", device=device, **timing[case])
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).removeprefix("torch.")
+        timing[f"mlstm {key}"] = time_training_mlstm(device, sizes, dtype)
+        emit("train_mlstm", device=device, kernel="mlstm_scan",
+             **timing[f"mlstm {key}"])
     reduced = train_reduced(device, sizes)
     emit("train_reduced_vs_cpu", device=device, models=reduced)
-    launches = {}
-    for arch, case in zip(sizes["models"], sizes["timing_cases"]):
+    lines = {}
+    for arch, case in sizes["models"]:
         t1 = time.perf_counter()
         full = train_full(device, sizes, arch)
+        if case is None:
+            bwd = dict(mlstm_backward_ms_per_step=timing["mlstm bfloat16"][
+                "bwd_plain_ms"] * full["blocks"]["mlstm"],
+                mlstm_timed_at=timing["mlstm bfloat16"]["shape"])
+        else:
+            bwd = dict(attention_backward_ms_per_step=timing[case][
+                "bwd_plain_ms"] * full["blocks"]["attn"],
+                attention_timed_at=timing[case]["shape"])
         emit("train", device=device, hazards=dict(
-            cases=len(sizes["hazards"]) * 2, worst=worst), **full,
-            attention_backward_ms_per_step=timing[case]["bwd_plain_ms"]
-            * full["layers"], attention_timed_at=timing[case]["shape"],
+            attention_cases=len(sizes["hazards"]) * 2, attention_worst=worst,
+            mlstm_cases=len(sizes["mlstm_hazards"]) * 2,
+            mlstm_worst=worst_mlstm), **full, **bwd,
             seconds=time.perf_counter() - t1)
-        launches[arch] = full["launches"]
+        lines[arch] = full
     emit("train_phase", device=device, seconds=time.perf_counter() - t0)
-    return launches, timing
+    return lines, timing
+
+
+# ---------------------------------------------------------------------------
+# The xlstm-350m step-1 witness (python3 chip_smoke.py --xlstm-witness):
+# step 1's gradients in float64 beside the same step in fp32, with the
+# kernels and with the plain versions, and mixes that compute one part in
+# the other precision, each read layer by layer against float64.
+# ---------------------------------------------------------------------------
+
+_TO_F32 = torch.Tensor.float
+
+
+def _float64_patches():
+    """``.float()`` keeps a float64 tensor float64 and the xLSTM blocks'
+    zero states are float64: a float64 model then computes in float64
+    every op that computes in fp32 for bf16 and fp32 models."""
+    zero, cache = MX._zero_state, MX.init_slstm_cache
+
+    def keep64(self, *a, **kw):
+        return self if self.dtype == torch.float64 else _TO_F32(self, *a, **kw)
+    return [(torch.Tensor, "float", keep64),
+            (MX, "_zero_state", lambda *a, **kw: tuple(
+                s.double() for s in zero(*a, **kw))),
+            (MX, "init_slstm_cache", lambda *a, **kw: {
+                k: s.double() for k, s in cache(*a, **kw).items()})]
+
+
+def _mlstm_scan_fp32_patches():
+    """In a float64 model: the mLSTM scan (forward and backward) in fp32."""
+    def f32_inputs(q, k, v, log_i, log_f):
+        return (_TO_F32(q) / math.sqrt(q.shape[-1]), *map(_TO_F32, (
+            k, v, log_i, log_f)))
+    zero = MX._zero_state
+    return [(MX, "_f32_inputs", f32_inputs),
+            (MX, "_zero_state", lambda *a, **kw: tuple(
+                _TO_F32(s) for s in zero(*a, **kw)))]
+
+
+def _slstm_scan_fp32_patches():
+    """In a float64 model: the sLSTM recurrence in fp32."""
+    scan = MX.slstm_scan
+
+    def slstm_fp32(wx, r, *state, nh):
+        return scan(_TO_F32(wx), _TO_F32(r), *map(_TO_F32, state), nh=nh)
+    return [(MX, "slstm_scan", slstm_fp32)]
+
+
+def _mlstm_backward_f64_patches():
+    """In an fp32 model: the mLSTM Function's backward in float64."""
+    bwd = MX.mlstm_backward
+
+    def bwd64(*args, chunk):
+        with patched(*_float64_patches()):
+            grads = bwd(*(a.double() for a in args), chunk=chunk)
+        return tuple(g.to(a.dtype) for g, a in zip(grads, args))
+    return [(MX, "mlstm_backward", bwd64)]
+
+
+def _rel64(a, b):
+    """Relative L2 of ``a`` against ``b`` in float64 (the largest |a| where
+    ``b`` is all zeros)."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm()) if b.any() else float(
+        a.abs().max())
+
+
+def _witness_run(params, batch, cfg, plain, patches, branches):
+    """Step 1 (remat "none") in ``cfg.dtype`` with ``patches`` and the
+    DenominatorBranches ``branches`` set: the loss, the gradients by leaf
+    name, each layer's output and the gradient of the loss at it, and each
+    mLSTM layer's forget-gate pre-activation gradient by position (the
+    terms of its ``b_f`` gradient)."""
+    outs, d_outs, d_pre_f = [], {}, []
+    layer = TT._train_layer
+
+    def recorded(*a, **kw):
+        x, aux = layer(*a, **kw)
+        i = len(outs)
+        outs.append(x.detach().double())
+        x.register_hook(lambda g: d_outs.__setitem__(i, g.detach().double()))
+        return x, aux
+
+    class HookedF:
+        """torch.nn.functional, but logsigmoid of the mLSTM's (B, T, H)
+        forget-gate pre-activation records its gradient."""
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        def logsigmoid(self, x):
+            if x.dim() == 3 and x.requires_grad:
+                i = len(d_pre_f)
+                d_pre_f.append(None)
+                x.register_hook(lambda g: d_pre_f.__setitem__(
+                    i, g.detach().double()))
+            return F.logsigmoid(x)
+    with patched((TT, "_train_layer", recorded), (MX, "F", HookedF()),
+                 (MX, "_denominator", branches), *patches):
+        reset_launches()
+        loss, grads = _step1(params, batch, cfg,
+                             **({"mlstm_chunk": plain} if plain else {}))
+        launches = kernel_launches()
+    return dict(loss=loss, grads=grads, outs=outs,
+                d_outs=[d_outs[i] for i in range(len(outs))],
+                d_pre_f=d_pre_f, launches=launches)
+
+
+#: The witness's runs: (name, compute dtype, the plain versions (their
+#: mLSTM chunk; None: with the kernels), patches, the run whose
+#: denominator sides it takes near the kink and the band (None: its own)).
+#: The first is the float64 witness every run is read against; each run is
+#: also read against its dtype's plain run ("fp32 plain", "bf16 plain").
+WITNESS_RUNS = (
+    ("float64", "float64", 256, _float64_patches, None),
+    ("float64 re-chunked 128", "float64", 128, _float64_patches, None),
+    ("fp32 plain", "float32", 256, list, None),
+    ("fp32 kernels", "float32", None, list, None),
+    ("fp32 plain re-chunked 128", "float32", 128, list, None),
+    ("float64, mLSTM scan in fp32", "float64", 256,
+     lambda: _float64_patches() + _mlstm_scan_fp32_patches(), None),
+    ("float64, sLSTM recurrence in fp32", "float64", 256,
+     lambda: _float64_patches() + _slstm_scan_fp32_patches(), None),
+    ("fp32 plain, mLSTM backward in float64", "float32", 256,
+     _mlstm_backward_f64_patches, None),
+    ("fp32 kernels, mLSTM backward in float64", "float32", None,
+     _mlstm_backward_f64_patches, None),
+    ("fp32 plain at float64's sides", "float32", 256, list,
+     ("float64", 1e-2)),
+    ("fp32 kernels at float64's sides", "float32", None, list,
+     ("float64", 1e-2)),
+    ("fp32 kernels at fp32 plain's sides", "float32", None, list,
+     ("fp32 plain", 1e-2)),
+    ("fp32 plain re-chunked 128 at fp32 plain's sides", "float32", 128, list,
+     ("fp32 plain", 1e-2)),
+    ("bf16 plain", "bfloat16", 256, list, None),
+    ("bf16 kernels", "bfloat16", None, list, None),
+    ("bf16 plain re-chunked 128", "bfloat16", 128, list, None),
+    *((f"bf16 kernels at bf16 plain's sides, band {band}", "bfloat16", None,
+       list, ("bf16 plain", band)) for band in (0.03, 0.1, 0.3, 1.0)),
+    ("bf16 plain re-chunked 128 at bf16 plain's sides, band 0.3",
+     "bfloat16", 128, list, ("bf16 plain", 0.3)))
+
+
+def _read(got, ref, mlstm_layers):
+    """``got`` (a _witness_run) against ``ref``: the loss, every gradient
+    leaf's relative L2 (largest, median, the worst, each layer's worst)
+    and norm ratio, each layer's output and output gradient, and each
+    mLSTM layer's forget-gate terms and ``b_f`` gradient."""
+    rel = {n: _rel64(a, ref["grads"][n]) for n, a in got["grads"].items()}
+    ratio = [float(a.double().norm() / ref["grads"][n].double().norm())
+             for n, a in got["grads"].items() if ref["grads"][n].any()]
+    by_layer = collections.defaultdict(float)
+    for n, r in rel.items():
+        key = "/".join(n.split("/")[:3]) if n.startswith("/layers/") else n
+        by_layer[key] = max(by_layer[key], r)
+    return dict(
+        loss_rel_diff=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+        grad_rel_l2_max=max(rel.values()),
+        grad_rel_l2_median=statistics.median(rel.values()),
+        leaves_over_tol=sum(r > FULL_GRAD_REL_L2 for r in rel.values()),
+        worst=sorted(rel.items(), key=lambda kv: -kv[1])[:8],
+        norm_ratio_range=[min(ratio), max(ratio)],
+        grad_rel_l2_by_layer=dict(by_layer),
+        out_rel_l2=[_rel64(a, b) for a, b in zip(got["outs"], ref["outs"])],
+        d_out_rel_l2=[_rel64(a, b) for a, b in zip(got["d_outs"],
+                                                    ref["d_outs"])],
+        d_pre_f_rel_l2={f"layer {i}": _rel64(a, b) for i, a, b in zip(
+            mlstm_layers, got["d_pre_f"], ref["d_pre_f"])},
+        b_f_rel_l2={f"layer {i}": rel[f"/layers/{i}/b_f"]
+                    for i in mlstm_layers})
+
+
+def _sides(taken, ref):
+    """Positions whose denominator side differs from ``ref``'s, by layer,
+    and quantiles of their own |margin|."""
+    differ = [(t >= 0) != (r >= 0) for t, r in zip(taken, ref)]
+    far = torch.cat([t[d].abs() for t, d in zip(taken, differ)])
+    q = (far.quantile(torch.tensor([0.5, 0.9, 0.99, 1.0], device=far.device))
+         .tolist() if far.numel() else None)
+    return dict(by_layer=[int(d.sum()) for d in differ],
+                total=int(sum(d.sum() for d in differ)),
+                own_margin_q50_q90_q99_max=q)
+
+
+#: What each witness line prints (the rest goes to its JSON file).
+_WITNESS_PRINTED = ("loss_rel_diff", "grad_rel_l2_max", "grad_rel_l2_median",
+                    "leaves_over_tol", "worst", "norm_ratio_range")
+
+
+def xlstm_witness(device="cuda", reduced=False, seq=1024, batch=2,
+                  out=None):
+    """xlstm-350m's step 1 (the train phase's first batch) in each of
+    WITNESS_RUNS, read against float64 and against its dtype's plain run
+    (``_read``), with where its denominator sides differ from theirs
+    (``_sides``); float64's own line gives the loss's gradient norm at
+    each layer's output and each mLSTM layer's forget-gate terms: their
+    sum (the ``b_f`` gradient) and its cancellation |sum| / sum |term| by
+    head."""
+    cfg = get_config("xlstm-350m")
+    if reduced:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, remat="none")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+    params32 = TT.init_params(SEED, cfg, device=device)
+    first = TR.on_device(host_batch(data, 0), device)
+    mlstm_layers = [i for i, k in enumerate(cfg.block_pattern)
+                    if k == "mlstm"]
+    refs, sides, lines = {}, {}, []
+    for name, dtype, plain, patches, forced in WITNESS_RUNS:
+        t0 = time.perf_counter()
+        params = (_cast_tree(params32, torch.float64) if dtype == "float64"
+                  else params32)
+        branches = DenominatorBranches(
+            seq, *((sides[forced[0]], forced[1]) if forced else ()))
+        got = _witness_run(params, first, dataclasses.replace(
+            cfg, dtype=dtype), plain, patches(), branches)
+        del params
+        sides[name] = branches.taken
+        line = dict(run=name, loss=got["loss"],
+                    seconds=time.perf_counter() - t0,
+                    launches={k: v for k, v in got["launches"].items() if v},
+                    floor_side_share=[float((t < 0).float().mean())
+                                      for t in branches.taken],
+                    sides_moved_by_force=branches.moved or None)
+        if not refs:
+            line.update(
+                d_out_norm=[float(g.norm()) for g in got["d_outs"]],
+                b_f_terms={f"layer {i}": dict(
+                    sum=g.sum(dim=(0, 1)).tolist(),
+                    cancellation=(g.sum(dim=(0, 1)).abs() / g.abs().sum(
+                        dim=(0, 1))).tolist())
+                    for i, g in zip(mlstm_layers, got["d_pre_f"])})
+        own = {"float32": "fp32 plain",
+               "bfloat16": "bf16 plain"}.get(dtype)
+        for ref in ("float64", own):
+            if ref in refs and ref != name:
+                line[f"vs {ref}"] = dict(_read(got, refs[ref], mlstm_layers),
+                                         sides=_sides(sides[name],
+                                                      sides[ref]))
+        if name in ("float64", own):
+            refs[name] = got
+        del got
+        lines.append(line)
+        emit("xlstm_witness", device=device, model=cfg.name,
+             layers=cfg.num_layers, seq=seq, batch=batch, run=name,
+             loss=line["loss"], seconds=line["seconds"],
+             **{ref: {k: v[k] for k in _WITNESS_PRINTED}
+                for ref, v in line.items() if ref.startswith("vs ")})
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    if out:
+        with open(out, "w") as f:
+            json.dump(lines, f, indent=1)
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# The gelu A/B (python3 chip_smoke.py --gelu-ab): gemma3-1b's prefill,
+# decode step and train step with each way of computing the MLP's gelu.
+# ---------------------------------------------------------------------------
+
+def _gelu_constants_each_call(x):
+    """layers.gelu_tanh as first written: each constant made as a tensor
+    on x's device at every call."""
+    def const(c):
+        return torch.tensor(c, dtype=x.dtype, device=x.device)
+    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * x * x))
+    return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
+
+
+GELU_VARIANTS = {
+    "F.gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "op by op, constants made each call": _gelu_constants_each_call,
+    "op by op, scalar constants": ML.gelu_tanh}
+
+
+def gelu_ab(arch="gemma3-1b", steps=4, rounds=2):
+    """``arch`` at full width and depth with each of GELU_VARIANTS in turn,
+    ``rounds`` times in the order A B C C B A: prefill ms (B4 T512, bf16,
+    mean of 10), decode step ms at fill DECODE_POS (mean of 50), and the
+    mean train step ms (B2 T1024, remat "full", after one step's
+    warm-up); every reading, and each variant's median."""
+    cfg = get_config(arch)
+    params = TT.cast_params(init_params(SEED, cfg, device="cuda"), cfg)
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (len(PROMPTS), max(PROMPTS)))
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    logits, caches = TT.prefill(params, batch, cfg, MAX_SEQ)
+    nxt = logits.argmax(-1)
+    state = TR.init_train_state(SEED, cfg, device="cuda")
+    step = TR.make_train_step(cfg, TR.make_rules(None), OptConfig(**FULL_OPT))
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
+                      global_batch=2)
+    order = [*GELU_VARIANTS, *reversed(GELU_VARIANTS)] * rounds
+    got = collections.defaultdict(list)
+    for name in order:
+        with patched((ML, "gelu_tanh", GELU_VARIANTS[name])):
+            pre = cuda_ms(lambda: TT.prefill(params, batch, cfg, MAX_SEQ),
+                          iters=10, warmup=1)
+            dec = cuda_ms(lambda: TT.decode_step(params, nxt, caches,
+                                                 DECODE_POS, cfg, MAX_SEQ),
+                          iters=50)
+            ms = []
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, host_batch(data, i))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        got[name].append(dict(prefill_ms=pre, decode_step_ms=dec,
+                              train_step_ms=statistics.mean(ms[1:])))
+    median = {name: {k: statistics.median(r[k] for r in runs)
+                     for k in runs[0]} for name, runs in got.items()}
+    emit("gelu_ab", model=cfg.name, order=order, median=median,
+         readings=dict(got),
+         prefill_shape=f"B{len(PROMPTS)} T{max(PROMPTS)}",
+         decode_at=DECODE_POS, train_shape="B2 T1024 remat full",
+         train_steps_averaged=steps - 1)
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_tree(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 # ---------------------------------------------------------------------------
@@ -1913,12 +2668,14 @@ def wall_ms(fn, iters, device, warmup=1):
 def device_ops(fn, device, calls=1):
     """``fn`` called ``calls`` times under torch.profiler: the rows that ran
     on ``device`` (CUDA: kernels, memsets and copies; CPU: operators),
-    their busy time and the wall time of the window."""
+    their busy time and the wall time of the window.  On the card only the
+    CUDA activity is recorded: the host's operator records (several a
+    kernel) are never read, and at xlstm-350m's 325 k kernels a train step
+    they kept the profiler busy for minutes."""
     from torch.profiler import ProfilerActivity, profile
-    kind = (torch.autograd.DeviceType.CUDA if device == "cuda"
-            else torch.autograd.DeviceType.CPU)
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    kind, acts = ((torch.autograd.DeviceType.CUDA, [ProfilerActivity.CUDA])
+                  if device == "cuda" else
+                  (torch.autograd.DeviceType.CPU, [ProfilerActivity.CPU]))
     if device == "cuda":
         torch.cuda.synchronize()
     with profile(activities=acts) as prof:
@@ -3183,6 +3940,14 @@ def main():
     mfp32 = time_attention("prefill", *mserving, copies=1,
                            dtype=torch.float32, phase="attention",
                            model=m.name)
+    # starcoder2-3b's attention: G = 24/2 = 12 (its hazards are in HAZARDS)
+    c = get_config("starcoder2-3b")
+    cpre = time_attention("prefill", b, max(PROMPTS), max(PROMPTS),
+                          c.num_heads, c.num_kv_heads, c.head_dim, None,
+                          copies=1, phase="attention", model=c.name)
+    cdec = time_attention("decode", b, 1, MAX_SEQ, c.num_heads,
+                          c.num_kv_heads, c.head_dim, [DECODE_POS], copies=8,
+                          phase="attention", model=c.name)
     phase_mlstm_hazards()
     scan = time_mlstm(torch.bfloat16)
     scan32 = time_mlstm(torch.float32)
@@ -3191,8 +3956,10 @@ def main():
     xlstm, _ = phase_serve("xlstm-350m")
     granite, _ = phase_serve("granite-moe-3b-a800m")
     gemma, _ = phase_serve("gemma3-1b")
+    starcoder, _ = phase_serve("starcoder2-3b")
     phase_moe()
-    train, train_attn = phase_train()
+    train_lines, train_timing = phase_train()
+    train = {arch: line["launches"] for arch, line in train_lines.items()}
     extract_dp_launches = phase_extract(trace=llama_trace, card=smi)
     phase_sim()
     phase_studies()
@@ -3217,9 +3984,10 @@ def main():
                                       "bound_ms", "bound_by", "library_ms",
                                       "shape", *keys)}, **more}
     serve_runs = {"llama3.2-3b": llama, "xlstm-350m": xlstm,
-                  "granite-moe-3b-a800m": granite, "gemma3-1b": gemma}
-    prefill_runs = dict(serve_runs, **{f"train {arch}": run
-                                       for arch, run in train.items()},
+                  "granite-moe-3b-a800m": granite, "gemma3-1b": gemma,
+                  "starcoder2-3b": starcoder}
+    train_runs = {f"train {arch}": run for arch, run in train.items()}
+    prefill_runs = dict(serve_runs, **train_runs,
                         **{"extract dp llama3.2-3b": extract_dp_launches})
     fp32_runs = {"reduced models in fp32": small}
     attn = "src/repro/kernels/flash_attention.py:39"
@@ -3229,30 +3997,46 @@ def main():
           "library_backend", "bound_ms", "bound_by")
 
     def with_lse(case):
-        t = train_attn[case]
+        t = train_timing[case]
         return dict(shape=t["shape"], ms=t["fwd_ms"],
                     plain_ms=t["fwd_plain_ms"],
                     library_ms=t["fwd_library_ms"],
                     library_backend=t["fwd_library_backend"],
                     bound_ms=t["fwd_bound_ms"], bound_by=t["fwd_bound_by"])
+    def scan_at_training(dtype):
+        t = train_timing[f"mlstm {dtype}"]
+        return dict(shape=t["shape"], ms=t["fwd_ms"],
+                    plain_ms=t["fwd_plain_ms"], library_ms=None,
+                    bound_ms=t["fwd_bound_ms"], bound_by=t["fwd_bound_by"],
+                    plain_backward_ms=t["bwd_plain_ms"],
+                    plain_backward_bound_ms=t["bwd_bound_ms"],
+                    plain_backward_bound_by=t["bwd_bound_by"])
     print(json.dumps({"kernels": [
         entry("flash_attention", "prefill", "flash_attention_prefill.cu",
               attn, pre, prefill_runs, at_d64={k: gpre[k] for k in at},
               at_d256={k: mpre[k] for k in at},
               at_training_shape_with_lse=with_lse("training_shape"),
               at_training_shape_with_lse_d256=with_lse(
-                  "training_shape_d256")),
+                  "training_shape_d256"),
+              at_gqa12={k: cpre[k] for k in at},
+              at_training_shape_with_lse_gqa12=with_lse(
+                  "training_shape_gqa12")),
         entry("flash_attention", "decode", "flash_attention_decode.cu", attn,
               dec, serve_runs, at_d64={k: gdec[k] for k in at},
-              at_d256={k: mdec[k] for k in at}),
+              at_d256={k: mdec[k] for k in at},
+              at_gqa12={k: cdec[k] for k in at}),
         entry("flash_attention", "fp32", "flash_attention.cu", attn, fp32,
               fp32_runs, at_d256={k: mfp32[k] for k in at}),
         entry("mlstm_scan", "tc", "mlstm_scan_tc.cu",
-              "src/repro/kernels/mlstm_scan.py:32", scan, serve_runs,
-              scan_keys + ("fma_ms",)),
+              "src/repro/kernels/mlstm_scan.py:32", scan,
+              dict(serve_runs, **train_runs), scan_keys + ("fma_ms",),
+              at_training_shape=scan_at_training("bfloat16")),
         entry("mlstm_scan", "fma", "mlstm_scan.cu",
-              "src/repro/kernels/mlstm_scan.py:32", scan32, fp32_runs,
-              scan_keys)]}), flush=True)
+              "src/repro/kernels/mlstm_scan.py:32", scan32,
+              dict(fp32_runs, **{
+                  "train xlstm-350m step 1 (fp32)": train_lines[
+                      "xlstm-350m"]["step1_launches"]}), scan_keys,
+              at_training_shape=scan_at_training("float32"))]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3260,4 +4044,13 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--xlstm-witness"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("the witness needs a CUDA device")
+        phase_device()
+        xlstm_witness(out=sys.argv[2] if len(sys.argv) > 2 else None)
+    elif sys.argv[1:2] == ["--gelu-ab"]:
+        phase_device()
+        gelu_ab()
+    else:
+        main()

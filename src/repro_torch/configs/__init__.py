@@ -5,7 +5,7 @@ Only the architectures the port serves are here; the JAX package's other
 configs come with the model kinds they need (ROADMAP, queue A item 10).
 """
 from . import (gemma3_1b, granite_moe_3b_a800m, llama32_3b, lacin_demo,
-               xlstm_350m)
+               starcoder2_3b, xlstm_350m)
 
 __all__ = ["gemma3_1b", "granite_moe_3b_a800m", "llama32_3b", "lacin_demo",
-           "xlstm_350m"]
+           "starcoder2_3b", "xlstm_350m"]

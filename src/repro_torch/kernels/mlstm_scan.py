@@ -23,8 +23,10 @@ Which kernel runs is a fixed rule on dtype and chunk, made by :func:`plan`
 - any other bfloat16 call: ``csrc/mlstm_scan.cu`` (path ``"fma"``).
 
 The kernels are forward-only: a call with grad mode on and an input that
-requires grad raises, since their outputs are tensors autograd cannot see
-(the scan's backward is ROADMAP queue A, item 10(g)).
+requires grad raises, since their outputs are tensors autograd cannot see.
+Training reaches them only through :class:`repro_torch.models.xlstm.
+MLSTMScan`, whose forward runs with grad mode off and whose backward
+differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -126,8 +128,9 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
     if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
         raise RuntimeError(
             "mlstm_scan's kernels are forward-only and return tensors "
-            "autograd cannot see; the scan has no backward yet (ROADMAP "
-            "queue A, item 10(g)), so call it under torch.no_grad()")
+            "autograd cannot see; under grad call repro_torch.models.xlstm."
+            "mlstm_scan_grad (the autograd Function), or run under "
+            "torch.no_grad()")
     if not (q.is_cuda and all(x.device == q.device for x in tensors)):
         raise ValueError("mlstm_scan runs on CUDA tensors, all on one device; "
                          "CPU tensors go to ops.mlstm_scan")

@@ -1,5 +1,6 @@
-"""Model configuration: :class:`ModelConfig`, the registry and
-:meth:`ModelConfig.reduced`.
+"""Model configuration: :class:`ModelConfig`, the registry,
+:meth:`ModelConfig.reduced` and the assigned shapes (:class:`ShapeConfig`,
+``SHAPES``).
 
 A copy of the dataclass logic of ``repro.models.config`` (the JAX
 reference), so that ``repro_torch`` imports nothing of that package.
@@ -227,6 +228,27 @@ def _reduce_pattern(pattern: tuple[str, ...], layers: int) -> tuple[str, ...]:
         if k not in out and idx < layers:
             out[-(idx + 1)] = k
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Shapes (assigned): four cells per architecture.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES: dict[str, ShapeConfig] = {s.name: s for s in
+                                  (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from repro_torch.core.collectives import library_all_reduce
 from repro_torch.fabric import LacinCollectives
-from .layers import AxisRules, dense_init
+from .layers import AxisRules, dense_init, gelu_tanh
 
 
 def expert_store_count(cfg) -> int:
@@ -111,12 +111,12 @@ def _expert_ffn(p, x, cfg):
     if cfg.mlp == "swiglu":
         h = F.silu(torch.bmm(x, p["wg"].to(x.dtype))) * h
     elif cfg.mlp == "geglu":
-        h = F.gelu(torch.bmm(x, p["wg"].to(x.dtype)), approximate="tanh") * h
+        h = gelu_tanh(torch.bmm(x, p["wg"].to(x.dtype))) * h
     elif cfg.mlp == "squared_relu":
         r = F.relu(h)
         h = r * r
     else:
-        h = F.gelu(h, approximate="tanh")
+        h = gelu_tanh(h)
     return torch.bmm(h, p["wo"].to(x.dtype))
 
 

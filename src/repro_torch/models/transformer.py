@@ -28,9 +28,10 @@ single device by default) reaches the expert-parallel MoE.
 :func:`forward_train` takes the parameters as stored (``param_dtype``,
 fp32) and casts each layer's to ``cfg.dtype`` inside the layer,
 differentiably, as the reference's ``_cast`` does; ``cfg.remat`` picks
-what the backward recomputes, as the reference's ``jax.checkpoint`` does.
-It trains attention stacks (dense MLP or MoE); the xLSTM blocks raise,
-since the mLSTM scan kernel has no backward yet.
+what the backward recomputes, layer by layer, as the reference's
+``jax.checkpoint`` does each run's body.  It trains attention (dense MLP
+or MoE), mLSTM and sLSTM layers; the mLSTM scan goes through its autograd
+Function (:class:`.xlstm.MLSTMScan`).
 """
 from __future__ import annotations
 
@@ -51,10 +52,6 @@ from .xlstm import (apply_mlstm_block, apply_slstm_block, init_mlstm_block,
 #: them.
 _NOT_PORTED = "not ported yet (ROADMAP queue A, item 10(a))"
 _PORTED_KINDS = (ATTN, MLSTM, SLSTM)
-#: Why xLSTM stacks do not train yet, and the ROADMAP item that lets them.
-_NO_XLSTM_TRAINING = ("the mLSTM scan kernel is forward-only: xLSTM "
-                      "training waits for its backward (ROADMAP queue A, "
-                      "item 10(g))")
 
 
 def resolve_device(device) -> torch.device:
@@ -287,16 +284,25 @@ def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _train_layer(p, x, cfg, *, window: int, theta: float, q_pos, rules):
-    """One attention layer of the training forward, under ``cfg.remat``:
-    "full" recomputes the whole layer in the backward
+def _train_layer(p, x, cfg, *, kind: str, window: int, theta: float,
+                 q_pos, rules):
+    """One layer of the training forward, of block ``kind``, under
+    ``cfg.remat``: "full" recomputes the whole layer in the backward
     (``torch.utils.checkpoint``, non-reentrant), "dots" keeps the weight
     products' outputs and recomputes the rest, "none" keeps everything.
+    Recurrent layers start from a zero state and drop the final one.
     Returns (x, ``[moe_aux, moe_z]`` or zeros)."""
     def body(x):
-        x, _, metrics = apply_attn_block(
-            _cast(p, getattr(torch, cfg.dtype)), x, cfg, window=window,
-            theta=theta, q_pos=q_pos, kv_pos=q_pos, rules=rules)
+        lp = _cast(p, getattr(torch, cfg.dtype))
+        metrics = {}
+        if kind == MLSTM:
+            x, _ = apply_mlstm_block(lp, x, cfg)
+        elif kind == SLSTM:
+            x, _ = apply_slstm_block(lp, x, cfg)
+        else:
+            x, _, metrics = apply_attn_block(
+                lp, x, cfg, window=window, theta=theta, q_pos=q_pos,
+                kv_pos=q_pos, rules=rules)
         aux = (torch.stack([metrics["moe_aux"], metrics["moe_z"]])
                if metrics else torch.zeros((2,), dtype=torch.float32,
                                            device=x.device))
@@ -353,13 +359,10 @@ def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
 
 
 def _train_stack(params, x, cfg, *, q_pos, rules):
-    specs = _layer_specs(cfg)
-    if any(kind != ATTN for kind, _, _ in specs):
-        raise NotImplementedError(f"{cfg.name}: {_NO_XLSTM_TRAINING}")
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
-    for p, (_, window, theta) in zip(params["layers"], specs):
-        x, layer_aux = _train_layer(p, x, cfg, window=window, theta=theta,
-                                    q_pos=q_pos, rules=rules)
+    for p, (kind, window, theta) in zip(params["layers"], _layer_specs(cfg)):
+        x, layer_aux = _train_layer(p, x, cfg, kind=kind, window=window,
+                                    theta=theta, q_pos=q_pos, rules=rules)
         aux = aux + layer_aux
     return x, None, aux
 

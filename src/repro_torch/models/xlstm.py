@@ -14,6 +14,13 @@ stabilizer ``m``):
 version of the ``mlstm_scan`` kernel, which the mLSTM block reaches through
 :func:`repro_torch.kernels.ops.mlstm_scan`.  Both run in float32.  The
 sLSTM scan is a plain loop over time.
+
+Under autograd the block reaches the kernel through :class:`MLSTMScan`:
+the kernel forward, and a backward that recomputes :func:`mlstm_chunkwise`
+from the saved inputs and differentiates it, as the reference
+differentiates its jnp ``mlstm_chunkwise`` (it has no Pallas backward).
+``backward_calls`` counts those backward passes, as the kernel wrappers
+count their launches.
 """
 from __future__ import annotations
 
@@ -31,6 +38,22 @@ from .ssm import _causal_conv
 # ---------------------------------------------------------------------------
 # mLSTM cell math.
 # ---------------------------------------------------------------------------
+
+#: The largest exponent whose exp is finite in float32 (88.72), rounded
+#: down.  The denominator's floor exp(-m) is taken at no more than this:
+#: where m < -88.7 the reference's exp(-m) is inf, h underflows to 0, and
+#: its gradient is 0 * inf = NaN.  Clamped, h is the same to 1e-36 and the
+#: gradient is finite (0 to float32 precision, as the exact one is).
+EXP_MAX = 88.0
+
+
+def _denominator(dot, m):
+    """max(|q n|, exp(-m)), the floor's exponent clamped at
+    :data:`EXP_MAX`.  h is continuous where the two sides are equal, but
+    its gradient jumps there: rounding that moves a position across
+    changes that position's gradient by a step, not by a rounding."""
+    return torch.maximum(dot.abs(), torch.exp(torch.clamp_max(-m, EXP_MAX)))
+
 
 def _zero_state(b, h, d, device):
     return (torch.zeros((b, h, d, d), dtype=torch.float32, device=device),
@@ -64,8 +87,8 @@ def mlstm_sequential(q, k, v, log_i, log_f, state=None):
              + bcoef[..., None] * kt[..., None] * vt[..., None, :])
         n = a * n + bcoef * kt
         num = torch.einsum("bhd,bhde->bhe", qt, C)
-        den = torch.einsum("bhd,bhd->bh", qt, n).abs()
-        den = torch.maximum(den, torch.exp(-m_new))[..., None]
+        dot = torch.einsum("bhd,bhd->bh", qt, n)
+        den = _denominator(dot, m_new)[..., None]
         hs.append(num / den)
         m = m_new
     return torch.stack(hs, dim=1), (C, n, m)
@@ -103,7 +126,7 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, chunk: int = 256):
                + c_inter[..., None] * torch.einsum("bthd,bhde->bthe", qc, C0))
         dot = (s_mat.sum(dim=2)
                + c_inter * torch.einsum("bthd,bhd->bth", qc, n0))
-        den = torch.maximum(dot.abs(), torch.exp(-m_row))[..., None]
+        den = _denominator(dot, m_row)[..., None]
         hs.append(num / den)
         # chunk-end state update
         m_new = torch.maximum(btot + m0,
@@ -115,6 +138,70 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, chunk: int = 256):
         n0 = scale0[..., None] * n0 + torch.einsum("bsh,bshd->bhd", w_s, kc)
         m0 = m_new
     return torch.stack(hs, dim=1).reshape(b, t, h, d), (C0, n0, m0)
+
+
+# ---------------------------------------------------------------------------
+# The scan under autograd.
+# ---------------------------------------------------------------------------
+
+#: Backward passes of :class:`MLSTMScan` since the count was last set to 0.
+backward_calls = 0
+
+
+class MLSTMScan(torch.autograd.Function):
+    """The chunkwise mLSTM from a zero state, differentiable in q, k, v,
+    log_i and log_f.
+
+    Forward: :func:`repro_torch.kernels.ops.mlstm_scan` under
+    ``torch.no_grad()`` (on the card the kernel, on the CPU its plain
+    version), looked up at call time; it saves only the inputs.  Backward:
+    :func:`mlstm_chunkwise` recomputed from them under grad, and its
+    gradients.  h comes out in q's dtype; the final (C, n, m) come out
+    beside it, not differentiable (training drops them, as the reference's
+    ``forward_train`` does)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_i, log_f, chunk: int):
+        q, k, v, log_i, log_f = (x.contiguous()
+                                 for x in (q, k, v, log_i, log_f))
+        with torch.no_grad():
+            h, (C, n, m) = kops.mlstm_scan(q, k, v, log_i, log_f, None,
+                                           chunk=chunk)
+        ctx.save_for_backward(q, k, v, log_i, log_f)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(C, n, m)
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, *_):
+        global backward_calls
+        backward_calls += 1
+        return (*mlstm_backward(*ctx.saved_tensors, dh, chunk=ctx.chunk),
+                None)
+
+
+def mlstm_backward(q, k, v, log_i, log_f, dh, *, chunk: int = 256):
+    """dq, dk, dv, dlog_i, dlog_f of h = :func:`mlstm_chunkwise` (from a
+    zero state) for the output gradient ``dh``: the scan recomputed from
+    the inputs under grad and differentiated, in float32; each gradient in
+    its input's dtype.  The backward of :class:`MLSTMScan`."""
+    inputs = [x.detach().requires_grad_(True) for x in (q, k, v, log_i,
+                                                        log_f)]
+    with torch.enable_grad():
+        h, _ = mlstm_chunkwise(*inputs, chunk=chunk)
+        return torch.autograd.grad(h, inputs, dh.to(h.dtype))
+
+
+def mlstm_scan_grad(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
+    """:class:`MLSTMScan`: (h in q's dtype, (C, n, m) float32), the
+    contract of :func:`repro_torch.kernels.ops.mlstm_scan`, differentiable
+    in h.  Takes no initial state: every training sequence starts from
+    zero."""
+    if state is not None:
+        raise ValueError("the mLSTM scan under autograd starts from a zero "
+                         "state; pass state=None")
+    h, C, n, m = MLSTMScan.apply(q, k, v, log_i, log_f, chunk)
+    return h, (C, n, m)
 
 
 # ---------------------------------------------------------------------------
@@ -153,8 +240,10 @@ def apply_mlstm_block(p, x, cfg, *, cache=None, chunk: int = 256):
     """Pre-norm residual mLSTM block.  cache: {"conv", "C", "n", "m"}.
 
     A prompt whose length is a multiple of ``chunk`` goes through
-    :func:`repro_torch.kernels.ops.mlstm_scan` (the kernel on the card);
-    a single step or any other length through :func:`mlstm_sequential`.
+    :func:`repro_torch.kernels.ops.mlstm_scan` (the kernel on the card),
+    and under autograd through :func:`mlstm_scan_grad` (the kernel forward
+    and the plain backward); a single step or any other length through
+    :func:`mlstm_sequential`, under autograd too, as in the reference.
     """
     b, t, d = x.shape
     inner = cfg.ssm_expand * d
@@ -172,11 +261,13 @@ def apply_mlstm_block(p, x, cfg, *, cache=None, chunk: int = 256):
     log_i = (xc @ p["w_i"] + p["b_i"]).float()
     log_f = F.logsigmoid((xc @ p["w_f"] + p["b_f"]).float())
     state = None if cache is None else (cache["C"], cache["n"], cache["m"])
+    scan_in = (q, k, v, log_i, log_f)
     if t == 1 or t % chunk:
-        h, (C, n, m) = mlstm_sequential(q, k, v, log_i, log_f, state)
+        h, (C, n, m) = mlstm_sequential(*scan_in, state)
+    elif torch.is_grad_enabled() and any(x.requires_grad for x in scan_in):
+        h, (C, n, m) = mlstm_scan_grad(*scan_in, state, chunk=chunk)
     else:
-        h, (C, n, m) = kops.mlstm_scan(q, k, v, log_i, log_f, state,
-                                       chunk=chunk)
+        h, (C, n, m) = kops.mlstm_scan(*scan_in, state, chunk=chunk)
     h = h.reshape(b, t, inner).to(x.dtype)
     h = apply_norm({"scale": p["hnorm_scale"]}, h)        # output norm
     h = h * _silu(z)

@@ -11,9 +11,10 @@ reference.
 On the paper's fabric the shift permutation is a subset of a 1-factor
 (neighbour exchanges), i.e. contention-free by construction.
 
-Scope: uniform single-run stacks of attention layers.  Stage parameters
-are the layers of the replicated parameters that the stage runs; the
-schedule and its gradients are what this module demonstrates.
+Scope: uniform single-run stacks (attention, mLSTM or sLSTM layers), as
+the reference's.  Stage parameters are the layers of the replicated
+parameters that the stage runs; the schedule and its gradients are what
+this module demonstrates.
 """
 from __future__ import annotations
 
@@ -54,9 +55,6 @@ def make_pipeline_loss_fn(cfg: ModelConfig, group_or_mesh, *,
     if len(runs) != 1:
         raise ValueError("pipeline demo supports uniform single-run stacks")
     run = runs[0]
-    if run.kind != "attn":
-        raise NotImplementedError(f"{cfg.name}: only attention stacks train "
-                                  f"in the port")
     group = _group(group_or_mesh, axis_name)
     n_stages = dist.get_world_size(group)
     if run.count % n_stages:
@@ -82,7 +80,7 @@ def make_pipeline_loss_fn(cfg: ModelConfig, group_or_mesh, *,
         def stage_fn(xb):
             for i in layers:
                 xb, _ = _train_layer(params["layers"][i], xb, cfg,
-                                     window=run.windows[i],
+                                     kind=run.kind, window=run.windows[i],
                                      theta=run.thetas[i], q_pos=pos,
                                      rules=rules)
             return xb

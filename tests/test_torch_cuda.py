@@ -202,7 +202,7 @@ def test_function_and_lse_match_plain_version(cuda, name, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m",
-                                  "gemma3-1b"])
+                                  "gemma3-1b", "starcoder2-3b"])
 def test_training_on_the_card_matches_the_cpu(cuda, arch):
     """loss_and_grads of the reduced model in fp32, card (the fp32 kernel
     through the Function) against CPU: loss rtol 1e-5, every gradient leaf
@@ -231,13 +231,13 @@ def test_training_on_the_card_matches_the_cpu(cuda, arch):
 # Prompt length per model: 256 is a multiple of the mLSTM chunk, so the
 # xLSTM's prefill takes the mlstm_scan kernel on the card.
 PROMPT = {"llama3.2-3b": 70, "lacin-demo": 70, "xlstm-350m": 256,
-          "gemma3-1b": 70}
+          "gemma3-1b": 70, "starcoder2-3b": 70}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,head_dim", [
     ("llama3.2-3b", None), ("lacin-demo", None), ("xlstm-350m", None),
-    ("gemma3-1b", None), ("gemma3-1b", 256)])
+    ("gemma3-1b", None), ("gemma3-1b", 256), ("starcoder2-3b", None)])
 def test_model_on_the_card_matches_the_cpu(cuda, arch, head_dim):
     """prefill + decode_step with the kernels (card) vs with the plain
     versions (CPU), reduced config in float32: atol 1e-4.  gemma3-1b also
@@ -470,3 +470,99 @@ def test_graph_cache_evicts_past_its_limit(cuda, monkeypatch):
     assert telemetry.cache_stats()["evictions"] == 2
     assert len(telemetry._CACHE) == 2
     telemetry.clear_caches()
+
+
+# The scan under autograd (repro_torch.models.xlstm.MLSTMScan): name: (b, t,
+# h, d, chunk, gates); "input_x30" scales log_i by 30, "forget_minus40"
+# shifts the forget pre-activation by -40, "first_gate_minus100" opens every
+# sequence with log_i = -100 (exp(-m) beyond float32).
+MLSTM_GRAD_CASES = {
+    "one_chunk_d64": (2, 64, 2, 64, 64, "normal"),
+    "four_chunks_d64": (2, 256, 2, 64, 64, "normal"),
+    "d512_two_chunks": (1, 512, 2, 512, 256, "normal"),
+    "input_x30": (2, 256, 2, 64, 64, "input_x30"),
+    "forget_minus40": (2, 256, 2, 64, 64, "forget_minus40"),
+    "first_gate_minus100": (2, 128, 2, 64, 64, "first_gate_minus100"),
+    "bh1": (1, 256, 1, 128, 64, "normal"),
+}
+
+
+def _mlstm_grad_inputs(name, dtype, device):
+    b, t, h, d, chunk, gates = MLSTM_GRAD_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def draw(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+    qkv = [torch.from_numpy(draw(b, t, h, d)).to(device=device,
+                                                 dtype=getattr(torch, dtype))
+           for _ in range(4)]
+    li, pre_f = draw(b, t, h) * 2, draw(b, t, h) * 2 + 1
+    if gates == "input_x30":
+        li = li * 30
+    if gates == "forget_minus40":
+        pre_f = pre_f - 40
+    if gates == "first_gate_minus100":
+        li[:, 0] = -100.0
+    gate_t = [torch.from_numpy(li).to(device),
+              torch.nn.functional.logsigmoid(torch.from_numpy(pre_f)).to(
+                  device)]
+    return qkv[:3] + gate_t, qkv[3], chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(MLSTM_GRAD_CASES))
+def test_mlstm_function_matches_plain_autograd(cuda, name, dtype):
+    """MLSTMScan on the card (the kernel forward, the plain chunkwise
+    backward) against autograd through the plain version: h at
+    MLSTM_TOL[dtype], dq, dk, dv, dlog_i, dlog_f at MLSTM_TOL[dtype] and
+    finite; one scan launch and one backward call."""
+    from repro_torch.models import xlstm as TX
+    args, dh, chunk = _mlstm_grad_inputs(name, dtype, cuda)
+    outs = {}
+    for how in ("function", "plain"):
+        leaves = [x.detach().clone().requires_grad_(True) for x in args]
+        before = ms.launches, TX.backward_calls
+        if how == "function":
+            h, _ = TX.mlstm_scan_grad(*leaves, chunk=chunk)
+        else:
+            h, _ = reference_mlstm_scan(*leaves, chunk=chunk)
+        grads = torch.autograd.grad(h, leaves, dh)
+        launched = ms.launches - before[0], TX.backward_calls - before[1]
+        assert launched == ((1, 1) if how == "function" else (0, 0))
+        outs[how] = [h.detach()] + list(grads)
+    for got, want in zip(outs["function"], outs["plain"]):
+        assert got.dtype == want.dtype and torch.isfinite(got).all()
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **MLSTM_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_xlstm_training_on_the_card_matches_the_cpu(cuda):
+    """loss_and_grads of the reduced xlstm-350m in fp32 at T = 256 under
+    remat "full", card (the FMA scan kernel through MLSTMScan) against CPU:
+    loss rtol 1e-5, every gradient leaf relative L2 1e-4; two scan launches
+    (forward and recompute) and one backward call an mLSTM layer."""
+    from repro_torch.models import xlstm as TX
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.runtime.trainer import loss_and_grads
+    cfg = dataclasses.replace(get_config("xlstm-350m").reduced(),
+                              dtype="float32", remat="full")
+    params = init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
+             for k in ("tokens", "labels")}
+    before = ms.launches_by_path["fma"], TX.backward_calls
+    loss_c, _, g_c = loss_and_grads(
+        tree_map(lambda _, a: a.to(cuda), params),
+        {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    mlstm = cfg.block_pattern.count("mlstm")
+    assert (ms.launches_by_path["fma"] - before[0],
+            TX.backward_calls - before[1]) == (2 * mlstm, mlstm)
+    loss, _, g = loss_and_grads(params, batch, cfg)
+    np.testing.assert_allclose(float(loss_c), float(loss), rtol=1e-5)
+    for a, b in zip(tree_leaves(g_c), tree_leaves(g)):
+        a = a.cpu()
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm()) <= 1e-4 * max(float(b.norm()), 1e-30)

@@ -178,6 +178,9 @@ PLAN_SHAPES = [  # (b, t, s, h, kvh, d)
     (4, 512, 512, 4, 1, 256), (4, 1, 1024, 4, 1, 256),
     (2, 1024, 1024, 4, 1, 256), (2, 16, 300, 6, 2, 256),
     (1, 16, 200, 16, 2, 256), (2, 8, 257, 8, 2, 256), (1, 40, 70, 64, 1, 256),
+    # starcoder2-3b (G = 12): prefill, decode step, training shape
+    (4, 512, 512, 24, 2, 128), (4, 1, 1024, 24, 2, 128),
+    (2, 1024, 1024, 24, 2, 128),
 ]
 # (position, head) rows of a prefill block and of a decode block at most,
 # by head dim; fp32 query positions of a prefill block, by head dim.
@@ -235,6 +238,20 @@ def test_plan_scratch_covers_every_row_and_split(shape):
     assert (p.row_chunks - 1) * DECODE_ROWS[d] < g * t
     assert p.row_chunks * DECODE_ROWS[d] >= g * t
     assert p.blocks == b * kvh * p.splits * p.row_chunks
+
+
+def test_plan_at_twelve_query_heads_a_kv_head():
+    """starcoder2-3b, H24 KV2 D128: a prefill block holds 16 positions x 12
+    heads (192 rows), also when the call wants the lse (training); a decode
+    step's 12 rows of a group fit one chunk, and with two KV heads every
+    key tile is a split of its own: 128 blocks, fewer than the 132 SMs."""
+    for t, lse in ((512, False), (1024, True), (1, True)):
+        p = fa.plan(4, t, 1024, 24, 2, 128, torch.bfloat16, lse=lse)
+        assert p.path == "prefill" and p.block_q == 16
+        assert p.blocks == 4 * 2 * -(-t // 16)
+    p = fa.plan(4, 1, 1024, 24, 2, 128, torch.bfloat16)
+    assert p.path == "decode" and p.row_chunks == 1
+    assert (p.splits, p.tiles_per_split, p.blocks) == (16, 1, 128)
 
 
 def test_plan_refuses_a_group_larger_than_a_prefill_block():

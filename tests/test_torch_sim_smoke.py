@@ -192,10 +192,14 @@ def test_moe_phase_sizes_are_the_serve_runs(chip_smoke):
 
 def test_train_phase_rehearses_on_the_cpu(chip_smoke):
     """The train phase at a tiny size on the CPU (plain versions in place
-    of the kernels): every hazard case passes (head dim 256 among them),
-    the reduced models' card check runs CPU against CPU, the reduced llama
-    and gemma3-1b train their steps with one backward call per layer a
-    step, and each timed shape has its bounds.  On one torch thread:
+    of the kernels): every hazard case passes (head dim 256 and 12 query
+    heads a KV head among them, and the mLSTM scan's Function), the reduced
+    models' card check runs CPU against CPU, the reduced llama, gemma3-1b
+    and starcoder2-3b train their steps with one attention backward call
+    per layer a step, the reduced xlstm-350m (3 mLSTM layers, T 256) with
+    one scan backward call per mLSTM layer a step and its step 1 checked in
+    fp32 and bf16, every model's step 1 within FULL_GRAD_REL_L2 on every
+    leaf, and each timed shape has its bounds.  On one torch thread:
     beside the suite's other test processes, torch's thread pool made it
     many times slower."""
     import torch
@@ -203,31 +207,187 @@ def test_train_phase_rehearses_on_the_cpu(chip_smoke):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        launches, timing = chip_smoke.phase_train("cpu", tiny)
+        lines, timing = chip_smoke.phase_train("cpu", tiny)
     finally:
         torch.set_num_threads(threads)
     steps, layers = tiny["steps"], 4
-    assert set(launches) == {"llama3.2-3b", "gemma3-1b"}
-    for arch in launches:
-        assert launches[arch]["flash_attention_backward"] == steps * layers
-    assert set(timing) == set(tiny["timing_cases"])
+    assert set(lines) == {"llama3.2-3b", "gemma3-1b", "starcoder2-3b",
+                          "xlstm-350m"}
+    for arch, line in lines.items():
+        mlstm = line["blocks"]["mlstm"]
+        assert line["launches"]["flash_attention_backward"] == steps * (
+            layers - mlstm - line["blocks"]["slstm"])
+        assert line["launches"]["mlstm_scan_backward"] == steps * mlstm
+    assert lines["xlstm-350m"]["blocks"] == {"attn": 0, "mlstm": 3,
+                                             "slstm": 1}
+    for arch, line in lines.items():
+        dtypes = {"float32", "bfloat16"} if arch == "xlstm-350m" else {
+            "bfloat16"}
+        assert {k for k in line if k.startswith("step1_") and k !=
+                "step1_launches"} == {f"step1_{d}" for d in dtypes}
+        for d in dtypes:
+            got = line[f"step1_{d}"]
+            assert got["grad_rel_l2"]["max"] <= chip_smoke.FULL_GRAD_REL_L2
+            assert got["denominator_positions"] == (
+                2 * 256 * 4 * 3 if arch == "xlstm-350m" else 0)
+    assert set(timing) == set(tiny["timing_cases"]) | {"mlstm bfloat16",
+                                                       "mlstm float32"}
     for t in timing.values():
         assert t["fwd_bound_ms"] > 0 and t["bwd_bound_ms"] > 0
 
 
-def test_train_phase_sizes_are_the_training_shape(chip_smoke):
-    """The full phase: llama3.2-3b, then gemma3-1b, at full width and
-    depth, B2 T1024, 4 steps, attention timed at each one's training
-    shape; llama's bound is about 8 x params x tokens FLOP plus 28 bytes
-    a parameter, about 80 ms on the H100."""
+def _tiny_xlstm_step1(chip_smoke, dtype):
+    import torch
+    from repro_torch.data import DataConfig, host_batch
     from repro_torch.models import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.runtime import trainer as TR
+    cfg = chip_smoke.dataclasses.replace(
+        get_config("xlstm-350m").reduced(), dtype=dtype, remat="none")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=2)
+    params = TT.init_params(0, cfg, device="cpu")
+    batch = TR.on_device(host_batch(data, 0), "cpu")
+    torch.set_num_threads(1)
+    return params, batch, cfg
+
+
+def _halved_scan(*args, **kw):
+    from repro_torch.kernels.ref import reference_mlstm_scan
+    h, state = reference_mlstm_scan(*args, **kw)
+    return h * 0.5, state
+
+
+def _late_scan(*args, **kw):
+    """The scan's output a position late (zeros at the first)."""
+    import torch
+    from repro_torch.kernels.ref import reference_mlstm_scan
+    h, state = reference_mlstm_scan(*args, **kw)
+    return torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1), state
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fault", ["none", "scan output halved",
+                                   "scan output a position late",
+                                   "scan backward zeroed",
+                                   "scan backward doubled"])
+def test_step1_check_fails_a_wrong_scan(chip_smoke, dtype, fault):
+    """step1_check on the reduced xlstm-350m (T 256, the chunkwise path):
+    the scan as the kernel's wrapper gives it passes; a scan whose forward
+    output is scaled or late, or whose backward's gradients are scaled or
+    zeroed, fails, in both compute dtypes (in bf16 by its layer-by-layer
+    check)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import xlstm as MX
+    threads = torch.get_num_threads()
+    params, batch, cfg = _tiny_xlstm_step1(chip_smoke, dtype)
+    bwd = MX.mlstm_backward
+    patch = {"none": (),
+             "scan output halved": ((ops, "mlstm_scan", _halved_scan),),
+             "scan output a position late": ((ops, "mlstm_scan",
+                                              _late_scan),),
+             "scan backward zeroed": ((MX, "mlstm_backward", lambda *a, **kw:
+                                       [g * 0 for g in bwd(*a, **kw)]),),
+             "scan backward doubled": ((MX, "mlstm_backward", lambda *a, **kw:
+                                        [g * 2 for g in bwd(*a, **kw)]),)}
+    try:
+        with chip_smoke.patched(*patch[fault]):
+            if fault == "none":
+                _, _, line = chip_smoke.step1_check(params, batch, cfg, 256)
+                assert line["grad_rel_l2"]["max"] <= 1e-4
+                assert line["mlstm_layers_max"] <= 1e-4
+            else:
+                with pytest.raises(AssertionError,
+                                   match="^step 1|^mLSTM layer"):
+                    chip_smoke.step1_check(params, batch, cfg, 256)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_denominator_sides_move_only_within_the_band(chip_smoke):
+    """DenominatorBranches forced to another run's sides moves only the
+    positions whose own margin is within the band, and forced to its own
+    sides gives the unforced gradients bit for bit."""
+    import torch
+    from repro_torch.models import xlstm as MX
+    threads = torch.get_num_threads()
+    params, batch, cfg = _tiny_xlstm_step1(chip_smoke, "float32")
+    try:
+        own = chip_smoke.DenominatorBranches(256)
+        with chip_smoke.patched((MX, "_denominator", own)):
+            _, want = chip_smoke._step1(params, batch, cfg)
+        assert len(own.taken) == 3 and own.taken[0].shape == (2, 256, 4)
+        floor_side = [-(t.abs() + 1) for t in own.taken]   # every side flipped
+        for band, force in ((float("inf"), own.taken), (0.0, floor_side)):
+            forced = chip_smoke.DenominatorBranches(256, force, band)
+            with chip_smoke.patched((MX, "_denominator", forced)):
+                _, got = chip_smoke._step1(params, batch, cfg)
+            assert forced.moved == [0, 0, 0]
+            assert all(torch.equal(got[n], want[n]) for n in want)
+        near = [t.abs() <= 0.5 for t in own.taken]
+        forced = chip_smoke.DenominatorBranches(256, floor_side, 0.5)
+        with chip_smoke.patched((MX, "_denominator", forced)):
+            chip_smoke._step1(params, batch, cfg)
+        assert forced.moved == [int((n & (t >= 0)).sum())
+                                for n, t in zip(near, own.taken)]
+        assert sum(forced.moved) > 0
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_xlstm_witness_rehearses_on_the_cpu(chip_smoke):
+    """The witness on the reduced xlstm-350m (T 256) on the CPU: every run
+    of WITNESS_RUNS in order, float64 re-chunked within 1e-10 of float64,
+    the fp32 kernels' wrapper within 1e-4 of it on every leaf, bf16 read
+    against bf16 plain too, and float64's own readings by layer."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        lines = chip_smoke.xlstm_witness("cpu", reduced=True, seq=256)
+    finally:
+        torch.set_num_threads(threads)
+    by = {line["run"]: line for line in lines}
+    assert list(by) == [run[0] for run in chip_smoke.WITNESS_RUNS]
+    assert by["float64 re-chunked 128"]["vs float64"][
+        "grad_rel_l2_max"] <= 1e-10
+    assert by["fp32 kernels"]["vs float64"]["grad_rel_l2_max"] <= 1e-4
+    assert "vs bf16 plain" in by["bf16 kernels"]
+    assert len(by["float64"]["d_out_norm"]) == 4
+    assert len(by["float64"]["b_f_terms"]) == 3
+
+
+def test_train_phase_sizes_are_the_training_shape(chip_smoke):
+    """The full phase: llama3.2-3b, gemma3-1b, starcoder2-3b, then
+    xlstm-350m, at full width and depth, B2 T1024, 4 steps, attention timed
+    at each attention model's training shape and the mLSTM scan at
+    xlstm-350m's (H4 D512: its inner width 2048 over 4 heads); llama's
+    bound is about 8 x params x tokens FLOP plus 28 bytes a parameter,
+    about 80 ms on the H100, and xlstm-350m's, from the reference's
+    executed-FLOPs model, about 8.8 ms."""
+    from repro_torch.launch import analytic
+    from repro_torch.models import get_config
+    from repro_torch.models.config import ShapeConfig
     full = chip_smoke.TRAIN_FULL
     assert (full["models"], full["model_reduced"], full["batch"],
-            full["seq"], full["steps"]) == (("llama3.2-3b", "gemma3-1b"),
-                                             False, 2, 1024, 4)
+            full["seq"], full["steps"]) == (
+        (("llama3.2-3b", "training_shape"),
+         ("gemma3-1b", "training_shape_d256"),
+         ("starcoder2-3b", "training_shape_gqa12"), ("xlstm-350m", None)),
+        False, 2, 1024, 4)
     assert [chip_smoke.TRAIN_HAZARDS[case][:6]
             for case in full["timing_cases"]] == [
-        (2, 1024, 1024, 24, 8, 128), (2, 1024, 1024, 4, 1, 256)]
+        (2, 1024, 1024, 24, 8, 128), (2, 1024, 1024, 4, 1, 256),
+        (2, 1024, 1024, 24, 2, 128)]
+    xl = get_config("xlstm-350m")
+    assert chip_smoke.MLSTM_TRAIN_HAZARDS[full["mlstm_timing_case"]] == (
+        2, 1024, xl.num_heads, xl.ssm_expand * xl.d_model // xl.num_heads,
+        256, "normal")
+    cost = analytic.train_cost(xl, ShapeConfig("chip", 1024, 2, "train"), 1)
+    ms = max(cost.exec_flops_total / chip_smoke.PEAK_FLOPS[
+        chip_smoke.torch.bfloat16], cost.hbm_bytes_per_dev
+        / chip_smoke.HBM_BYTES_PER_S) * 1e3
+    assert 8 < ms < 10
     cfg = get_config("llama3.2-3b")
     n = 3_212_749_824
     flops, nbytes = chip_smoke.train_step_work(cfg, 2, 1024, n)

@@ -20,6 +20,7 @@ there.  Blocks in bfloat16: atol 2e-2 on outputs of magnitude about 1 to 5,
 a few bf16 ulps, as tests/test_torch_model.py.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -158,6 +159,133 @@ def test_ops_mlstm_scan_continues_a_state():
     second, s2 = ops.mlstm_scan(*(a[:, 64:] for a in tx), s1, chunk=32)
     _assert_all_close([torch.cat([first, second], 1), *s2],
                       [whole, *s_whole], SAME)
+
+
+# -- the scan under autograd (MLSTMScan) --------------------------------------
+
+# name: (b, t, h, d, chunk, gates): log_i ~ N(0, 2) and log_f = log_sigmoid
+# of N(1, 2), as _mlstm_inputs draws them; "input_x30" scales log_i by 30,
+# "forget_minus40" shifts the forget pre-activation by -40 (log_f near
+# -40: each step forgets nearly all), "first_gate_minus100" opens every
+# sequence with log_i = -100, below float32's exponent range (exp(100)
+# overflows), where the reference's gradient is NaN.
+GRAD_CASES = {
+    "one_chunk": (2, 16, 2, 16, 16, "normal"),
+    "four_chunks": (2, 64, 2, 16, 16, "normal"),
+    "input_x30": (2, 64, 2, 16, 16, "input_x30"),
+    "forget_minus40": (2, 64, 2, 16, 16, "forget_minus40"),
+    "first_gate_minus100": (2, 64, 2, 16, 16, "first_gate_minus100"),
+    "bh1": (1, 64, 1, 16, 16, "normal"),
+}
+GRAD_TOL = 1e-4        # of each gradient's largest magnitude
+
+
+def _grad_inputs(name):
+    """q, k, v, log_i, log_f and the output gradient dh, as numpy."""
+    b, t, h, d, chunk, gates = GRAD_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, k, v, dh = (rng.normal(size=(b, t, h, d)).astype(np.float32)
+                   for _ in range(4))
+    li = rng.normal(size=(b, t, h)) * 2
+    pre_f = rng.normal(size=(b, t, h)) * 2 + 1
+    if gates == "input_x30":
+        li = li * 30
+    if gates == "forget_minus40":
+        pre_f = pre_f - 40
+    if gates == "first_gate_minus100":
+        li[:, 0] = -100.0
+    lf = -np.logaddexp(0.0, -pre_f)                    # log_sigmoid
+    return ([q, k, v, li.astype(np.float32), lf.astype(np.float32)], dh,
+            chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_grads(name):
+    """jax.grad of sum(h * dh) through repro.models.xlstm.mlstm_chunkwise."""
+    x, dh, chunk = _grad_inputs(name)
+    fn = jax.jit(jax.grad(lambda *a: jnp.sum(
+        JX.mlstm_chunkwise(*a, chunk=chunk)[0] * dh), argnums=range(5)))
+    return [np.asarray(g) for g in fn(*x)]
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_mlstm_scan_function_grads_match_reference(name):
+    """MLSTMScan on CPU tensors (forward: the kernel's plain version;
+    backward: mlstm_chunkwise recomputed) against jax.grad of
+    repro.models.xlstm.mlstm_chunkwise: dq, dk, dv, dlog_i and dlog_f
+    within GRAD_TOL of each one's largest magnitude, and finite everywhere.
+    Where the reference's gradient is NaN (exp(-m) overflows at a row whose
+    stabilizer m is below -88.7, and 0 * inf is NaN), the port's is finite
+    and within the same tolerance of 0, the limit of the exact gradient
+    there (h itself underflows to 0)."""
+    x, dh, chunk = _grad_inputs(name)
+    want = _reference_grads(name)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in x]
+    before = TX.backward_calls
+    h, (C, n, m) = TX.mlstm_scan_grad(*leaves, chunk=chunk)
+    assert h.dtype == torch.float32 and not C.requires_grad
+    got = torch.autograd.grad(h, leaves, torch.from_numpy(dh))
+    assert TX.backward_calls == before + 1
+    hj, _ = JX.mlstm_chunkwise(*x, chunk=chunk)
+    _assert_all_close([h], [hj], SAME)
+    for what, g, w in zip(("dq", "dk", "dv", "dlog_i", "dlog_f"), got, want):
+        g = g.numpy()
+        assert np.isfinite(g).all(), what
+        ok = np.isfinite(w)
+        scale = np.abs(w[ok]).max()
+        np.testing.assert_allclose(g, np.where(ok, w, 0.0), rtol=0,
+                                   atol=GRAD_TOL * scale, err_msg=what)
+    if name == "first_gate_minus100":     # the case the reference fails
+        assert not all(np.isfinite(w).all() for w in want)
+
+
+def test_mlstm_sequential_grads_are_finite_where_reference_is_nan():
+    """Autograd through mlstm_sequential (the path of lengths that are not
+    a multiple of the chunk) on the first_gate_minus100 inputs, against
+    jax.grad of repro.models.xlstm.mlstm_sequential, whose gradient is NaN
+    there: the port's is finite, within GRAD_TOL of the reference's where
+    that is finite and of 0 where it is not."""
+    x, dh, _ = _grad_inputs("first_gate_minus100")
+    want = [np.asarray(g) for g in jax.jit(jax.grad(lambda *a: jnp.sum(
+        JX.mlstm_sequential(*a)[0] * dh), argnums=range(5)))(*x)]
+    assert not all(np.isfinite(w).all() for w in want)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in x]
+    h, _ = TX.mlstm_sequential(*leaves)
+    got = torch.autograd.grad(h, leaves, torch.from_numpy(dh))
+    for g, w in zip(got, want):
+        g = g.numpy()
+        assert np.isfinite(g).all()
+        ok = np.isfinite(w)
+        np.testing.assert_allclose(g, np.where(ok, w, 0.0), rtol=0,
+                                   atol=GRAD_TOL * np.abs(w[ok]).max())
+
+
+def test_mlstm_scan_function_takes_no_state():
+    _, tx, _, ts = _mlstm_inputs(7, 1, 32, 1, 16, state=True)
+    with pytest.raises(ValueError, match="zero state"):
+        TX.mlstm_scan_grad(*tx, ts, chunk=16)
+
+
+def test_mlstm_block_takes_the_function_under_grad(monkeypatch):
+    """Under grad, a length that is a multiple of the chunk goes through
+    MLSTMScan, which reaches ops.mlstm_scan once in its forward and counts
+    one backward; other lengths take mlstm_sequential under autograd."""
+    _, ct, _, pt = _block("mlstm", "float32")
+    calls = []
+    scan = ops.mlstm_scan
+    monkeypatch.setattr(ops, "mlstm_scan",
+                        lambda *a, **kw: calls.append(a[0].shape[1])
+                        or scan(*a, **kw))
+    p = {k: v.detach().requires_grad_(True) for k, v in pt.items()}
+    for t in (1, 32, 40, 64):
+        before = TX.backward_calls
+        x = torch.randn((1, t, ct.d_model), generator=torch.Generator()
+                        .manual_seed(t))
+        out, _ = TX.apply_mlstm_block(p, x, ct, chunk=32)
+        g = torch.autograd.grad(out.sum(), p["wq"])[0]
+        assert torch.isfinite(g).all() and g.any()
+        assert TX.backward_calls == before + (t % 32 == 0)
+    assert calls == [32, 64]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
