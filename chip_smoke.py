@@ -17,24 +17,42 @@ Phases, one JSON line each:
    version and the library call, where there is one, beside its bound, on
    the device alone through a CUDA graph and per eager call; the
    attention hazard cases again at head dim 64 and at 256 (G = H/KV of 1
-   to 12 among them), and ``"phase": "attention"`` lines at
-   granite-moe-3b-a800m's serving shapes (D = 64), gemma3-1b's (D = 256:
-   prefill, decode and the fp32 kernel) and starcoder2-3b's (G = 12), each
-   naming the SDPA backend that ran;
+   to 12 among them: 5 and 6, where a prefill block of 192 rows holds 38
+   and 32 positions; non-causal at T = S = 1500, and queries at position
+   0 against 1500 keys at T 512 and T 1), and ``"phase": "attention"``
+   lines at granite-moe-3b-a800m's serving shapes (D = 64), gemma3-1b's
+   (D = 256: prefill, decode and the fp32 kernel), starcoder2-3b's (G =
+   12), hymba-1.5b's (G = 5, 640 positions), internvl2-26b's (G = 6, 768
+   positions) and whisper-base's (its encoder, non-causal at T = S =
+   1500; cross-attention at T 512 and T 1 against S 1500), each naming the
+   SDPA backend that ran;
 4. small   -- the reduced models in fp32 on the card against the CPU (the
    run that drives the fp32 attention kernel), the reduced MoE among them,
-   and the reduced gemma3-1b also at its published head dim, 256;
+   the reduced gemma3-1b also at its published head dim, 256, and the
+   reduced hymba-1.5b, whisper-base (seeded frames) and internvl2-26b
+   (seeded patch embeddings);
 5. serve   -- llama3.2-3b, xlstm-350m, granite-moe-3b-a800m (its MoE
    on one card: the single-shard path, 48 stored experts), gemma3-1b
-   (head dim 256, a 512-key window on 22 of its 26 layers) and
-   starcoder2-3b (layernorm, gelu and biases; 12 query heads a KV head) at
-   full width and depth,
+   (head dim 256, a 512-key window on 22 of its 26 layers),
+   starcoder2-3b (layernorm, gelu and biases; 12 query heads a KV head),
+   hymba-1.5b (attention and the selective SSM side by side in each of
+   its 32 layers, 128 meta tokens in front of every prompt, 1024-key
+   windows but on layers 0, 15 and 31) and whisper-base (a 6-layer
+   encoder over 1500 zero frames, as the engine passes them, and
+   cross-attention in its 6 decoder layers) at full width and depth,
    random weights from a seed, each through ServingEngine: 4 requests
    (prompts 512/384/256/128, one sampled at temperature 0.8) x 32 new
    tokens, with every kernel's launch count in that run (set to 0 just
    before it); the prefill logits against the same model with every kernel
    swapped for its plain version (xlstm-350m in bf16 also against the plain
-   version re-chunked); prefill ms, decode tokens/s and peak memory;
+   version re-chunked; hymba-1.5b in bf16 layer by layer, in the prefill
+   and a decode step, at the plain run's inputs; whisper-base over seeded
+   frames); prefill ms,
+   decode tokens/s and peak memory; then ``"phase": "prefill"``:
+   internvl2-26b's prefill at full width (d 6144, H48 KV8 D128) with 8 of
+   its 48 layers, so that its fp32 initialisation fits the card: B4, 256
+   seeded patch embeddings in front of a 512-token prompt, its launches and
+   its logits against the plain versions;
 6. profile -- device time by kernel over prefills and decode steps of each
    model (torch.profiler), and the share of the time the device is idle;
    then ``"phase": "moe"``: granite's MoE layer alone in bf16 at the
@@ -137,12 +155,14 @@ Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 without that last line; so does a machine without CUDA.  Imports only torch,
 numpy and repro_torch.
 
-Two more runs, each alone: ``python3 chip_smoke.py --xlstm-witness
+Three more runs, each alone: ``python3 chip_smoke.py --xlstm-witness
 [OUT.json]`` reads xlstm-350m's step 1 in float64, fp32 and bf16, with the
 kernels and the plain versions and mixes of the two precisions, layer by
 layer against float64 (every reading into OUT.json); ``python3
 chip_smoke.py --gelu-ab`` times gemma3-1b's prefill, decode step and
-train step with each way of computing its gelu.
+train step with each way of computing its gelu, ``--silu-ab``
+llama3.2-3b's (the same three) and granite-moe-3b-a800m's (prefill and
+decode step) with F.silu and with the silu op by op.
 """
 import collections
 import contextlib
@@ -244,6 +264,23 @@ HAZARDS = {
     "gqa12_window_tail": (1, 100, 300, 24, 2, 128, "tail", True, 50),
     "decode_gqa12": (4, 1, 1024, 24, 2, 128, [527], True, 0),
     "decode_gqa12_t8": (2, 8, 300, 24, 2, 128, "tail", True, 0),
+    # G = 5 (hymba-1.5b, H25 KV5 D64): prefill blocks of 38 positions, 190
+    # of the 192 rows used; G = 6 (internvl2-26b, H48 KV8 D128): 32
+    # positions; at D 64 and 128, prefill and decode, windows that bind
+    "gqa5_d64_window": (2, 300, 300, 10, 2, 64, None, True, 100),
+    "gqa5_d128_window_tail": (1, 200, 500, 10, 2, 128, "tail", True, 128),
+    "gqa6_d128_window": (2, 300, 300, 12, 2, 128, None, True, 100),
+    "gqa6_d64_window_tail": (1, 150, 400, 12, 2, 64, "tail", True, 64),
+    "decode_gqa5_window": (4, 1, 1024, 25, 5, 64, [700], True, 100),
+    "decode_gqa5_d128_t8": (2, 8, 700, 10, 2, 128, "tail", True, 300),
+    "decode_gqa6_window": (4, 1, 1024, 48, 8, 128, [700], True, 100),
+    "decode_gqa6_d64_t4": (2, 4, 600, 12, 2, 64, "tail", True, 64),
+    # whisper-base (H8 KV8 D64): the encoder, non-causal at T = S = 1500
+    # (S not a multiple of the 64-key tile), and cross-attention, queries
+    # at position 0 against 1500 keys, at prefill (T 512) and decode (T 1)
+    "noncausal_t1500": (1, 1500, 1500, 8, 8, 64, None, False, 0),
+    "cross_t512_s1500": (2, 512, 1500, 8, 8, 64, [0] * 512, False, 0),
+    "cross_decode_s1500": (4, 1, 1500, 8, 8, 64, [0], False, 0),
 }
 ALL_MASKED = ("fully_masked_rows", "decode_all_masked")
 
@@ -277,17 +314,31 @@ MLSTM_NO_LIBRARY = "no single PyTorch call computes chunkwise mLSTM"
 
 # The dtype in which each served model's prefill logits are held against the
 # same model with every kernel swapped for its plain version (relative L2
-# 5e-2).  xlstm-350m is held in float32, on its bf16 weights: in bf16 its 21
-# mLSTM layers amplify rounding so far that at full depth the plain version
-# differs from itself re-chunked (chunk 128 for 256, the same function) by
-# a relative L2 of about 0.3, and no implementation can meet 5e-2 there.
-# Its bf16 logits are held to that floor instead (phase_serve): the
-# differences that re-chunking the plain version (chunk 256) into each of
-# RECHUNKS makes, their mean plus three standard deviations.
+# LOGITS_TOL).  xlstm-350m is held in float32, on its bf16 weights: in bf16
+# its 21 mLSTM layers amplify rounding so far that at full depth the plain
+# version differs from itself re-chunked (chunk 128 for 256, the same
+# function) by a relative L2 of about 0.3, and no implementation can meet
+# 5e-2 there.  Its bf16 logits are held to that floor instead
+# (prefill_logits_check): the differences that re-chunking the plain
+# version (chunk 256) into each of RECHUNKS makes, their mean plus three
+# standard deviations.  hymba-1.5b is held in float32 too: at random
+# initialisation its stack amplifies a perturbation of its input with depth
+# (each layer adds the unit-RMS normalised attention and SSM outputs to the
+# residual stream, which nothing damps), and bf16 rounding is such a
+# perturbation in every layer.  In bf16 its plain version is about 0.15 from
+# itself in fp32 at full depth, as the reference's own bf16 is from its fp32
+# at 32 layers (tests/test_torch_model.py::
+# test_hymba_bf16_drift_at_depth_is_the_references).  In bf16 each of its
+# layers is held alone, in the prefill and in a decode step
+# (hymba_layers_check), and the whole model is reported beside the fp32
+# plain version's answer to relative noise of INPUT_NOISE on its input.
 RECHUNKS = (16, 32, 64, 128, 512)
+LOGITS_TOL = 5e-2
 LOGITS_CHECK_DTYPE = {"llama3.2-3b": "bfloat16", "xlstm-350m": "float32",
                       "granite-moe-3b-a800m": "bfloat16",
-                      "gemma3-1b": "bfloat16", "starcoder2-3b": "bfloat16"}
+                      "gemma3-1b": "bfloat16", "starcoder2-3b": "bfloat16",
+                      "hymba-1.5b": "float32", "whisper-base": "bfloat16"}
+INPUT_NOISE = 2.0 ** -9                  # half a bf16 ulp, relative
 
 # The serving runs: 4 slots, prompts left-padded to 512, a 1024-slot cache.
 PROMPTS = (512, 384, 256, 128)
@@ -340,6 +391,21 @@ def graph_ms(fn, calls, replays=5):
     end.synchronize()
     del graph
     return start.elapsed_time(end) / (replays * calls)
+
+
+def model_extras(cfg, b, rng, device):
+    """The encoder's frames and the patch embeddings, where ``cfg`` takes
+    them, drawn from ``rng`` and scaled by 0.02 (as the reference's tests
+    draw these stubs)."""
+    out = {}
+    for name, on, length in (("frames", cfg.is_encdec, cfg.encoder_seq_len),
+                             ("patch_embeds", cfg.num_patch_tokens,
+                              cfg.num_patch_tokens)):
+        if on:
+            out[name] = torch.from_numpy((rng.normal(
+                size=(b, length, cfg.d_model)) * 0.02).astype(
+                    np.float32)).to(device)
+    return out
 
 
 def make_inputs(b, t, s, h, kvh, d, q_pos, dtype, seed, copies=1):
@@ -500,22 +566,25 @@ def sdpa_backend(q, k, v, attn_mask=None, is_causal=False):
 
 
 def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
-                   dtype=torch.bfloat16, phase="kernel_timing", **tags):
+                   dtype=torch.bfloat16, phase="kernel_timing", causal=True,
+                   **tags):
     """Kernel, plain version and SDPA at one serving shape, each timed on
     the device alone (``graph_ms``: ``ms``, ``plain_ms``, ``library_ms``)
     and per call with the host's time to issue it (``cuda_ms``: the
     ``*_eager`` keys).  With ``copies`` > 1 the calls cycle over that many
     K/V caches, so that they find the cache in device memory and not in the
-    50 MB L2, as each layer of a decode step does."""
+    50 MB L2, as each layer of a decode step does.  SDPA gets no mask where
+    every key is visible, ``is_causal`` for aligned causal calls and the
+    visibility mask otherwise."""
     t0 = time.perf_counter()
     q, kvs, qp = make_inputs(b, t, s, h, kvh, d, q_pos, dtype, seed=t + s,
                              copies=copies)
     kp = torch.arange(s, dtype=torch.int32, device="cuda")
     k, v = kvs[0]
-    kw = dict(q_pos=qp, kv_pos=kp, causal=True, window=0)
+    kw = dict(q_pos=qp, kv_pos=kp, causal=causal, window=0)
     err = check_close(label, fa.flash_attention(q, k, v, **kw),
                       reference_attention(q, k, v, **kw), dtype)
-    mask = visible(qp, kp, True, 0)
+    mask = visible(qp, kp, causal, 0)
     turn = [0]
 
     def cycle(fn):
@@ -525,7 +594,8 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
             return fn(q, k_, v_)
         return call
 
-    sdpa_kw = dict(is_causal=True) if t == s else dict(attn_mask=mask)
+    sdpa_kw = ({} if bool(mask.all()) else dict(is_causal=True)
+               if causal and t == s else dict(attn_mask=mask))
 
     def sdpa(q_, k_, v_):
         return F.scaled_dot_product_attention(
@@ -542,11 +612,12 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
             key = name + suffix
             times[key + ("_repeat" if key in times else "")] = timer(
                 calls[name], iters)
-    bound_ms, bound_by = bound(q, k, qp, kp, True, 0)
+    bound_ms, bound_by = bound(q, k, qp, kp, causal, 0)
     backend = sdpa_backend(*(x.transpose(1, 2) for x in (q, k, v)),
                            **sdpa_kw)
     key = str(dtype).removeprefix("torch.")
-    out = dict(shape=f"B{b} T{t} S{s} H{h} KV{kvh} D{d} {key} causal",
+    how = "causal" if causal else "non-causal"
+    out = dict(shape=f"B{b} T{t} S{s} H{h} KV{kvh} D{d} {key} {how}",
                path=fa.plan(b, t, s, h, kvh, d, dtype).path,
                max_abs_err=err, tol=TOL[dtype], ms=times["kernel"],
                ms_repeat=times["kernel_repeat"], plain_ms=times["plain"],
@@ -770,22 +841,153 @@ def reset_launches():
             counts[path] = 0
 
 
-def expected_launches(cfg):
-    """Launches of one serve run (bf16): the prefill attention kernel at
-    every attention layer of the prefill, the decode kernel at every
-    attention layer of each decode step, the fp32 kernel never; the
-    tensor-core mlstm_scan at every mLSTM layer of the prefill (512 is a
-    multiple of its chunk, 256, a multiple of 16), the FMA one never, none
-    in decode, which takes the sequential step."""
-    kinds = cfg.block_pattern or ("attn",) * cfg.num_layers
-    attn = kinds.count("attn")
-    return {"flash_attention": attn * (1 + NEW_TOKENS),
+def expected_launches(cfg, new_tokens=NEW_TOKENS):
+    """Launches of one serve run (bf16) of ``new_tokens`` decode steps: the
+    prefill attention kernel at every attention of the prefill (the
+    self-attention of each attention, cross-attention and hymba layer, the
+    cross-attention of each cross-attention layer, each encoder layer's),
+    the decode kernel at every attention of each decode step (the encoder
+    runs once, at prefill), the fp32 kernel never; the tensor-core
+    mlstm_scan at every mLSTM layer of the prefill (512 is a multiple of
+    its chunk, 256, a multiple of 16), the FMA one never, none in decode,
+    which takes the sequential step."""
+    kinds = cfg.block_pattern
+    attn = sum(kinds.count(k) for k in ("attn", "attn_cross", "hymba"))
+    attn += kinds.count("attn_cross")
+    pre = attn + cfg.encoder_layers
+    return {"flash_attention": pre + attn * new_tokens,
             "flash_attention_fp32": 0,
-            "flash_attention_prefill": attn,
-            "flash_attention_decode": attn * NEW_TOKENS,
+            "flash_attention_prefill": pre,
+            "flash_attention_decode": attn * new_tokens,
             "mlstm_scan": kinds.count("mlstm"),
             "mlstm_scan_fma": 0,
             "mlstm_scan_tc": kinds.count("mlstm")}
+
+
+def prefill_logits_check(params, batch, cfg, seq, check_dtype):
+    """``prefill`` with the kernels (``params`` cast to ``cfg.dtype``)
+    against the same call with every kernel swapped for its plain version:
+    the last position's logits over the vocabulary (the padding columns,
+    granite's 13 of 49,168, are -1e30 by construction and would swamp any
+    norm), finite, and within relative L2 LOGITS_TOL in ``check_dtype``.
+    A model with mLSTM layers is held in its own dtype to the plain
+    version re-chunked into each of RECHUNKS (the mean plus three standard
+    deviations), one with hymba layers layer by layer
+    (hymba_layers_check).  Returns the kernels' (logits, caches) and the
+    line's fields."""
+    vocab = cfg.vocab_size
+
+    def prefill(p, c, **plain):
+        def run():
+            return TT.prefill(p, batch, c, seq)[0][..., :vocab].float()
+        return with_plain_kernels(run, **plain) if plain else run()
+    logits, caches = TT.prefill(params, batch, cfg, seq)
+    a = logits[..., :vocab].float()
+    b = prefill(params, cfg, mlstm_chunk=None)
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{cfg.name}: prefill logits are not finite")
+    rel = {cfg.dtype: rel_l2(a, b)}
+    mlstm, hymba = ("mlstm" in cfg.block_pattern,
+                    "hymba" in cfg.block_pattern)
+    fields = {}
+    if check_dtype != cfg.dtype:
+        if not (mlstm or hymba):
+            raise ValueError(f"{cfg.name} in {cfg.dtype} is not checked")
+        c32 = dataclasses.replace(cfg, dtype=check_dtype)
+        p32 = TT.cast_params(params, c32)
+        plain32 = prefill(p32, c32, mlstm_chunk=None)
+        rel[check_dtype] = rel_l2(prefill(p32, c32), plain32)
+        # what rounding to cfg.dtype alone moves the plain version's
+        # logits, and what relative noise of INPUT_NOISE on the embedded
+        # prompt moves them in check_dtype
+        gen = torch.Generator(device=a.device).manual_seed(SEED)
+        embed = TT._prepare_prefix
+
+        def noisy(*args):
+            x = embed(*args)
+            return x * (1 + INPUT_NOISE * torch.randn(
+                x.shape, generator=gen, device=x.device, dtype=x.dtype))
+        with patched((TT, "_prepare_prefix", noisy)):
+            noised = prefill(p32, c32, mlstm_chunk=None)
+        fields.update(plain_vs_plain_in_check_dtype_rel_l2=rel_l2(b, plain32),
+                      input_noise=INPUT_NOISE,
+                      plain_with_input_noise_rel_l2=rel_l2(noised, plain32))
+        del p32, plain32, noised
+    if not rel[check_dtype] <= LOGITS_TOL:
+        raise AssertionError(f"{cfg.name}: prefill logits ({check_dtype}) "
+                             f"with the kernels and with the plain versions "
+                             f"differ: relative L2 {rel[check_dtype]}")
+    # In fp32 the mLSTM scan takes the FMA kernel, so the check above does not
+    # reach the bf16 tensor-core kernel.  That one is held to what re-chunking
+    # the plain version moves the same logits: a kernel that differs from the
+    # plain version by more than the same function summed in another order
+    # does is wrong beyond rounding.  Each re-chunking is one draw of that
+    # rounding noise (about 0.3, a few hundredths apart), and so is any
+    # kernel that agrees with the plain version to rounding, so the bound is
+    # the draws' mean plus three standard deviations.
+    if mlstm:
+        draws = {ch: rel_l2(prefill(params, cfg, mlstm_chunk=ch), b)
+                 for ch in RECHUNKS}
+        bound_rel = (statistics.mean(draws.values())
+                     + 3 * statistics.stdev(draws.values()))
+        fields.update(plain_vs_plain_rechunked_rel_l2=draws,
+                      rechunked_bound_rel_l2=bound_rel)
+        if not rel[cfg.dtype] <= bound_rel:
+            raise AssertionError(
+                f"prefill logits ({cfg.dtype}) with the kernels and with the "
+                f"plain versions differ by relative L2 {rel[cfg.dtype]}, more "
+                f"than the plain version re-chunked does ({draws}: bound "
+                f"{bound_rel})")
+    if hymba:
+        fields.update(hymba_layers_check(params, batch, cfg, seq))
+    fields.update(
+        prefill_logits_rel_l2_vs_plain=rel, logits_checked_in=check_dtype,
+        logits_tol_rel_l2=LOGITS_TOL,
+        prefill_logits_max_abs_diff=float((a - b).abs().max()),
+        prefill_logits_max_abs=float(b.abs().max()),
+        prefill_argmax_agreement=float(
+            (a.argmax(-1) == b.argmax(-1)).float().mean()))
+    return logits, caches, fields
+
+
+def hymba_layers_check(params, batch, cfg, seq):
+    """Each hymba layer alone, in the prefill and in the decode step after
+    it, at the plain run's inputs (its x and, in decode, a copy of its
+    caches): the layer's increment to the residual stream with the kernels
+    against the plain versions, within relative L2 LOGITS_TOL.  Returns
+    the readings, layer by layer."""
+    block = TT.apply_hymba_block
+    seen = []
+
+    def record(p, x, c, **kw):
+        cache = kw["cache"]
+        seen.append((p, x, kw, None if cache is None else
+                     {n: t.clone() for n, t in cache.items()}))
+        return block(p, x, c, **kw)
+
+    def plain_run():
+        logits, caches = TT.prefill(params, batch, cfg, seq)
+        TT.decode_step(params, logits.argmax(-1), caches,
+                       TT.prefix_len(cfg, batch) + batch["tokens"].shape[1],
+                       cfg, seq)
+    with patched((TT, "apply_hymba_block", record)):
+        with_plain_kernels(plain_run)
+    rel = {"prefill": [], "decode": []}
+    for p, x, kw, cache in seen:
+        def increment():
+            c = (None if cache is None else
+                 {n: t.clone() for n, t in cache.items()})
+            return block(p, x, cfg, **dict(kw, cache=c))[0].float() - x.float()
+        rel["prefill" if cache is None else "decode"].append(
+            rel_l2(increment(), with_plain_kernels(increment)))
+    worst = max(max(r) for r in rel.values())
+    if not (len(rel["prefill"]) == len(rel["decode"]) == cfg.num_layers
+            and worst <= LOGITS_TOL):
+        raise AssertionError(f"{cfg.name} ({cfg.dtype}), each layer at the "
+                             f"plain run's inputs with the kernels and with "
+                             f"the plain versions: relative L2 {rel} (tol "
+                             f"{LOGITS_TOL})")
+    return {"layers_rel_l2_vs_plain": rel, "layers_max_rel_l2": worst}
 
 
 def phase_serve(arch):
@@ -827,67 +1029,24 @@ def phase_serve(arch):
                 0 <= tok < cfg.vocab_size for tok in r.out_tokens):
             raise AssertionError(f"request {r.rid}: bad tokens {r.out_tokens}")
 
-    # The same prefill with every kernel swapped for its plain version.
+    # The same prefill with every kernel swapped for its plain version
+    # (an encoder-decoder's over seeded frames, where the engine passed
+    # zeros).
     toks = np.zeros((len(PROMPTS), max(PROMPTS)), np.int64)
     for i, r in enumerate(reqs):
         toks[i, -len(r.prompt):] = r.prompt
-    batch = {"tokens": torch.from_numpy(toks).cuda()}
-
-    # Logits of the vocabulary only: the padding columns (granite: 49,155
-    # of 49,168) are -1e30 by construction and would swamp any norm.
-    vocab = cfg.vocab_size
-
-    def prefill(p, c, **plain):
-        def run():
-            return TT.prefill(p, batch, c, MAX_SEQ)[0][..., :vocab]
-        return with_plain_kernels(run, **plain) if plain else run()
-    logits, caches = TT.prefill(eng.params, batch, cfg, MAX_SEQ)
-    plain_logits = prefill(eng.params, cfg, mlstm_chunk=None)
-    a, b = logits[..., :vocab].float(), plain_logits.float()
-    if not torch.isfinite(a).all():
-        raise AssertionError("prefill logits are not finite")
-    rel = {cfg.dtype: rel_l2(a, b)}
-    same_argmax = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    check_dtype = LOGITS_CHECK_DTYPE[arch]
-    if check_dtype != cfg.dtype:
-        c32 = dataclasses.replace(cfg, dtype=check_dtype)
-        p32 = TT.cast_params(eng.params, c32)
-        rel[check_dtype] = rel_l2(prefill(p32, c32),
-                                  prefill(p32, c32, mlstm_chunk=None))
-        del p32
-    plain_self = None
-    if "mlstm" in (cfg.block_pattern or ()):
-        plain_self = {ch: rel_l2(prefill(eng.params, cfg, mlstm_chunk=ch), b)
-                      for ch in RECHUNKS}
-    logits_tol = 5e-2
-    if not rel[check_dtype] <= logits_tol:
-        raise AssertionError(f"prefill logits ({check_dtype}) with the kernels "
-                             f"and with the plain versions differ: relative "
-                             f"L2 {rel[check_dtype]}")
-    # In fp32 the mLSTM scan takes the FMA kernel, so the check above does not
-    # reach the bf16 tensor-core kernel.  That one is held to what re-chunking
-    # the plain version moves the same logits: a kernel that differs from the
-    # plain version by more than the same function summed in another order
-    # does is wrong beyond rounding.  Each re-chunking is one draw of that
-    # rounding noise (about 0.3, a few hundredths apart), and so is any
-    # kernel that agrees with the plain version to rounding, so the bound is
-    # the draws' mean plus three standard deviations.
-    rechunk_bound = None
-    if plain_self is not None:
-        draws = list(plain_self.values())
-        rechunk_bound = statistics.mean(draws) + 3 * statistics.stdev(draws)
-        if not rel[cfg.dtype] <= rechunk_bound:
-            raise AssertionError(
-                f"prefill logits ({cfg.dtype}) with the kernels and with the "
-                f"plain versions differ by relative L2 {rel[cfg.dtype]}, more "
-                f"than the plain version re-chunked does ({plain_self}: bound "
-                f"{rechunk_bound})")
+    batch = {"tokens": torch.from_numpy(toks).cuda(),
+             **model_extras(cfg, len(PROMPTS), rng, "cuda")}
+    prefix = TT.prefix_len(cfg, batch)
+    logits, caches, logit_fields = prefill_logits_check(
+        eng.params, batch, cfg, MAX_SEQ, LOGITS_CHECK_DTYPE[arch])
 
     prefill_ms = cuda_ms(lambda: TT.prefill(eng.params, batch, cfg, MAX_SEQ),
                          iters=5, warmup=1)
     nxt = logits.argmax(-1)
     step_ms = cuda_ms(lambda: TT.decode_step(eng.params, nxt, caches,
-                                             DECODE_POS, cfg, MAX_SEQ),
+                                             DECODE_POS + prefix, cfg,
+                                             MAX_SEQ),
                       iters=20)
     moe = (dict(experts=cfg.num_experts,
                 experts_stored=TM.expert_store_count(cfg), top_k=cfg.top_k,
@@ -898,19 +1057,16 @@ def phase_serve(arch):
          heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
          head_dim=cfg.head_dim, vocab=cfg.vocab_size,
          params_stored=sum(a.numel() for a in _leaves(eng.params)), **moe,
-         blocks={k: (cfg.block_pattern or ("attn",) * cfg.num_layers).count(k)
-                 for k in ("attn", "mlstm", "slstm")},
+         blocks={k: cfg.block_pattern.count(k) for k in dict.fromkeys(
+             cfg.block_pattern)},
+         prefix_positions=prefix, encoder_layers=cfg.encoder_layers,
+         encoder_frames=cfg.encoder_seq_len or None,
+         ssm_state=cfg.ssm_state or None,
          dtype=cfg.dtype, slots=len(PROMPTS), prompts=list(PROMPTS),
          new_tokens=NEW_TOKENS, max_seq=MAX_SEQ, init_s=init_s,
          run_s=run_s, generated_tokens=sum(len(r.out_tokens) for r in done),
-         launches=launches, launches_expected=want,
-         prefill_logits_rel_l2_vs_plain=rel, logits_checked_in=check_dtype,
-         logits_tol_rel_l2=logits_tol,
-         plain_vs_plain_rechunked_rel_l2=plain_self,
-         rechunked_bound_rel_l2=rechunk_bound,
-         prefill_logits_max_abs_diff=float((a - b).abs().max()),
-         prefill_logits_max_abs=float(b.abs().max()),
-         prefill_argmax_agreement=same_argmax, prefill_ms=prefill_ms,
+         launches=launches, launches_expected=want, **logit_fields,
+         prefill_ms=prefill_ms,
          decode_step_ms=step_ms,
          decode_tokens_per_s=len(PROMPTS) / step_ms * 1e3,
          peak_memory_gb=peak_gb,
@@ -920,8 +1076,80 @@ def phase_serve(arch):
                                                       MAX_SEQ),
                   prefill_ms, calls=2)
     phase_profile(arch, "decode step", lambda: TT.decode_step(
-        eng.params, nxt, caches, DECODE_POS, cfg, MAX_SEQ), step_ms, calls=5)
+        eng.params, nxt, caches, DECODE_POS + prefix, cfg, MAX_SEQ), step_ms,
+        calls=5)
     return launches, eng.arrival_trace(done)
+
+
+#: internvl2-26b's prefill: full width, ``layers`` of its 48, so that the
+#: fp32 initialisation (about 4.3 B parameters, 17 GB) fits the card; the
+#: tiny sizes rehearse the phase on the CPU.
+VLM = {"arch": "internvl2-26b", "reduced": False, "layers": 8,
+       "prompt": 512, "iters": 3}
+VLM_TINY = {"arch": "internvl2-26b", "reduced": True, "layers": 2,
+            "prompt": 16, "iters": 1}
+
+
+def phase_vlm_prefill(device="cuda", sizes=VLM):
+    """internvl2-26b's prefill (bf16) through ``prefill``: B4, seeded patch
+    embeddings (its stub frontend's, 256 a prompt) in front of a
+    512-token prompt, so 768 positions at G = 6 (H48 KV8 D128).  Gates:
+    one prefill launch a layer (none on the CPU, where the wrappers run
+    their plain versions), logits finite and within relative L2 LOGITS_TOL
+    of the plain versions, caches filled to 768.  Returns the launches
+    (counts set to 0 just before the prefill)."""
+    t0 = time.perf_counter()
+    full = get_config(sizes["arch"])
+    base = full.reduced() if sizes["reduced"] else full
+    n = sizes["layers"]
+    cfg = dataclasses.replace(base, num_layers=n,
+                              block_pattern=base.block_pattern[:n],
+                              windows=base.windows[:n])
+    params = init_params(SEED, cfg, device=device)
+    n_params = sum(a.numel() for a in _leaves(params))
+    p = TT.cast_params(params, cfg, device)
+    del params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED)
+    b = len(PROMPTS)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, sizes["prompt"]))).to(device),
+        **model_extras(cfg, b, rng, device)}
+    seq = TT.prefix_len(cfg, batch) + sizes["prompt"]
+    reset_launches()
+    _, caches, logit_fields = prefill_logits_check(p, batch, cfg, seq,
+                                                   cfg.dtype)
+    launches = kernel_launches()
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device == "cuda" else None)
+    want = expected_launches(cfg, new_tokens=0)
+    if device != "cuda":
+        want = dict.fromkeys(want, 0)
+    if launches != want:
+        raise AssertionError(f"{cfg.name} prefill: kernels launched "
+                             f"{launches} times, not {want}")
+    if caches[0]["k"].shape != (b, seq, cfg.num_kv_heads, cfg.head_dim):
+        raise AssertionError(f"cache of {tuple(caches[0]['k'].shape)}")
+    del caches
+    prefill_ms = wall_ms(lambda: TT.prefill(p, batch, cfg, seq),
+                         sizes["iters"], device)
+    emit("prefill", model=cfg.name, device=device, layers=n,
+         layers_published=full.num_layers,
+         reduced=(f"the reduced config, {n} of its {base.num_layers} "
+                  f"layers" if sizes["reduced"] else
+                  f"depth: {n} of {full.num_layers} layers, so that the fp32 "
+                  f"parameters fit one card; width as published"),
+         d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+         vocab=cfg.vocab_size, params_stored=n_params, dtype=cfg.dtype,
+         batch=b, patch_embeds=batch["patch_embeds"].shape[1],
+         prompt=sizes["prompt"], positions=seq, launches=launches,
+         launches_expected=want, **logit_fields, prefill_ms=prefill_ms,
+         peak_memory_gb=peak_gb, seconds=time.perf_counter() - t0)
+    return launches
 
 
 def _leaves(tree):
@@ -960,7 +1188,10 @@ SMALL_MODELS = {"llama3.2-3b": ("llama3.2-3b", 70, {}),
                 "granite-moe-3b-a800m": ("granite-moe-3b-a800m", 70, {}),
                 "gemma3-1b": ("gemma3-1b", 70, {}),
                 "gemma3-1b head_dim 256": ("gemma3-1b", 70,
-                                           {"head_dim": 256})}
+                                           {"head_dim": 256}),
+                "hymba-1.5b": ("hymba-1.5b", 70, {}),
+                "whisper-base": ("whisper-base", 70, {}),
+                "internvl2-26b": ("internvl2-26b", 70, {})}
 
 
 def phase_small_model():
@@ -974,16 +1205,19 @@ def phase_small_model():
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
                                   **fields)
         params = init_params(SEED, cfg, device="cpu")
-        tokens = torch.from_numpy(
-            np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, t)))
+        rng = np.random.default_rng(SEED)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (2, t))),
+            **model_extras(cfg, 2, rng, "cpu")}
+        pos = t + TT.prefix_len(cfg, batch)
         out = {}
         for dev in ("cpu", "cuda"):
             p = TT.cast_params(params, cfg, dev)
             before = kernel_launches()
-            logits, caches = TT.prefill(p, {"tokens": tokens.to(dev)}, cfg,
-                                        t + 26)
-            step, _ = TT.decode_step(p, logits.argmax(-1), caches, t, cfg,
-                                     t + 26)
+            logits, caches = TT.prefill(
+                p, {k: v.to(dev) for k, v in batch.items()}, cfg, pos + 26)
+            step, _ = TT.decode_step(p, logits.argmax(-1), caches, pos, cfg,
+                                     pos + 26)
             launched = {k: v - before[k] for k, v in kernel_launches().items()}
             out[dev] = torch.cat([logits, step], 1).cpu()
         if launched["flash_attention_fp32"] != launched["flash_attention"]:
@@ -2257,8 +2491,9 @@ def xlstm_witness(device="cuda", reduced=False, seq=1024, batch=2,
 
 
 # ---------------------------------------------------------------------------
-# The gelu A/B (python3 chip_smoke.py --gelu-ab): gemma3-1b's prefill,
-# decode step and train step with each way of computing the MLP's gelu.
+# The activation A/Bs (python3 chip_smoke.py --gelu-ab, --silu-ab): a
+# model's prefill, decode step and train step with each way of computing
+# its MLP's activation.
 # ---------------------------------------------------------------------------
 
 def _gelu_constants_each_call(x):
@@ -2270,54 +2505,88 @@ def _gelu_constants_each_call(x):
     return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
 
 
-GELU_VARIANTS = {
-    "F.gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "op by op, constants made each call": _gelu_constants_each_call,
-    "op by op, scalar constants": ML.gelu_tanh}
+#: name: (the layers function the dense and MoE MLPs call, its variants,
+#: the models and whether each takes train steps)
+ACTIVATION_AB = {
+    "gelu": ("gelu_tanh", {
+        "F.gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "op by op, constants made each call": _gelu_constants_each_call,
+        "op by op, scalar constants": ML.gelu_tanh},
+        (("gemma3-1b", True),)),
+    "silu": ("silu", {"F.silu": F.silu, "op by op": ML.silu_op_by_op},
+             (("llama3.2-3b", True), ("granite-moe-3b-a800m", False)))}
 
 
-def gelu_ab(arch="gemma3-1b", steps=4, rounds=2):
-    """``arch`` at full width and depth with each of GELU_VARIANTS in turn,
-    ``rounds`` times in the order A B C C B A: prefill ms (B4 T512, bf16,
-    mean of 10), decode step ms at fill DECODE_POS (mean of 50), and the
-    mean train step ms (B2 T1024, remat "full", after one step's
-    warm-up); every reading, and each variant's median."""
-    cfg = get_config(arch)
-    params = TT.cast_params(init_params(SEED, cfg, device="cuda"), cfg)
-    toks = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (len(PROMPTS), max(PROMPTS)))
-    batch = {"tokens": torch.from_numpy(toks).cuda()}
-    logits, caches = TT.prefill(params, batch, cfg, MAX_SEQ)
-    nxt = logits.argmax(-1)
-    state = TR.init_train_state(SEED, cfg, device="cuda")
-    step = TR.make_train_step(cfg, TR.make_rules(None), OptConfig(**FULL_OPT))
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
-                      global_batch=2)
-    order = [*GELU_VARIANTS, *reversed(GELU_VARIANTS)] * rounds
-    got = collections.defaultdict(list)
-    for name in order:
-        with patched((ML, "gelu_tanh", GELU_VARIANTS[name])):
-            pre = cuda_ms(lambda: TT.prefill(params, batch, cfg, MAX_SEQ),
-                          iters=10, warmup=1)
-            dec = cuda_ms(lambda: TT.decode_step(params, nxt, caches,
-                                                 DECODE_POS, cfg, MAX_SEQ),
-                          iters=50)
-            ms = []
-            for i in range(steps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, _ = step(state, host_batch(data, i))
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-        got[name].append(dict(prefill_ms=pre, decode_step_ms=dec,
-                              train_step_ms=statistics.mean(ms[1:])))
-    median = {name: {k: statistics.median(r[k] for r in runs)
-                     for k in runs[0]} for name, runs in got.items()}
-    emit("gelu_ab", model=cfg.name, order=order, median=median,
-         readings=dict(got),
-         prefill_shape=f"B{len(PROMPTS)} T{max(PROMPTS)}",
-         decode_at=DECODE_POS, train_shape="B2 T1024 remat full",
-         train_steps_averaged=steps - 1)
+def activation_ab(which, steps=4, rounds=4):
+    """Each model of ACTIVATION_AB[which] at full width and depth with each
+    variant in turn, ``rounds`` times in the order A B .. B A: prefill ms
+    (B4 T512, bf16, mean of 10), decode step ms at fill DECODE_POS (mean
+    of 50), and where it trains the mean train step ms (B2 T1024, remat
+    "full", after one step's warm-up); every reading, and each variant's
+    median; then each variant's kernels and device busy time in one
+    prefill and one decode step (torch.profiler); one line a model."""
+    name, variants, models = ACTIVATION_AB[which]
+    for arch, train in models:
+        cfg = get_config(arch)
+        params = TT.cast_params(init_params(SEED, cfg, device="cuda"), cfg)
+        toks = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (len(PROMPTS), max(PROMPTS)))
+        batch = {"tokens": torch.from_numpy(toks).cuda()}
+        logits, caches = TT.prefill(params, batch, cfg, MAX_SEQ)
+        nxt = logits.argmax(-1)
+        if train:
+            state = TR.init_train_state(SEED, cfg, device="cuda")
+            step = TR.make_train_step(cfg, TR.make_rules(None),
+                                      OptConfig(**FULL_OPT))
+            data = DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
+                              global_batch=2)
+        order = [*variants, *reversed(variants)] * rounds
+        got = collections.defaultdict(list)
+        for variant in order:
+            fn = variants[variant]
+            with patched((ML, name, fn), (TM, name, fn)):
+                reading = dict(
+                    prefill_ms=cuda_ms(
+                        lambda: TT.prefill(params, batch, cfg, MAX_SEQ),
+                        iters=10, warmup=1),
+                    decode_step_ms=cuda_ms(
+                        lambda: TT.decode_step(params, nxt, caches,
+                                               DECODE_POS, cfg, MAX_SEQ),
+                        iters=50))
+                if train:
+                    ms = []
+                    for i in range(steps):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        state, _ = step(state, host_batch(data, i))
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                    reading["train_step_ms"] = statistics.mean(ms[1:])
+            got[variant].append(reading)
+        median = {v: {k: statistics.median(r[k] for r in runs)
+                      for k in runs[0]} for v, runs in got.items()}
+        device = {}
+        for variant, fn in variants.items():
+            with patched((ML, name, fn), (TM, name, fn)):
+                for what, call in (
+                        ("prefill", lambda: TT.prefill(params, batch, cfg,
+                                                       MAX_SEQ)),
+                        ("decode_step", lambda: TT.decode_step(
+                            params, nxt, caches, DECODE_POS, cfg, MAX_SEQ))):
+                    rows, busy_us, _ = device_ops(call, "cuda")
+                    device[f"{variant}: {what}"] = dict(
+                        kernels=sum(c for _, _, c in rows), busy_us=busy_us)
+        emit(f"{which}_ab", model=cfg.name, order=order, median=median,
+             readings=dict(got), device=device,
+             prefill_shape=f"B{len(PROMPTS)} T{max(PROMPTS)}",
+             decode_at=DECODE_POS,
+             train_shape="B2 T1024 remat full" if train else None,
+             train_steps_averaged=steps - 1 if train else None)
+        del params, caches, logits, nxt
+        if train:
+            del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _cast_tree(tree, dtype):
@@ -3948,6 +4217,36 @@ def main():
     cdec = time_attention("decode", b, 1, MAX_SEQ, c.num_heads,
                           c.num_kv_heads, c.head_dim, [DECODE_POS], copies=8,
                           phase="attention", model=c.name)
+    # hymba-1.5b's attention: G = 25/5 = 5, 128 meta tokens before the
+    # prompt (its windows of 1024 do not bind at 640 positions)
+    y = get_config("hymba-1.5b")
+    ypos = y.num_meta_tokens + max(PROMPTS)
+    ypre = time_attention("prefill", b, ypos, ypos, y.num_heads,
+                          y.num_kv_heads, y.head_dim, None, copies=1,
+                          phase="attention", model=y.name)
+    ydec = time_attention("decode", b, 1, MAX_SEQ, y.num_heads,
+                          y.num_kv_heads, y.head_dim,
+                          [DECODE_POS + y.num_meta_tokens], copies=8,
+                          phase="attention", model=y.name)
+    # internvl2-26b's: G = 48/8 = 6, 256 patch embeddings before the prompt
+    iv = get_config("internvl2-26b")
+    ipos = iv.num_patch_tokens + max(PROMPTS)
+    ipre = time_attention("prefill", b, ipos, ipos, iv.num_heads,
+                          iv.num_kv_heads, iv.head_dim, None, copies=1,
+                          phase="attention", model=iv.name)
+    # whisper-base's: the encoder (non-causal over 1500 frames), and
+    # cross-attention from position 0 against them at prefill and decode
+    w = get_config("whisper-base")
+    wshape = (w.num_heads, w.num_kv_heads, w.head_dim)
+    wenc = time_attention("encoder", b, w.encoder_seq_len, w.encoder_seq_len,
+                          *wshape, None, copies=1, causal=False,
+                          phase="attention", model=w.name)
+    wx = time_attention("cross prefill", b, max(PROMPTS), w.encoder_seq_len,
+                        *wshape, [0] * max(PROMPTS), copies=1, causal=False,
+                        phase="attention", model=w.name)
+    wxd = time_attention("cross decode", b, 1, w.encoder_seq_len, *wshape,
+                         [0], copies=8, causal=False, phase="attention",
+                         model=w.name)
     phase_mlstm_hazards()
     scan = time_mlstm(torch.bfloat16)
     scan32 = time_mlstm(torch.float32)
@@ -3957,6 +4256,9 @@ def main():
     granite, _ = phase_serve("granite-moe-3b-a800m")
     gemma, _ = phase_serve("gemma3-1b")
     starcoder, _ = phase_serve("starcoder2-3b")
+    hymba, _ = phase_serve("hymba-1.5b")
+    whisper, _ = phase_serve("whisper-base")
+    vlm = phase_vlm_prefill()
     phase_moe()
     train_lines, train_timing = phase_train()
     train = {arch: line["launches"] for arch, line in train_lines.items()}
@@ -3985,10 +4287,13 @@ def main():
                                       "shape", *keys)}, **more}
     serve_runs = {"llama3.2-3b": llama, "xlstm-350m": xlstm,
                   "granite-moe-3b-a800m": granite, "gemma3-1b": gemma,
-                  "starcoder2-3b": starcoder}
+                  "starcoder2-3b": starcoder, "hymba-1.5b": hymba,
+                  "whisper-base": whisper}
     train_runs = {f"train {arch}": run for arch, run in train.items()}
     prefill_runs = dict(serve_runs, **train_runs,
-                        **{"extract dp llama3.2-3b": extract_dp_launches})
+                        **{"extract dp llama3.2-3b": extract_dp_launches,
+                           f"prefill {VLM['arch']} ({VLM['layers']} layers)":
+                               vlm})
     fp32_runs = {"reduced models in fp32": small}
     attn = "src/repro/kernels/flash_attention.py:39"
     scan_keys = ("state_max_abs_err", "library_note", "ms_eager",
@@ -4020,11 +4325,17 @@ def main():
                   "training_shape_d256"),
               at_gqa12={k: cpre[k] for k in at},
               at_training_shape_with_lse_gqa12=with_lse(
-                  "training_shape_gqa12")),
+                  "training_shape_gqa12"),
+              at_gqa5={k: ypre[k] for k in at},
+              at_gqa6={k: ipre[k] for k in at},
+              at_cross_s1500={k: wx[k] for k in at},
+              at_encoder_t1500={k: wenc[k] for k in at}),
         entry("flash_attention", "decode", "flash_attention_decode.cu", attn,
               dec, serve_runs, at_d64={k: gdec[k] for k in at},
               at_d256={k: mdec[k] for k in at},
-              at_gqa12={k: cdec[k] for k in at}),
+              at_gqa12={k: cdec[k] for k in at},
+              at_gqa5={k: ydec[k] for k in at},
+              at_cross_s1500={k: wxd[k] for k in at}),
         entry("flash_attention", "fp32", "flash_attention.cu", attn, fp32,
               fp32_runs, at_d256={k: mfp32[k] for k in at}),
         entry("mlstm_scan", "tc", "mlstm_scan_tc.cu",
@@ -4049,8 +4360,8 @@ if __name__ == "__main__":
             raise SystemExit("the witness needs a CUDA device")
         phase_device()
         xlstm_witness(out=sys.argv[2] if len(sys.argv) > 2 else None)
-    elif sys.argv[1:2] == ["--gelu-ab"]:
+    elif sys.argv[1:2] in (["--gelu-ab"], ["--silu-ab"]):
         phase_device()
-        gelu_ab()
+        activation_ab(sys.argv[1][2:6])
     else:
         main()

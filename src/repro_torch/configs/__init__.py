@@ -2,10 +2,13 @@
 in :mod:`repro_torch.models.config`'s registry.
 
 Only the architectures the port serves are here; the JAX package's other
-configs come with the model kinds they need (ROADMAP, queue A item 10).
+two, nemotron4_15b and qwen3_moe_30b_a3b, wait for an initialisation that
+fits one card (ROADMAP, queue A item 10(c)).
 """
-from . import (gemma3_1b, granite_moe_3b_a800m, llama32_3b, lacin_demo,
-               starcoder2_3b, xlstm_350m)
+from . import (gemma3_1b, granite_moe_3b_a800m, hymba_1p5b, internvl2_26b,
+               llama32_3b, lacin_demo, starcoder2_3b, whisper_base,
+               xlstm_350m)
 
-__all__ = ["gemma3_1b", "granite_moe_3b_a800m", "llama32_3b", "lacin_demo",
-           "starcoder2_3b", "xlstm_350m"]
+__all__ = ["gemma3_1b", "granite_moe_3b_a800m", "hymba_1p5b",
+           "internvl2_26b", "llama32_3b", "lacin_demo", "starcoder2_3b",
+           "whisper_base", "xlstm_350m"]

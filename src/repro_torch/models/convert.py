@@ -6,7 +6,10 @@ The caller turns the reference's pytree into numpy first
 nothing of JAX.  Layouts are the same in both packages, so each leaf is a
 copy; the reference's per-run stacks (leading axis ``run.count``) become
 one dict per layer, a MoE layer's ``moe`` subtree (router (d, E), wi/wg
-(E_store, d, f), wo (E_store, f, d)) with the rest.
+(E_store, d, f), wo (E_store, f, d)) with the rest, and so does the
+encoder's stack (``encoder``, beside ``enc_norm``); ``meta_tokens`` is one
+(M, d) leaf.  Every leaf keeps its dtype (the SSM's float32 ``A_log`` and
+``D`` too).
 :func:`numpy_from_params` is the inverse of :func:`params_from_numpy`, and
 :func:`train_state_to_numpy` / :func:`train_state_from_numpy` apply both to
 a whole train state (parameters, AdamW's m and v, the step counters), the
@@ -22,7 +25,7 @@ import torch
 
 from .config import ModelConfig
 from .moe import expert_slice
-from .transformer import _layer_specs, build_runs, resolve_device
+from .transformer import build_runs, resolve_device
 
 
 def _to_torch(tree, device):
@@ -34,7 +37,6 @@ def _to_torch(tree, device):
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
     """``tree``: the reference's ``init_params`` output with numpy leaves."""
     device = resolve_device(device)
-    _layer_specs(cfg)                 # raises for parts not ported yet
     runs = build_runs(cfg)
     if len(tree["stack"]) != len(runs):
         raise ValueError(f"{len(tree['stack'])} stacked runs for the "
@@ -47,6 +49,12 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
            "final_norm": _to_torch(tree["final_norm"], device)}
     if "lm_head" in tree:
         out["lm_head"] = _to_torch(tree["lm_head"], device)
+    if "encoder" in tree:
+        out["encoder"] = [_to_torch(_index(tree["encoder"], i), device)
+                          for i in range(cfg.encoder_layers)]
+    for name in ("enc_norm", "meta_tokens"):
+        if name in tree:
+            out[name] = _to_torch(tree[name], device)
     return out
 
 
@@ -82,7 +90,6 @@ def _stack(group, fn):
 
 
 def _reference_layout(params, cfg: ModelConfig, leaf, stack) -> dict:
-    _layer_specs(cfg)                 # raises for parts not ported yet
     stacked, i = [], 0
     for run in build_runs(cfg):
         stacked.append(_stack(params["layers"][i:i + run.count], stack))
@@ -94,6 +101,11 @@ def _reference_layout(params, cfg: ModelConfig, leaf, stack) -> dict:
            "final_norm": _map(params["final_norm"], leaf)}
     if "lm_head" in params:
         out["lm_head"] = _map(params["lm_head"], leaf)
+    if "encoder" in params:
+        out["encoder"] = _stack(params["encoder"], stack)
+    for name in ("enc_norm", "meta_tokens"):
+        if name in params:
+            out[name] = _map(params[name], leaf)
     return out
 
 

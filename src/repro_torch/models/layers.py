@@ -215,6 +215,22 @@ def _gelu_constants(dtype):
                  for c in (math.sqrt(2 / math.pi), 0.044715, 0.5))
 
 
+def silu_op_by_op(x):
+    """x * sigmoid(x) op by op in x's dtype, as ``jax.nn.silu`` computes it:
+    in bfloat16 this rounds as the reference does, where ``F.silu``'s single
+    rounding differs from it by an ulp in about 4 elements of 10."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def silu(x):
+    """x * sigmoid(x): on the CPU :func:`silu_op_by_op`, which rounds as
+    the reference does; on the card ``F.silu``, one kernel where op by op
+    launches five, which made llama3.2-3b's decode step and train step
+    about 8% and 6% slower on an H100 (PERF.md, ``chip_smoke.py
+    --silu-ab``)."""
+    return F.silu(x) if x.is_cuda else silu_op_by_op(x)
+
+
 def gelu_tanh(x):
     """The tanh approximation of gelu op by op in x's dtype, with its
     constants in that dtype, as ``jax.nn.gelu(approximate=True)`` computes
@@ -232,7 +248,7 @@ def apply_mlp(p: dict, x, cfg):
     if "bi" in p:
         h = h + p["bi"]
     if cfg.mlp == "swiglu":
-        h = F.silu(x @ p["wg"]) * h
+        h = silu(x @ p["wg"]) * h
     elif cfg.mlp == "geglu":
         h = gelu_tanh(x @ p["wg"]) * h
     elif cfg.mlp == "squared_relu":

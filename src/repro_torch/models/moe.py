@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from repro_torch.core.collectives import library_all_reduce
 from repro_torch.fabric import LacinCollectives
-from .layers import AxisRules, dense_init, gelu_tanh
+from .layers import AxisRules, dense_init, gelu_tanh, silu
 
 
 def expert_store_count(cfg) -> int:
@@ -109,7 +109,7 @@ def _expert_ffn(p, x, cfg):
     """x: (E_loc, Cap, d) -> (E_loc, Cap, d), batched over local experts."""
     h = torch.bmm(x, p["wi"].to(x.dtype))
     if cfg.mlp == "swiglu":
-        h = F.silu(torch.bmm(x, p["wg"].to(x.dtype))) * h
+        h = silu(torch.bmm(x, p["wg"].to(x.dtype))) * h
     elif cfg.mlp == "geglu":
         h = gelu_tanh(torch.bmm(x, p["wg"].to(x.dtype))) * h
     elif cfg.mlp == "squared_relu":

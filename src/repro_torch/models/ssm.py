@@ -1,11 +1,45 @@
-"""The depthwise causal convolution of the recurrent blocks.
+"""Mamba-style selective SSM branch (hymba's parallel heads), and the
+depthwise causal convolution it shares with the xLSTM blocks.
 
-Port of ``repro.models.ssm._causal_conv``; the selective SSM of that module
-comes with the hybrid blocks that use it (ROADMAP queue A, item 10).
+Port of ``repro.models.ssm``.  Prefill runs the recurrence one position at
+a time with an fp32 state carry h of (B, inner, state): the (B, T, inner,
+state) decay and drive tensors are never formed (at hymba-1.5b's width and
+640 positions they would be 524 MB a layer).  Decode is one step of the
+same recurrence against the cached (conv window, ssm state) pair.  The loop
+is plain PyTorch: the reference's is a ``lax.scan`` in jnp, not a Pallas
+kernel.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from .layers import dense_init, silu
+
+DT_RANK_DIV = 16  # dt_rank = max(d_model // 16, 8)
+
+
+def init_ssm(gen: torch.Generator, cfg, dtype) -> dict:
+    """The reference's leaves and distributions; ``A_log`` (S4D-real) and
+    ``D`` are float32 whatever ``dtype`` is, as there."""
+    d = cfg.d_model
+    inner = cfg.ssm_expand * d
+    state = cfg.ssm_state
+    dt_rank = max(d // DT_RANK_DIV, 8)
+    dev = gen.device
+    a_init = torch.arange(1, state + 1, dtype=torch.float32,
+                          device=dev).expand(inner, state)
+    return {
+        "in_proj": dense_init(gen, (d, 2 * inner), dtype),
+        "conv_w": dense_init(gen, (cfg.conv_kernel, inner), dtype,
+                             fan_in=cfg.conv_kernel),
+        "x_proj": dense_init(gen, (inner, dt_rank + 2 * state), dtype),
+        "dt_proj": dense_init(gen, (dt_rank, inner), dtype, fan_in=dt_rank),
+        "dt_bias": torch.zeros((inner,), dtype=dtype, device=dev),
+        "A_log": torch.log(a_init).contiguous(),
+        "D": torch.ones((inner,), dtype=torch.float32, device=dev),
+        "out_proj": dense_init(gen, (inner, d), dtype, fan_in=inner),
+    }
 
 
 def _causal_conv(x, w, state=None):
@@ -25,3 +59,60 @@ def _causal_conv(x, w, state=None):
     y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
     new_state = xp[:, -(k - 1):] if k > 1 else torch.zeros_like(pad)
     return y, new_state
+
+
+def _ssm_params(p, xc, cfg):
+    """Input-dependent dt (B,T,inner), B and C (B,T,state), all float32,
+    from the conv output."""
+    state = cfg.ssm_state
+    dt_rank = p["dt_proj"].shape[0]
+    proj = xc @ p["x_proj"]
+    dt_lowrank = proj[..., :dt_rank]
+    b_t = proj[..., dt_rank:dt_rank + state].float()
+    c_t = proj[..., dt_rank + state:].float()
+    dt = F.softplus((dt_lowrank @ p["dt_proj"]).float()
+                    + p["dt_bias"].float())
+    return dt, b_t, c_t
+
+
+def apply_ssm(p: dict, x, cfg, *, cache=None):
+    """x: (B, T, d) -> (y (B, T, d), new_cache).
+
+    cache = {"conv": (B, K-1, inner), "state": (B, inner, state) float32}
+    or None (a zero state).  For T > 128 with T % 128 == 0 the reference
+    scans in chunks of 128 under ``jax.checkpoint``: that keeps only the
+    chunk-boundary states for its backward, and gives the numbers of the
+    flat scan, which is what this inference-only loop runs.
+    """
+    inner = cfg.ssm_expand * cfg.d_model
+    xz = x @ p["in_proj"]
+    xs, z = xz[..., :inner], xz[..., inner:]
+    conv_state = None if cache is None else cache["conv"]
+    xc, new_conv = _causal_conv(xs, p["conv_w"], conv_state)
+    xc = silu(xc)
+
+    dt, b_t, c_t = _ssm_params(p, xc, cfg)          # (B,T,inner), (B,T,S)x2
+    a = -torch.exp(p["A_log"])                       # (inner, S) fp32
+    xf = xc.float()
+    h = (torch.zeros((x.shape[0], inner, cfg.ssm_state), dtype=torch.float32,
+                     device=x.device)
+         if cache is None else cache["state"])
+    ys = []
+    for t in range(x.shape[1]):
+        dec = torch.exp(dt[:, t, :, None] * a)                   # (B,inner,S)
+        drv = (dt[:, t] * xf[:, t])[..., None] * b_t[:, t, None, :]
+        h = dec * h + drv
+        ys.append(torch.bmm(h, c_t[:, t, :, None])[..., 0])    # (B,inner)
+    y = torch.stack(ys, dim=1)                                   # (B,T,inner)
+    y = y + p["D"] * xf
+    y = y.to(x.dtype) * silu(z)
+    out = y @ p["out_proj"]
+    return out, {"conv": new_conv, "state": h}
+
+
+def init_ssm_cache(cfg, batch: int, *, device) -> dict:
+    inner = cfg.ssm_expand * cfg.d_model
+    return {"conv": torch.zeros((batch, cfg.conv_kernel - 1, inner),
+                                dtype=torch.float32, device=device),
+            "state": torch.zeros((batch, inner, cfg.ssm_state),
+                                 dtype=torch.float32, device=device)}

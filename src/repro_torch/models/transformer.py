@@ -1,8 +1,13 @@
-"""Model assembly for stacks of attention and xLSTM blocks: init, prefill,
-decode and the teacher-forced training forward.
+"""Model assembly: block bodies, the layer loop, LM / enc-dec / VLM wiring:
+init, prefill, decode and the teacher-forced training forward.
 
-Port of ``repro.models.transformer`` for ``ATTN`` (with a dense MLP or a
-MoE, :mod:`.moe`), ``MLSTM`` and ``SLSTM`` blocks.  The reference scans stacked per-run parameters with ``lax.scan``;
+Port of ``repro.models.transformer`` for every block kind: ``ATTN`` (with
+a dense MLP or a MoE, :mod:`.moe`), ``ATTN_CROSS`` (a decoder block with
+cross-attention over an encoder's output), ``HYMBA`` (attention and the
+selective SSM of :mod:`.ssm` side by side), ``MLSTM`` and ``SLSTM``; the
+whisper-style encoder over frame embeddings, and the prefixes a prompt
+gets: patch embeddings, then learnable meta tokens in front of them.  The
+reference scans stacked per-run parameters with ``lax.scan``;
 here the layers are a Python loop over one parameter dict per layer, in
 layer order, dispatching on each layer's kind.  Each attention layer's
 window and RoPE theta come from :func:`build_runs` as plain Python numbers,
@@ -16,11 +21,21 @@ Parameter trees (layouts as in the reference)::
                  # (MoE configs: "moe": {"router", "wi", "wg", "wo"})
                 | {"up", "conv_w", "wq", ..., "down"}           # MLSTM
                 | {"w_gates", "r_gates", ..., "ffn_wo"}, ...],  # SLSTM
-     "final_norm": {"scale"}, "lm_head": {"w": (d, Vp)}  # untied only}
+                # ATTN_CROSS: ATTN's and "lnx", "xattn" {"wq", ..., "wo"};
+                # HYMBA: "ln1", "attn", "ssm" {"in_proj", ..., "A_log",
+                # "D", "out_proj"}, "ln2", "mlp", "attn_out_scale",
+                # "ssm_out_scale"
+     "final_norm": {"scale"}, "lm_head": {"w": (d, Vp)},  # untied only
+     "encoder": [ATTN block, ...], "enc_norm": {...},     # enc-dec only
+     "meta_tokens": (M, d)}                               # meta tokens only
 
 Caches are one dict per layer: ``{"k", "v"}`` of (B, seq_len, KV, dh)
-tensors for attention, ``{"conv", "C", "n", "m"}`` for mLSTM and
-``{"h", "c", "n", "m"}`` for sLSTM.  Entry points take a ``device`` that
+tensors for attention, with ``{"ck", "cv"}`` of (B, encoder_seq_len, KV,
+dh) for cross-attention and ``{"conv", "state"}`` for the hymba block's
+SSM, ``{"conv", "C", "n", "m"}`` for mLSTM and ``{"h", "c", "n", "m"}``
+for sLSTM.  Positions count the prefix: a prompt of T tokens behind P
+prefix positions (:func:`prefix_len`) fills the caches to P + T, and the
+first decode step writes position P + T.  Entry points take a ``device`` that
 defaults to ``"cuda"`` and raise when CUDA is absent unless the caller asks
 for ``"cpu"``.  ``rules`` (:class:`~.layers.AxisRules`, keyword-only, a
 single device by default) reaches the expert-parallel MoE.
@@ -31,27 +46,31 @@ differentiably, as the reference's ``_cast`` does; ``cfg.remat`` picks
 what the backward recomputes, layer by layer, as the reference's
 ``jax.checkpoint`` does each run's body.  It trains attention (dense MLP
 or MoE), mLSTM and sLSTM layers; the mLSTM scan goes through its autograd
-Function (:class:`.xlstm.MLSTMScan`).
+Function (:class:`.xlstm.MLSTMScan`).  Training the hymba block, the
+encoder and cross-attention, and prefixes is not ported yet
+(:func:`check_trainable`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
-from .config import ATTN, MLSTM, SLSTM, ModelConfig
+from .config import ATTN, ATTN_CROSS, HYMBA, MLSTM, SLSTM, ModelConfig
 from . import layers as L
 from .layers import AxisRules
 from .moe import apply_moe, init_moe
+from .ssm import apply_ssm, init_ssm, init_ssm_cache
 from .xlstm import (apply_mlstm_block, apply_slstm_block, init_mlstm_block,
                     init_mlstm_cache, init_slstm_block, init_slstm_cache)
 
-#: Model parts the port does not have yet, and the ROADMAP item that ports
-#: them.
-_NOT_PORTED = "not ported yet (ROADMAP queue A, item 10(a))"
-_PORTED_KINDS = (ATTN, MLSTM, SLSTM)
+#: Training of these parts is not ported yet; the ROADMAP item that ports it.
+_NOT_TRAINED = ("not ported yet (ROADMAP queue A, item 10(a), training of "
+                "hymba, whisper and internvl)")
+_TRAINED_KINDS = (ATTN, MLSTM, SLSTM)
 
 
 def resolve_device(device) -> torch.device:
@@ -96,24 +115,32 @@ def build_runs(cfg: ModelConfig) -> tuple[RunSpec, ...]:
 
 
 def _layer_specs(cfg: ModelConfig) -> list[tuple[str, int, float]]:
-    """(kind, window, theta) per layer; raises for model parts not ported
-    yet."""
-    if cfg.is_encdec or cfg.num_meta_tokens or cfg.num_patch_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: encoders, cross-attention, meta tokens and patch "
-            f"prefixes are {_NOT_PORTED}")
-    specs = []
-    for run in build_runs(cfg):
-        if run.kind not in _PORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: {run.kind!r} blocks are {_NOT_PORTED}")
-        specs += [(run.kind, w, th) for w, th in zip(run.windows, run.thetas)]
-    return specs
+    """(kind, window, theta) per layer."""
+    return [(run.kind, w, th) for run in build_runs(cfg)
+            for w, th in zip(run.windows, run.thetas)]
+
+
+def check_trainable(cfg: ModelConfig):
+    """Raises NotImplementedError where ``cfg`` has a part whose training
+    is not ported: hymba blocks, encoders and cross-attention, meta tokens
+    and patch prefixes (they serve: :func:`prefill`, :func:`decode_step`)."""
+    parts = [f"{k!r} blocks" for k in dict.fromkeys(cfg.block_pattern)
+             if k not in _TRAINED_KINDS]
+    parts += [name for name, on in (("encoders", cfg.is_encdec),
+                                    ("meta tokens", cfg.num_meta_tokens),
+                                    ("patch prefixes", cfg.num_patch_tokens))
+              if on]
+    if parts:
+        raise NotImplementedError(f"{cfg.name}: training {', '.join(parts)} "
+                                  f"is {_NOT_TRAINED}")
 
 
 #: Leaves that keep their dtype in the compute copy, as the reference's
-#: ``_cast`` keeps them (the selective SSM's; no ported block has them yet).
+#: ``_cast`` keeps them (the selective SSM's).
 _KEEP_DTYPE = ("A_log", "D", "dt_bias")
+#: Top-level norms the reference applies uncast (each casts its scale to
+#: float32 inside ``apply_norm``).
+_UNCAST = ("final_norm", "enc_norm")
 
 
 def cast_params(params, cfg: ModelConfig, device=None):
@@ -121,8 +148,8 @@ def cast_params(params, cfg: ModelConfig, device=None):
     on ``device`` if given, with every float leaf that the reference casts
     at use (the layers', the embedding's and the untied head's) in the
     compute dtype ``cfg.dtype``, except the leaves whose dtype the reference
-    keeps (``A_log``, ``D``, ``dt_bias``).  The final norm keeps its dtype,
-    as in the reference.  Made once where the parameters enter, the
+    keeps (``A_log``, ``D``, ``dt_bias``).  The final and the encoder's
+    norms keep their dtype, as in the reference.  Made once where the parameters enter, the
     copies give the numbers of the reference's per-layer cast."""
     dtype = getattr(torch, cfg.dtype)
 
@@ -134,7 +161,7 @@ def cast_params(params, cfg: ModelConfig, device=None):
             return [go(x, to) for x in a]
         return a.to(device=device, dtype=to if a.is_floating_point()
                     else a.dtype)
-    return {k: go(v, None if k == "final_norm" else dtype)
+    return {k: go(v, None if k in _UNCAST else dtype)
             for k, v in params.items()}
 
 
@@ -159,17 +186,33 @@ def _check_cast(params, cfg: ModelConfig):
 
 def init_block(kind: str, gen: torch.Generator, cfg: ModelConfig,
                dtype) -> dict:
+    dev = gen.device
     if kind == MLSTM:
         return init_mlstm_block(gen, cfg, dtype)
     if kind == SLSTM:
         return init_slstm_block(gen, cfg, dtype)
-    if kind != ATTN:
+    if kind == HYMBA:
+        return {
+            "ln1": L.init_norm(cfg, dtype, dev),
+            "attn": L.init_attention(gen, cfg, dtype),
+            "ssm": init_ssm(gen, cfg, dtype),
+            "ln2": L.init_norm(cfg, dtype, dev),
+            "mlp": L.init_mlp(gen, cfg, dtype),
+            "attn_out_scale": torch.zeros((cfg.d_model,), dtype=dtype,
+                                          device=dev),
+            "ssm_out_scale": torch.zeros((cfg.d_model,), dtype=dtype,
+                                         device=dev),
+        }
+    if kind not in (ATTN, ATTN_CROSS):
         raise ValueError(f"unknown block kind {kind!r}")
     p = {
-        "ln1": L.init_norm(cfg, dtype, gen.device),
+        "ln1": L.init_norm(cfg, dtype, dev),
         "attn": L.init_attention(gen, cfg, dtype),
-        "ln2": L.init_norm(cfg, dtype, gen.device),
+        "ln2": L.init_norm(cfg, dtype, dev),
     }
+    if kind == ATTN_CROSS:
+        p["lnx"] = L.init_norm(cfg, dtype, dev)
+        p["xattn"] = L.init_attention(gen, cfg, dtype)
     if cfg.is_moe:
         p["moe"] = init_moe(gen, cfg, dtype)
     else:
@@ -194,17 +237,29 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": L.dense_init(
             gen, (cfg.d_model, cfg.vocab_padded), dtype)}
+    if cfg.is_encdec:
+        params["encoder"] = [init_block(ATTN, gen, cfg, dtype)
+                             for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = L.init_norm(cfg, dtype, device)
+    if cfg.num_meta_tokens:
+        params["meta_tokens"] = L.embed_init(
+            gen, (cfg.num_meta_tokens, cfg.d_model), dtype)
     return params
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
                 device="cuda"):
     """One zeroed cache per layer: ``{"k", "v"}`` of (batch, seq_len, KV,
-    dh) in ``dtype`` (default the compute dtype) for attention, and the
-    float32 recurrent state of the xLSTM blocks, as the reference has them."""
+    dh) in ``dtype`` (default the compute dtype) for attention, with
+    ``{"ck", "cv"}`` of (batch, encoder_seq_len, KV, dh) for
+    cross-attention, and the float32 recurrent state of the SSM and xLSTM
+    blocks, as the reference has them."""
     device = resolve_device(device)
     dtype = getattr(torch, dtype or cfg.dtype)
-    shape = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+
+    def zeros(length):
+        return torch.zeros((batch, length, cfg.num_kv_heads, cfg.head_dim),
+                           dtype=dtype, device=device)
     caches = []
     for kind, _, _ in _layer_specs(cfg):
         if kind == MLSTM:
@@ -212,8 +267,13 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
         elif kind == SLSTM:
             caches.append(init_slstm_cache(cfg, batch, device=device))
         else:
-            caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                           "v": torch.zeros(shape, dtype=dtype, device=device)})
+            c = {"k": zeros(seq_len), "v": zeros(seq_len)}
+            if kind == ATTN_CROSS:
+                c.update(ck=zeros(cfg.encoder_seq_len),
+                         cv=zeros(cfg.encoder_seq_len))
+            elif kind == HYMBA:
+                c.update(init_ssm_cache(cfg, batch, device=device))
+            caches.append(c)
     return caches
 
 
@@ -222,7 +282,7 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
 # ---------------------------------------------------------------------------
 
 def _self_attention(p, y, cfg, *, window: int, theta: float, q_pos, kv_pos,
-                    cache=None, pos: int | None = None):
+                    cache=None, pos: int | None = None, causal: bool = True):
     """qkv + qk-norm + rope + (cache update) + attend + out-proj.
 
     Prefill (``cache`` None): ``q_pos`` = ``kv_pos`` = (T,) positions, and
@@ -254,27 +314,76 @@ def _self_attention(p, y, cfg, *, window: int, theta: float, q_pos, kv_pos,
         new_cache = cache
         k_all, v_all = cache["k"], cache["v"]
     o = L.attention(q, k_all, v_all, q_pos=q_pos, kv_pos=kv_pos,
-                    window=window, causal=True)
+                    window=window, causal=causal)
     return L.out_proj(p["attn"], o), new_cache
+
+
+def _cross_attention(p, x, cross_src, cache):
+    """Cross-attention against the encoder's output ``cross_src`` (B, S, d)
+    (prefill) or the cross K/V that prefill left in ``cache`` (decode).
+    As in the reference: no bias, no RoPE, every key visible (non-causal,
+    the queries at position 0).  Returns (out, {"ck", "cv"})."""
+    y = L.apply_norm(p["lnx"], x)
+    w = p["xattn"]
+    q = L._project_heads(y, w["wq"])
+    if cache is not None:
+        ck, cv = cache["ck"], cache["cv"]
+    else:
+        ck = L._project_heads(cross_src, w["wk"])
+        cv = L._project_heads(cross_src, w["wv"])
+    dev = x.device
+    o = L.attention(q, ck, cv,
+                    q_pos=torch.zeros((q.shape[1],), dtype=torch.int32,
+                                      device=dev),
+                    kv_pos=torch.arange(ck.shape[1], dtype=torch.int32,
+                                        device=dev),
+                    window=0, causal=False)
+    h, k, d = w["wo"].shape
+    return o.flatten(-2) @ w["wo"].reshape(h * k, d), {"ck": ck, "cv": cv}
 
 
 def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
                      cache=None, pos: int | None = None,
-                     rules: AxisRules = AxisRules(), losses: bool = True):
-    """Returns (x, cache, metrics): ``{"moe_aux", "moe_z"}`` for a MoE
-    block when ``losses``, else empty."""
+                     rules: AxisRules = AxisRules(), losses: bool = True,
+                     causal: bool = True, cross_src=None):
+    """An ``ATTN`` block, or with ``p["xattn"]`` an ``ATTN_CROSS`` one
+    (cross-attention over ``cross_src`` in prefill, over the cache's
+    ``ck``/``cv`` in decode).  Returns (x, cache, metrics):
+    ``{"moe_aux", "moe_z"}`` for a MoE block when ``losses``, else empty."""
     metrics = {}
     y = L.apply_norm(p["ln1"], x)
     attn_out, new_cache = _self_attention(
         p, y, cfg, window=window, theta=theta, q_pos=q_pos, kv_pos=kv_pos,
-        cache=cache, pos=pos)
+        cache=cache, pos=pos, causal=causal)
     x = x + attn_out
+    if "xattn" in p:
+        xo, xcache = _cross_attention(p, x, cross_src, cache)
+        x = x + xo
+        new_cache = {**new_cache, **xcache}
     y = L.apply_norm(p["ln2"], x)
     if cfg.is_moe:
         m, metrics = apply_moe(p["moe"], y, cfg, rules, losses=losses)
     else:
         m = L.apply_mlp(p["mlp"], y, cfg)
     return x + m, new_cache, metrics
+
+
+def apply_hymba_block(p, x, cfg, *, window: int, theta: float, q_pos,
+                      kv_pos, cache=None, pos: int | None = None):
+    """Attention and the selective SSM side by side over one norm, fused by
+    their normalised mean [Hymba], then the MLP.  Returns (x, cache): the
+    attention's ``{"k", "v"}`` with the SSM's ``{"conv", "state"}``."""
+    y = L.apply_norm(p["ln1"], x)
+    attn_out, attn_cache = _self_attention(
+        p, y, cfg, window=window, theta=theta, q_pos=q_pos, kv_pos=kv_pos,
+        cache=cache, pos=pos)
+    ssm_out, ssm_cache = apply_ssm(p["ssm"], y, cfg, cache=cache)
+    fused = 0.5 * (L.rms_norm_head(attn_out) * (1 + p["attn_out_scale"])
+                   + L.rms_norm_head(ssm_out) * (1 + p["ssm_out_scale"]))
+    x = x + fused.to(x.dtype)
+    y = L.apply_norm(p["ln2"], x)
+    x = x + L.apply_mlp(p["mlp"], y, cfg)
+    return x, {"k": attn_cache["k"], "v": attn_cache["v"], **ssm_cache}
 
 
 #: What ``cfg.remat = "dots"`` keeps for the backward: the outputs of the
@@ -322,14 +431,15 @@ def _train_layer(p, x, cfg, *, kind: str, window: int, theta: float,
 
 def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
                 rules: AxisRules = AxisRules(), losses: bool = True,
-                train: bool = False):
+                train: bool = False, cross_src=None):
     """All layers in order; returns (x, caches, aux (2,)): ``aux`` sums
     every MoE layer's ``[moe_aux, moe_z]`` in float32, as the reference's
     stack does (zeros without MoE).  ``losses=False`` computes no MoE loss
     and returns ``aux`` None: prefill and decode drop it, and the
     reference's jit drops its work as dead code.  Prefill (``caches``
     None) passes no state into the recurrent blocks, as the reference
-    does; decode passes each layer its cache.
+    does; decode passes each layer its cache.  ``cross_src``: the
+    encoder's output, which prefill's cross-attention layers read.
 
     ``train``: the reference's mode "train": ``params`` as stored, cast
     inside each layer, each layer under ``cfg.remat``, aligned positions
@@ -346,11 +456,15 @@ def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
             x, c = apply_mlstm_block(p, x, cfg, cache=cache)
         elif kind == SLSTM:
             x, c = apply_slstm_block(p, x, cfg, cache=cache)
+        elif kind == HYMBA:
+            x, c = apply_hymba_block(p, x, cfg, window=window, theta=theta,
+                                     q_pos=q_pos, kv_pos=kv_pos, cache=cache,
+                                     pos=pos)
         else:
             x, c, metrics = apply_attn_block(
                 p, x, cfg, window=window, theta=theta, q_pos=q_pos,
                 kv_pos=kv_pos, cache=cache, pos=pos, rules=rules,
-                losses=losses)
+                losses=losses, cross_src=cross_src)
             if metrics:
                 aux = aux + torch.stack([metrics["moe_aux"],
                                          metrics["moe_z"]])
@@ -371,10 +485,57 @@ def _train_stack(params, x, cfg, *, q_pos, rules):
 # Entry points.
 # ---------------------------------------------------------------------------
 
-def _check_batch(batch, known=("tokens",)):
+def _check_batch(batch, known):
     extra = sorted(set(batch) - set(known))
     if extra:
-        raise NotImplementedError(f"batch entries {extra} are {_NOT_PORTED}")
+        raise ValueError(f"unknown batch entries {extra}; known: {known}")
+
+
+def prefix_len(cfg: ModelConfig, batch) -> int:
+    """Positions :func:`prefill` puts in front of ``batch["tokens"]``: the
+    patch embeddings (a VLM's, where the batch carries them), then the meta
+    tokens in front of those.  A prompt of T tokens fills the caches to
+    ``prefix_len + T``."""
+    patches = (batch["patch_embeds"].shape[1]
+               if cfg.num_patch_tokens and "patch_embeds" in batch else 0)
+    return patches + cfg.num_meta_tokens
+
+
+def _prepare_prefix(params, batch, cfg):
+    """Embed the tokens and put the prefix streams in front: the patch
+    embeddings, then the meta tokens (port of ``_prepare_prefix``)."""
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    if cfg.num_patch_tokens and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    if cfg.num_meta_tokens:
+        mt = params["meta_tokens"].to(x.dtype)
+        x = torch.cat([mt.expand(x.shape[0], -1, -1), x], dim=1)
+    return x
+
+
+def sinusoidal_positions(seq_len: int, d: int, device=None):
+    """(seq_len, d) float32: sines then cosines, as the reference's."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * dim / d)
+    table = np.concatenate([np.sin(angle), np.cos(angle)], -1)
+    return torch.from_numpy(table).to(device=device, dtype=torch.float32)
+
+
+def encode_frames(params, frames, cfg: ModelConfig):
+    """The whisper-style encoder over (stub) frame embeddings (B, S, d):
+    sinusoidal positions added, the ``ATTN`` layers of ``params["encoder"]``
+    non-causal at the config's RoPE theta, then ``enc_norm``."""
+    dtype = getattr(torch, cfg.dtype)
+    s = frames.shape[1]
+    x = frames.to(dtype) + sinusoidal_positions(
+        s, cfg.d_model, frames.device).to(dtype)
+    pos = torch.arange(s, dtype=torch.int32, device=frames.device)
+    for p in params["encoder"]:
+        x, _, _ = apply_attn_block(p, x, cfg, window=0, theta=cfg.rope_theta,
+                                   q_pos=pos, kv_pos=pos, causal=False,
+                                   losses=False)
+    return L.apply_norm(params["enc_norm"], x)
 
 
 def forward_train(params, batch, cfg: ModelConfig, *,
@@ -386,8 +547,10 @@ def forward_train(params, batch, cfg: ModelConfig, *,
     parameters' device; labels < 0 are ignored.  ``loss`` is the mean
     cross entropy plus ``0.01 * aux + 0.001 * z`` of the MoE layers;
     ``metrics`` holds ``ce_loss``, ``aux_loss`` and ``tokens`` (the labels
-    counted).  Port of ``repro.models.transformer.forward_train``.
+    counted).  Port of ``repro.models.transformer.forward_train``; raises
+    for the parts :func:`check_trainable` names.
     """
+    check_trainable(cfg)
     _check_batch(batch, ("tokens", "labels"))
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
     t = x.shape[1]
@@ -422,18 +585,31 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int, *,
     """Prefill caches of length ``seq_len``; returns (last_logits, caches).
 
     ``params``: as :func:`cast_params` returns them.
-    ``batch["tokens"]``: (B, T) integer tensor on the parameters' device.
-    Logits are (B, 1, Vp); each attention cache holds positions 0..T-1
-    and zeros after them; each recurrent cache holds the state after T.
+    ``batch``: on the parameters' device, ``"tokens"`` (B, T) integers;
+    ``"frames"`` (B, encoder_seq_len, d) for an encoder-decoder config (the
+    encoder's input); ``"patch_embeds"`` (B, P, d), optional, for a config
+    with patch tokens.  The prompt is the P + M prefix positions
+    (:func:`prefix_len`: patches, meta tokens in front) and the T tokens.
+    Logits are (B, 1, Vp) at the last token; each attention cache holds
+    positions 0..P+M+T-1 and zeros after them (a cross-attention cache also
+    the encoder output's K/V); each recurrent cache holds the state there.
     """
-    _check_batch(batch)
+    _check_batch(batch, ("tokens", "frames", "patch_embeds"))
     _check_cast(params, cfg)
-    tokens = batch["tokens"]
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    if cfg.is_encdec and "frames" not in batch:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its batch needs "
+                         f"'frames' (B, {cfg.encoder_seq_len}, {cfg.d_model})")
+    x = _prepare_prefix(params, batch, cfg)
+    cross_src = (encode_frames(params, batch["frames"], cfg)
+                 if cfg.is_encdec else None)
     t = x.shape[1]
+    if t > seq_len:
+        raise ValueError(f"{t} prompt positions do not fit a {seq_len}-slot "
+                         f"cache")
     pos = torch.arange(t, dtype=torch.int32, device=x.device)
     x, states, _ = apply_stack(params, x, cfg, q_pos=pos, kv_pos=pos,
-                               rules=rules, losses=False)
+                               rules=rules, losses=False,
+                               cross_src=cross_src)
     # k, v: (B, T, KV, dh) -> (B, seq_len, KV, dh), zeros after T
     caches = [{n: F.pad(a, (0, 0, 0, 0, 0, seq_len - t)) if n in ("k", "v")
                else a for n, a in c.items()} for c in states]
@@ -445,11 +621,13 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int, *,
 
 def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig,
                 seq_len: int, *, rules: AxisRules = AxisRules()):
-    """One decode step.  tokens: (B, 1); pos: Python int cache fill level.
+    """One decode step.  tokens: (B, 1); pos: Python int cache fill level
+    (after a prefill: its prefix and tokens, ``prefix_len + T``).
 
     ``params``: as :func:`cast_params` returns them.  Writes the new k and
     v into the attention caches in place, replaces each recurrent cache by
     the next state, and returns (logits (B, 1, Vp), caches).
+    Cross-attention reads the K/V that prefill left in the cache.
     """
     _check_cast(params, cfg)
     x = L.embed_tokens(params["embed"], tokens, cfg)

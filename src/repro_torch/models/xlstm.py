@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 
-from .layers import apply_norm, dense_init
+from .layers import apply_norm, dense_init, silu
 from .ssm import _causal_conv
 
 
@@ -208,13 +208,6 @@ def mlstm_scan_grad(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
 # mLSTM block.
 # ---------------------------------------------------------------------------
 
-def _silu(x):
-    """x * sigmoid(x) op by op in x's dtype, as ``jax.nn.silu`` computes it:
-    in bfloat16 this rounds as the reference does, where ``F.silu``'s single
-    rounding differs from it by an ulp in about 4 elements of 10."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 def init_mlstm_block(gen: torch.Generator, cfg, dtype) -> dict:
     d = cfg.d_model
     inner = cfg.ssm_expand * d
@@ -254,7 +247,7 @@ def apply_mlstm_block(p, x, cfg, *, cache=None, chunk: int = 256):
     xin, z = up[..., :inner], up[..., inner:]
     conv_state = None if cache is None else cache["conv"]
     xc, new_conv = _causal_conv(xin, p["conv_w"], conv_state)
-    xc = _silu(xc)
+    xc = silu(xc)
     q = (xc @ p["wq"]).reshape(b, t, nh, dh)
     k = (xc @ p["wk"]).reshape(b, t, nh, dh)
     v = (xin @ p["wv"]).reshape(b, t, nh, dh)
@@ -270,7 +263,7 @@ def apply_mlstm_block(p, x, cfg, *, cache=None, chunk: int = 256):
         h, (C, n, m) = kops.mlstm_scan(*scan_in, state, chunk=chunk)
     h = h.reshape(b, t, inner).to(x.dtype)
     h = apply_norm({"scale": p["hnorm_scale"]}, h)        # output norm
-    h = h * _silu(z)
+    h = h * silu(z)
     out = h @ p["down"]
     return x + out, {"conv": new_conv, "C": C, "n": n, "m": m}
 
@@ -355,7 +348,7 @@ def apply_slstm_block(p, x, cfg, *, cache=None):
     x = x + hs
     # gated FFN (factor 4/3)
     y = apply_norm({"scale": p["ffn_norm_scale"]}, x)
-    hff = _silu(y @ p["ffn_wg"]) * (y @ p["ffn_wi"])
+    hff = silu(y @ p["ffn_wg"]) * (y @ p["ffn_wi"])
     x = x + hff @ p["ffn_wo"]
     return x, {"h": h, "c": c, "n": n, "m": m}
 

@@ -4,6 +4,12 @@ Port of ``repro.serving.engine`` with the same semantics: requests queue
 up, are admitted into fixed slots, prefilled together (prompts left-padded
 with token 0, and the pads attended, as in the reference), then decoded in
 lockstep at one shared fill position with greedy or temperature sampling.
+An encoder-decoder config gets zero frames, as in the reference.
+
+One deliberate difference (ROADMAP C19): decoding starts at the prompt's
+length plus its prefix (a hymba config's meta tokens), where prefill left
+the caches; the reference starts at the prompt's length alone, over the
+cache's last prefix positions.
 Greedy argmax runs on the device; temperature sampling draws from the
 engine's numpy ``Generator`` exactly as the reference does, so the same
 logits give the same tokens.
@@ -18,7 +24,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import AxisRules
 from repro_torch.models.transformer import (cast_params, decode_step,
-                                            init_caches, prefill,
+                                            init_caches, prefill, prefix_len,
                                             resolve_device)
 
 
@@ -103,9 +109,13 @@ class ServingEngine:
             if r is not None:
                 toks[i, -len(r.prompt):] = r.prompt  # left-pad
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.cfg.is_encdec:
+            batch["frames"] = torch.zeros(
+                (self.slots, self.cfg.encoder_seq_len, self.cfg.d_model),
+                dtype=torch.float32, device=self.device)
         logits, self.caches = prefill(self.params, batch, self.cfg,
                                       self.max_seq, rules=self.rules)
-        self.pos = tlen
+        self.pos = tlen + prefix_len(self.cfg, batch)
         # the first token is fed to the next step, not appended
         self._last_tok = torch.from_numpy(self._sample(logits[:, -1])).to(
             self.device)

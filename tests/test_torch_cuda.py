@@ -11,6 +11,9 @@ Tolerances as in tests/test_kernels.py: attention float32 2e-5 and
 bfloat16 2e-2; mLSTM float32 rtol 5e-4 atol 5e-5 and bfloat16 5e-2.
 """
 import dataclasses
+import functools
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from repro_torch.kernels.ref import reference_attention, reference_mlstm_scan
 from repro_torch.models import get_config, init_params
 from repro_torch.models import transformer as TT
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
@@ -72,6 +76,23 @@ CASES = {
     "decode_t16_d256": (2, 16, 300, 6, 2, 256, "tail", True, 0),
     "decode_gqa8_t16_d256": (1, 16, 200, 16, 2, 256, "tail", True, 0),
     "fully_masked_rows_d256": (1, 16, 40, 4, 1, 256, [-5] * 16, True, 0),
+    # G = 5 (hymba-1.5b, H25 KV5 D64): prefill blocks of 38 positions, 190
+    # of the 192 rows used; G = 6 (internvl2-26b, H48 KV8 D128): 32
+    # positions; at D 64 and 128, prefill and decode, windows that bind
+    "gqa5_d64_window": (2, 300, 300, 10, 2, 64, None, True, 100),
+    "gqa5_d128_window_tail": (1, 200, 500, 10, 2, 128, "tail", True, 128),
+    "gqa6_d128_window": (2, 300, 300, 12, 2, 128, None, True, 100),
+    "gqa6_d64_window_tail": (1, 150, 400, 12, 2, 64, "tail", True, 64),
+    "decode_gqa5_window": (4, 1, 1024, 25, 5, 64, [700], True, 100),
+    "decode_gqa5_d128_t8": (2, 8, 700, 10, 2, 128, "tail", True, 300),
+    "decode_gqa6_window": (4, 1, 1024, 48, 8, 128, [700], True, 100),
+    "decode_gqa6_d64_t4": (2, 4, 600, 12, 2, 64, "tail", True, 64),
+    # whisper-base (H8 KV8 D64): the encoder, non-causal at T = S = 1500
+    # (S not a multiple of the 64-key tile), and cross-attention, queries
+    # at position 0 against 1500 keys, at prefill (T 512) and decode (T 1)
+    "noncausal_t1500": (1, 1500, 1500, 8, 8, 64, None, False, 0),
+    "cross_t512_s1500": (2, 512, 1500, 8, 8, 64, [0] * 512, False, 0),
+    "cross_decode_s1500": (4, 1, 1500, 8, 8, 64, [0], False, 0),
 }
 ALL_MASKED = ("fully_masked_rows", "decode_all_masked",
               "fully_masked_rows_d256")
@@ -231,33 +252,66 @@ def test_training_on_the_card_matches_the_cpu(cuda, arch):
 # Prompt length per model: 256 is a multiple of the mLSTM chunk, so the
 # xLSTM's prefill takes the mlstm_scan kernel on the card.
 PROMPT = {"llama3.2-3b": 70, "lacin-demo": 70, "xlstm-350m": 256,
-          "gemma3-1b": 70, "starcoder2-3b": 70}
+          "gemma3-1b": 70, "starcoder2-3b": 70, "hymba-1.5b": 70,
+          "whisper-base": 70, "internvl2-26b": 70}
+
+
+@pytest.mark.cuda
+def test_silu_on_the_card_is_f_silu(cuda):
+    """layers.silu on a CUDA tensor is F.silu (one kernel), on the CPU the
+    op-by-op silu that rounds as the reference does; in fp32 the two agree
+    to 1e-6."""
+    from repro_torch.models import layers as TL
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(4096,)).astype(np.float32) * 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(cuda, dtype)
+        assert torch.equal(TL.silu(xc), torch.nn.functional.silu(xc))
+    np.testing.assert_allclose(TL.silu(x.to(cuda)).cpu().numpy(),
+                               TL.silu(x).numpy(), rtol=0, atol=1e-6)
+
+
+@functools.cache
+def _chip_smoke():
+    """chip_smoke.py as a module: its model_extras draws the stub frames
+    and patch embeddings the model tests feed."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,head_dim", [
     ("llama3.2-3b", None), ("lacin-demo", None), ("xlstm-350m", None),
-    ("gemma3-1b", None), ("gemma3-1b", 256), ("starcoder2-3b", None)])
+    ("gemma3-1b", None), ("gemma3-1b", 256), ("starcoder2-3b", None),
+    ("hymba-1.5b", None), ("whisper-base", None), ("internvl2-26b", None)])
 def test_model_on_the_card_matches_the_cpu(cuda, arch, head_dim):
     """prefill + decode_step with the kernels (card) vs with the plain
     versions (CPU), reduced config in float32: atol 1e-4.  gemma3-1b also
-    at its published head dim, 256 (the fp32 kernel's D = 256 instances)."""
+    at its published head dim, 256 (the fp32 kernel's D = 256 instances).
+    whisper-base gets seeded frames, internvl2-26b seeded patch
+    embeddings; decode goes on at T + prefix."""
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     if head_dim is not None:
         cfg = dataclasses.replace(cfg, head_dim=head_dim)
     params = init_params(0, cfg, device="cpu")
     on_card = TT.cast_params(params, cfg, cuda)
     t = PROMPT[arch]
-    tokens = torch.from_numpy(
-        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, t)))
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, t)))}
+    batch.update(_chip_smoke().model_extras(cfg, 2, rng, "cpu"))
+    pos = t + TT.prefix_len(cfg, batch)
     out = {}
     for dev, p in (("cpu", params), ("cuda", on_card)):
         before = ms.launches
-        logits, caches = TT.prefill(p, {"tokens": tokens.to(dev)}, cfg,
-                                    t + 26)
+        logits, caches = TT.prefill(
+            p, {k: v.to(dev) for k, v in batch.items()}, cfg, pos + 26)
         launched = ms.launches - before
-        step, _ = TT.decode_step(p, logits.argmax(-1).to(dev), caches, t,
-                                 cfg, t + 26)
+        step, _ = TT.decode_step(p, logits.argmax(-1).to(dev), caches, pos,
+                                 cfg, pos + 26)
         out[dev] = [logits.cpu().numpy(), step.cpu().numpy()]
     # one mlstm_scan launch per mLSTM layer of the prefill on the card
     assert launched == cfg.block_pattern.count("mlstm")

@@ -17,6 +17,9 @@ each leaf is held in relative L2 to 5e-2, the measure chip_smoke.py holds
 bf16 logits to.
 """
 import dataclasses
+import functools
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -33,13 +36,29 @@ from repro_torch.models import get_config, params_from_numpy
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["llama3.2-3b", "lacin-demo", "xlstm-350m", "gemma3-1b",
          "starcoder2-3b"]
+#: Configs with a prefix or an encoder: hymba-1.5b (hymba blocks, meta
+#: tokens), whisper-base (encoder, cross-attention), internvl2-26b (patch
+#: prefixes).
+PREFIX_ARCHS = ["hymba-1.5b", "whisper-base", "internvl2-26b"]
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": dict(rtol=0, atol=1e-5), "bfloat16": dict(rtol=0, atol=2e-2)}
 CACHE_TOL = dict(TOL, bfloat16=dict(rtol=0, atol=6.25e-2))
 STATE_TOL = 1e-5
 STATE_REL_L2 = 5e-2
+#: whisper-base's bf16 logits.  Its untied head gives logits up to 3.8,
+#: where one bf16 ulp is 2**-6, so TOL's 2e-2 is 1.3 ulps there; and its
+#: encoder is non-causal over the frames, whose output every decoder
+#: position reads through the cross K/V: one element of the encoder's
+#: attention that rounds to the other bf16 neighbour (an fp32 sum of 16
+#: terms in another order: 1 of 2,048 in layer 0 at the test's seed) moves
+#: 195 of 512 prefill logits, by up to 0.03125 (2 ulps at 2-4).  Over the
+#: five draws of test_prefix_and_encoder_models_match_reference and
+#: test_whisper_bf16_matches_reference_at_other_seeds no logit moves by
+#: more (one draw matches bit for bit): held to 3 ulps there.
+ENCODER_BF16_TOL = dict(rtol=0, atol=4.6875e-2)
 
 
 @pytest.fixture(autouse=True)
@@ -71,15 +90,15 @@ def _configs(arch, dtype, **kw):
     return j, t
 
 
-def _models(arch, dtype, **kw):
+def _models(arch, dtype, seed=0, **kw):
     cj, ct = _configs(arch, dtype, **kw)
-    pj = JT.init_params(jax.random.PRNGKey(0), cj)
+    pj = JT.init_params(jax.random.PRNGKey(seed), cj)
     pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), ct,
                            device="cpu")
     return cj, ct, pj, pt
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + PREFIX_ARCHS)
 def test_config_copy_matches_reference(arch):
     """repro_torch.models.config is a copy of repro.models.config."""
     for j, t in ((jax_get_config(arch), get_config(arch)),
@@ -159,6 +178,20 @@ def test_gelu_rounds_as_the_reference(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_silu_rounds_as_the_reference_on_the_cpu(dtype):
+    """layers.silu on a CPU tensor against jax.nn.silu, which the
+    reference's swiglu MLPs, SSM and xLSTM blocks apply: bit for bit in
+    bfloat16 (where F.silu's single rounding differs by an ulp), 1e-6 in
+    float32.  (On the card it is F.silu.)"""
+    x = np.random.default_rng(7).normal(size=(4096,)) * 3
+    xj, xt = _pair(x, dtype)
+    got, want = _f32(TL.silu(xt)), _f32(jax.nn.silu(xj))
+    tol = dict(rtol=0, atol=0) if dtype == "bfloat16" else dict(rtol=0,
+                                                                  atol=1e-6)
+    np.testing.assert_allclose(got, want, **tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_attention_projections_match_reference(dtype):
     """repro.models.layers.qkv_proj / out_proj (GQA layouts kept)."""
     cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), dtype=dtype)
@@ -176,6 +209,30 @@ def test_attention_projections_match_reference(dtype):
     np.testing.assert_allclose(_f32(TL.out_proj(pt, ot)),
                                _f32(JL.out_proj(pj, oj, AxisRules())),
                                **TOL[dtype])
+
+
+@functools.cache
+def _chip_smoke():
+    """chip_smoke.py as a module: its model_extras draws the stub frames
+    and patch embeddings, for the card's run and these tests alike."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _batch_pair(cfg, tokens, seed=10):
+    """The reference's and the port's prefill batch: ``tokens``, with the
+    encoder's frames and the patch embeddings where ``cfg`` takes them
+    (chip_smoke.model_extras: seeded, x 0.02, as tests/test_smoke_archs.py
+    draws them)."""
+    bt = {"tokens": torch.from_numpy(tokens),
+          **_chip_smoke().model_extras(cfg, tokens.shape[0],
+                                       np.random.default_rng(seed), "cpu")}
+    bj = {name: jnp.asarray(x.numpy()) for name, x in bt.items()}
+    bj["tokens"] = jnp.asarray(tokens, jnp.int32)
+    return bj, bt
 
 
 def _stack_caches(port_caches, cfg):
@@ -200,7 +257,7 @@ def _assert_caches_match(port_caches, ref_caches, cfg, dtype):
         for n, (a, a_dtype) in run_t.items():
             want = _f32(run_j[n])
             assert a.shape == want.shape and a_dtype == str(run_j[n].dtype), n
-            if n in ("k", "v"):
+            if n in ("k", "v", "ck", "cv"):
                 np.testing.assert_allclose(a, want, **CACHE_TOL[dtype])
             elif dtype == "float32":
                 np.testing.assert_allclose(
@@ -210,26 +267,32 @@ def _assert_caches_match(port_caches, ref_caches, cfg, dtype):
                 assert rel <= STATE_REL_L2, (n, rel)
 
 
-def _check_prefill_and_decode(arch, dtype, t, seq_len, **kw):
-    cj, ct, pj, pt = _models(arch, dtype, **kw)
+def _check_prefill_and_decode(arch, dtype, t, seq_len, logits_tol=None,
+                              seeds=(0, 9, 10), **kw):
+    """``seeds``: of the parameters, the tokens and the frames or
+    patches."""
+    logits_tol = logits_tol or TOL[dtype]
+    cj, ct, pj, pt = _models(arch, dtype, seed=seeds[0], **kw)
     pt = TT.cast_params(pt, ct)
-    tokens = np.random.default_rng(9).integers(0, cj.vocab_size, (2, t))
-    lj, cache_j = JT.prefill(pj, {"tokens": jnp.asarray(tokens, jnp.int32)},
-                             cj, AxisRules(), seq_len)
-    lt, cache_t = TT.prefill(pt, {"tokens": torch.from_numpy(tokens)}, ct,
-                             seq_len)
+    tokens = np.random.default_rng(seeds[1]).integers(0, cj.vocab_size,
+                                                      (2, t))
+    bj, bt = _batch_pair(cj, tokens, seed=seeds[2])
+    lj, cache_j = JT.prefill(pj, bj, cj, AxisRules(), seq_len)
+    lt, cache_t = TT.prefill(pt, bt, ct, seq_len)
     assert lt.shape == lj.shape == (2, 1, cj.vocab_padded)
-    np.testing.assert_allclose(_f32(lt), _f32(lj), **TOL[dtype])
+    np.testing.assert_allclose(_f32(lt), _f32(lj), **logits_tol)
     _assert_caches_match(cache_t, cache_j, ct, dtype)
 
+    # decode goes on where the prompt's prefix and tokens end
+    start = t + TT.prefix_len(ct, bt)
     nxt = np.array(jnp.argmax(lj[:, -1], -1))[:, None]
-    for pos in (t, t + 1):
+    for pos in (start, start + 1):
         lj, cache_j = JT.decode_step(pj, jnp.asarray(nxt, jnp.int32), cache_j,
                                      jnp.asarray(pos, jnp.int32), cj,
                                      AxisRules(), seq_len)
         lt, cache_t = TT.decode_step(pt, torch.from_numpy(nxt), cache_t, pos,
                                      ct, seq_len)
-        np.testing.assert_allclose(_f32(lt), _f32(lj), **TOL[dtype])
+        np.testing.assert_allclose(_f32(lt), _f32(lj), **logits_tol)
         _assert_caches_match(cache_t, cache_j, ct, dtype)
         nxt = (nxt + 7) % cj.vocab_size
 
@@ -255,6 +318,82 @@ def test_starcoder2_prefill_and_decode_match_reference(dtype):
     reproduces."""
     _check_prefill_and_decode("starcoder2-3b", dtype, t=11, seq_len=24,
                               scan_layers=False)
+
+
+@pytest.mark.parametrize("arch", PREFIX_ARCHS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prefix_and_encoder_models_match_reference(arch, dtype):
+    """hymba-1.5b (4 meta tokens; windows of 8 that bind), whisper-base (a
+    2-layer encoder over 16 seeded frames, cross-attention in every
+    decoder layer) and internvl2-26b (8 seeded patch embeddings), reduced:
+    repro.models.transformer.prefill, then decode_step at T + prefix
+    (where the prefill left the caches, as the reference's
+    tests/test_smoke_archs.py calls it): logits and caches (the SSM's conv
+    and state, the cross K/V).  Against the reference unrolled
+    (``scan_layers=False``), as starcoder2-3b is: in bf16 hymba and
+    internvl then equal it bit for bit.  whisper's bf16 logits are held to
+    :data:`ENCODER_BF16_TOL`."""
+    tol = ENCODER_BF16_TOL if (arch, dtype) == ("whisper-base",
+                                                "bfloat16") else None
+    _check_prefill_and_decode(arch, dtype, t=11, seq_len=40,
+                              logits_tol=tol, scan_layers=False)
+
+
+@pytest.mark.parametrize("seeds", [(1, 9, 10), (0, 19, 20), (2, 29, 30),
+                                   (3, 39, 40)])
+def test_whisper_bf16_matches_reference_at_other_seeds(seeds):
+    """whisper-base reduced in bf16, as in
+    test_prefix_and_encoder_models_match_reference, at other draws of its
+    parameters, tokens and frames: its logits stay within
+    :data:`ENCODER_BF16_TOL` of the reference's."""
+    _check_prefill_and_decode("whisper-base", "bfloat16", t=11, seq_len=40,
+                              logits_tol=ENCODER_BF16_TOL, seeds=seeds,
+                              scan_layers=False)
+
+
+def test_hymba_bf16_drift_at_depth_is_the_references():
+    """hymba-1.5b at its published 32 layers and window pattern (windows
+    of 1024 cut to 8), the reduced config's width, a 32-token prompt: in
+    fp32 the port's prefill logits are the reference's (relative L2 1e-4);
+    in bf16 the reference's own logits are further from its fp32 ones
+    than chip_smoke.py's logit tolerance, 5e-2, and the port's are as far
+    from the port's fp32 ones, within a factor 1.5.  Rounding to bf16
+    grows with hymba's depth in the reference as in the port, which is why
+    chip_smoke.py holds hymba's bf16 prefill layer by layer."""
+    full = get_config("hymba-1.5b")
+    kw = dict(num_layers=full.num_layers, windows=tuple(
+        min(w, 8) for w in full.windows), block_pattern=full.block_pattern)
+    tokens = np.random.default_rng(9).integers(0, 256, (2, 32))
+    got = {}
+    for dtype in DTYPES:
+        cj, ct, pj, pt = _models("hymba-1.5b", dtype, **kw)
+        lj, _ = JT.prefill(pj, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                           cj, AxisRules(), 40)
+        lt, _ = TT.prefill(TT.cast_params(pt, ct),
+                           {"tokens": torch.from_numpy(tokens)}, ct, 40)
+        got[dtype] = [_f32(lj)[..., :cj.vocab_size],
+                      _f32(lt)[..., :cj.vocab_size]]
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    (ref32, port32), (ref16, port16) = got["float32"], got["bfloat16"]
+    drift = {"reference": rel(ref16, ref32), "port": rel(port16, port32)}
+    print(f"hymba-1.5b, 32 layers, bf16 against fp32: {drift}; fp32 port "
+          f"against reference: {rel(port32, ref32)}")
+    assert rel(port32, ref32) <= 1e-4
+    assert drift["reference"] > 5e-2
+    assert 1 / 1.5 <= drift["port"] / drift["reference"] <= 1.5, drift
+
+
+def test_prefill_past_the_cache_raises():
+    """A prompt whose prefix and tokens are more positions than the cache
+    holds raises, as the reference's pad of the caches does; the port's
+    pad cropped them without a word."""
+    _, ct, _, pt = _models("hymba-1.5b", "float32")
+    tokens = {"tokens": torch.zeros((1, 6), dtype=torch.int64)}
+    TT.prefill(pt, tokens, ct, 10)        # 4 meta tokens + 6 fill 10
+    with pytest.raises(ValueError, match="positions"):
+        TT.prefill(pt, tokens, ct, 9)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -319,21 +458,25 @@ def test_cast_params_keeps_what_the_reference_cast_keeps():
             "in_proj": "bfloat16"}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + PREFIX_ARCHS)
 def test_init_params_matches_reference_tree(arch):
     """repro.models.transformer.init_params: same leaves, shapes, dtypes and
-    scales (the draws differ: torch.Generator vs jax.random)."""
+    scales (the draws differ: torch.Generator vs jax.random), the
+    encoder's, its norm and the meta tokens too; the SSM's A_log and D are
+    float32 and equal."""
     cj, ct, pj, pt = _models(arch, "bfloat16")
     ours = TT.init_params(0, ct, device="cpu")
     assert set(ours) == set(pt)
     assert len(ours["layers"]) == len(pt["layers"]) == ct.num_layers
-    for mine, conv in zip(ours["layers"] + [ours["embed"], ours["final_norm"]],
-                          pt["layers"] + [pt["embed"], pt["final_norm"]]):
-        flat_m = jax.tree_util.tree_leaves_with_path(mine)
-        flat_c = jax.tree_util.tree_leaves_with_path(conv)
-        assert [p for p, _ in flat_m] == [p for p, _ in flat_c]
-        for (_, a), (_, b) in zip(flat_m, flat_c):
-            assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+    assert len(ours.get("encoder", ())) == ct.encoder_layers
+    flat_m = jax.tree_util.tree_leaves_with_path(ours)
+    flat_c = jax.tree_util.tree_leaves_with_path(pt)
+    assert [p for p, _ in flat_m] == [p for p, _ in flat_c]
+    for (path, a), (_, b) in zip(flat_m, flat_c):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+        if path[-1].key in ("A_log", "D"):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1.2e-7)
+        else:
             np.testing.assert_allclose(a.std().item(), b.std().item(),
                                        rtol=0.2, atol=1e-6)
     again = TT.init_params(0, ct, device="cpu")
@@ -351,10 +494,28 @@ def test_cuda_is_the_default_device(monkeypatch):
         TT.init_caches(cfg, 1, 8)
 
 
-def test_unported_parts_raise():
+@pytest.mark.parametrize("part", ["encoder", "hymba", "meta_tokens",
+                                  "patches"])
+def test_parts_that_raised_now_serve(part):
+    """The parts the port raised for before (an encoder, hymba blocks, meta
+    tokens; and patch prefixes) on the reduced llama3.2-3b: init_params,
+    prefill and a decode step at T + prefix run, give finite logits and the
+    reference's cache leaves."""
     base = get_config("llama3.2-3b").reduced()
-    for cfg in (dataclasses.replace(base, encoder_layers=2),
-                dataclasses.replace(base, block_pattern=("attn", "hymba") * 2),
-                dataclasses.replace(base, num_meta_tokens=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.init_params(0, cfg, device="cpu")
+    cfg = {"encoder": dataclasses.replace(base, encoder_layers=2,
+                                          encoder_seq_len=6),
+           "hymba": dataclasses.replace(base, block_pattern=("attn", "hymba")
+                                        * 2, ssm_state=4),
+           "meta_tokens": dataclasses.replace(base, num_meta_tokens=2),
+           "patches": dataclasses.replace(base, num_patch_tokens=3)}[part]
+    params = TT.cast_params(TT.init_params(0, cfg, device="cpu"), cfg)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 5))
+    _, batch = _batch_pair(cfg, tokens)
+    logits, caches = TT.prefill(params, batch, cfg, 16)
+    pos = 5 + TT.prefix_len(cfg, batch)
+    assert pos == 5 + {"meta_tokens": 2, "patches": 3}.get(part, 0)
+    step, caches = TT.decode_step(params, logits.argmax(-1), caches, pos,
+                                  cfg, 16)
+    assert torch.isfinite(torch.cat([logits, step], 1)).all()
+    want = {"k", "v", "conv", "state"} if part == "hymba" else {"k", "v"}
+    assert set().union(*caches) == want

@@ -23,6 +23,17 @@ from repro_torch.models import get_config, init_params, params_from_numpy
 from repro_torch.serving import Request, ServingEngine
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These small models run on one thread: the suite runs several test
+    processes on the CPU at once, and torch's thread pool competing across
+    them made such tests many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _requests(cls, vocab, lengths, temperatures, max_new):
     rng = np.random.default_rng(0)
     return [cls(rid=i, prompt=rng.integers(0, vocab, n, dtype=np.int32),
@@ -196,3 +207,96 @@ def test_serving_engine_arrival_trace():
     with pytest.raises(ValueError, match="submit"):
         ServingEngine(cfg, init_params(0, cfg, device="cpu"), slots=2,
                       max_seq=16, device="cpu").arrival_trace()
+
+
+def _reduced_pair(arch):
+    cj = dataclasses.replace(jax_get_config(arch).reduced(), dtype="float32")
+    ct = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    pj = jax_init_params(jax.random.PRNGKey(0), cj)
+    pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), ct,
+                           device="cpu")
+    return cj, ct, pj, pt
+
+
+def _reference_greedy(pj, cj, batch, start, steps, seq_len):
+    """Greedy tokens of the reference's prefill, then decode_step at
+    ``start``, ``start + 1``, ...: what an engine decoding from ``start``
+    returns."""
+    import jax.numpy as jnp
+    from repro.models.layers import AxisRules
+    from repro.models.transformer import decode_step, prefill
+    logits, caches = prefill(pj, batch, cj, AxisRules(), seq_len)
+    tok = jnp.argmax(logits[:, -1:], -1).astype(jnp.int32)
+    out = []
+    for i in range(steps):
+        logits, caches = decode_step(pj, tok, caches,
+                                     jnp.asarray(start + i, jnp.int32), cj,
+                                     AxisRules(), seq_len)
+        tok = jnp.argmax(logits[:, -1:], -1).astype(jnp.int32)
+        out.append(int(tok[0, 0]))
+    return out
+
+
+def test_hymba_engine_decodes_after_the_meta_tokens():
+    """The reduced hymba-1.5b (4 meta tokens), one prompt of 8: the port's
+    engine decodes from 8 + 4, where the reference's prefill left the
+    caches, and gives the tokens of the reference's prefill followed by
+    decode_step at T + prefix (the positions tests/test_smoke_archs.py
+    decodes at).  The reference's engine decodes from T = 8 (ROADMAP C19):
+    its tokens are those of decode_step at T, and differ."""
+    import jax.numpy as jnp
+    cj, ct, pj, pt = _reduced_pair("hymba-1.5b")
+    prompt = np.random.default_rng(1).integers(0, cj.vocab_size, 8,
+                                                dtype=np.int32)
+    batch = {"tokens": jnp.asarray(prompt[None])}
+    new, seq = 4, 32
+    want = _reference_greedy(pj, cj, batch, 8 + 4, new, seq)
+    at_t = _reference_greedy(pj, cj, batch, 8, new, seq)
+    outs = []
+    for eng, cls in ((JServingEngine(cj, pj, slots=1, max_seq=seq), JRequest),
+                     (ServingEngine(ct, pt, slots=1, max_seq=seq,
+                                    device="cpu"), Request)):
+        eng.submit(cls(rid=0, prompt=prompt, max_new_tokens=new))
+        [done] = eng.run()
+        outs.append((done.out_tokens, eng.pos))
+    (ref_tokens, ref_pos), (got, pos) = outs
+    assert (got, pos) == (want, 8 + 4 + new)
+    assert (ref_tokens, ref_pos) == (at_t, 8 + new)
+    assert got != ref_tokens
+
+
+def test_engine_stops_with_the_prefix_in_the_cache():
+    """The stop rule counts the meta tokens: a request retires once the
+    fill position, prefix included, reaches max_seq - 1."""
+    _, ct, _, pt = _reduced_pair("hymba-1.5b")
+    eng = ServingEngine(ct, pt, slots=1, max_seq=16, device="cpu")
+    eng.submit(Request(rid=0, prompt=np.arange(8, dtype=np.int32),
+                       max_new_tokens=50))
+    [done] = eng.run()
+    assert eng.pos == 15 and len(done.out_tokens) == 15 - (8 + 4)
+
+
+def test_whisper_engine_tokens_equal_reference_engine():
+    """The reduced whisper-base (encoder over zero frames, as both engines
+    pass them; cross-attention in every decoder layer): greedy tokens of
+    unequal prompts equal the reference's engine's, and the reference's
+    prefill and decode_step at T (no prefix)."""
+    import jax.numpy as jnp
+    cj, ct, pj, pt = _reduced_pair("whisper-base")
+    lengths, temps, new = [6, 9], [0.0, 0.0], 5
+    outs = []
+    for eng, cls in ((JServingEngine(cj, pj, slots=2, max_seq=24), JRequest),
+                     (ServingEngine(ct, pt, slots=2, max_seq=24,
+                                    device="cpu"), Request)):
+        reqs = _requests(cls, cj.vocab_size, lengths, temps, new)
+        for r in reqs:
+            eng.submit(r)
+        outs.append({r.rid: r.out_tokens for r in eng.run()})
+        assert eng.pos == 9 + new
+    want, got = outs
+    assert got == want
+    prompt = _requests(Request, cj.vocab_size, lengths, temps, new)[1].prompt
+    frames = jnp.zeros((1, cj.encoder_seq_len, cj.d_model), jnp.float32)
+    assert got[1] == _reference_greedy(
+        pj, cj, {"tokens": jnp.asarray(prompt[None]), "frames": frames}, 9,
+        new, 24)

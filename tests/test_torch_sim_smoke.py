@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s ``sim``, ``studies``, ``faults``, ``flow``,
-``trace``, ``serving``, ``moe``, ``train`` and ``extract`` phases on the
-CPU at a tiny size, so
+``trace``, ``serving``, ``moe``, ``train``, ``extract`` and internvl2-26b's
+``prefill`` phases, and the serve phase's logit checks, on the CPU at a
+tiny size, so
 that the phases the GPU run ends with cannot rot between chip runs: they
 drive ``sim_speed``, ``xl_scale``, the exactness checks, the studies path
 (the CLI as a subprocess, ``Study.run()``), degraded studies, the flow
@@ -10,6 +11,7 @@ MoE layer (reduced) through the same code, with the CPU standing in for
 the card (no CUDA graph there), and raise on any difference.
 Imports neither jax nor repro.
 """
+import dataclasses
 import importlib.util
 import os
 
@@ -466,3 +468,117 @@ def test_extract_phase_sizes_are_the_published_widths(chip_smoke):
     assert full["cli"] == (("moe", 8, 14, 896, 112),
                            ("dp", 8, 182, 3360, 420),
                            ("pipeline", 4, 11, 84, 26))
+
+
+def _one_thread(fn, *args, **kw):
+    """``fn`` on one torch thread (the suite runs several test processes on
+    the CPU at once)."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_vlm_prefill_phase_rehearses_on_the_cpu(chip_smoke, capsys):
+    """internvl2-26b reduced (2 layers, 8 seeded patch embeddings before a
+    16-token prompt): no kernel launched on the CPU, caches of 24
+    positions, logits equal to the plain versions'."""
+    import json
+    launches = _one_thread(chip_smoke.phase_vlm_prefill, "cpu",
+                           chip_smoke.VLM_TINY)
+    assert launches and not any(launches.values())
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (line["phase"], line["layers"], line["positions"],
+            line["patch_embeds"]) == ("prefill", 2, 24, 8)
+    assert line["prefill_logits_rel_l2_vs_plain"] == {"bfloat16": 0.0}
+    assert line["prefill_ms"] > 0
+
+
+def test_vlm_prefill_phase_sizes_are_the_published_widths(chip_smoke):
+    """internvl2-26b at full width, 8 of its 48 layers, a 512-token prompt
+    behind its 256 patch embeddings."""
+    from repro_torch.models import get_config
+    full = chip_smoke.VLM
+    cfg = get_config(full["arch"])
+    assert (full["arch"], full["reduced"], full["layers"],
+            full["prompt"]) == ("internvl2-26b", False, 8, 512)
+    assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.num_patch_tokens) == (6144, 48, 8, 128, 256)
+
+
+def _tiny_served(chip_smoke, arch, t=16):
+    """The reduced ``arch`` in bf16 on the CPU, cast, with a batch of 4
+    seeded prompts of ``t`` tokens and its seeded frames or patches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import get_config, init_params
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    params = TT.cast_params(init_params(0, cfg, device="cpu"), cfg)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (4, t))),
+             **chip_smoke.model_extras(cfg, 4, rng, "cpu")}
+    return params, batch, cfg, TT.prefix_len(cfg, batch) + t + 8
+
+
+@pytest.mark.parametrize("arch,check_dtype", [
+    ("hymba-1.5b", "float32"), ("xlstm-350m", "float32"),
+    ("whisper-base", "bfloat16")])
+def test_prefill_logits_check_rehearses_on_the_cpu(chip_smoke, arch,
+                                                   check_dtype):
+    """prefill_logits_check on the reduced models as phase_serve holds
+    them: hymba-1.5b in fp32 and layer by layer (4 layers, prefill and a
+    decode step), xlstm-350m in fp32 and against its plain version
+    re-chunked, whisper-base in bf16; the CPU's wrappers run the plain
+    versions, so every reading is 0."""
+    params, batch, cfg, seq = _tiny_served(chip_smoke, arch)
+    _, _, fields = _one_thread(chip_smoke.prefill_logits_check, params,
+                               batch, cfg, seq, check_dtype)
+    assert fields["prefill_logits_rel_l2_vs_plain"] == dict.fromkeys(
+        {cfg.dtype, check_dtype}, 0.0)
+    if check_dtype != cfg.dtype:
+        assert 0 < fields["plain_with_input_noise_rel_l2"] < 1
+        assert 0 < fields["plain_vs_plain_in_check_dtype_rel_l2"] < 1
+    if arch == "hymba-1.5b":
+        assert fields["layers_rel_l2_vs_plain"] == {
+            "prefill": [0.0] * 4, "decode": [0.0] * 4}
+
+
+def _late(*args, **kw):
+    """Attention with each query's output one position late (zeros at the
+    first)."""
+    import torch
+    from repro_torch.kernels.ref import reference_attention
+    o = reference_attention(*args, **kw)
+    return torch.cat([torch.zeros_like(o[:, :1]), o[:, :-1]], dim=1)
+
+
+@pytest.mark.parametrize("fault", ["none", "head dims reversed",
+                                   "a position late"])
+def test_hymba_layers_check_fails_a_wrong_attention(chip_smoke, fault):
+    """hymba_layers_check on the reduced hymba-1.5b in bf16 (4 layers,
+    prefill and a decode step): attention as the wrapper gives it passes;
+    attention whose output has its head dims in reverse order, or comes a
+    position late, fails, although the layer normalises the attention's
+    output before it adds it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import reference_attention
+    params, batch, cfg, seq = _tiny_served(chip_smoke, "hymba-1.5b")
+    patch = {"none": (),
+             "head dims reversed": (
+                 (ops, "flash_attention",
+                  lambda *a, **kw: reference_attention(*a, **kw).flip(-1)),),
+             "a position late": ((ops, "flash_attention", _late),)}
+    with chip_smoke.patched(*patch[fault]):
+        if fault == "none":
+            got = _one_thread(chip_smoke.hymba_layers_check, params, batch,
+                              cfg, seq)
+            assert got["layers_max_rel_l2"] == 0.0
+        else:
+            with pytest.raises(AssertionError, match="each layer"):
+                _one_thread(chip_smoke.hymba_layers_check, params, batch,
+                            cfg, seq)

@@ -273,6 +273,28 @@ def test_untrainable_configs_raise():
                             grad_specs={})
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-base",
+                                  "internvl2-26b"])
+def test_training_prefix_and_encoder_models_raises(arch):
+    """hymba-1.5b, whisper-base and internvl2-26b serve in the port but do
+    not train yet: forward_train and init_train_state raise naming the
+    ROADMAP item that ports their training (10(a), training), and the
+    serve steps' decode refuses a cross-attention source (it reads the
+    cross K/V prefill left in the caches)."""
+    _, ct = _configs(arch)
+    label = r"ROADMAP queue A, item 10\(a\), training"
+    params = TT.init_params(0, ct, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(ct.vocab_size).items()}
+    with pytest.raises(NotImplementedError, match=label):
+        TT.forward_train(params, batch, ct)
+    with pytest.raises(NotImplementedError, match=label):
+        TTR.init_train_state(0, ct, device="cpu")
+    _, decode_fn = TTR.make_serve_steps(ct, TTR.make_rules(None), 16)
+    with pytest.raises(NotImplementedError, match=label):
+        decode_fn(params, batch["tokens"][:, :1], None, 8,
+                  cross_src=torch.zeros((2, 4, ct.d_model)))
+
+
 def test_train_state_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
