@@ -9,11 +9,13 @@ Phases, one JSON line each:
 2. build   -- compiles every CUDA source under src/repro_torch/kernels/csrc,
    one nvcc per source, all at once;
 3. kernels -- holds each kernel against its plain PyTorch version on the
-   hazard cases (flash attention, whose wrapper picks the fp32, the bf16
-   prefill or the bf16 decode kernel: fp32 tol 2e-5, bf16 tol 2e-2; mLSTM
-   chunk scan, whose wrapper picks the fp32 FMA kernel or the bf16
-   tensor-core kernel: fp32 rtol 5e-4 atol 5e-5, bf16 5e-2, on h and on
-   the final state) and at the serving shapes, and times kernel, plain
+   hazard cases (flash attention, whose wrapper picks the fp32 tensor-core
+   (split precision), the bf16 prefill or the bf16 decode kernel: fp32 tol
+   2e-5, bf16 tol 2e-2; mLSTM chunk scan, whose wrapper picks the fp32 FMA
+   kernel or the bf16 tensor-core kernel: fp32 rtol 5e-4 atol 5e-5, bf16
+   5e-2, on h and on the final state; the tensor-core kernel's fp32
+   passes, which take no call, against the plain version or float64) and
+   at the serving shapes, and times kernel, plain
    version and the library call, where there is one, beside its bound, on
    the device alone through a CUDA graph and per eager call; the
    attention hazard cases again at head dim 64 and at 256 (G = H/KV of 1
@@ -21,11 +23,13 @@ Phases, one JSON line each:
    and 32 positions; non-causal at T = S = 1500, and queries at position
    0 against 1500 keys at T 512 and T 1), and ``"phase": "attention"``
    lines at granite-moe-3b-a800m's serving shapes (D = 64), gemma3-1b's
-   (D = 256: prefill, decode and the fp32 kernel), starcoder2-3b's (G =
-   12), hymba-1.5b's (G = 5, 640 positions), internvl2-26b's (G = 6, 768
+   (D = 256: prefill, decode and the fp32 kernel at both), starcoder2-3b's
+   (G = 12), hymba-1.5b's (G = 5, 640 positions; also in fp32),
+   internvl2-26b's (G = 6, 768
    positions) and whisper-base's (its encoder, non-causal at T = S =
    1500; cross-attention at T 512 and T 1 against S 1500), each naming the
-   SDPA backend that ran;
+   SDPA backend that ran; in fp32 the FMA kernels the tensor-core ones
+   replaced are timed beside them;
 4. small   -- the reduced models in fp32 on the card against the CPU (the
    run that drives the fp32 attention kernel), the reduced MoE among them,
    the reduced gemma3-1b also at its published head dim, 256, and the
@@ -217,6 +221,9 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense tensor cores
               torch.float32: 67e12}        # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# The fp32 tensor-core kernels form each fp32 product from bf16 terms, the
+# term products a_i b_j with i + j < FP32_TERMS: 6 at 3 terms a side.
+SPLIT_PRODUCTS = fa.FP32_TERMS * (fa.FP32_TERMS + 1) // 2
 # mLSTM chunk scan, as tests/test_kernels.py holds the Pallas kernel: h in
 # q's dtype; the final state is fp32 on both sides and held to the fp32 tol.
 MLSTM_TOL = {torch.float32: dict(rtol=5e-4, atol=5e-5),
@@ -281,15 +288,28 @@ HAZARDS = {
     "noncausal_t1500": (1, 1500, 1500, 8, 8, 64, None, False, 0),
     "cross_t512_s1500": (2, 512, 1500, 8, 8, 64, [0] * 512, False, 0),
     "cross_decode_s1500": (4, 1, 1500, 8, 8, 64, [0], False, 0),
+    # the fp32 tensor-core kernel's hazards: rows of q and k whose entries
+    # span 1e-3 to 1e3 (reciprocal column scales: scores stay O(1)) and v's
+    # columns from 1 to 1e-6 (make_inputs' ``wide``); G = 5 with T not a
+    # multiple of its blocks (25 positions, 12 at D = 256); D = 16 with a
+    # window; queries at positions 300-339 of a 1024-slot cache filled to
+    # 339
+    "wide_range_d64": (2, 150, 150, 6, 2, 64, None, True, 0),
+    "wide_range_d256": (1, 100, 100, 4, 1, 256, None, True, 0),
+    "gqa5_d256_odd_t": (1, 77, 77, 10, 2, 256, None, True, 0),
+    "gqa5_d16_window": (2, 131, 131, 10, 2, 16, None, True, 20),
+    "cache_past_fill": (2, 40, 1024, 6, 2, 128, list(range(300, 340)), True,
+                        0),
 }
 ALL_MASKED = ("fully_masked_rows", "decode_all_masked")
 
 # name: (b, t, h, d, chunk, gates); gates "normal", "forget_near_zero"
 # (log_f << 0), "forget_near_one" (log_f ~ 0: C sums every step of T),
 # "large_log_i" (the stabilizer dominates) or "state" (a given initial
-# state).  bf16 calls with a chunk that is a multiple of 16 take the
-# tensor-core kernel, the others the FMA kernel (chunk24_bf16).  The last is
-# the serving shape of xlstm-350m.
+# state), "forget_near_one_state" both.  bf16 calls with a chunk that is
+# a multiple of 16 take the tensor-core kernel, the others the FMA kernel
+# (chunk24_bf16), as do fp32 calls.  The last is the serving shape of
+# xlstm-350m.
 MLSTM_HAZARDS = {
     "d16": (1, 64, 1, 16, 16, "normal"),
     "d32": (2, 128, 3, 32, 32, "normal"),
@@ -307,9 +327,13 @@ MLSTM_HAZARDS = {
     "d48": (1, 128, 2, 48, 32, "normal"),
     "chunk16_d64": (1, 64, 2, 64, 16, "normal"),
     "chunk24_bf16": (1, 96, 2, 32, 24, "normal"),
+    # D = 512 over many chunks, from a given state
+    "forget_near_one_state": (1, 1024, 2, 512, 256, "forget_near_one_state"),
+    "many_chunks_d512_state": (1, 1024, 1, 512, 64, "state"),
     "serving": (4, 512, 4, 512, 256, "normal"),
 }
-LF_SHIFT = {"forget_near_zero": -20.0, "forget_near_one": 20.0}
+LF_SHIFT = {"forget_near_zero": -20.0, "forget_near_one": 20.0,
+            "forget_near_one_state": 20.0}
 MLSTM_NO_LIBRARY = "no single PyTorch call computes chunkwise mLSTM"
 
 # The dtype in which each served model's prefill logits are held against the
@@ -408,14 +432,22 @@ def model_extras(cfg, b, rng, device):
     return out
 
 
-def make_inputs(b, t, s, h, kvh, d, q_pos, dtype, seed, copies=1):
+def make_inputs(b, t, s, h, kvh, d, q_pos, dtype, seed, copies=1,
+                wide=False):
+    """q, ``copies`` (k, v) pairs and q's positions.  With ``wide`` q's
+    and k's columns are scaled by reciprocal factors from 1e-3 to 1e3 and
+    v's by factors from 1 to 1e-6."""
     rng = np.random.default_rng(seed)
+    span = (10.0 ** np.linspace(-3, 3, d) if wide else np.ones(d)).astype(
+        np.float32)
 
-    def draw(*shape):
-        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
-            device="cuda", dtype=dtype)
-    q = draw(b, t, h, d)
-    kvs = [(draw(b, s, kvh, d), draw(b, s, kvh, d)) for _ in range(copies)]
+    def draw(*shape, scale):
+        x = rng.normal(size=shape).astype(np.float32) * scale
+        return torch.from_numpy(x).to(device="cuda", dtype=dtype)
+    q = draw(b, t, h, d, scale=span)
+    kvs = [(draw(b, s, kvh, d, scale=1 / span),
+            draw(b, s, kvh, d, scale=span[::-1] / 1e3 if wide else span))
+           for _ in range(copies)]
     if q_pos == "tail":
         q_pos = list(range(s - t, s))
     if q_pos is None:
@@ -432,10 +464,10 @@ def visible(q_pos, kv_pos, causal, window):
     return ok
 
 
-def bound(q, k, q_pos, kv_pos, causal, window):
-    """Least time the card could take: each input byte the data needs read
+def attention_work(q, k, q_pos, kv_pos, causal, window):
+    """Bytes and flops of one call: each input byte the data needs read
     once (K/V rows some query sees), the output written once, and the
-    multiply-adds of the visible (query, key) pairs at the type's peak."""
+    multiply-adds of the visible (query, key) pairs."""
     ok = visible(q_pos, kv_pos, causal, window)
     b, _, h, d = q.shape
     kvh = k.shape[2]
@@ -444,10 +476,25 @@ def bound(q, k, q_pos, kv_pos, causal, window):
     nbytes = (2 * q.numel() * q.element_size()
               + 2 * b * rows * kvh * d * k.element_size()
               + 4 * (q_pos.numel() + kv_pos.numel()))
-    flops = 4 * b * h * d * pairs
+    return nbytes, 4 * b * h * d * pairs
+
+
+def bound(q, k, q_pos, kv_pos, causal, window):
+    """Least time the card could take: attention_work's bytes at the
+    memory's rate or its flops at the peak of q's type (fp32: the FMA
+    pipe), whichever is longer."""
+    nbytes, flops = attention_work(q, k, q_pos, kv_pos, causal, window)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def split_floor(nbytes, flops):
+    """Least time of fp32 work on the tensor cores in split precision:
+    ``flops`` as SPLIT_PRODUCTS bf16 products each at the bf16 peak, or
+    ``nbytes`` at the memory's rate, whichever is longer (ms)."""
+    return max(nbytes / HBM_BYTES_PER_S,
+               SPLIT_PRODUCTS * flops / PEAK_FLOPS[torch.bfloat16]) * 1e3
 
 
 def check_close(name, got, want, dtype):
@@ -524,7 +571,8 @@ def phase_hazards(head_dim=None):
             name, d = f"{case}@d{head_dim}", head_dim
         for dtype in (torch.float32, torch.bfloat16):
             q, [(k, v)], qp = make_inputs(b, t, s, h, kvh, d, q_pos, dtype,
-                                          seed=sum(map(ord, name)))
+                                          seed=sum(map(ord, name)),
+                                          wide=case.startswith("wide_range"))
             kw = dict(q_pos=qp, causal=causal, window=window)
             plan = fa.plan(b, t, s, h, kvh, d, dtype)
             path = plan.path
@@ -565,13 +613,35 @@ def sdpa_backend(q, k, v, attn_mask=None, is_causal=False):
     return SDPBackend(choice).name
 
 
+def fma_attention(q, k, v, *, q_pos, kv_pos, causal, window):
+    """csrc/flash_attention.cu (the fp32 FMA kernel, which took every fp32
+    call before the tensor-core kernel) on these fp32 inputs, timed beside
+    it.  Called here, not through the wrapper, which sends it no call."""
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    bq = (16 if t <= fa.DECODE_MAX_T else fa.D256_FP32_BLOCK_Q if d == 256
+          else fa.FP32_BLOCK_Q)
+    out = torch.empty_like(q)
+    err = fa._kernel("fp32")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+        kv_pos.data_ptr(), out.data_ptr(), None, b, t, s, h, kvh, d, bq,
+        int(causal), window, 1.0 / math.sqrt(d),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention fp32 FMA kernel launch failed: "
+                           f"{err}")
+    return out
+
+
 def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
                    dtype=torch.bfloat16, phase="kernel_timing", causal=True,
                    **tags):
     """Kernel, plain version and SDPA at one serving shape, each timed on
     the device alone (``graph_ms``: ``ms``, ``plain_ms``, ``library_ms``)
     and per call with the host's time to issue it (``cuda_ms``: the
-    ``*_eager`` keys).  With ``copies`` > 1 the calls cycle over that many
+    ``*_eager`` keys).  In fp32 the FMA kernel the tensor-core one replaced
+    is checked and timed beside it (``fma_ms``), and ``split_floor_ms`` is
+    the split's least time (split_floor).  With ``copies`` > 1 the calls cycle over that many
     K/V caches, so that they find the cache in device memory and not in the
     50 MB L2, as each layer of a decode step does.  SDPA gets no mask where
     every key is visible, ``is_causal`` for aligned causal calls and the
@@ -605,14 +675,26 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
     calls = {"kernel": cycle(lambda *a: fa.flash_attention(*a, **kw)),
              "plain": cycle(lambda *a: reference_attention(*a, **kw)),
              "library": cycle(sdpa)}
+    order = ("kernel", "plain", "library", "kernel")
+    fp32 = {}
+    if dtype == torch.float32:
+        fp32["fma_max_abs_err"] = check_close(
+            f"{label} (fma)", fma_attention(q, k, v, **kw),
+            reference_attention(q, k, v, **kw), dtype)
+        calls["fma"] = cycle(lambda *a: fma_attention(*a, **kw))
+        order = ("kernel", "plain", "library", "fma", "kernel")
     iters = 48                  # a multiple of copies (8)
     times = {}
     for timer, suffix in ((graph_ms, ""), (cuda_ms, "_eager")):
-        for name in ("kernel", "plain", "library", "kernel"):
+        for name in order:
             key = name + suffix
             times[key + ("_repeat" if key in times else "")] = timer(
                 calls[name], iters)
     bound_ms, bound_by = bound(q, k, qp, kp, causal, 0)
+    if dtype == torch.float32:
+        fp32.update(fma_ms=times["fma"], fma_ms_eager=times["fma_eager"],
+                    split_floor_ms=split_floor(*attention_work(
+                        q, k, qp, kp, causal, 0)))
     backend = sdpa_backend(*(x.transpose(1, 2) for x in (q, k, v)),
                            **sdpa_kw)
     key = str(dtype).removeprefix("torch.")
@@ -626,7 +708,7 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
                bound_by=bound_by, ms_eager=times["kernel_eager"],
                ms_eager_repeat=times["kernel_eager_repeat"],
                plain_ms_eager=times["plain_eager"],
-               library_ms_eager=times["library_eager"],
+               library_ms_eager=times["library_eager"], **fp32,
                seconds=time.perf_counter() - t0)
     emit(phase, kernel="flash_attention", case=label, **tags, **out)
     return out
@@ -643,7 +725,7 @@ def mlstm_inputs(b, t, h, d, gates, dtype, seed):
     li = draw(b, t, h, scale=2.0, shift=40.0 if gates == "large_log_i" else 0.0)
     lf = F.logsigmoid(draw(b, t, h, scale=2.0, shift=LF_SHIFT.get(gates, 1.0)))
     state = None
-    if gates == "state":
+    if gates.endswith("state"):
         state = (draw(b, h, d, d, scale=0.1), draw(b, h, d).abs(), draw(b, h))
     return (*qkv, li, lf), state
 
@@ -712,18 +794,41 @@ def phase_mlstm_hazards():
             key = str(dtype).removeprefix("torch.")
             worst[key] = max(worst.get(key, 0.0), err_h)
             worst["state"] = max(worst.get("state", 0.0), err_state)
+            extra = {}
+            if dtype == torch.float32 and d == 512:  # ROADMAP C21
+                exact = mlstm_float64(args, state, chunk)[0]
+                extra = dict(
+                    outside_tol_vs_float64=outside(got[0], exact,
+                                                   MLSTM_TOL[dtype]),
+                    plain_outside_tol_vs_float64=outside(
+                        want[0], exact, MLSTM_TOL[dtype]))
             emit("kernel_case", kernel="mlstm_scan", case=name, path=path,
                  dtype=key,
                  shape=f"B{b} T{t} H{h} D{d} chunk {chunk} {gates}",
                  max_abs_err=err_h, state_max_abs_err=err_state,
-                 tol=MLSTM_TOL[dtype])
+                 tol=MLSTM_TOL[dtype], **extra)
     emit("kernel_hazards", kernel="mlstm_scan", cases=len(MLSTM_HAZARDS) * 2,
          max_abs_err=worst)
 
 
+def mlstm_float64(args, state, chunk):
+    """The plain version in float64 on these inputs: h and (C, n, m)."""
+    with patched(*_float64_patches()):
+        return reference_mlstm_scan(
+            *(a.double() for a in args),
+            None if state is None else tuple(x.double() for x in state),
+            chunk=chunk)
+
+
+def outside(got, want, tol):
+    """Elements of ``got`` outside ``tol`` (rtol, atol) of ``want``."""
+    err = (got.double() - want.double()).abs() - tol["rtol"] * want.abs()
+    return int((err > tol["atol"]).sum())
+
+
 def fma_scan(q, k, v, log_i, log_f, *, chunk):
     """csrc/mlstm_scan.cu (the FMA kernel) on these inputs whatever their
-    type: the kernel bf16 calls took before the tensor-core one, timed
+    type: the kernel bf16 calls took before the tensor-core kernel, timed
     beside it.  Called here, not through the wrapper, so that it counts no
     launch."""
     b, t, h, d = q.shape
@@ -749,7 +854,9 @@ def time_mlstm(dtype):
     (``graph_ms``: ``ms``, ``plain_ms``) and per eager call with the host's
     time to issue it (``cuda_ms``: the ``*_eager`` keys).  In bf16 the FMA
     kernel, which bf16 calls took before the tensor-core kernel, is timed
-    beside it (``fma_ms``)."""
+    beside it (``fma_ms``); in fp32, where the FMA kernel is the kernel,
+    ``split_floor_ms`` is the least time of the same work on the tensor
+    cores in split precision (split_floor; ROADMAP C21)."""
     b, t, h, d, chunk, gates = MLSTM_HAZARDS["serving"]
     sets = [mlstm_inputs(b, t, h, d, gates, dtype, seed=i)[0]
             for i in range(8)]
@@ -783,6 +890,8 @@ def time_mlstm(dtype):
                 calls[name], iters)
     bound_ms, bound_by, bound_fp32_ms, macs, nbytes = mlstm_bound(
         sets[0][0], chunk, None)
+    if dtype == torch.float32:
+        out["split_floor_ms"] = split_floor(nbytes, 2 * macs)
     key = str(dtype).removeprefix("torch.")
     out.update(shape=f"B{b} T{t} H{h} D{d} chunk {chunk} {key}",
                path=ms.plan(b, t, h, d, chunk, dtype).path,
@@ -856,7 +965,7 @@ def expected_launches(cfg, new_tokens=NEW_TOKENS):
     attn += kinds.count("attn_cross")
     pre = attn + cfg.encoder_layers
     return {"flash_attention": pre + attn * new_tokens,
-            "flash_attention_fp32": 0,
+            "flash_attention_fp32_tc": 0,
             "flash_attention_prefill": pre,
             "flash_attention_decode": attn * new_tokens,
             "mlstm_scan": kinds.count("mlstm"),
@@ -991,6 +1100,10 @@ def hymba_layers_check(params, batch, cfg, seq):
 
 
 def phase_serve(arch):
+    """One serve run of ``arch`` (bf16) and its checks.  Returns the run's
+    launches (counts set to 0 just before ``eng.run()``), its arrival
+    trace, and the launches of prefill_logits_check (counts set to 0 just
+    before it): the fp32 prefills of the models held in fp32 among them."""
     phase_t0 = time.perf_counter()
     cfg = get_config(arch)
     t0 = time.perf_counter()
@@ -1038,8 +1151,10 @@ def phase_serve(arch):
     batch = {"tokens": torch.from_numpy(toks).cuda(),
              **model_extras(cfg, len(PROMPTS), rng, "cuda")}
     prefix = TT.prefix_len(cfg, batch)
+    reset_launches()
     logits, caches, logit_fields = prefill_logits_check(
         eng.params, batch, cfg, MAX_SEQ, LOGITS_CHECK_DTYPE[arch])
+    check_launches = kernel_launches()
 
     prefill_ms = cuda_ms(lambda: TT.prefill(eng.params, batch, cfg, MAX_SEQ),
                          iters=5, warmup=1)
@@ -1065,7 +1180,8 @@ def phase_serve(arch):
          dtype=cfg.dtype, slots=len(PROMPTS), prompts=list(PROMPTS),
          new_tokens=NEW_TOKENS, max_seq=MAX_SEQ, init_s=init_s,
          run_s=run_s, generated_tokens=sum(len(r.out_tokens) for r in done),
-         launches=launches, launches_expected=want, **logit_fields,
+         launches=launches, launches_expected=want,
+         logits_check_launches=check_launches, **logit_fields,
          prefill_ms=prefill_ms,
          decode_step_ms=step_ms,
          decode_tokens_per_s=len(PROMPTS) / step_ms * 1e3,
@@ -1078,7 +1194,7 @@ def phase_serve(arch):
     phase_profile(arch, "decode step", lambda: TT.decode_step(
         eng.params, nxt, caches, DECODE_POS + prefix, cfg, MAX_SEQ), step_ms,
         calls=5)
-    return launches, eng.arrival_trace(done)
+    return launches, eng.arrival_trace(done), check_launches
 
 
 #: internvl2-26b's prefill: full width, ``layers`` of its 48, so that the
@@ -1198,7 +1314,8 @@ def phase_small_model():
     """The reduced models in float32 on the card (kernels) against the CPU
     (plain versions): logits of prefill and one decode step, atol 1e-4.
     Returns the launches on the card (counts set to 0 just before): the
-    path that runs the fp32 attention kernel."""
+    path that runs the fp32 kernels: attention's tensor-core one at every
+    head dim, decode steps included, and the mLSTM scan's FMA one."""
     worst = {}
     reset_launches()
     for name, (arch, t, fields) in SMALL_MODELS.items():
@@ -1220,9 +1337,9 @@ def phase_small_model():
                                      pos + 26)
             launched = {k: v - before[k] for k, v in kernel_launches().items()}
             out[dev] = torch.cat([logits, step], 1).cpu()
-        if launched["flash_attention_fp32"] != launched["flash_attention"]:
+        if launched["flash_attention_fp32_tc"] != launched["flash_attention"]:
             raise AssertionError(f"{name} reduced: fp32 attention left the "
-                                 f"fp32 kernel: {launched}")
+                                 f"fp32 tensor-core kernel: {launched}")
         if arch == "xlstm-350m" and (
                 launched["mlstm_scan"], launched["mlstm_scan_fma"],
                 launched["mlstm_scan_tc"]) != (
@@ -1513,7 +1630,10 @@ def train_hazards(device, sizes):
                                              return_lse=True, **kw)
             launched = {key: n - before[key]
                         for key, n in kernel_launches().items()}
-            path = "fp32" if dtype == torch.float32 else "prefill"
+            path = fa.plan(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                           q.shape[3], dtype, lse=True).path
+            if path not in ("fp32_tc", "prefill"):
+                raise AssertionError(f"lse {name} {dtype}: plan {path}")
             if device == "cuda" and (launched["flash_attention"] != 1 or
                                      launched[f"flash_attention_{path}"] != 1):
                 raise AssertionError(f"lse {name} {dtype}: took {launched}, "
@@ -1663,7 +1783,12 @@ def time_training_mlstm(device, sizes, dtype):
              "fwd_ms_repeat": timer(fwd, iters),
              "bwd_plain_ms": eager(bwd, max(iters // 4, 1)),
              "fwd_ms_eager": eager(fwd, iters)}
-    fb, fb_by, fb32 = mlstm_bound(args[0], chunk, None)[:3]
+    fb, fb_by, fb32, macs, nbytes = mlstm_bound(args[0], chunk, None)
+    if device == "cuda" and dtype == torch.bfloat16:  # before the tc kernel
+        times["fwd_fma_ms"] = timer(lambda: fma_scan(*args, chunk=chunk),
+                                    iters)
+    if device == "cuda" and dtype == torch.float32:  # ROADMAP C21
+        times["fwd_split_floor_ms"] = split_floor(nbytes, 2 * macs)
     bb, bb_by, bb32 = mlstm_backward_bound(args[0], chunk)
     bwd_extra_mib = None
     if device == "cuda":
@@ -2066,7 +2191,7 @@ def train_full(device, sizes, arch):
     MF.backward_calls = MX.backward_calls = 0
     losses, step_ms, norms = [], [], []
     want = {"flash_attention_prefill": 2 * layers["attn"],
-            "flash_attention_decode": 0, "flash_attention_fp32": 0,
+            "flash_attention_decode": 0, "flash_attention_fp32_tc": 0,
             "mlstm_scan_tc": 2 * layers["mlstm"], "mlstm_scan_fma": 0}
     want_bwd = (layers["attn"], layers["mlstm"])
     for i in range(sizes["steps"]):
@@ -2190,7 +2315,7 @@ def train_step_work(cfg, batch, seq, n_params):
     return weights + head + attn, 28 * n_params
 
 
-def phase_train(device="cuda", sizes=TRAIN_FULL):
+def phase_train(device="cuda", sizes=TRAIN_FULL, launched=None):
     """The training path: hazards of the lse and the attention Function and
     of the mLSTM scan's Function, attention forward and backward at the
     training shapes (head dims 128 and 256, 12 query heads a KV head), the
@@ -2198,10 +2323,15 @@ def phase_train(device="cuda", sizes=TRAIN_FULL):
     against CPU, then the train steps of llama3.2-3b, gemma3-1b,
     starcoder2-3b and xlstm-350m.  Returns each model's train line (its
     launches: counts set to 0 just before its steps) and the timings by
-    case (the mLSTM scan's by dtype)."""
+    case (the mLSTM scan's by dtype); fills ``launched``, where given, with
+    the launches of the hazards (``"hazards"``) and of the reduced models'
+    check (``"reduced"``), counts set to 0 just before each."""
     t0 = time.perf_counter()
+    launched = {} if launched is None else launched
+    reset_launches()
     worst = train_hazards(device, sizes)
     worst_mlstm = train_mlstm_hazards(device, sizes)
+    launched["hazards"] = kernel_launches()
     timing = {}
     for case in sizes["timing_cases"]:
         timing[case] = time_training_attention(device, sizes, case)
@@ -2211,7 +2341,9 @@ def phase_train(device="cuda", sizes=TRAIN_FULL):
         timing[f"mlstm {key}"] = time_training_mlstm(device, sizes, dtype)
         emit("train_mlstm", device=device, kernel="mlstm_scan",
              **timing[f"mlstm {key}"])
+    reset_launches()
     reduced = train_reduced(device, sizes)
+    launched["reduced"] = kernel_launches()
     emit("train_reduced_vs_cpu", device=device, models=reduced)
     lines = {}
     for arch, case in sizes["models"]:
@@ -2743,7 +2875,7 @@ def extract_dp(device, sizes):
     if device == "cuda" and (launches["flash_attention_prefill"]
                              != 2 * attn_layers
                              or launches["flash_attention_decode"]
-                             or launches["flash_attention_fp32"]):
+                             or launches["flash_attention_fp32_tc"]):
         raise AssertionError(f"dp step: launches {launches}; want "
                              f"{2 * attn_layers} prefill, no other")
     reduces = [o for o in ops if o.kind != "collective-permute"]
@@ -4186,6 +4318,10 @@ def main():
     dec = time_attention("decode", b, 1, MAX_SEQ, h, kvh, d, [DECODE_POS],
                          copies=8)
     fp32 = time_attention("prefill", *serving, copies=1, dtype=torch.float32)
+    # fp32 decode steps take the tensor-core kernel too: it and the FMA
+    # kernel at llama3.2-3b's decode shape
+    dec32 = time_attention("decode", b, 1, MAX_SEQ, h, kvh, d, [DECODE_POS],
+                           copies=8, dtype=torch.float32)
     # granite-moe-3b-a800m's attention: D = 64 (G = 24/8 = 3)
     phase_hazards(head_dim=64)
     g = get_config("granite-moe-3b-a800m")
@@ -4209,6 +4345,10 @@ def main():
     mfp32 = time_attention("prefill", *mserving, copies=1,
                            dtype=torch.float32, phase="attention",
                            model=m.name)
+    mdec32 = time_attention("decode", b, 1, MAX_SEQ, m.num_heads,
+                            m.num_kv_heads, m.head_dim, [DECODE_POS],
+                            copies=8, dtype=torch.float32, phase="attention",
+                            model=m.name)
     # starcoder2-3b's attention: G = 24/2 = 12 (its hazards are in HAZARDS)
     c = get_config("starcoder2-3b")
     cpre = time_attention("prefill", b, max(PROMPTS), max(PROMPTS),
@@ -4228,6 +4368,11 @@ def main():
                           y.num_kv_heads, y.head_dim,
                           [DECODE_POS + y.num_meta_tokens], copies=8,
                           phase="attention", model=y.name)
+    # and in fp32, the shape of its fp32 prefill check (32 calls a check)
+    ypre32 = time_attention("prefill", b, ypos, ypos, y.num_heads,
+                            y.num_kv_heads, y.head_dim, None, copies=1,
+                            dtype=torch.float32, phase="attention",
+                            model=y.name)
     # internvl2-26b's: G = 48/8 = 6, 256 patch embeddings before the prompt
     iv = get_config("internvl2-26b")
     ipos = iv.num_patch_tokens + max(PROMPTS)
@@ -4251,16 +4396,17 @@ def main():
     scan = time_mlstm(torch.bfloat16)
     scan32 = time_mlstm(torch.float32)
     small = phase_small_model()
-    llama, llama_trace = phase_serve("llama3.2-3b")
-    xlstm, _ = phase_serve("xlstm-350m")
-    granite, _ = phase_serve("granite-moe-3b-a800m")
-    gemma, _ = phase_serve("gemma3-1b")
-    starcoder, _ = phase_serve("starcoder2-3b")
-    hymba, _ = phase_serve("hymba-1.5b")
-    whisper, _ = phase_serve("whisper-base")
+    llama, llama_trace, _ = phase_serve("llama3.2-3b")
+    xlstm, _, xlstm_check = phase_serve("xlstm-350m")
+    granite, _, _ = phase_serve("granite-moe-3b-a800m")
+    gemma, _, _ = phase_serve("gemma3-1b")
+    starcoder, _, _ = phase_serve("starcoder2-3b")
+    hymba, _, hymba_check = phase_serve("hymba-1.5b")
+    whisper, _, _ = phase_serve("whisper-base")
     vlm = phase_vlm_prefill()
     phase_moe()
-    train_lines, train_timing = phase_train()
+    train_launched = {}
+    train_lines, train_timing = phase_train(launched=train_launched)
     train = {arch: line["launches"] for arch, line in train_lines.items()}
     extract_dp_launches = phase_extract(trace=llama_trace, card=smi)
     phase_sim()
@@ -4294,12 +4440,33 @@ def main():
                         **{"extract dp llama3.2-3b": extract_dp_launches,
                            f"prefill {VLM['arch']} ({VLM['layers']} layers)":
                                vlm})
-    fp32_runs = {"reduced models in fp32": small}
+    # Every run that drives the fp32 kernels: the serve phase's fp32
+    # prefill checks, the training hazards (the lse and the Functions in
+    # fp32 and bf16), the reduced models' training check in fp32, xlstm-350m's
+    # fp32 step 1, the reduced models in fp32.
+    fp32_runs = {"reduced models in fp32": small,
+                 "serve check hymba-1.5b (fp32 prefill)": hymba_check,
+                 "serve check xlstm-350m (fp32 prefill)": xlstm_check,
+                 "train hazards": train_launched["hazards"],
+                 "train reduced models (fp32)": train_launched["reduced"],
+                 "train xlstm-350m step 1 (fp32)": train_lines[
+                     "xlstm-350m"]["step1_launches"]}
     attn = "src/repro/kernels/flash_attention.py:39"
     scan_keys = ("state_max_abs_err", "library_note", "ms_eager",
                  "plain_ms_eager", "bound_ms_fp32_pipe")
     at = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
           "library_backend", "bound_ms", "bound_by")
+    at32 = at + ("fma_ms", "fma_max_abs_err", "split_floor_ms")
+
+    def replaced(kernel, path, source, runs, **times):
+        """The FMA kernel a tensor-core path replaced: its launches by run
+        (none: no plan() gives it these calls) and its times in this run
+        at the new path's shapes."""
+        key = f"{kernel}_{path}"
+        by_run = {name: run.get(key, 0) for name, run in runs.items()}
+        return {"name": key, "source": f"src/repro_torch/kernels/csrc/{source}",
+                "launches": sum(by_run.values()), "launches_by_run": by_run,
+                **times}
 
     def with_lse(case):
         t = train_timing[case]
@@ -4316,7 +4483,7 @@ def main():
                     plain_backward_ms=t["bwd_plain_ms"],
                     plain_backward_bound_ms=t["bwd_bound_ms"],
                     plain_backward_bound_by=t["bwd_bound_by"])
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("flash_attention", "prefill", "flash_attention_prefill.cu",
               attn, pre, prefill_runs, at_d64={k: gpre[k] for k in at},
               at_d256={k: mpre[k] for k in at},
@@ -4336,18 +4503,34 @@ def main():
               at_gqa12={k: cdec[k] for k in at},
               at_gqa5={k: ydec[k] for k in at},
               at_cross_s1500={k: wxd[k] for k in at}),
-        entry("flash_attention", "fp32", "flash_attention.cu", attn, fp32,
-              fp32_runs, at_d256={k: mfp32[k] for k in at}),
+        entry("flash_attention", "fp32_tc", "flash_attention_fp32tc.cu", attn,
+              fp32, fp32_runs, ("fma_ms", "fma_max_abs_err",
+                                "split_floor_ms"),
+              at_d256={k: mfp32[k] for k in at32},
+              at_gqa5={k: ypre32[k] for k in at32},
+              at_decode={k: dec32[k] for k in at32},
+              at_decode_d256={k: mdec32[k] for k in at32},
+              replaced=replaced(
+                  "flash_attention", "fp32", "flash_attention.cu", fp32_runs,
+                  ms=fp32["fma_ms"], at_d256_ms=mfp32["fma_ms"],
+                  at_gqa5_ms=ypre32["fma_ms"], at_decode_ms=dec32["fma_ms"],
+                  at_decode_d256_ms=mdec32["fma_ms"])),
         entry("mlstm_scan", "tc", "mlstm_scan_tc.cu",
               "src/repro/kernels/mlstm_scan.py:32", scan,
               dict(serve_runs, **train_runs), scan_keys + ("fma_ms",),
               at_training_shape=scan_at_training("bfloat16")),
         entry("mlstm_scan", "fma", "mlstm_scan.cu",
-              "src/repro/kernels/mlstm_scan.py:32", scan32,
-              dict(fp32_runs, **{
-                  "train xlstm-350m step 1 (fp32)": train_lines[
-                      "xlstm-350m"]["step1_launches"]}), scan_keys,
-              at_training_shape=scan_at_training("float32"))]}), flush=True)
+              "src/repro/kernels/mlstm_scan.py:32", scan32, fp32_runs,
+              scan_keys + ("split_floor_ms",),
+              at_training_shape=dict(
+                  scan_at_training("float32"),
+                  split_floor_ms=train_timing["mlstm float32"][
+                      "fwd_split_floor_ms"]))]
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if idle:
+        raise AssertionError(f"kernels of the path that no run launched: "
+                             f"{idle}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
 // fp32 GQA flash-attention forward for Hopper (sm_90a), with a plain C
 // interface.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py:39 (`_kernel`,
-// launched through pl.pallas_call by `flash_attention`) for fp32 inputs.
-// bf16 inputs take flash_attention_prefill.cu (T > 16) or
-// flash_attention_decode.cu (T <= 16); the Python wrapper
-// src/repro_torch/kernels/flash_attention.py picks the kernel.  The plain
-// PyTorch version all three are held against is
-// src/repro_torch/kernels/ref.py::reference_attention.
+// Replaced the TPU kernel src/repro/kernels/flash_attention.py:39
+// (`_kernel`, launched through pl.pallas_call by `flash_attention`) for fp32
+// inputs until flash_attention_fp32tc.cu, the same function on the tensor
+// cores in split precision, took every fp32 call: the Python wrapper
+// src/repro_torch/kernels/flash_attention.py sends this kernel none, and
+// chip_smoke.py calls its entry point to time it beside that one.  bf16
+// inputs take flash_attention_prefill.cu (T > 16) or
+// flash_attention_decode.cu (T <= 16).  The plain PyTorch version all of
+// them are held against is src/repro_torch/kernels/ref.py::
+// reference_attention.
 //
 // Contract.  q (B,T,H,D), k/v (B,S,KV,D), contiguous fp32, D in {16, 32, 64,
 // 128, 256}; output (B,T,H,D) fp32.  Query head h reads KV head h / (H/KV).
@@ -21,11 +24,11 @@
 // scores, m + log(l) from the online softmax, fp32 (B,H,T), and 1e30 for a
 // row that sees no key: what the training backward recomputes P from.
 //
-// What bounds it on the H100.  fp32 attention cannot use the bf16 tensor
-// cores, and TF32 would not hold the fp32 tolerance (2e-5) that this path
-// is held to: it computes on the fp32 FMA pipe (67 TFLOP/s) and is bound by
-// operations there.  Serving runs bf16 and never reaches it; the reduced
-// models in fp32 and the fp32 checks do.
+// What bounds it on the H100.  It computes on the fp32 FMA pipe (67
+// TFLOP/s) and is bound by operations there.  One rounding of each operand
+// to TF32 or bf16 would not hold the fp32 tolerance (2e-5); a split of each
+// operand into bf16 terms that sum to it does, and runs on the tensor cores
+// (flash_attention_fp32tc.cu).
 //
 // What the design does about it.  One block of 128 threads per (batch x
 // q-head, tile of BQ query rows); a loop over KV tiles of 64 keys staged in

@@ -87,6 +87,20 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t group,
          (swizzle << 62);
 }
 
+// smem_desc(p, ...) made opaque to the compiler, and the descriptor `bytes`
+// (a multiple of 16) past such a base: descriptors formed with desc_at()
+// from a base taken inside a loop are formed where they are used, not
+// hoisted out of the loop into dozens of live registers.
+__device__ __forceinline__ uint64_t desc_base(const void* p, uint32_t group,
+                                              uint64_t swizzle) {
+  uint64_t d = smem_desc(p, group, swizzle);
+  asm volatile("" : "+l"(d));
+  return d;
+}
+__device__ __forceinline__ uint64_t desc_at(uint64_t base, uint32_t bytes) {
+  return base + (bytes >> 4);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -133,7 +147,8 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
@@ -141,9 +156,10 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -154,9 +170,10 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -173,7 +190,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 template <int N>
@@ -184,9 +201,82 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else wgmma_rs_n16(d, a, b);
 }
 
+// Waits until at most N committed wgmma groups of this thread are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// G groups of wgmma products, each into a fresh accumulator of N fp32
+// registers a thread and added on the fp32 pipe (rounded to nearest) to
+// where it belongs while the next group runs: `issue(g, t)` issues group
+// g into t (its first product with scale-d 0), `add(g, t)` adds it; both
+// must agree on whether group g has any product.  The tensor cores' own
+// fp32 accumulation does not round to nearest: on the H100, a split fp32
+// mLSTM scan with every product of a 512-long reduction chained into one
+// accumulator missed its plain version's tolerance on six D = 512 hazards
+// (PERF.md, ROADMAP C21).  With
+// kOverlap false one accumulator serves every group in turn (N fewer
+// registers; each group waits for its own).
+template <int N, int G, bool kOverlap = true, typename Issue, typename Add>
+__device__ __forceinline__ void wgmma_chain(Issue&& issue, Add&& add) {
+  if constexpr (!kOverlap) {
+    float t[N];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      wgmma_fence();
+      issue(g, t);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(t);
+      add(g, t);
+    }
+  } else {
+    float t0[N], t1[N];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float (&t)[N] = g % 2 ? t1 : t0;
+      wgmma_fence();
+      issue(g, t);
+      wgmma_commit();
+      if (g > 0) {
+        wgmma_wait<1>();
+        float (&p)[N] = g % 2 ? t0 : t1;
+        fence_regs(p);
+        add(g - 1, p);
+      }
+    }
+    wgmma_wait<0>();
+    float (&p)[N] = (G - 1) % 2 ? t1 : t0;
+    fence_regs(p);
+    add(G - 1, p);
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The top 8 significant bits of (x0, x1) as a bf16 pair (their top 16
+// bits, truncated); leaves in x0, x1 what they did not hold, exactly.
+// Three such terms of an fp32 value sum to it exactly (3 x 8 bits cover
+// fp32's 24).
+__device__ __forceinline__ uint32_t split_bf16(float& x0, float& x1) {
+  const uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  x0 -= __uint_as_float(u0 & 0xffff0000u);
+  x1 -= __uint_as_float(u1 & 0xffff0000u);
+  return __byte_perm(u0, u1, 0x7632);
+}
+
+// Term pair pr of a product of two operands split into three bf16 terms,
+// (pair_a, pair_b): the six with i + j <= 2, smallest first: (1,1), (0,2),
+// (2,0), (0,1), (1,0), (0,0).  The three left out are below 2^-20 of it.
+__host__ __device__ constexpr int pair_a(int pr) {
+  return pr == 0 ? 1 : pr == 2 ? 2 : pr == 4 ? 1 : 0;
+}
+__host__ __device__ constexpr int pair_b(int pr) {
+  return pr == 0 ? 1 : pr == 1 ? 2 : pr == 3 ? 1 : 0;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -231,6 +321,22 @@ bool tensor_map_bf16(CUtensorMap* map, const void* base, int rank,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                 const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An fp32 tensor map of `rank` dimensions (as tensor_map_bf16) read in
+// unswizzled boxes: for tiles that threads, not wgmma, read.  Elements past
+// the tensor read as zeros.
+bool tensor_map_f32(CUtensorMap* map, const void* base, int rank,
+                    const cuuint64_t* dims, const cuuint64_t* strides,
+                    const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

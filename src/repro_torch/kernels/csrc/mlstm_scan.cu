@@ -1,9 +1,12 @@
 // Chunkwise mLSTM forward for Hopper (sm_90a), with a plain C interface.
 //
 // Replaces the TPU kernel src/repro/kernels/mlstm_scan.py (`_kernel`,
-// launched through pl.pallas_call by `mlstm_scan`).  The Python wrapper is
-// src/repro_torch/kernels/mlstm_scan.py; the plain PyTorch version it is
-// held against is src/repro_torch/models/xlstm.py::mlstm_chunkwise.
+// launched through pl.pallas_call by `mlstm_scan`) for fp32 calls and bf16
+// calls whose chunk is not a multiple of 16; the other bf16 calls take
+// mlstm_scan_tc.cu (kernels/mlstm_scan.py says why fp32 calls stay here).
+// The Python wrapper is src/repro_torch/kernels/mlstm_scan.py; the plain
+// PyTorch version it is held against is
+// src/repro_torch/models/xlstm.py::mlstm_chunkwise.
 //
 // Contract.  q, k, v (B,T,H,D) contiguous, fp32 or bf16; log_i, log_f
 // (B,T,H) contiguous fp32; T a multiple of `chunk`; D a multiple of 16, at

@@ -158,15 +158,6 @@ __device__ __forceinline__ void store_staged(const uint8_t* tile, uint8_t* dst,
   __syncthreads();
 }
 
-// The top 16 bits of (x0, x1), truncated, as a bf16 pair; leaves in x0, x1
-// what they did not hold (exactly).
-__device__ __forceinline__ uint32_t split_bf16(float& x0, float& x1) {
-  const uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
-  x0 -= __uint_as_float(u0 & 0xffff0000u);
-  x1 -= __uint_as_float(u1 & 0xffff0000u);
-  return __byte_perm(u0, u1, 0x7632);
-}
-
 // log_i and the inclusive cumulative log_f of `len` rows of a chunk into
 // shared memory (`lf` is scratch for log_f); thread 0 sums in order, 16
 // values loaded ahead at a time.  Syncs the block.

@@ -1,4 +1,4 @@
-"""Flash-attention forward on the card: the wrapper of three CUDA kernels.
+"""Flash-attention forward on the card: the wrapper of the CUDA kernels.
 
 Port of the TPU kernel ``repro.kernels.flash_attention`` (Pallas).  Same
 contract as :func:`repro_torch.kernels.ref.reference_attention`, its plain
@@ -6,7 +6,7 @@ version: GQA attention on q (B,T,H,D) and k/v (B,S,KV,D) with causal,
 sliding-window and ``kv_pos < 0`` masking by absolute positions, an fp32
 online softmax, zeros for rows that see no key, and the output in q's
 dtype.  ``window`` is a plain Python int passed to the kernel at run time.
-With ``return_lse`` the fp32 and prefill kernels also write each row's
+With ``return_lse`` the fp32_tc and prefill kernels also write each row's
 log-sum-exp (fp32, (B, H, T), 1e30 where a row sees no key), which the
 training backward (:mod:`repro_torch.models.flash`) recomputes the
 probabilities from.
@@ -20,9 +20,17 @@ Which kernel runs is a fixed rule on dtype and T, made by :func:`plan`
 (pure Python, no device); the block sizes also follow D, which may be 16,
 32, 64, 128 or 256:
 
-- float32: ``csrc/flash_attention.cu``, on the fp32 FMA pipe.  The fp32
-  tolerance it is held to (2e-5) is out of reach of the tensor cores.
-  Blocks of 64 query positions (32 at D = 256), 16 for T <= 16.
+- float32 (path ``"fp32_tc"``): ``csrc/flash_attention_fp32tc.cu``, the
+  bf16 tensor cores (wgmma) in split precision, fed by TMA: each fp32
+  operand is split into ``FP32_TERMS`` bf16 terms that sum to it exactly,
+  and each product is the sum of the six term products that matter at
+  fp32 rounding.  One rounding of each operand to bf16 or TF32 would miss
+  the fp32 tolerance (2e-5); the split holds it.  One block per (batch, KV
+  head, tile of positions) holds all G query heads of the group: 128
+  (position, head) rows, 64 at D = 256.  Decode steps (T <= 16) take it
+  too: at those shapes it was faster than ``csrc/flash_attention.cu``,
+  the fp32 FMA kernel that took every fp32 call before it (PERF.md), which
+  no call takes now; chip_smoke.py times it beside this one.
 - bfloat16, T > 16 (prefill): ``csrc/flash_attention_prefill.cu``,
   tensor cores (wgmma) fed by TMA; one block per (batch, KV head, tile of
   positions) holds all G = H/KV query heads of the group: 192 (position,
@@ -58,21 +66,29 @@ from . import _build
 launches = 0
 #: The same calls by the kernel they launched (decode: its split kernel and
 #: its combine pass); set each to 0 with ``launches``.
-launches_by_path = {"fp32": 0, "prefill": 0, "decode": 0}
+launches_by_path = {"fp32_tc": 0, "prefill": 0, "decode": 0}
 
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 KEY_TILE = 64          # keys per K/V tile, in every kernel
 PREFILL_ROWS = 192     # (position, head) rows of a prefill block: 3 x 64
 DECODE_MAX_T = 16      # bf16 calls with at most this many positions decode
 DECODE_ROWS = 64       # (position, head) rows of a decode block at most
-# At D = 256: prefill rows 64, decode rows 32, fp32 blocks of 32 positions
+FP32_TC_ROWS = 128     # (position, head) rows of an fp32 tensor-core block
+FP32_TERMS = 3         # bf16 terms of each fp32 operand in that kernel (kTerms)
+# At D = 256: prefill rows 64, decode rows 32, fp32 tensor-core rows 64
 # (each kernel's source says why).
-D256_PREFILL_ROWS, D256_DECODE_ROWS, D256_FP32_BLOCK_Q = 64, 32, 32
+D256_PREFILL_ROWS, D256_DECODE_ROWS, D256_FP32_TC_ROWS = 64, 32, 64
+# The fp32 FMA kernel's blocks of query positions, 16 for T <= 16: the
+# instances that took every fp32 call before the tensor-core kernel, which
+# chip_smoke.py times beside it (no plan() gives it a call).
+FP32_BLOCK_Q, D256_FP32_BLOCK_Q = 64, 32
 H100_SMS = 132
 
 # path: (source under csrc/, C entry point, pointer and int arguments
 # before the float scale and the stream)
 _KERNELS = {"fp32": ("flash_attention", "repro_flash_attention_fwd", 7, 9),
+            "fp32_tc": ("flash_attention_fp32tc",
+                        "repro_flash_attention_fp32tc", 7, 9),
             "prefill": ("flash_attention_prefill",
                         "repro_flash_attention_prefill", 7, 9),
             "decode": ("flash_attention_decode",
@@ -82,8 +98,9 @@ _fns: dict[str, object] = {}
 
 @dataclass(frozen=True)
 class Plan:
-    """How one call runs.  ``block_q``: query positions per block (fp32;
-    prefill: the prefill rows at this D over G) or the call's T (decode).
+    """How one call runs.  ``block_q``: query positions per block (fp32_tc
+    and prefill: the block's rows at this D over G) or the call's T
+    (decode).
     ``blocks``: thread blocks of the main kernel.  Decode only: the keys go
     in ``splits`` splits of ``tiles_per_split`` tiles of ``KEY_TILE``, the
     G x T rows of a KV group in ``row_chunks`` chunks of at most the
@@ -105,17 +122,17 @@ def plan(b: int, t: int, s: int, h: int, kvh: int, d: int, dtype,
     log-sum-exp, which the decode kernel does not write."""
     g = h // kvh
     d256 = d == 256
-    if dtype == torch.float32:
-        bq = 16 if t <= 16 else D256_FP32_BLOCK_Q if d256 else 64
-        return Plan("fp32", bq, -(-t // bq) * b * h)
-    if t > DECODE_MAX_T or lse:
-        rows = D256_PREFILL_ROWS if d256 else PREFILL_ROWS
+    f32 = dtype == torch.float32
+    if f32 or t > DECODE_MAX_T or lse:
+        path = "fp32_tc" if f32 else "prefill"
+        rows = ((D256_FP32_TC_ROWS if d256 else FP32_TC_ROWS) if f32 else
+                D256_PREFILL_ROWS if d256 else PREFILL_ROWS)
         if g > rows:
             raise ValueError(f"H/KV = {g} query heads per KV head; the "
-                             f"prefill kernel holds at most {rows} at head "
+                             f"{path} kernel holds at most {rows} at head "
                              f"dim {d}")
         positions = rows // g
-        return Plan("prefill", positions, b * kvh * -(-t // positions))
+        return Plan(path, positions, b * kvh * -(-t // positions))
     chunks = -(-g * t // (D256_DECODE_ROWS if d256 else DECODE_ROWS))
     tiles = -(-s // KEY_TILE)
     # Enough splits that about 4 blocks per SM are in flight, none empty.
@@ -146,7 +163,7 @@ def _kernel(path: str):
 
 
 def _library():
-    """Builds and loads all three kernels."""
+    """Builds and loads every kernel, the fp32 FMA one included."""
     for path in _KERNELS:
         _kernel(path)
 

@@ -12,8 +12,15 @@ Which kernel runs is a fixed rule on dtype and chunk, made by :func:`plan`
 (pure Python, no device):
 
 - float32: ``csrc/mlstm_scan.cu`` (path ``"fma"``), on the fp32 FMA pipe.
-  The fp32 tolerance h is held to (rtol 5e-4, atol 5e-5) is out of reach of
-  the bf16 tensor cores.
+  One rounding of each operand to bf16 or TF32 would miss the fp32
+  tolerance h is held to (rtol 5e-4, atol 5e-5); a split of each operand
+  into three bf16 terms would not.  Such split tensor-core passes, tried on
+  the H100, were six times faster and no further from the float64 answer
+  than the plain fp32 version, but the fp32 checks hold the kernel to the
+  plain fp32 version element by element, and with forget gates near one at
+  D = 512 that version is itself outside the tolerance of float64 on a few
+  elements, where this kernel agrees with it and the split passes did not
+  (PERF.md, ROADMAP C21).
 - bfloat16 with ``chunk`` a multiple of 16 (path ``"tc"``):
   ``csrc/mlstm_scan_tc.cu``, two launches on the tensor cores (wgmma) fed
   by TMA: a state pass that carries C across the chunks and writes the

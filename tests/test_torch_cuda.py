@@ -93,6 +93,17 @@ CASES = {
     "noncausal_t1500": (1, 1500, 1500, 8, 8, 64, None, False, 0),
     "cross_t512_s1500": (2, 512, 1500, 8, 8, 64, [0] * 512, False, 0),
     "cross_decode_s1500": (4, 1, 1500, 8, 8, 64, [0], False, 0),
+    # the fp32 tensor-core kernel's hazards: rows of q and k whose entries
+    # span 1e-3 to 1e3 (reciprocal column scales, so scores stay O(1)) and
+    # v's columns from 1 to 1e-6, at D 64 and 256; G = 5 with T not a
+    # multiple of its blocks (25 positions at D <= 128, 12 at D = 256);
+    # queries at positions 300-339 of a 1024-slot cache filled to 339
+    "wide_range_d64": (2, 150, 150, 6, 2, 64, None, True, 0),
+    "wide_range_d256": (1, 100, 100, 4, 1, 256, None, True, 0),
+    "gqa5_d256_odd_t": (1, 77, 77, 10, 2, 256, None, True, 0),
+    "gqa5_d16_window": (2, 131, 131, 10, 2, 16, None, True, 20),
+    "cache_past_fill": (2, 40, 1024, 6, 2, 128, list(range(300, 340)), True,
+                        0),
 }
 ALL_MASKED = ("fully_masked_rows", "decode_all_masked",
               "fully_masked_rows_d256")
@@ -109,9 +120,13 @@ def cuda():
 def _inputs(name, dtype, device):
     b, t, s, h, kvh, d, q_pos, causal, window = CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
-    qkv = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-           .to(device=device, dtype=getattr(torch, dtype))
+    qkv = [rng.normal(size=shape).astype(np.float32)
            for shape in ((b, t, h, d), (b, s, kvh, d), (b, s, kvh, d))]
+    if name.startswith("wide_range"):
+        span = (10.0 ** np.linspace(-3, 3, d)).astype(np.float32)
+        qkv = [qkv[0] * span, qkv[1] / span, qkv[2] * span[::-1] / 1e3]
+    qkv = [torch.from_numpy(x).to(device=device, dtype=getattr(torch, dtype))
+           for x in qkv]
     if q_pos == "tail":
         q_pos = list(range(s - t, s))
     if q_pos is None:
@@ -124,13 +139,13 @@ def _inputs(name, dtype, device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_matches_plain_version(cuda, name, dtype):
-    """The kernel the wrapper picks (csrc/flash_attention.cu for fp32,
-    flash_attention_prefill.cu or flash_attention_decode.cu for bf16) vs
-    kernels.ref.reference_attention."""
+    """The kernel the wrapper picks (csrc/flash_attention_fp32tc.cu for
+    fp32, flash_attention_prefill.cu or flash_attention_decode.cu for bf16)
+    vs kernels.ref.reference_attention."""
     qkv, kw = _inputs(name, dtype, cuda)
     b, t, s, h, kvh, d = CASES[name][:6]
     path = fa.plan(b, t, s, h, kvh, d, getattr(torch, dtype)).path
-    assert path == ("fp32" if dtype == "float32" else
+    assert path == ("fp32_tc" if dtype == "float32" else
                     "decode" if t <= 16 else "prefill")
     before = fa.launches, fa.launches_by_path[path]
     got = fa.flash_attention(*qkv, **kw)
@@ -186,12 +201,14 @@ def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
                                   "some_rows_masked", "fully_masked_rows",
                                   "decode_t16", "decode_t2_d64", "decode_g1",
                                   "mqa_d256_window_tail", "gqa3_d256_odd",
-                                  "decode_t16_d256"])
+                                  "decode_t16_d256", "wide_range_d64",
+                                  "wide_range_d256", "gqa5_d256_odd_t",
+                                  "gqa5_d16_window", "cache_past_fill"])
 def test_function_and_lse_match_plain_version(cuda, name, dtype):
-    """The Function's forward on the card (the fp32 kernel, or the prefill
-    kernel in bf16 whatever T is) and its lse against the plain version;
-    dq, dk, dv against the plain version's autograd: lse atol 2e-5 (fp32)
-    and 1e-3 (bf16), gradients relative L2 1e-4 and 2e-2."""
+    """The Function's forward on the card (the fp32 tensor-core kernel, or
+    the prefill kernel in bf16 whatever T is) and its lse against the plain
+    version; dq, dk, dv against the plain version's autograd: lse atol 2e-5
+    (fp32) and 1e-3 (bf16), gradients relative L2 1e-4 and 2e-2."""
     from repro_torch.models import flash as MF
     qkv, kw = _inputs(name, dtype, cuda)
     s = qkv[1].shape[1]
@@ -199,7 +216,7 @@ def test_function_and_lse_match_plain_version(cuda, name, dtype):
     before = dict(fa.launches_by_path)
     with torch.no_grad():
         o, lse = fa.flash_attention(*qkv, **kw, return_lse=True)
-    path = "fp32" if dtype == "float32" else "prefill"
+    path = "fp32_tc" if dtype == "float32" else "prefill"
     assert fa.launches_by_path[path] == before[path] + 1
     assert fa.launches_by_path["decode"] == before["decode"]
     o_ref, lse_ref = reference_attention(*qkv, **kw, return_lse=True)
@@ -225,9 +242,9 @@ def test_function_and_lse_match_plain_version(cuda, name, dtype):
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m",
                                   "gemma3-1b", "starcoder2-3b"])
 def test_training_on_the_card_matches_the_cpu(cuda, arch):
-    """loss_and_grads of the reduced model in fp32, card (the fp32 kernel
-    through the Function) against CPU: loss rtol 1e-5, every gradient leaf
-    relative L2 1e-4."""
+    """loss_and_grads of the reduced model in fp32, card (the fp32
+    tensor-core kernel through the Function) against CPU: loss rtol 1e-5,
+    every gradient leaf relative L2 1e-4."""
     from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.runtime.trainer import loss_and_grads
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
@@ -236,12 +253,12 @@ def test_training_on_the_card_matches_the_cpu(cuda, arch):
     rng = np.random.default_rng(2)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
              for k in ("tokens", "labels")}
-    before = fa.launches_by_path["fp32"]
+    before = fa.launches_by_path["fp32_tc"]
     loss_c, _, g_c = loss_and_grads(
         tree_map(lambda _, a: a.to(cuda), params),
         {k: v.to(cuda) for k, v in batch.items()}, cfg)
     # remat "full": every layer's attention runs again in the backward
-    assert fa.launches_by_path["fp32"] - before == 2 * cfg.num_layers
+    assert fa.launches_by_path["fp32_tc"] - before == 2 * cfg.num_layers
     loss, _, g = loss_and_grads(params, batch, cfg)
     np.testing.assert_allclose(float(loss_c), float(loss), rtol=1e-5)
     for a, b in zip(tree_leaves(g_c), tree_leaves(g)):
@@ -290,7 +307,7 @@ def _chip_smoke():
 def test_model_on_the_card_matches_the_cpu(cuda, arch, head_dim):
     """prefill + decode_step with the kernels (card) vs with the plain
     versions (CPU), reduced config in float32: atol 1e-4.  gemma3-1b also
-    at its published head dim, 256 (the fp32 kernel's D = 256 instances).
+    at its published head dim, 256 (the fp32 tensor-core kernel's D = 256 instances).
     whisper-base gets seeded frames, internvl2-26b seeded patch
     embeddings; decode goes on at T + prefix."""
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
@@ -343,8 +360,13 @@ MLSTM_CASES = {
     "d48": (1, 128, 2, 48, 32, "normal"),
     "chunk16_d64": (1, 64, 2, 64, 16, "normal"),
     "chunk24_bf16": (1, 96, 2, 32, 24, "normal"),
+    # D = 512 with forget gates near one and over many chunks, each from a
+    # given state
+    "forget_near_one_state": (1, 1024, 2, 512, 256, "forget_near_one_state"),
+    "many_chunks_d512_state": (1, 1024, 1, 512, 64, "state"),
 }
-LF_SHIFT = {"forget_near_zero": -20.0, "forget_near_one": 20.0}
+LF_SHIFT = {"forget_near_zero": -20.0, "forget_near_one": 20.0,
+            "forget_near_one_state": 20.0}
 
 
 def _mlstm_inputs(name, dtype, device):
@@ -361,7 +383,7 @@ def _mlstm_inputs(name, dtype, device):
     gate_t = [torch.from_numpy(li).to(device),
               torch.nn.functional.logsigmoid(torch.from_numpy(lf)).to(device)]
     state = None
-    if gates == "state":
+    if gates.endswith("state"):
         state = (torch.from_numpy(draw(b, h, d, d, scale=0.1)).to(device),
                  torch.from_numpy(np.abs(draw(b, h, d))).to(device),
                  torch.from_numpy(draw(b, h)).to(device))

@@ -182,20 +182,25 @@ PLAN_SHAPES = [  # (b, t, s, h, kvh, d)
     (4, 512, 512, 24, 2, 128), (4, 1, 1024, 24, 2, 128),
     (2, 1024, 1024, 24, 2, 128),
 ]
-# (position, head) rows of a prefill block and of a decode block at most,
-# by head dim; fp32 query positions of a prefill block, by head dim.
+# (position, head) rows of a prefill block, of a decode block at most and
+# of an fp32 tensor-core block, by head dim.
 PREFILL_ROWS = {16: 192, 32: 192, 64: 192, 128: 192, 256: 64}
 DECODE_ROWS = {16: 64, 32: 64, 64: 64, 128: 64, 256: 32}
-FP32_BLOCK_Q = {16: 64, 32: 64, 64: 64, 128: 64, 256: 32}
+FP32_TC_ROWS = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_plan_fp32_always_takes_the_fma_kernel(shape):
+    """Every fp32 call, decode steps too, takes the tensor-core kernel (the
+    FMA kernel takes none): one block per (batch, KV head, tile of
+    positions) holds all G heads of the group, positions x G <= its
+    rows."""
     b, t, s, h, kvh, d = shape
     p = fa.plan(b, t, s, h, kvh, d, torch.float32)
-    assert p.path == "fp32" and p.scratch == ()
-    assert p.block_q == (16 if t <= 16 else FP32_BLOCK_Q[d])
-    assert p.blocks == -(-t // p.block_q) * b * h
+    g = h // kvh
+    assert p.path == "fp32_tc" and p.scratch == ()
+    assert p.block_q == FP32_TC_ROWS[d] // g
+    assert p.blocks == b * kvh * -(-t // p.block_q)
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
@@ -296,17 +301,16 @@ def test_plan_decode_row_chunks_at_d256(g, t, chunks):
     assert at_128.row_chunks == -(-g * t // 64)
 
 
-@pytest.mark.parametrize("t,bq", [(1, 16), (16, 16), (17, 32), (512, 32),
-                                  (1024, 32)])
+@pytest.mark.parametrize("t,bq", [(1, 16), (16, 16), (17, 16), (512, 16),
+                                  (1024, 16)])
 def test_plan_fp32_block_q_at_d256(t, bq):
-    """fp32 blocks at head dim 256 hold 32 query positions (16 for T <=
-    16), where D <= 128 holds 64: the kernel's instances are <16, 256>
-    and <32, 256>."""
+    """At head dim 256 (G = 4) an fp32 tensor-core block holds 64 rows, 16
+    positions of the group's 4 heads, where D <= 128 holds 128 rows (32
+    positions), whatever T is."""
     p = fa.plan(2, t, 1024, 4, 1, 256, torch.float32)
-    assert p.path == "fp32" and p.block_q == bq
-    assert p.blocks == -(-t // bq) * 2 * 4
-    assert fa.plan(2, t, 1024, 4, 1, 128, torch.float32).block_q == (
-        16 if t <= 16 else 64)
+    assert p.path == "fp32_tc" and p.block_q == bq
+    assert p.blocks == -(-t // bq) * 2 * 1
+    assert fa.plan(2, t, 1024, 4, 1, 128, torch.float32).block_q == 32
 
 
 # The mLSTM scan's plan: which kernel and grid a call gets, and the scratch
@@ -373,7 +377,8 @@ def test_mlstm_counts_launches_by_path():
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_plan_never_sends_a_call_that_needs_lse_to_decode(shape):
     """The decode kernel writes no log-sum-exp: a bf16 call that asks for
-    it takes the prefill kernel whatever its T; fp32 stays on its kernel."""
+    it takes the prefill kernel whatever its T; fp32 takes its kernel
+    either way."""
     b, t, s, h, kvh, d = shape
     p = fa.plan(b, t, s, h, kvh, d, torch.bfloat16, lse=True)
     g = h // kvh
