@@ -25,8 +25,9 @@ Phases, one JSON line each:
    lines at granite-moe-3b-a800m's serving shapes (D = 64), gemma3-1b's
    (D = 256: prefill, decode and the fp32 kernel at both), starcoder2-3b's
    (G = 12), hymba-1.5b's (G = 5, 640 positions; also in fp32),
-   internvl2-26b's (G = 6, 768
-   positions) and whisper-base's (its encoder, non-causal at T = S =
+   internvl2-26b's (G = 6, 768 positions; nemotron-4-15b's too),
+   qwen3-moe-30b-a3b's (G = 8: prefill blocks of 24 positions x 8 heads)
+   and whisper-base's (its encoder, non-causal at T = S =
    1500; cross-attention at T 512 and T 1 against S 1500), each naming the
    SDPA backend that ran; in fp32 the FMA kernels the tensor-core ones
    replaced are timed beside them;
@@ -44,6 +45,10 @@ Phases, one JSON line each:
    windows but on layers 0, 15 and 31) and whisper-base (a 6-layer
    encoder over 1500 zero frames, as the engine passes them, and
    cross-attention in its 6 decoder layers) at full width and depth,
+   nemotron-4-15b (layernorm, squared-ReLU MLP, G 6) with 16 of its 32
+   layers and qwen3-moe-30b-a3b (128 experts, top 8, the MoE's
+   single-shard path; qk-norm, G 8) with 8 of its 48, at full width, so
+   that the fp32 initialisation and the bf16 copy fit the card,
    random weights from a seed, each through ServingEngine: 4 requests
    (prompts 512/384/256/128, one sampled at temperature 0.8) x 32 new
    tokens, with every kernel's launch count in that run (set to 0 just
@@ -92,6 +97,16 @@ Phases, one JSON line each:
    memory and the idle share of a profiled step beside the step's bound
    (launch/analytic.py's ``train_cost``; for the attention models also
    ``train_step_work``);
+   then ``"phase": "shard"``: gemma3-1b at full width and depth, B2 T1024,
+   3 steps of the sharded train step (runtime.sharding: a (1, 1) "data" x
+   "model" mesh of a world-1 NCCL group, ``grad_specs=grad_accum_specs``)
+   against 3 unsharded steps from the same seed: losses within 1e-6
+   relative, every parameter leaf within relative L2 1e-5, two prefill
+   launches with lse and one backward call an attention layer a step; then
+   the sharded state saved through CheckpointManager (gathered, rank 0
+   writes) and restored with ``shardings=``, equal to the bit: step ms
+   beside the unsharded step's, peak memory, ``save_s``, ``restore_s``;
+   the group destroyed before the phase returns;
    then ``"phase": "extract"``: the collectives of a training step,
    recorded as the step posts them (repro_torch.workload.extract) in one
    process as rank 0 of an 8-rank recording group (torch's "fake"
@@ -177,6 +192,8 @@ import json
 import math
 import os
 import re
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -215,6 +232,9 @@ from repro_torch.workload import extract as XT  # noqa: E402
 from repro_torch.obs import telemetry  # noqa: E402
 from repro_torch.optim import OptConfig, adamw_update  # noqa: E402
 from repro_torch.runtime import trainer as TR  # noqa: E402
+from repro_torch.runtime import sharding as SH  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.models import convert as CV  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
@@ -361,7 +381,13 @@ LOGITS_TOL = 5e-2
 LOGITS_CHECK_DTYPE = {"llama3.2-3b": "bfloat16", "xlstm-350m": "float32",
                       "granite-moe-3b-a800m": "bfloat16",
                       "gemma3-1b": "bfloat16", "starcoder2-3b": "bfloat16",
-                      "hymba-1.5b": "float32", "whisper-base": "bfloat16"}
+                      "hymba-1.5b": "float32", "whisper-base": "bfloat16",
+                      "nemotron-4-15b": "bfloat16",
+                      "qwen3-moe-30b-a3b": "bfloat16"}
+#: Served cut in depth alone, so that the fp32 initialisation and the bf16
+#: copy fit the card: nemotron-4-15b 16 of 32 layers (9.39 B parameters,
+#: 37.6 GB fp32 + 18.8 GB bf16), qwen3-moe-30b-a3b 8 of 48 (5.6 B).
+SERVE_LAYERS = {"nemotron-4-15b": 16, "qwen3-moe-30b-a3b": 8}
 INPUT_NOISE = 2.0 ** -9                  # half a bf16 ulp, relative
 
 # The serving runs: 4 slots, prompts left-padded to 512, a 1024-slot cache.
@@ -1099,13 +1125,23 @@ def hymba_layers_check(params, batch, cfg, seq):
     return {"layers_rel_l2_vs_plain": rel, "layers_max_rel_l2": worst}
 
 
+def cut_depth(cfg, layers):
+    """``cfg`` with its first ``layers`` layers: width as published."""
+    return dataclasses.replace(cfg, num_layers=layers,
+                               block_pattern=cfg.block_pattern[:layers],
+                               windows=cfg.windows[:layers])
+
+
 def phase_serve(arch):
-    """One serve run of ``arch`` (bf16) and its checks.  Returns the run's
-    launches (counts set to 0 just before ``eng.run()``), its arrival
-    trace, and the launches of prefill_logits_check (counts set to 0 just
-    before it): the fp32 prefills of the models held in fp32 among them."""
+    """One serve run of ``arch`` (bf16) and its checks, at ``SERVE_LAYERS``'
+    depth where it names one.  Returns the run's launches (counts set to 0
+    just before ``eng.run()``), its arrival trace, and the launches of
+    prefill_logits_check (counts set to 0 just before it): the fp32
+    prefills of the models held in fp32 among them."""
     phase_t0 = time.perf_counter()
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = cut_depth(full, SERVE_LAYERS[arch]) if arch in SERVE_LAYERS \
+        else full
     t0 = time.perf_counter()
     params = init_params(SEED, cfg, device="cuda")
     eng = ServingEngine(cfg, params, slots=len(PROMPTS), max_seq=MAX_SEQ,
@@ -1168,7 +1204,13 @@ def phase_serve(arch):
                 d_ff=cfg.d_ff, capacity_factor=cfg.capacity_factor,
                 moe_path="single shard (dense)")
            if cfg.is_moe else {})
-    emit("serve", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+    cut = ({"layers_published": full.num_layers,
+            "reduced": f"depth: {cfg.num_layers} of {full.num_layers} "
+                       "layers, so that the fp32 parameters and their bf16 "
+                       "copy fit one card; width as published"}
+           if cfg.num_layers != full.num_layers else {})
+    emit("serve", model=cfg.name, layers=cfg.num_layers, **cut,
+         d_model=cfg.d_model,
          heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
          head_dim=cfg.head_dim, vocab=cfg.vocab_size,
          params_stored=sum(a.numel() for a in _leaves(eng.params)), **moe,
@@ -1218,9 +1260,7 @@ def phase_vlm_prefill(device="cuda", sizes=VLM):
     full = get_config(sizes["arch"])
     base = full.reduced() if sizes["reduced"] else full
     n = sizes["layers"]
-    cfg = dataclasses.replace(base, num_layers=n,
-                              block_pattern=base.block_pattern[:n],
-                              windows=base.windows[:n])
+    cfg = cut_depth(base, n)
     params = init_params(SEED, cfg, device=device)
     n_params = sum(a.numel() for a in _leaves(params))
     p = TT.cast_params(params, cfg, device)
@@ -2365,6 +2405,183 @@ def phase_train(device="cuda", sizes=TRAIN_FULL, launched=None):
         lines[arch] = full
     emit("train_phase", device=device, seconds=time.perf_counter() - t0)
     return lines, timing
+
+
+#: Phase ``shard``: gemma3-1b at full width and depth (1.00 B fp32
+#: parameters), B2 T1024 as phase ``train`` trains it, 3 sharded steps on a
+#: (1, 1) mesh of a world-1 group against 3 unsharded steps from the same
+#: seed and batches; the tiny sizes rehearse it on the CPU (gloo).
+SHARD_FULL = {"arch": "gemma3-1b", "reduced": False, "seq": 1024,
+              "batch": 2, "steps": 3}
+SHARD_TINY = {"arch": "gemma3-1b", "reduced": True, "seq": 32, "batch": 2,
+              "steps": 3}
+SHARD_LOSS_RTOL = 1e-6
+SHARD_PARAM_REL_L2 = 1e-5
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_shard(device="cuda", sizes=SHARD_FULL):
+    """The sharded train step (runtime.sharding, make_train_step on a
+    DeviceMesh with ``grad_specs=grad_accum_specs``) of gemma3-1b on a
+    (1, 1) ("data", "model") mesh of a world-1 group (NCCL on the card),
+    against the unsharded step: every loss within SHARD_LOSS_RTOL and every
+    parameter leaf after the last step within relative L2
+    SHARD_PARAM_REL_L2 of the unsharded run; one prefill launch with lse an
+    attention layer a forward (two a step under remat "full"), one
+    backward call a layer a step.  Then the sharded state is saved
+    (CheckpointManager.save of DTensors: gathered, written by rank 0) and
+    restored with ``shardings=``, equal to the bit.  The group is destroyed
+    before the phase returns, also when it fails.  Returns the sharded
+    steps' launches (counts set to 0 just before them)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    t0 = time.perf_counter()
+    cfg = get_config(sizes["arch"])
+    if sizes["reduced"]:
+        cfg = dataclasses.replace(cfg.reduced(), remat="full")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=sizes["seq"],
+                      global_batch=sizes["batch"])
+    batches = [host_batch(data, i) for i in range(sizes["steps"])]
+    opt = OptConfig(**FULL_OPT)
+    attn = cfg.block_pattern.count("attn")
+
+    def run(state, step):
+        losses, step_ms, launched = [], [], []
+        for b in batches:
+            before = kernel_launches()
+            bwd = MF.backward_calls
+            _sync(device)
+            t1 = time.perf_counter()
+            state, m = step(state, b)
+            _sync(device)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+            launched.append(({k: n - before[k]
+                              for k, n in kernel_launches().items()},
+                             MF.backward_calls - bwd))
+        return state, losses, step_ms, launched
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    state = TR.init_train_state(SEED, cfg, device=device)
+    n_params = sum(a.numel() for _, a in _named_leaves(state["params"]))
+    state, plain_losses, plain_ms, _ = run(
+        state, TR.make_train_step(cfg, TR.make_rules(None), opt))
+    want_params = {n: a.to("cpu", copy=True)
+                   for n, a in _named_leaves(state["params"])}
+    del state
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    tmp = tempfile.mkdtemp(prefix=".shard_ckpt_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        mesh = init_device_mesh(device, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = TR.make_rules(mesh)
+        full = TR.init_train_state(SEED, cfg, device=device)
+        specs = SH.state_specs(full["params"], cfg, rules)
+        state = SH.shard_tree(full, specs, mesh)
+        del full
+        step = TR.make_train_step(cfg, rules, opt, grad_specs=(
+            SH.grad_accum_specs(state["params"], cfg, rules)))
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        MF.backward_calls = 0
+        state, losses, step_ms, launched = run(state, step)
+        launches = dict(kernel_launches(),
+                        flash_attention_backward=MF.backward_calls)
+        peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+                   if device == "cuda" else None)
+        want = {"flash_attention_prefill": 2 * attn,
+                "flash_attention_decode": 0, "flash_attention_fp32_tc": 0,
+                "mlstm_scan_tc": 0, "mlstm_scan_fma": 0}
+        for i, (got, bwd) in enumerate(launched):
+            if bwd != attn or (device == "cuda" and any(
+                    got[k] != n for k, n in want.items())):
+                raise AssertionError(f"sharded step {i}: launches {got}, "
+                                     f"backward calls {bwd}; want {want} "
+                                     f"and {attn}")
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                         plain_losses)]
+        if not all(math.isfinite(x) for x in losses) or \
+                max(loss_rel) > SHARD_LOSS_RTOL:
+            raise AssertionError(f"sharded losses {losses} against "
+                                 f"{plain_losses}")
+        got_params = {n: a.full_tensor().cpu()
+                      for n, a in _named_leaves(state["params"])}
+        rel = {n: rel_l2(got_params[n], w) if w.norm() > 0
+               else float((got_params[n] - w).norm())
+               for n, w in want_params.items()}
+        worst = max(rel, key=rel.get)
+        if rel[worst] > SHARD_PARAM_REL_L2:
+            raise AssertionError(f"parameter {worst}: relative L2 "
+                                 f"{rel[worst]} from the unsharded run")
+        del got_params, want_params
+
+        # the checkpoint: the gathered state, then restored onto the mesh
+        mgr = CheckpointManager(tmp, keep=1)
+        _sync(device)
+        t1 = time.perf_counter()
+        mgr.save(sizes["steps"], CV.train_state_to_reference(state, cfg),
+                 blocking=True)
+        save_s = time.perf_counter() - t1
+        gc.collect()
+        npz_gb = os.path.getsize(os.path.join(
+            tmp, f"step_{sizes['steps']:08d}", "data.npz")) / 1e9
+        like = CV.train_state_like(state, cfg)
+        t1 = time.perf_counter()
+        restored = CV.train_state_from_reference(mgr.restore(
+            sizes["steps"], like,
+            shardings=SH.checkpoint_shardings(specs, cfg, mesh)), cfg)
+        _sync(device)
+        restore_s = time.perf_counter() - t1
+        unequal = []
+        SH.spec_map(lambda path, a, b: unequal.append(path) if not (
+            tuple(a.placements) == tuple(b.placements)
+            and torch.equal(a.to_local(), b.to_local())) else None,
+            state, restored)
+        if unequal:
+            raise AssertionError(f"restored leaves differ: {unequal[:4]}")
+        leaves = len(_leaves(state["params"])) * 3 + 2
+        del state, restored, step
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("shard", device=device, model=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params,
+         mesh={"data": 1, "model": 1}, backend=("nccl" if device == "cuda"
+                                                else "gloo"),
+         grad_specs="grad_accum_specs", batch=sizes["batch"],
+         seq=sizes["seq"], steps=sizes["steps"], losses=losses,
+         unsharded_losses=plain_losses, loss_rel_diff_max=max(loss_rel),
+         param_rel_l2_max=rel[worst], param_rel_l2_worst_leaf=worst,
+         step_ms=step_ms, step_ms_mean_2_on=statistics.mean(step_ms[1:]),
+         unsharded_step_ms=plain_ms,
+         unsharded_step_ms_mean_2_on=statistics.mean(plain_ms[1:]),
+         peak_memory_gb=peak_gb, launches=launches,
+         launches_per_step={k: v / sizes["steps"]
+                            for k, v in launches.items()},
+         checkpoint_gb=npz_gb, checkpoint_leaves=leaves, save_s=save_s,
+         restore_s=restore_s, restored_equal=True,
+         seconds=time.perf_counter() - t0)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4379,6 +4596,15 @@ def main():
     ipre = time_attention("prefill", b, ipos, ipos, iv.num_heads,
                           iv.num_kv_heads, iv.head_dim, None, copies=1,
                           phase="attention", model=iv.name)
+    # qwen3-moe-30b-a3b's: G = 32/4 = 8 (prefill blocks of 24 positions x
+    # 8 heads: 192 rows); nemotron-4-15b's is internvl2-26b's (G 6)
+    q3 = get_config("qwen3-moe-30b-a3b")
+    q3shape = (q3.num_heads, q3.num_kv_heads, q3.head_dim)
+    qpre = time_attention("prefill", b, max(PROMPTS), max(PROMPTS),
+                          *q3shape, None, copies=1, phase="attention",
+                          model=q3.name)
+    qdec = time_attention("decode", b, 1, MAX_SEQ, *q3shape, [DECODE_POS],
+                          copies=8, phase="attention", model=q3.name)
     # whisper-base's: the encoder (non-causal over 1500 frames), and
     # cross-attention from position 0 against them at prefill and decode
     w = get_config("whisper-base")
@@ -4403,11 +4629,14 @@ def main():
     starcoder, _, _ = phase_serve("starcoder2-3b")
     hymba, _, hymba_check = phase_serve("hymba-1.5b")
     whisper, _, _ = phase_serve("whisper-base")
+    nemotron, _, _ = phase_serve("nemotron-4-15b")
+    qwen3, _, _ = phase_serve("qwen3-moe-30b-a3b")
     vlm = phase_vlm_prefill()
     phase_moe()
     train_launched = {}
     train_lines, train_timing = phase_train(launched=train_launched)
     train = {arch: line["launches"] for arch, line in train_lines.items()}
+    shard = phase_shard()
     extract_dp_launches = phase_extract(trace=llama_trace, card=smi)
     phase_sim()
     phase_studies()
@@ -4434,10 +4663,15 @@ def main():
     serve_runs = {"llama3.2-3b": llama, "xlstm-350m": xlstm,
                   "granite-moe-3b-a800m": granite, "gemma3-1b": gemma,
                   "starcoder2-3b": starcoder, "hymba-1.5b": hymba,
-                  "whisper-base": whisper}
+                  "whisper-base": whisper,
+                  f"nemotron-4-15b ({SERVE_LAYERS['nemotron-4-15b']} layers)":
+                      nemotron,
+                  f"qwen3-moe-30b-a3b ({SERVE_LAYERS['qwen3-moe-30b-a3b']} "
+                  "layers)": qwen3}
     train_runs = {f"train {arch}": run for arch, run in train.items()}
     prefill_runs = dict(serve_runs, **train_runs,
                         **{"extract dp llama3.2-3b": extract_dp_launches,
+                           f"shard {SHARD_FULL['arch']}": shard,
                            f"prefill {VLM['arch']} ({VLM['layers']} layers)":
                                vlm})
     # Every run that drives the fp32 kernels: the serve phase's fp32
@@ -4495,6 +4729,7 @@ def main():
                   "training_shape_gqa12"),
               at_gqa5={k: ypre[k] for k in at},
               at_gqa6={k: ipre[k] for k in at},
+              at_gqa8={k: qpre[k] for k in at},
               at_cross_s1500={k: wx[k] for k in at},
               at_encoder_t1500={k: wenc[k] for k in at}),
         entry("flash_attention", "decode", "flash_attention_decode.cu", attn,
@@ -4502,6 +4737,7 @@ def main():
               at_d256={k: mdec[k] for k in at},
               at_gqa12={k: cdec[k] for k in at},
               at_gqa5={k: ydec[k] for k in at},
+              at_gqa8={k: qdec[k] for k in at},
               at_cross_s1500={k: wxd[k] for k in at}),
         entry("flash_attention", "fp32_tc", "flash_attention_fp32tc.cu", attn,
               fp32, fp32_runs, ("fma_ms", "fma_max_abs_err",

@@ -31,12 +31,19 @@ class AxisRules:
     ``dp``   — batch-parallel axes (("pod","data") on the multi-pod mesh).
     ``tp``   — tensor/expert-parallel axis ("model").
     ``mesh`` — the ``torch.distributed`` ``DeviceMesh`` the axes name
-               (needed by the LACIN expert-parallel MoE dispatch).
+               (needed by the LACIN expert-parallel MoE dispatch), or any
+               object with ``mesh_dim_names`` and ``size(i)``: specs need
+               no process group.
+    ``global_router_stats`` — the MoE's aux and z losses from router
+               statistics summed over the ``dp`` axes, the single-device
+               numbers (the sharded train step's); else each shard's own,
+               averaged over ``dp`` (the reference's ``shard_map``).
     Default-constructed rules mean a single device.
     """
     dp: tuple[str, ...] = ()
     tp: str | None = None
     mesh: object = None
+    global_router_stats: bool = False
 
     def axis_size(self, axis: str) -> int:
         return int(self.mesh.size(self.mesh.mesh_dim_names.index(axis)))
@@ -47,21 +54,37 @@ class AxisRules:
             return 1
         return self.axis_size(self.tp)
 
+    @property
+    def dp_size(self) -> int:
+        if not self.dp or self.mesh is None:
+            return 1
+        return math.prod(self.axis_size(a) for a in self.dp)
+
 
 # ---------------------------------------------------------------------------
 # Initializers (same distributions as the reference, from a torch.Generator).
 # ---------------------------------------------------------------------------
 
+class ShapesOnly:
+    """Stands in for the generator where nothing is drawn: the ``init_*``
+    functions then give tensors on the ``meta`` device, shapes and dtypes
+    without data (the reference's ``jax.eval_shape``)."""
+    device = torch.device("meta")
+
+
+def _randn(gen, shape):
+    return torch.randn(shape, device=gen.device, generator=(
+        gen if isinstance(gen, torch.Generator) else None))
+
+
 def dense_init(gen: torch.Generator, shape, dtype, fan_in=None):
     fan_in = fan_in if fan_in is not None else shape[0]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(shape, generator=gen, device=gen.device)
-    return (x * scale).to(dtype)
+    return (_randn(gen, shape) * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
-    x = torch.randn(shape, generator=gen, device=gen.device)
-    return (x * 0.02).to(dtype)
+    return (_randn(gen, shape) * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

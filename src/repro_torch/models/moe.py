@@ -145,23 +145,34 @@ def _combine(out_buf, slot, valid, gates, t: int, k: int, dtype):
     return (picked.reshape(t, k, d) * gates[..., None].to(dtype)).sum(dim=1)
 
 
-def moe_losses(logits, probs, flat_e, t: int, k: int):
+def moe_losses(logits, probs, flat_e, t: int, k: int, reduce=None,
+               shards: int = 1):
     """Switch-style load-balance aux loss and router z-loss from one
-    call's router statistics (local to this rank)."""
+    call's router statistics (local to this rank).  ``reduce``, a sum over
+    ``shards`` data-parallel shards of ``t`` tokens each, makes them the
+    statistics of every shard's tokens together: what one device computes
+    on the whole batch."""
     e_real = probs.shape[1]
-    me = probs.mean(dim=0)                                # (E_real,)
-    ce = torch.zeros((e_real,), dtype=torch.float32,
-                     device=probs.device).index_add(
+    counts = torch.zeros((e_real,), dtype=torch.float32,
+                         device=probs.device).index_add(
         0, flat_e.clamp(0, e_real - 1),
-        torch.ones(flat_e.shape, dtype=torch.float32, device=probs.device)
-    ) / max(t * k, 1)
+        torch.ones(flat_e.shape, dtype=torch.float32, device=probs.device))
+    if reduce is None:
+        me = probs.mean(dim=0)                            # (E_real,)
+        ce = counts / max(t * k, 1)
+        aux = e_real * (me * ce).sum()
+        zloss = torch.logsumexp(logits, dim=-1).square().mean()
+        return aux, zloss
+    n = t * shards
+    me = reduce(probs.sum(dim=0)) / n
+    ce = reduce(counts) / max(n * k, 1)
     aux = e_real * (me * ce).sum()
-    zloss = torch.logsumexp(logits, dim=-1).square().mean()
+    zloss = reduce(torch.logsumexp(logits, dim=-1).square().sum()) / n
     return aux, zloss
 
 
 def _moe_local(p, x, cfg, coll: LacinCollectives | None, axis_name, *,
-               losses: bool = True):
+               losses: bool = True, reduce=None, shards: int = 1):
     """The per-rank MoE body.  x: (Tloc, d) local tokens.  Returns
     (y, aux, z); ``losses=False`` skips :func:`moe_losses` (aux and z are
     None), as serving does: the reference's jit drops them as dead code.
@@ -206,7 +217,7 @@ def _moe_local(p, x, cfg, coll: LacinCollectives | None, axis_name, *,
     y = _combine(out_buf, slot, valid, gates, t, k, x.dtype)
     if not losses:
         return y, None, None
-    return (y, *moe_losses(logits, probs, flat_e, t, k))
+    return (y, *moe_losses(logits, probs, flat_e, t, k, reduce, shards))
 
 
 def apply_moe(p: dict, x, cfg, rules: AxisRules = AxisRules(), *,
@@ -217,15 +228,18 @@ def apply_moe(p: dict, x, cfg, rules: AxisRules = AxisRules(), *,
     rank's data-parallel shard and ``p`` its expert slice
     (:func:`expert_slice`; ``repro_torch.models.convert.expert_shard`` for
     a whole model).  ``moe_aux`` and ``moe_z`` are then averaged over the
-    ``rules.dp`` axes (the reference's ``lax.pmean``).  The dense path
+    ``rules.dp`` axes (the reference's ``lax.pmean``), or, with
+    ``rules.global_router_stats``, computed from statistics summed over
+    them (on either path).  The dense path
     runs inline (single shard, the whole store).  ``losses=False`` (prefill
     and decode) computes neither loss and returns an empty dict, so the
     data shards need not step together.
     """
     b, t, d = x.shape
+    reduce, shards = _router_stats_sum(rules) if losses else (None, 1)
     if cfg.moe_impl == "dense" or rules.tp is None or rules.tp_size == 1:
         y2, aux, z = _moe_local(p, x.reshape(b * t, d), cfg, None, None,
-                                losses=losses)
+                                losses=losses, reduce=reduce, shards=shards)
         return y2.reshape(b, t, d), ({"moe_aux": aux, "moe_z": z}
                                      if losses else {})
 
@@ -239,12 +253,27 @@ def apply_moe(p: dict, x, cfg, rules: AxisRules = AxisRules(), *,
             f"this rank holds {p['wi'].shape[0]} experts, not its slice of "
             f"{e_loc} of the store over {n_shards} shards (expert_slice)")
     y2, aux, z = _moe_local(p, x.reshape(b * t, d), cfg, coll, rules.tp,
-                            losses=losses)
+                            losses=losses, reduce=reduce, shards=shards)
     if not losses:
         return y2.reshape(b, t, d), {}
-    for axis in rules.dp:
-        n = rules.axis_size(axis)
-        group = rules.mesh.get_group(axis)
-        aux = library_all_reduce(aux, group) / n
-        z = library_all_reduce(z, group) / n
+    if reduce is None:
+        for axis in rules.dp:
+            n = rules.axis_size(axis)
+            group = rules.mesh.get_group(axis)
+            aux = library_all_reduce(aux, group) / n
+            z = library_all_reduce(z, group) / n
     return y2.reshape(b, t, d), {"moe_aux": aux, "moe_z": z}
+
+
+def _router_stats_sum(rules: AxisRules):
+    """(sum over the ``dp`` axes, their shard count) where the rules ask
+    for global router statistics, else (None, 1)."""
+    if not (rules.global_router_stats and rules.dp and rules.mesh is not None):
+        return None, 1
+    groups = [rules.mesh.get_group(a) for a in rules.dp]
+
+    def reduce(x):
+        for group in groups:
+            x = library_all_reduce(x, group)
+        return x
+    return reduce, rules.dp_size

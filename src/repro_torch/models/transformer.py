@@ -225,11 +225,14 @@ def init_block(kind: str, gen: torch.Generator, cfg: ModelConfig,
 
 def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
     """Random parameters in ``cfg.param_dtype``, with the reference's
-    distributions, drawn from a ``torch.Generator`` seeded with ``seed``."""
+    distributions, drawn from a ``torch.Generator`` seeded with ``seed``.
+    ``device="meta"`` draws nothing: shapes and dtypes alone
+    (:func:`param_shapes`)."""
     device = resolve_device(device)
     specs = _layer_specs(cfg)
     dtype = getattr(torch, cfg.param_dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (L.ShapesOnly() if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     params: dict = {"embed": L.init_embed(gen, cfg, dtype),
                     "layers": [init_block(kind, gen, cfg, dtype)
                                for kind, _, _ in specs],
@@ -245,6 +248,13 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
         params["meta_tokens"] = L.embed_init(
             gen, (cfg.num_meta_tokens, cfg.d_model), dtype)
     return params
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """:func:`init_params`' tree as tensors on the ``meta`` device: no data,
+    so a 30 B-parameter config costs nothing (the reference's
+    ``jax.eval_shape`` of ``init_params``)."""
+    return init_params(0, cfg, device="meta")
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,

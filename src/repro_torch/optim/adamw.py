@@ -116,11 +116,13 @@ def _ndim_as_stored(path, p) -> int:
     return p.dim() + int(bool(path) and path[0] == "layers")
 
 
-def adamw_update(params, grads, state, opt: OptConfig):
+def adamw_update(params, grads, state, opt: OptConfig, *, grad_norm=None):
     """One AdamW step; returns (params, new_state, metrics).  ``params``,
     ``state["m"]`` and ``state["v"]`` are updated in place; ``grads`` are
-    read only.  Metrics: ``grad_norm`` (before clipping) and ``lr``."""
-    gnorm = global_norm(grads)
+    read only.  Metrics: ``grad_norm`` (before clipping) and ``lr``.
+    ``grad_norm``, when given, is the norm to clip by: a sharded step's
+    trees hold this rank's shards, and the norm is over all of them."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gnorm, opt.clip_norm)
     step = state["step"] + 1
     lr = schedule(opt, step)

@@ -1,4 +1,4 @@
-"""Training runtime: train steps, the crash-only loop, explicit data
+"""Training runtime: train steps (single-device, and sharded over a
+``DeviceMesh`` by ``sharding``'s specs), the crash-only loop, explicit data
 parallelism with the LACIN gradient all-reduce and the GPipe pipeline
-(port of ``repro.runtime``; ``sharding`` is not ported yet, ROADMAP queue
-A, item 10(b))."""
+(port of ``repro.runtime``)."""

@@ -54,6 +54,10 @@ CASES = {
     "decode_g1": (2, 1, 300, 4, 4, 128, [250], True, 0),
     "gqa4_d128_tail": (1, 100, 140, 8, 2, 128, "tail", True, 0),
     "gqa8_d64": (1, 90, 90, 16, 2, 64, None, True, 0),
+    # G = 8 at qwen3-moe-30b-a3b's head shape (H32 KV4 D128): prefill
+    # blocks of 24 positions x 8 heads, and its decode
+    "gqa8_d128_qwen3": (2, 200, 200, 32, 4, 128, None, True, 0),
+    "decode_gqa8_d128_qwen3": (4, 1, 1024, 32, 4, 128, [527], True, 0),
     "decode_gqa8_t16": (1, 16, 200, 16, 2, 64, "tail", True, 0),
     # D = 16 on the tensor cores, and S below one 64-key tile
     "d16_gqa4": (2, 70, 70, 8, 2, 16, None, True, 0),

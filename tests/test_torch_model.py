@@ -43,6 +43,9 @@ ARCHS = ["llama3.2-3b", "lacin-demo", "xlstm-350m", "gemma3-1b",
 #: tokens), whisper-base (encoder, cross-attention), internvl2-26b (patch
 #: prefixes).
 PREFIX_ARCHS = ["hymba-1.5b", "whisper-base", "internvl2-26b"]
+#: nemotron-4-15b (layernorm, squared-ReLU MLP, untied head) and
+#: qwen3-moe-30b-a3b (qk-norm, every layer a MoE).
+SERVED_ARCHS = ["nemotron-4-15b", "qwen3-moe-30b-a3b"]
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": dict(rtol=0, atol=1e-5), "bfloat16": dict(rtol=0, atol=2e-2)}
 CACHE_TOL = dict(TOL, bfloat16=dict(rtol=0, atol=6.25e-2))
@@ -98,7 +101,7 @@ def _models(arch, dtype, seed=0, **kw):
     return cj, ct, pj, pt
 
 
-@pytest.mark.parametrize("arch", ARCHS + PREFIX_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + PREFIX_ARCHS + SERVED_ARCHS)
 def test_config_copy_matches_reference(arch):
     """repro_torch.models.config is a copy of repro.models.config."""
     for j, t in ((jax_get_config(arch), get_config(arch)),
@@ -307,6 +310,17 @@ def test_prefill_and_decode_match_reference(arch, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
+def test_served_archs_prefill_and_decode_match_reference(arch, dtype):
+    """nemotron-4-15b and qwen3-moe-30b-a3b reduced: logits and caches of
+    repro.models.transformer.prefill and decode_step; in bf16 against the
+    reference with its layers unrolled, as starcoder2-3b's (its
+    ``lax.scan`` over layers rounds bf16 otherwise, C17)."""
+    _check_prefill_and_decode(arch, dtype, t=11, seq_len=24,
+                              scan_layers=dtype == "float32")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_starcoder2_prefill_and_decode_match_reference(dtype):
     """starcoder2-3b reduced (layernorm, gelu and biases; 4 query heads a KV
     head): the same, against the reference with its layers unrolled
@@ -458,7 +472,7 @@ def test_cast_params_keeps_what_the_reference_cast_keeps():
             "in_proj": "bfloat16"}
 
 
-@pytest.mark.parametrize("arch", ARCHS + PREFIX_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + PREFIX_ARCHS + SERVED_ARCHS)
 def test_init_params_matches_reference_tree(arch):
     """repro.models.transformer.init_params: same leaves, shapes, dtypes and
     scales (the draws differ: torch.Generator vs jax.random), the

@@ -1,8 +1,8 @@
 """repro_torch.serving.ServingEngine against the JAX reference
 repro.serving.engine.ServingEngine, on the CPU.
 
-Both engines serve the reduced llama3.2-3b, and the reduced xlstm-350m, in
-a float32 config with the same weights (the reference's
+Both engines serve the reduced llama3.2-3b, xlstm-350m, nemotron-4-15b and
+qwen3-moe-30b-a3b, in a float32 config with the same weights (the reference's
 ``init_params(PRNGKey(0))`` through ``params_from_numpy``).  Prompts of
 unequal length exercise the left-pad path; greedy tokens must be equal, and
 for the xLSTM the sampled ones too.
@@ -62,6 +62,34 @@ def test_greedy_tokens_equal_reference_engine():
         done = eng.run()
         assert len(done) == len(reqs)
         assert eng.pos == max(lengths) + max_new
+        outs.append({r.rid: r.out_tokens for r in done})
+    want, got = outs
+    for rid in (0, 1, 2):
+        assert got[rid] == want[rid]
+    assert len(got[3]) == max_new
+    assert all(0 <= t < cj.vocab_size for t in got[3])
+
+
+@pytest.mark.parametrize("arch", ["nemotron-4-15b", "qwen3-moe-30b-a3b"])
+def test_served_archs_tokens_equal_reference_engine(arch):
+    """nemotron-4-15b and qwen3-moe-30b-a3b reduced, in float32: greedy
+    out_tokens equal repro.serving.engine.ServingEngine's, the sampled
+    request valid ids."""
+    cj = dataclasses.replace(jax_get_config(arch).reduced(), dtype="float32")
+    ct = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    pj = jax_init_params(jax.random.PRNGKey(0), cj)
+    pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), ct,
+                           device="cpu")
+    lengths, temps, max_new = [5, 9, 3, 7], [0.0, 0.0, 0.0, 0.8], 6
+    outs = []
+    for eng, cls in ((JServingEngine(cj, pj, slots=4, max_seq=32), JRequest),
+                     (ServingEngine(ct, pt, slots=4, max_seq=32, device="cpu"),
+                      Request)):
+        reqs = _requests(cls, cj.vocab_size, lengths, temps, max_new)
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+        assert len(done) == len(reqs)
         outs.append({r.rid: r.out_tokens for r in done})
     want, got = outs
     for rid in (0, 1, 2):

@@ -124,7 +124,8 @@ def _check_forward_train(arch, remat, t=24):
 @pytest.mark.parametrize("arch,remat", [
     ("llama3.2-3b", "none"), ("llama3.2-3b", "full"), ("llama3.2-3b", "dots"),
     ("granite-moe-3b-a800m", "full"), ("granite-moe-3b-a800m", "dots"),
-    ("gemma3-1b", "full"), ("starcoder2-3b", "full")])
+    ("gemma3-1b", "full"), ("starcoder2-3b", "full"),
+    ("nemotron-4-15b", "full"), ("qwen3-moe-30b-a3b", "full")])
 def test_forward_train_matches_reference(arch, remat):
     """Loss, metrics and every gradient against jax.value_and_grad of
     repro.models.transformer.forward_train, under each remat policy."""
@@ -176,7 +177,8 @@ def _check_train_steps(arch, grad_accum, steps=3, t=24):
 
 
 @pytest.mark.parametrize("arch,grad_accum", [
-    ("llama3.2-3b", 1), ("llama3.2-3b", 2), ("granite-moe-3b-a800m", 1)])
+    ("llama3.2-3b", 1), ("llama3.2-3b", 2), ("granite-moe-3b-a800m", 1),
+    ("nemotron-4-15b", 1)])
 def test_make_train_step_matches_reference(arch, grad_accum):
     """3 steps of make_train_step against the reference's on the same
     weights and batches: losses, then every parameter, m and v."""
@@ -262,15 +264,27 @@ def test_train_state_round_trip_is_exact(arch):
 
 
 def test_untrainable_configs_raise():
-    """Parts not ported raise naming ROADMAP item 10(a); sharded steps name
-    the sharding item."""
+    """Parts not ported raise naming ROADMAP item 10(a); a step on a mesh,
+    with ``grad_specs``, builds (it is held on gloo ranks in
+    tests/test_torch_sharding.py)."""
     base = get_config("llama3.2-3b").reduced()
     with pytest.raises(NotImplementedError, match=r"ROADMAP .*10\(a\)"):
         TTR.init_train_state(0, dataclasses.replace(base, num_meta_tokens=2),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match=r"10\(b\)"):
-        TTR.make_train_step(base, TTR.make_rules(None), OptConfig(),
-                            grad_specs={})
+
+    class OneRankMesh:
+        """A (1, 1) mesh's names, sizes and this rank's coordinate."""
+        mesh_dim_names, ndim = ("data", "model"), 2
+
+        def size(self, i=None):
+            return 1
+
+        def get_coordinate(self):
+            return [0, 0]
+    rules = TTR.make_rules(OneRankMesh())
+    assert rules.dp == ("data",) and rules.tp == "model"
+    assert callable(TTR.make_train_step(base, rules, OptConfig(),
+                                        grad_specs={}))
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-base",
