@@ -74,7 +74,11 @@ Phases, one JSON line each:
    and the flash-attention autograd Function (repro_torch.models.flash) on
    hazard cases against the plain version's autograd (o, lse, dq, dk, dv;
    bf16 calls with T <= 16 take the prefill kernel; head dims 16 to 256,
-   G up to 12), the mLSTM scan's autograd Function
+   G up to 12; and the lse at the training shapes of hymba-1.5b (G 5 D 64,
+   T 1024 with 1024-key windows and T 640 with a 256-key window),
+   internvl2-26b (G 6 D 128) and whisper-base (its encoder non-causal at
+   T = S = 1500, its cross-attention at T 1024 against 1500 keys, queries
+   at 0), each also timed), the mLSTM scan's autograd Function
    (repro_torch.models.xlstm.MLSTMScan: the scan kernel forward, the plain
    chunkwise backward) on its hazard cases against the plain version's
    autograd (h, dq, dk, dv, dlog_i, dlog_f), the attention forward with lse
@@ -84,19 +88,31 @@ Phases, one JSON line each:
    T1024 H4 D512, bf16 and fp32) beside their bounds, the reduced
    llama3.2-3b and granite-moe-3b-a800m in fp32 card against CPU (loss,
    every gradient, two train steps), and llama3.2-3b, gemma3-1b,
-   starcoder2-3b and xlstm-350m at full width and depth (fp32 parameters,
-   bf16 compute, remat "full") through runtime.trainer.make_train_step for
-   4 steps of data.host_batch (B2 T1024): step 1 against the same step
+   starcoder2-3b, xlstm-350m, hymba-1.5b (3 steps; 128 meta tokens + 896
+   text tokens, its SSM's chunked scan under grad), whisper-base (1500
+   seeded frames, 1024 text tokens) at full width and depth and
+   internvl2-26b at full width with 4 of its 48 layers (256 seeded patch
+   embeddings + 768 text tokens) (fp32 parameters, bf16 compute, remat
+   "full") through runtime.trainer.make_train_step for 4 steps of
+   data.host_batch (B2, 1024 positions a row; launch/specs.py lays out the
+   prefix): step 1 against the same step
    with the plain versions, the mLSTM scan differentiated by autograd, at
    the plain run's side of each mLSTM denominator near its kink
    (xlstm-350m in fp32 too; in bf16 its mLSTM layers one by one at the
-   plain run's inputs), finite losses and gradients, non-zero weight
-   gradients in every layer, two kernel launches and one backward call an
+   plain run's inputs; hymba-1.5b in fp32 at 4 of its layers, C20),
+   finite losses and gradients, non-zero weight gradients in every layer
+   (and in meta_tokens, the encoder's layers, the cross-attention's and
+   the SSM's leaves), two kernel launches and one backward call an
    attention or mLSTM layer a step (llama 56 and 28, gemma 52 and 26,
-   starcoder 60 and 30, xlstm 42 scans and 21), step ms, tokens/s, peak
+   starcoder 60 and 30, xlstm 42 scans and 21, hymba 64 and 32, whisper 36
+   and 18, internvl 8 and 4), step ms, tokens/s, peak
    memory and the idle share of a profiled step beside the step's bound
    (launch/analytic.py's ``train_cost``; for the attention models also
    ``train_step_work``);
+   then ``"phase": "xlstm_sp"``: the context-parallel mLSTM
+   (repro_torch.models.xlstm_sp) at xlstm-350m's width (B2 T1024 H4 D512,
+   fp32) in 4 segments folded on one rank, h against the fp32 scan kernel
+   over the whole sequence (relative L2 1e-4) and both against float64;
    then ``"phase": "shard"``: gemma3-1b at full width and depth, B2 T1024,
    3 steps of the sharded train step (runtime.sharding: a (1, 1) "data" x
    "model" mesh of a world-1 NCCL group, ``grad_specs=grad_accum_specs``)
@@ -217,8 +233,10 @@ from repro_torch.models import get_config, init_params  # noqa: E402
 from repro_torch.models import flash as MF  # noqa: E402
 from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import xlstm as MX  # noqa: E402
+from repro_torch.models import xlstm_sp as XSP  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.launch import analytic  # noqa: E402
+from repro_torch.launch import specs as SP  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
@@ -1541,7 +1559,25 @@ TRAIN_HAZARDS = {
     "gqa12_t5_tail": (1, 5, 90, 24, 2, 128, "tail", None, True, 0),
     "training_shape_gqa12": (2, 1024, 1024, 24, 2, 128, None, None, True,
                              0),
+    # the training shapes of hymba-1.5b (G 5 D 64, 1024-key windows, and a
+    # 256-key window that binds at T 640), internvl2-26b (G 6 D 128) and
+    # whisper-base (its encoder non-causal at T = S = 1500, no tile's
+    # multiple; its cross-attention: 1024 queries at position 0 against
+    # 1500 keys)
+    "train_hymba_g5": (2, 1024, 1024, 25, 5, 64, None, None, True, 1024),
+    "train_hymba_g5_window256": (2, 640, 640, 25, 5, 64, None, None, True,
+                                 256),
+    "train_internvl_g6": (2, 1024, 1024, 48, 8, 128, None, None, True, 0),
+    "train_whisper_encoder": (2, 1500, 1500, 8, 8, 64, None, None, False,
+                              0),
+    "train_whisper_cross": (2, 1024, 1500, 8, 8, 64, [0] * 1024, None,
+                            False, 0),
 }
+#: The lse hazard cases at the training shapes of the models with a prefix
+#: or an encoder, each also timed.
+PREFIXED_CASES = ("train_hymba_g5", "train_hymba_g5_window256",
+                  "train_internvl_g6", "train_whisper_encoder",
+                  "train_whisper_cross")
 #: The lse: fp32 kernel as its output (2e-5); bf16 kernel 1e-3, its
 #: scores are fp32 sums of exact bf16 products in another order and its
 #: exponent runs on ex2.approx.  dq, dk, dv of the Function against the
@@ -1569,20 +1605,36 @@ MLSTM_TRAIN_HAZARDS = {
 }
 
 #: ``models`` train in order, each beside its timing case (its training
-#: shape; None: the mLSTM scan's, ``mlstm_timing_case``).
+#: shape, or (case, layers) pairs where the layers take several shapes;
+#: None: the mLSTM scan's, ``mlstm_timing_case``).  ``seq`` counts
+#: positions: a prefix (meta tokens, patch embeddings) takes its share of
+#: them and the text the rest (launch/specs.py); an encoder's frames come
+#: beside them.  ``layers_by_model``: depth cut to fit the card (the fp32
+#: train state, 16 bytes a parameter); ``steps_by_model``: fewer steps for
+#: a model whose step is long; ``step1``: the dtypes a model's step 1 is
+#: held in (default its compute dtype) and the depth it is held at (None:
+#: its own).
 TRAIN_FULL = {
     "hazards": tuple(TRAIN_HAZARDS),
     "mlstm_hazards": tuple(MLSTM_TRAIN_HAZARDS),
     "timing_cases": ("training_shape", "training_shape_d256",
-                     "training_shape_gqa12"),
+                     "training_shape_gqa12") + PREFIXED_CASES,
     "mlstm_timing_case": "training_shape",
     "timing_iters": 16, "reduced": ("llama3.2-3b", "granite-moe-3b-a800m"),
     "reduced_seq": 64,
     "models": (("llama3.2-3b", "training_shape"),
                ("gemma3-1b", "training_shape_d256"),
                ("starcoder2-3b", "training_shape_gqa12"),
-               ("xlstm-350m", None)),
-    "model_reduced": False, "seq": 1024, "batch": 2, "steps": 4}
+               ("xlstm-350m", None),
+               ("hymba-1.5b", (("train_hymba_g5", 32),)),
+               ("whisper-base", (("train_whisper_encoder", 6),
+                                 ("train_whisper_cross", 6))),
+               ("internvl2-26b", (("train_internvl_g6", 4),))),
+    "model_reduced": False, "seq": 1024, "batch": 2, "steps": 4,
+    "layers_by_model": {"internvl2-26b": 4},
+    "steps_by_model": {"hymba-1.5b": 3},
+    "step1": {"xlstm-350m": (("float32", "bfloat16"), None),
+              "hymba-1.5b": (("float32",), 4)}}
 TRAIN_TINY = {
     "hazards": ("gqa3_d128_odd_t", "rows_see_nothing_d64", "t1_d64",
                 "t5_d256", "gqa12_t5_tail"),
@@ -1591,9 +1643,15 @@ TRAIN_TINY = {
     "mlstm_timing_case": "one_chunk_d64", "timing_iters": 2,
     "reduced": ("llama3.2-3b", "granite-moe-3b-a800m"), "reduced_seq": 16,
     "models": (("llama3.2-3b", "t16_d128"), ("gemma3-1b", "t5_d256"),
-               ("starcoder2-3b", "gqa12_t5_tail"), ("xlstm-350m", None)),
+               ("starcoder2-3b", "gqa12_t5_tail"), ("xlstm-350m", None),
+               ("hymba-1.5b", (("t16_d128", 4),)),
+               ("whisper-base", (("t16_d128", 2), ("gqa12_t5_tail", 2))),
+               ("internvl2-26b", (("t16_d128", 2),))),
     "model_reduced": True, "seq": 32, "seq_by_model": {"xlstm-350m": 256},
-    "batch": 2, "steps": 3}
+    "batch": 2, "steps": 3, "layers_by_model": {"internvl2-26b": 2},
+    "steps_by_model": {"hymba-1.5b": 2},
+    "step1": {"xlstm-350m": (("float32", "bfloat16"), None),
+              "hymba-1.5b": (("float32",), 2)}}
 #: The reduced models in fp32, card against CPU: the loss (rtol 1e-5) and
 #: every gradient leaf (relative L2 1e-4: the fp32 kernel is held to its
 #: plain version at 2e-5); parameters after two train steps of lr 1e-3
@@ -1855,7 +1913,10 @@ def time_training_attention(device, sizes, case):
     with lse, its plain version and SDPA's forward (``graph_ms``), the
     plain backward (``flash_backward``) and SDPA's backward (``cuda_ms``:
     autograd cannot be captured here), beside their bounds, and the SDPA
-    backend that ran the forward."""
+    backend that ran the forward.  SDPA takes ``is_causal`` where the case
+    is causal over aligned positions with no binding window, else the
+    case's visibility as a boolean mask (none where every key is
+    visible)."""
     (q, k, v, do, qp, kp), kw = _train_inputs(case, torch.bfloat16, device)
     iters = sizes["timing_iters"]
     fwd = lambda: ops.flash_attention(q, k, v, q_pos=qp, kv_pos=kp,  # noqa
@@ -1863,15 +1924,19 @@ def time_training_attention(device, sizes, case):
     plain = lambda: reference_attention(q, k, v, q_pos=qp, kv_pos=kp,  # noqa
                                         return_lse=True, **kw)
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    ok = visible(qp, kp, kw["causal"], kw["window"])
+    aligned = qp.shape == kp.shape and torch.equal(qp, kp)
+    causal_only = aligned and torch.equal(ok, torch.ones_like(ok).tril())
+    mask = None if causal_only or bool(ok.all()) else ok
+    sdpa_kw = dict(attn_mask=mask, is_causal=causal_only, enable_gqa=True)
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qs, ks, vs, is_causal=True, enable_gqa=True)
+        qs, ks, vs, **sdpa_kw)
     o, lse = fwd()
     bwd = lambda: MF.flash_backward(q, k, v, qp, kp, o, lse, do,  # noqa
                                     **kw)
     sq, sk, sv = _leaf_grads(qs, ks, vs)
     with torch.enable_grad():
-        s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
-                                               enable_gqa=True)
+        s_out = F.scaled_dot_product_attention(sq, sk, sv, **sdpa_kw)
     s_do = do.transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
         s_out, (sq, sk, sv), s_do, retain_graph=True)
@@ -1888,7 +1953,8 @@ def time_training_attention(device, sizes, case):
     fb, fb_by = bound(q, k, qp, kp, kw["causal"], kw["window"])
     bb, bb_by, bb32 = attention_backward_bound(q, k, qp, kp, kw["causal"],
                                                kw["window"])
-    backend = (sdpa_backend(qs, ks, vs, is_causal=True)
+    backend = (sdpa_backend(qs, ks, vs, attn_mask=mask,
+                            is_causal=causal_only)
                if device == "cuda" else None)
     # the memory one plain backward takes beyond its inputs: its (T, S)
     # blocks of 1024 x 1024 fp32 and the fp32 copies of q, k, v, o, dO
@@ -1901,8 +1967,12 @@ def time_training_attention(device, sizes, case):
         torch.cuda.synchronize()
         bwd_extra_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
     b, t, h, d = q.shape
+    how = ("causal" if kw["causal"] else "non-causal") + (
+        f" window {kw['window']}" if kw["window"] else "") + (
+        "" if aligned else " queries at " + (
+            "0" if not qp.any() else "the tail"))
     return dict(case=case, shape=f"B{b} T{t} S{k.shape[1]} H{h} "
-                                 f"KV{k.shape[2]} D{d} bf16 causal", **times,
+                                 f"KV{k.shape[2]} D{d} bf16 {how}", **times,
                 fwd_library_backend=backend,
                 bwd_plain_peak_extra_mib=bwd_extra_mib, fwd_bound_ms=fb,
                 fwd_bound_by=fb_by, bwd_bound_ms=bb, bwd_bound_by=bb_by,
@@ -1968,10 +2038,16 @@ def train_reduced(device, sizes):
 
 
 #: The weights whose step-1 gradient must be non-zero in every layer of
-#: each block kind.
+#: each block kind (an encoder's layers are "attn" blocks), and outside
+#: the layers where a config has them.
 GRAD_LEAVES = {"attn": ("attn/wq", "attn/wk", "attn/wv", "attn/wo"),
                "mlstm": ("wq", "wk", "wv", "w_i", "w_f"),
-               "slstm": ("w_gates", "r_gates")}
+               "slstm": ("w_gates", "r_gates"),
+               "hymba": ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
+                         "ssm/A_log", "ssm/D", "ssm/dt_bias", "ssm/conv_w"),
+               "attn_cross": ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
+                              "xattn/wq", "xattn/wk", "xattn/wv",
+                              "xattn/wo")}
 #: The mLSTM's h is continuous where its denominator max(|q n|, exp(-m))
 #: switches sides, but its gradient jumps there, and rounding moves a few
 #: positions across: at xlstm-350m's full depth, 15 of 172,032 positions in
@@ -2175,49 +2251,101 @@ def step1_check(params, batch, cfg, seq):
         if by_layer else None, remat=cfg.remat)
 
 
+def attention_layers(cfg):
+    """The attention calls of one forward: a layer each for "attn" and
+    "hymba" blocks and the encoder's, two for "attn_cross" (self and
+    cross)."""
+    kinds = cfg.block_pattern
+    return (kinds.count("attn") + kinds.count("hymba")
+            + 2 * kinds.count("attn_cross")
+            + (cfg.encoder_layers if cfg.is_encdec else 0))
+
+
+def grad_leaves(cfg):
+    """The leaves whose step-1 gradient must be non-zero (GRAD_LEAVES)."""
+    need = [f"/layers/{i}/{leaf}" for i, kind in enumerate(cfg.block_pattern)
+            for leaf in GRAD_LEAVES[kind]]
+    if cfg.is_encdec:
+        need += [f"/encoder/{i}/{leaf}" for i in range(cfg.encoder_layers)
+                 for leaf in GRAD_LEAVES["attn"]]
+    if cfg.num_meta_tokens:
+        need.append("/meta_tokens")
+    return need
+
+
+def train_batch(data, i, extras):
+    """Step ``i``'s batch: data.host_batch's tokens and labels and the
+    frames and patch embeddings of a config that takes them
+    (``extras``, model_extras')."""
+    return {**host_batch(data, i), **extras}
+
+
 def train_full(device, sizes, arch):
-    """``arch`` (full width and depth on the card; reduced on the CPU
-    rehearsal) in bf16 compute, fp32 parameters, remat "full": step 1's
-    gradients with the kernels against the plain versions (step1_check;
-    a model with mLSTM layers also in fp32 compute), then ``steps`` steps
-    of make_train_step, timed, with every count set to 0 before."""
+    """``arch`` (full width and depth on the card, but the depth
+    ``layers_by_model`` cuts; reduced on the CPU rehearsal) in bf16
+    compute, fp32 parameters, remat "full": step 1's gradients with the
+    kernels against the plain versions (step1_check, in the dtypes and at
+    the depth ``step1`` gives), then ``steps`` steps of make_train_step,
+    timed, with every count set to 0 before.  ``seq`` positions a row:
+    the prefix's, and the text's (launch/specs.py), with an encoder's
+    frames beside them."""
     cfg = get_config(arch)
     if sizes["model_reduced"]:
         cfg = dataclasses.replace(cfg.reduced(), remat="full")
+    reduced = []
+    depth = sizes.get("layers_by_model", {}).get(arch)
+    if depth:
+        reduced.append(f"layers {cfg.num_layers} -> {depth}")
+        cfg = cut_depth(cfg, depth)
     seq = sizes.get("seq_by_model", {}).get(arch, sizes["seq"])
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+    steps = sizes.get("steps_by_model", {}).get(arch, sizes["steps"])
+    spec = SP.train_input_specs(cfg, ShapeConfig("chip", seq, sizes["batch"],
+                                                 "train"))
+    text = spec["tokens"].shape[1]
+    extras = model_extras(cfg, sizes["batch"], np.random.default_rng(SEED),
+                          device)
+    for name, x in extras.items():
+        if x.shape != spec[name].shape:
+            raise AssertionError(f"{name}: {tuple(x.shape)}, the spec "
+                                 f"{tuple(spec[name].shape)}")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=text,
                       global_batch=sizes["batch"])
     kinds = cfg.block_pattern
     layers = {k: kinds.count(k) for k in GRAD_LEAVES}
+    n_attn = attention_layers(cfg)
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = TT.init_params(SEED, cfg, device=device)
     n_params = sum(a.numel() for _, a in _named_leaves(params))
-    first = TR.on_device(host_batch(data, 0), device)
-    need = [f"/layers/{i}/{leaf}" for i, kind in enumerate(kinds)
-            for leaf in GRAD_LEAVES[kind]]
+    first = TR.on_device(train_batch(data, 0, extras), device)
 
-    def check_grads(grads, dtype):
+    def check_grads(grads, dtype, need):
         finite = bool(torch.stack([torch.isfinite(a).all()
                                    for a in grads.values()]).all())
         zero = [n for n in need if n not in grads or not grads[n].any()]
         if not (finite and not zero):
             raise AssertionError(f"step 1 gradients ({dtype}): finite "
                                  f"{finite}, zero or missing {zero}")
-    # the FMA scan kernel runs in fp32 compute only
-    dtypes = ("float32", cfg.dtype) if layers["mlstm"] else (cfg.dtype,)
+    dtypes, step1_depth = sizes.get("step1", {}).get(arch,
+                                                     ((cfg.dtype,), None))
+    cfg1, params1 = cfg, params
+    if step1_depth:
+        cfg1 = cut_depth(cfg, step1_depth)
+        params1 = dict(params, layers=params["layers"][:step1_depth])
     step1 = {}
     for dtype in dtypes:
         g_k, launched, step1[f"step1_{dtype}"] = step1_check(
-            params, first, dataclasses.replace(cfg, dtype=dtype), seq)
-        check_grads(g_k, dtype)
-        step1[f"step1_{dtype}"]["launches"] = launched
+            params1, first, dataclasses.replace(cfg1, dtype=dtype), text)
+        check_grads(g_k, dtype, grad_leaves(cfg1))
+        step1[f"step1_{dtype}"].update(launches=launched,
+                                       layers=cfg1.num_layers)
         del g_k
+    need = grad_leaves(cfg)
     step1.update(step1_launches=step1[f"step1_{dtypes[0]}"]["launches"],
-                 weight_grads_nonzero=len(need))
-    del params
+                 weight_grads_nonzero=len(grad_leaves(cfg1)))
+    del params, params1
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -2230,17 +2358,17 @@ def train_full(device, sizes, arch):
     reset_launches()
     MF.backward_calls = MX.backward_calls = 0
     losses, step_ms, norms = [], [], []
-    want = {"flash_attention_prefill": 2 * layers["attn"],
+    want = {"flash_attention_prefill": 2 * n_attn,
             "flash_attention_decode": 0, "flash_attention_fp32_tc": 0,
             "mlstm_scan_tc": 2 * layers["mlstm"], "mlstm_scan_fma": 0}
-    want_bwd = (layers["attn"], layers["mlstm"])
-    for i in range(sizes["steps"]):
+    want_bwd = (n_attn, layers["mlstm"])
+    for i in range(steps):
         before = kernel_launches()
         bwd_before = MF.backward_calls, MX.backward_calls
         if device == "cuda":
             torch.cuda.synchronize()
         t1 = time.perf_counter()
-        state, m = step(state, host_batch(data, i))
+        state, m = step(state, train_batch(data, i, extras))
         if device == "cuda":
             torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
@@ -2264,25 +2392,29 @@ def train_full(device, sizes, arch):
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9
                if device == "cuda" else None)
     rows, busy_us, wall_us = device_ops(
-        lambda: step(state, host_batch(data, sizes["steps"])), device)
+        lambda: step(state, train_batch(data, steps, extras)), device)
     if not busy_us > 0:
         raise AssertionError(f"{arch}: the profiled step shows no device time")
     # Where a step's time goes: the gradients (forward, recompute and
     # backward), timed once (the steps above warmed it up), and the AdamW
-    # update on those gradients.
-    batch = TR.on_device(host_batch(data, 0), device)
+    # update on those gradients; these gradients, of the whole model at
+    # its training depth, finite and non-zero on every leaf of
+    # GRAD_LEAVES.
+    batch = TR.on_device(train_batch(data, 0, extras), device)
     if device == "cuda":
         torch.cuda.synchronize()
     t1 = time.perf_counter()
     grads = TR.loss_and_grads(state["params"], batch, cfg)[2]
     if device == "cuda":
         torch.cuda.synchronize()
+    check_grads(dict(_named_leaves(grads)), f"{cfg.dtype}, after the steps",
+                need)
     parts = {"loss_and_grads_ms": (time.perf_counter() - t1) * 1e3,
              "adamw_ms": wall_ms(lambda: adamw_update(
                  state["params"], grads, state["opt"],
                  OptConfig(**FULL_OPT)), 2, device)}
     del grads
-    tokens = sizes["batch"] * seq
+    tokens = sizes["batch"] * text
     mean_ms = statistics.mean(step_ms[1:])
     # The executed-FLOPs model of the reference (launch/analytic.py): the
     # larger of its FLOPs at the bf16 peak and its HBM bytes.
@@ -2296,7 +2428,8 @@ def train_full(device, sizes, arch):
                  else "bytes", analytic_exec_flops=cost.exec_flops_total,
                  analytic_hbm_bytes=cost.hbm_bytes_per_dev,
                  analytic_ops_ms=a_ops, analytic_bytes_ms=a_bytes)
-    if layers["attn"] == len(kinds):
+    if layers["attn"] == len(kinds) and not (
+            cfg.num_meta_tokens or cfg.num_patch_tokens or cfg.is_encdec):
         flops, nbytes = train_step_work(cfg, sizes["batch"], seq,
                                         n_params)
         t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
@@ -2310,13 +2443,18 @@ def train_full(device, sizes, arch):
     top = sorted(rows, key=lambda r: -r[1])[:8]
     return dict(
         model=cfg.name, layers=cfg.num_layers, blocks=layers,
+        attention_layers=n_attn, reduced=reduced,
         d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params,
         remat=cfg.remat, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
-        batch=sizes["batch"], seq=seq, steps=sizes["steps"],
-        losses=losses, grad_norms=norms, **step1, step_ms=step_ms,
+        batch=sizes["batch"], seq=seq, text_tokens=text,
+        prefix=seq - text, encoder_frames=(cfg.encoder_seq_len
+                                           if cfg.is_encdec else 0),
+        steps=steps, losses=losses, grad_norms=norms, **step1,
+        weight_grads_nonzero_full_depth=len(need), step_ms=step_ms,
         step_ms_mean_2_on=mean_ms, tokens_per_s=tokens / mean_ms * 1e3,
+        positions_per_s=sizes["batch"] * seq / mean_ms * 1e3,
         **bound, peak_memory_gb=peak_gb, launches=launches,
-        launches_per_step={k: v / sizes["steps"] for k, v in launches.items()},
+        launches_per_step={k: v / steps for k, v in launches.items()},
         profiled_step_wall_us=wall_us, profiled_device_busy_us=busy_us,
         device_idle_share=1 - busy_us / wall_us,
         device_idle_share_unprofiled=1 - busy_us / (mean_ms * 1e3),
@@ -2394,9 +2532,14 @@ def phase_train(device="cuda", sizes=TRAIN_FULL, launched=None):
                 "bwd_plain_ms"] * full["blocks"]["mlstm"],
                 mlstm_timed_at=timing["mlstm bfloat16"]["shape"])
         else:
-            bwd = dict(attention_backward_ms_per_step=timing[case][
-                "bwd_plain_ms"] * full["blocks"]["attn"],
-                attention_timed_at=timing[case]["shape"])
+            parts = (((case, full["attention_layers"]),)
+                     if isinstance(case, str) else case)
+            bwd = dict(attention_backward_ms_per_step=sum(
+                timing[c]["bwd_plain_ms"] * n for c, n in parts),
+                attention_timed_at=[f"{timing[c]['shape']} x {n} layers"
+                                    for c, n in parts],
+                attention_layers_untimed=full["attention_layers"] - sum(
+                    n for _, n in parts))
         emit("train", device=device, hazards=dict(
             attention_cases=len(sizes["hazards"]) * 2, attention_worst=worst,
             mlstm_cases=len(sizes["mlstm_hazards"]) * 2,
@@ -2405,6 +2548,77 @@ def phase_train(device="cuda", sizes=TRAIN_FULL, launched=None):
         lines[arch] = full
     emit("train_phase", device=device, seconds=time.perf_counter() - t0)
     return lines, timing
+
+
+#: Phase ``xlstm_sp``: the context-parallel mLSTM at xlstm-350m's width (H4,
+#: D 512: its inner width 2048 over 4 heads), B2 T1024 in fp32, the
+#: sequence in 4 segments of one 256-position chunk each; the tiny sizes
+#: rehearse it on the CPU.  h within relative L2 SP_REL_L2 of the fp32 scan
+#: kernel's over the whole sequence.
+XLSTM_SP_FULL = {"b": 2, "t": 1024, "h": 4, "d": 512, "segments": 4,
+                 "chunk": 256}
+XLSTM_SP_TINY = {"b": 2, "t": 128, "h": 2, "d": 32, "segments": 4,
+                 "chunk": 16}
+SP_REL_L2 = 1e-4
+
+
+def phase_xlstm_sp(device="cuda", sizes=XLSTM_SP_FULL):
+    """repro_torch.models.xlstm_sp on one card: one NCCL rank a card (C9),
+    so each of ``segments`` segments runs its raw chunkwise pass
+    (mlstm_chunkwise_raw) on the card and the segments' states are folded
+    with the module's ``_combine`` on this one rank, in place of the
+    exchanges of ``distributed_exclusive_scan``; each segment is then
+    corrected with its inbound state (``apply_inbound``).  h against the
+    fp32 scan kernel (csrc/mlstm_scan.cu) over the whole sequence (relative
+    L2 SP_REL_L2), and each against float64: the elements outside
+    MLSTM_TOL, as the fp32 D 512 hazard lines count them (C21)."""
+    t0 = time.perf_counter()
+    b, t, h, d = (sizes[k] for k in ("b", "t", "h", "d"))
+    n, chunk = sizes["segments"], sizes["chunk"]
+    rng = np.random.default_rng(SEED)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device)
+    args = (draw(b, t, h, d), draw(b, t, h, d), draw(b, t, h, d),
+            draw(b, t, h) * 2, F.logsigmoid(draw(b, t, h) * 2 + 1))
+    seg = t // n
+
+    def context_parallel():
+        parts = [[a[:, i * seg:(i + 1) * seg] for a in args]
+                 for i in range(n)]
+        raws = [MX.mlstm_chunkwise_raw(*p, chunk=chunk) for p in parts]
+        inbound = XSP._identity_like(raws[0][4])
+        out = []
+        for p, raw in zip(parts, raws):
+            out.append(XSP.apply_inbound(p[0], raw, inbound))
+            inbound = XSP._combine(inbound, raw[4])
+        return torch.cat(out, dim=1)
+    with torch.no_grad():
+        got = context_parallel()
+        want, _ = ops.mlstm_scan(*args, None, chunk=chunk)
+        exact, _ = mlstm_float64(args, None, chunk)
+    rel = rel_l2(got, want)
+    if not (torch.isfinite(got).all() and rel <= SP_REL_L2):
+        raise AssertionError(f"xlstm_sp: h differs from the scan kernel's "
+                             f"by relative L2 {rel} (tol {SP_REL_L2})")
+    tol = MLSTM_TOL[torch.float32]
+    timer = (lambda fn: cuda_ms(fn, 4)) if device == "cuda" else (
+        lambda fn: wall_ms(fn, 1, device))
+    with torch.no_grad():
+        times = dict(ms=timer(context_parallel),
+                     kernel_ms=timer(lambda: ops.mlstm_scan(
+                         *args, None, chunk=chunk)))
+    emit("xlstm_sp", device=device, shape=f"B{b} T{t} H{h} D{d} fp32",
+         segments=n, chunk=chunk, rel_l2_vs_kernel=rel, tol=SP_REL_L2,
+         max_abs_err_vs_kernel=float((got - want).abs().max()),
+         rel_l2_vs_float64=rel_l2(got, exact),
+         kernel_rel_l2_vs_float64=rel_l2(want, exact),
+         outside_tol_vs_float64=outside(got, exact, tol),
+         kernel_outside_tol_vs_float64=outside(want, exact, tol),
+         elements=got.numel(), float64_tol=tol, **times,
+         seconds=time.perf_counter() - t0)
+    return rel
 
 
 #: Phase ``shard``: gemma3-1b at full width and depth (1.00 B fp32
@@ -3289,7 +3503,11 @@ def device_ops(fn, device, calls=1):
     their busy time and the wall time of the window.  On the card only the
     CUDA activity is recorded: the host's operator records (several a
     kernel) are never read, and at xlstm-350m's 325 k kernels a train step
-    they kept the profiler busy for minutes."""
+    they kept the profiler busy for minutes.  The CUDA rows are summed by
+    name from the profiler's raw records (a device record has no
+    children, so its duration is its self time): ``key_averages()`` builds
+    an event tree first, which on the CPU took 40 s for 500 k records
+    where summing the raw records took 0.9 s."""
     from torch.profiler import ProfilerActivity, profile
     kind, acts = ((torch.autograd.DeviceType.CUDA, [ProfilerActivity.CUDA])
                   if device == "cuda" else
@@ -3303,9 +3521,17 @@ def device_ops(fn, device, calls=1):
         if device == "cuda":
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.key, e.self_device_time_total if device == "cuda"
-             else e.self_cpu_time_total, e.count)
-            for e in prof.key_averages() if e.device_type == kind]
+    if device == "cuda":
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == kind:
+                row = by_name[e.name()]
+                row[0] += e.duration_ns() / 1e3
+                row[1] += 1
+        rows = [(k, t, c) for k, (t, c) in by_name.items()]
+    else:
+        rows = [(e.key, e.self_cpu_time_total, e.count)
+                for e in prof.key_averages() if e.device_type == kind]
     return rows, sum(t for _, t, _ in rows), wall_us
 
 
@@ -4636,6 +4862,7 @@ def main():
     train_launched = {}
     train_lines, train_timing = phase_train(launched=train_launched)
     train = {arch: line["launches"] for arch, line in train_lines.items()}
+    phase_xlstm_sp()
     shard = phase_shard()
     extract_dp_launches = phase_extract(trace=llama_trace, card=smi)
     phase_sim()
@@ -4684,7 +4911,10 @@ def main():
                  "train hazards": train_launched["hazards"],
                  "train reduced models (fp32)": train_launched["reduced"],
                  "train xlstm-350m step 1 (fp32)": train_lines[
-                     "xlstm-350m"]["step1_launches"]}
+                     "xlstm-350m"]["step1_launches"],
+                 "train hymba-1.5b step 1 (fp32, "
+                 f"{TRAIN_FULL['step1']['hymba-1.5b'][1]} layers)":
+                     train_lines["hymba-1.5b"]["step1_launches"]}
     attn = "src/repro/kernels/flash_attention.py:39"
     scan_keys = ("state_max_abs_err", "library_note", "ms_eager",
                  "plain_ms_eager", "bound_ms_fp32_pipe")
@@ -4731,7 +4961,9 @@ def main():
               at_gqa6={k: ipre[k] for k in at},
               at_gqa8={k: qpre[k] for k in at},
               at_cross_s1500={k: wx[k] for k in at},
-              at_encoder_t1500={k: wenc[k] for k in at}),
+              at_encoder_t1500={k: wenc[k] for k in at},
+              **{f"at_{case}_with_lse": with_lse(case)
+                 for case in PREFIXED_CASES}),
         entry("flash_attention", "decode", "flash_attention_decode.cu", attn,
               dec, serve_runs, at_d64={k: gdec[k] for k in at},
               at_d256={k: mdec[k] for k in at},

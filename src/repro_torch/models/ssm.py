@@ -13,10 +13,13 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from .layers import dense_init, silu
 
 DT_RANK_DIV = 16  # dt_rank = max(d_model // 16, 8)
+#: The reference's chunk of its checkpointed two-level scan.
+CHUNK = 128
 
 
 def init_ssm(gen: torch.Generator, cfg, dtype) -> dict:
@@ -75,14 +78,48 @@ def _ssm_params(p, xc, cfg):
     return dt, b_t, c_t
 
 
+def _scan_chunk(h, dt, b_t, c_t, xf, a):
+    """The recurrence over one chunk under grad: h (B, inner, S) and the
+    chunk's dt, xf (B, C, inner), B and C (B, C, S), all float32.  Returns
+    (y (B, C, inner), the last h)."""
+    dec = torch.exp(dt[..., None] * a)                       # (B,C,inner,S)
+    drv = (dt * xf)[..., None] * b_t[:, :, None, :]
+    # unbind, not an index a position: the backward stacks the positions'
+    # gradients once, where each index's backward would fill and add a
+    # whole (B, C, inner, S) gradient
+    hs = []
+    for dec_t, drv_t in zip(dec.unbind(1), drv.unbind(1)):
+        h = torch.addcmul(drv_t, dec_t, h)
+        hs.append(h)
+    y = torch.einsum("btis,bts->bti", torch.stack(hs, dim=1), c_t)
+    return y, h
+
+
+def _scan_grad(h, dt, b_t, c_t, xf, a):
+    """The scan under grad: chunks of CHUNK positions, each checkpointed,
+    where the reference chunks (T > CHUNK, T % CHUNK == 0); else one flat
+    chunk."""
+    t = dt.shape[1]
+    if not (t > CHUNK and t % CHUNK == 0):
+        return _scan_chunk(h, dt, b_t, c_t, xf, a)
+    ys = []
+    for c0 in range(0, t, CHUNK):
+        y, h = _ckpt.checkpoint(
+            _scan_chunk, h, *(x[:, c0:c0 + CHUNK] for x in (dt, b_t, c_t,
+                                                             xf)), a,
+            use_reentrant=False, preserve_rng_state=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
 def apply_ssm(p: dict, x, cfg, *, cache=None):
     """x: (B, T, d) -> (y (B, T, d), new_cache).
 
     cache = {"conv": (B, K-1, inner), "state": (B, inner, state) float32}
-    or None (a zero state).  For T > 128 with T % 128 == 0 the reference
-    scans in chunks of 128 under ``jax.checkpoint``: that keeps only the
-    chunk-boundary states for its backward, and gives the numbers of the
-    flat scan, which is what this inference-only loop runs.
+    or None (a zero state).  Without grad the recurrence is a loop over
+    positions, a step at a time; under grad (an input or a parameter that
+    requires it) :func:`_scan_grad`, chunked and checkpointed as the
+    reference's scan.  Both give the numbers of the reference's flat scan.
     """
     inner = cfg.ssm_expand * cfg.d_model
     xz = x @ p["in_proj"]
@@ -97,13 +134,17 @@ def apply_ssm(p: dict, x, cfg, *, cache=None):
     h = (torch.zeros((x.shape[0], inner, cfg.ssm_state), dtype=torch.float32,
                      device=x.device)
          if cache is None else cache["state"])
-    ys = []
-    for t in range(x.shape[1]):
-        dec = torch.exp(dt[:, t, :, None] * a)                   # (B,inner,S)
-        drv = (dt[:, t] * xf[:, t])[..., None] * b_t[:, t, None, :]
-        h = dec * h + drv
-        ys.append(torch.bmm(h, c_t[:, t, :, None])[..., 0])    # (B,inner)
-    y = torch.stack(ys, dim=1)                                   # (B,T,inner)
+    if torch.is_grad_enabled() and (dt.requires_grad or xf.requires_grad
+                                    or a.requires_grad or h.requires_grad):
+        y, h = _scan_grad(h, dt, b_t, c_t, xf, a)
+    else:
+        ys = []
+        for t in range(x.shape[1]):
+            dec = torch.exp(dt[:, t, :, None] * a)               # (B,inner,S)
+            drv = (dt[:, t] * xf[:, t])[..., None] * b_t[:, t, None, :]
+            h = dec * h + drv
+            ys.append(torch.bmm(h, c_t[:, t, :, None])[..., 0])  # (B,inner)
+        y = torch.stack(ys, dim=1)                               # (B,T,inner)
     y = y + p["D"] * xf
     y = y.to(x.dtype) * silu(z)
     out = y @ p["out_proj"]

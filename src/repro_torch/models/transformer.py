@@ -44,11 +44,12 @@ single device by default) reaches the expert-parallel MoE.
 fp32) and casts each layer's to ``cfg.dtype`` inside the layer,
 differentiably, as the reference's ``_cast`` does; ``cfg.remat`` picks
 what the backward recomputes, layer by layer, as the reference's
-``jax.checkpoint`` does each run's body.  It trains attention (dense MLP
-or MoE), mLSTM and sLSTM layers; the mLSTM scan goes through its autograd
-Function (:class:`.xlstm.MLSTMScan`).  Training the hymba block, the
-encoder and cross-attention, and prefixes is not ported yet
-(:func:`check_trainable`).
+``jax.checkpoint`` does each run's body.  It trains every block kind
+(the mLSTM scan through its autograd Function, :class:`.xlstm.MLSTMScan`;
+the hymba block's SSM through :mod:`.ssm`'s chunked, checkpointed scan),
+the encoder (its layers under ``cfg.remat`` too, the cross-attention's
+K/V gradients reaching it) and the prefixes, whose positions the loss
+skips.
 """
 from __future__ import annotations
 
@@ -66,12 +67,6 @@ from .moe import apply_moe, init_moe
 from .ssm import apply_ssm, init_ssm, init_ssm_cache
 from .xlstm import (apply_mlstm_block, apply_slstm_block, init_mlstm_block,
                     init_mlstm_cache, init_slstm_block, init_slstm_cache)
-
-#: Training of these parts is not ported yet; the ROADMAP item that ports it.
-_NOT_TRAINED = ("not ported yet (ROADMAP queue A, item 10(a), training of "
-                "hymba, whisper and internvl)")
-_TRAINED_KINDS = (ATTN, MLSTM, SLSTM)
-
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises for CUDA when there is none."""
@@ -118,21 +113,6 @@ def _layer_specs(cfg: ModelConfig) -> list[tuple[str, int, float]]:
     """(kind, window, theta) per layer."""
     return [(run.kind, w, th) for run in build_runs(cfg)
             for w, th in zip(run.windows, run.thetas)]
-
-
-def check_trainable(cfg: ModelConfig):
-    """Raises NotImplementedError where ``cfg`` has a part whose training
-    is not ported: hymba blocks, encoders and cross-attention, meta tokens
-    and patch prefixes (they serve: :func:`prefill`, :func:`decode_step`)."""
-    parts = [f"{k!r} blocks" for k in dict.fromkeys(cfg.block_pattern)
-             if k not in _TRAINED_KINDS]
-    parts += [name for name, on in (("encoders", cfg.is_encdec),
-                                    ("meta tokens", cfg.num_meta_tokens),
-                                    ("patch prefixes", cfg.num_patch_tokens))
-              if on]
-    if parts:
-        raise NotImplementedError(f"{cfg.name}: training {', '.join(parts)} "
-                                  f"is {_NOT_TRAINED}")
 
 
 #: Leaves that keep their dtype in the compute copy, as the reference's
@@ -329,18 +309,21 @@ def _self_attention(p, y, cfg, *, window: int, theta: float, q_pos, kv_pos,
 
 
 def _cross_attention(p, x, cross_src, cache):
-    """Cross-attention against the encoder's output ``cross_src`` (B, S, d)
-    (prefill) or the cross K/V that prefill left in ``cache`` (decode).
-    As in the reference: no bias, no RoPE, every key visible (non-causal,
-    the queries at position 0).  Returns (out, {"ck", "cv"})."""
+    """Cross-attention against the cross K/V in ``cache`` where it holds
+    them (``"ck"``: decode after prefill), else against the encoder's output
+    ``cross_src`` (B, S, d), taken in x's dtype (prefill, training, and
+    decode with a cross source).  As in the reference: no bias, no RoPE,
+    every key visible (non-causal, the queries at position 0).  Returns
+    (out, {"ck", "cv"})."""
     y = L.apply_norm(p["lnx"], x)
     w = p["xattn"]
     q = L._project_heads(y, w["wq"])
-    if cache is not None:
+    if cache is not None and "ck" in cache:
         ck, cv = cache["ck"], cache["cv"]
     else:
-        ck = L._project_heads(cross_src, w["wk"])
-        cv = L._project_heads(cross_src, w["wv"])
+        src = cross_src.to(x.dtype)
+        ck = L._project_heads(src, w["wk"])
+        cv = L._project_heads(src, w["wv"])
     dev = x.device
     o = L.attention(q, ck, cv,
                     q_pos=torch.zeros((q.shape[1],), dtype=torch.int32,
@@ -357,8 +340,8 @@ def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
                      rules: AxisRules = AxisRules(), losses: bool = True,
                      causal: bool = True, cross_src=None):
     """An ``ATTN`` block, or with ``p["xattn"]`` an ``ATTN_CROSS`` one
-    (cross-attention over ``cross_src`` in prefill, over the cache's
-    ``ck``/``cv`` in decode).  Returns (x, cache, metrics):
+    (cross-attention over the cache's ``ck``/``cv`` where it holds them,
+    else over ``cross_src``).  Returns (x, cache, metrics):
     ``{"moe_aux", "moe_z"}`` for a MoE block when ``losses``, else empty."""
     metrics = {}
     y = L.apply_norm(p["ln1"], x)
@@ -404,36 +387,43 @@ _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _train_layer(p, x, cfg, *, kind: str, window: int, theta: float,
-                 q_pos, rules):
+                 q_pos, rules, causal: bool = True, cross_src=None):
     """One layer of the training forward, of block ``kind``, under
     ``cfg.remat``: "full" recomputes the whole layer in the backward
     (``torch.utils.checkpoint``, non-reentrant), "dots" keeps the weight
     products' outputs and recomputes the rest, "none" keeps everything.
-    Recurrent layers start from a zero state and drop the final one.
-    Returns (x, ``[moe_aux, moe_z]`` or zeros)."""
-    def body(x):
+    Recurrent layers (and the hymba block's SSM) start from a zero state
+    and drop the final one.  ``cross_src``, the encoder's output, is an
+    input of the checkpointed body, so a cross-attention layer's K/V
+    gradients reach the encoder.  Returns (x, ``[moe_aux, moe_z]`` or
+    zeros)."""
+    def body(x, cross_src):
         lp = _cast(p, getattr(torch, cfg.dtype))
         metrics = {}
         if kind == MLSTM:
             x, _ = apply_mlstm_block(lp, x, cfg)
         elif kind == SLSTM:
             x, _ = apply_slstm_block(lp, x, cfg)
+        elif kind == HYMBA:
+            x, _ = apply_hymba_block(lp, x, cfg, window=window, theta=theta,
+                                     q_pos=q_pos, kv_pos=q_pos)
         else:
             x, _, metrics = apply_attn_block(
                 lp, x, cfg, window=window, theta=theta, q_pos=q_pos,
-                kv_pos=q_pos, rules=rules)
+                kv_pos=q_pos, rules=rules, causal=causal,
+                cross_src=cross_src)
         aux = (torch.stack([metrics["moe_aux"], metrics["moe_z"]])
                if metrics else torch.zeros((2,), dtype=torch.float32,
                                            device=x.device))
         return x, aux
     if cfg.remat == "none":
-        return body(x)
+        return body(x, cross_src)
     if cfg.remat == "full":
-        return _ckpt.checkpoint(body, x, use_reentrant=False,
+        return _ckpt.checkpoint(body, x, cross_src, use_reentrant=False,
                                 preserve_rng_state=False)
     if cfg.remat == "dots":
         return _ckpt.checkpoint(
-            body, x, use_reentrant=False, preserve_rng_state=False,
+            body, x, cross_src, use_reentrant=False, preserve_rng_state=False,
             context_fn=lambda: _ckpt.create_selective_checkpoint_contexts(
                 list(_SAVED_DOTS)))
     raise ValueError(f"unknown remat {cfg.remat!r}")
@@ -455,7 +445,8 @@ def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
     inside each layer, each layer under ``cfg.remat``, aligned positions
     (``kv_pos`` is ``q_pos``), no caches (returned as None)."""
     if train:
-        return _train_stack(params, x, cfg, q_pos=q_pos, rules=rules)
+        return _train_stack(params["layers"], x, cfg, q_pos=q_pos,
+                            rules=rules, cross_src=cross_src)
     new_caches = []
     aux = (torch.zeros((2,), dtype=torch.float32, device=x.device)
            if losses else None)
@@ -482,11 +473,15 @@ def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
     return x, new_caches, aux
 
 
-def _train_stack(params, x, cfg, *, q_pos, rules):
+def _train_stack(layers, x, cfg, *, q_pos, rules, specs=None, causal=True,
+                 cross_src=None):
+    """``layers`` (stored parameters) through :func:`_train_layer`, of the
+    kinds, windows and thetas of ``specs`` (default the decoder's)."""
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
-    for p, (kind, window, theta) in zip(params["layers"], _layer_specs(cfg)):
+    for p, (kind, window, theta) in zip(layers, specs or _layer_specs(cfg)):
         x, layer_aux = _train_layer(p, x, cfg, kind=kind, window=window,
-                                    theta=theta, q_pos=q_pos, rules=rules)
+                                    theta=theta, q_pos=q_pos, rules=rules,
+                                    causal=causal, cross_src=cross_src)
         aux = aux + layer_aux
     return x, None, aux
 
@@ -499,6 +494,12 @@ def _check_batch(batch, known):
     extra = sorted(set(batch) - set(known))
     if extra:
         raise ValueError(f"unknown batch entries {extra}; known: {known}")
+
+
+def _check_frames(batch, cfg):
+    if cfg.is_encdec and "frames" not in batch:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its batch needs "
+                         f"'frames' (B, {cfg.encoder_seq_len}, {cfg.d_model})")
 
 
 def prefix_len(cfg: ModelConfig, batch) -> int:
@@ -532,15 +533,23 @@ def sinusoidal_positions(seq_len: int, d: int, device=None):
     return torch.from_numpy(table).to(device=device, dtype=torch.float32)
 
 
-def encode_frames(params, frames, cfg: ModelConfig):
+def encode_frames(params, frames, cfg: ModelConfig, *, train: bool = False):
     """The whisper-style encoder over (stub) frame embeddings (B, S, d):
     sinusoidal positions added, the ``ATTN`` layers of ``params["encoder"]``
-    non-causal at the config's RoPE theta, then ``enc_norm``."""
+    non-causal at the config's RoPE theta, then ``enc_norm``.  ``train``:
+    ``params`` as stored, each layer through :func:`_train_layer` under
+    ``cfg.remat`` (the reference's ``apply_stack(mode="train")``); the
+    layers' MoE losses are dropped, as there."""
     dtype = getattr(torch, cfg.dtype)
     s = frames.shape[1]
     x = frames.to(dtype) + sinusoidal_positions(
         s, cfg.d_model, frames.device).to(dtype)
     pos = torch.arange(s, dtype=torch.int32, device=frames.device)
+    if train:
+        specs = [(ATTN, 0, cfg.rope_theta)] * len(params["encoder"])
+        x, _, _ = _train_stack(params["encoder"], x, cfg, q_pos=pos,
+                               rules=AxisRules(), specs=specs, causal=False)
+        return L.apply_norm(params["enc_norm"], x)
     for p in params["encoder"]:
         x, _, _ = apply_attn_block(p, x, cfg, window=0, theta=cfg.rope_theta,
                                    q_pos=pos, kv_pos=pos, causal=False,
@@ -553,21 +562,29 @@ def forward_train(params, batch, cfg: ModelConfig, *,
     """Teacher-forced forward: returns (loss, metrics).
 
     ``params``: as stored (``init_params``, fp32), not cast.
-    ``batch``: ``{"tokens", "labels"}``, (B, T) integer tensors on the
-    parameters' device; labels < 0 are ignored.  ``loss`` is the mean
+    ``batch``: on the parameters' device, ``{"tokens", "labels"}``, (B, T)
+    integer tensors, labels < 0 ignored; ``"frames"`` (B, S, d) for an
+    encoder-decoder config; ``"patch_embeds"`` (B, P, d), optional, for a
+    config with patch tokens.  The stack runs over the prefix positions
+    (:func:`prefix_len`: patches, meta tokens in front) and the T tokens;
+    the loss reads the T tokens' positions only.  ``loss`` is the mean
     cross entropy plus ``0.01 * aux + 0.001 * z`` of the MoE layers;
     ``metrics`` holds ``ce_loss``, ``aux_loss`` and ``tokens`` (the labels
-    counted).  Port of ``repro.models.transformer.forward_train``; raises
-    for the parts :func:`check_trainable` names.
+    counted).  Port of ``repro.models.transformer.forward_train``.
     """
-    check_trainable(cfg)
-    _check_batch(batch, ("tokens", "labels"))
-    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    _check_batch(batch, ("tokens", "labels", "frames", "patch_embeds"))
+    _check_frames(batch, cfg)
+    x = _prepare_prefix(params, batch, cfg)
+    prefix = prefix_len(cfg, batch)
+    cross_src = (encode_frames(params, batch["frames"], cfg, train=True)
+                 if cfg.is_encdec else None)
     t = x.shape[1]
     pos = torch.arange(t, dtype=torch.int32, device=x.device)
     x, _, aux = apply_stack(params, x, cfg, q_pos=pos, kv_pos=pos,
-                            rules=rules, train=True)
+                            rules=rules, train=True, cross_src=cross_src)
     x = L.apply_norm(params["final_norm"], x)
+    if prefix:
+        x = x[:, prefix:]
     logits = L.logits_from_hidden(x, params["embed"], params.get("lm_head"),
                                   cfg)
     loss, n_tok = cross_entropy(logits, batch["labels"])
@@ -606,9 +623,7 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int, *,
     """
     _check_batch(batch, ("tokens", "frames", "patch_embeds"))
     _check_cast(params, cfg)
-    if cfg.is_encdec and "frames" not in batch:
-        raise ValueError(f"{cfg.name} is an encoder-decoder: its batch needs "
-                         f"'frames' (B, {cfg.encoder_seq_len}, {cfg.d_model})")
+    _check_frames(batch, cfg)
     x = _prepare_prefix(params, batch, cfg)
     cross_src = (encode_frames(params, batch["frames"], cfg)
                  if cfg.is_encdec else None)
@@ -630,14 +645,18 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int, *,
 
 
 def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig,
-                seq_len: int, *, rules: AxisRules = AxisRules()):
+                seq_len: int, *, rules: AxisRules = AxisRules(),
+                cross_src=None):
     """One decode step.  tokens: (B, 1); pos: Python int cache fill level
     (after a prefill: its prefix and tokens, ``prefix_len + T``).
 
     ``params``: as :func:`cast_params` returns them.  Writes the new k and
     v into the attention caches in place, replaces each recurrent cache by
     the next state, and returns (logits (B, 1, Vp), caches).
-    Cross-attention reads the K/V that prefill left in the cache.
+    Cross-attention reads the K/V that prefill left in the cache; a cache
+    without them (no ``"ck"``) reads ``cross_src`` (B, S, d), the
+    encoder's output, and the returned cache holds its K/V, as the
+    reference's does.
     """
     _check_cast(params, cfg)
     x = L.embed_tokens(params["embed"], tokens, cfg)
@@ -645,7 +664,7 @@ def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig,
     q_pos = torch.tensor([pos], dtype=torch.int32, device=x.device)
     x, caches, _ = apply_stack(params, x, cfg, q_pos=q_pos, kv_pos=kv_pos,
                                caches=caches, pos=pos, rules=rules,
-                               losses=False)
+                               losses=False, cross_src=cross_src)
     x = L.apply_norm(params["final_norm"], x)
     logits = L.logits_from_hidden(x, params["embed"], params.get("lm_head"),
                                   cfg)

@@ -94,50 +94,87 @@ def mlstm_sequential(q, k, v, log_i, log_f, state=None):
     return torch.stack(hs, dim=1), (C, n, m)
 
 
+def _chunk_terms(qc, kc, vc, lic, lfc, tri, C0, n0, m0):
+    """One chunk of the chunkwise scan (float32, (B, C, H, *) inputs, the
+    entering state C0, n0, m0): the UN-normalized terms num (B,C,H,D) and
+    dot (B,C,H), the row stabilizer m_row (B,C,H), the inclusive sum of
+    log_f bcum (B,C,H), and the chunk-end state (C, n, m)."""
+    bcum = lfc.cumsum(dim=1)            # inclusive sum of log_f, (B,C,H)
+    btot = bcum[:, -1]                  # (B,H)
+    # intra-chunk log weights e_ts = bcum_t - bcum_s + li_s (s <= t)
+    e = bcum[:, :, None, :] - bcum[:, None, :, :] + lic[:, None, :, :]
+    e = e.masked_fill(~tri, -math.inf)  # (B,t,s,H)
+    g = bcum + m0[:, None, :]           # inter exponent (B,C,H)
+    m_row = torch.maximum(e.amax(dim=2), g)
+    m_row = torch.clamp_min(m_row, -1e30)          # guard -inf rows
+    s_mat = torch.einsum("bthd,bshd->btsh", qc, kc) * torch.exp(
+        e - m_row[:, :, None, :])
+    s_mat = s_mat.masked_fill(~tri, 0.0)
+    c_inter = torch.exp(g - m_row)                  # (B,C,H)
+    num = (torch.einsum("btsh,bshd->bthd", s_mat, vc)
+           + c_inter[..., None] * torch.einsum("bthd,bhde->bthe", qc, C0))
+    dot = (s_mat.sum(dim=2)
+           + c_inter * torch.einsum("bthd,bhd->bth", qc, n0))
+    # chunk-end state update
+    m_new = torch.maximum(btot + m0,
+                          (btot[:, None] - bcum + lic).amax(dim=1))
+    scale0 = torch.exp(btot + m0 - m_new)           # (B,H)
+    w_s = torch.exp(btot[:, None] - bcum + lic - m_new[:, None])
+    C1 = (scale0[..., None, None] * C0
+          + torch.einsum("bsh,bshd,bshe->bhde", w_s, kc, vc))
+    n1 = scale0[..., None] * n0 + torch.einsum("bsh,bshd->bhd", w_s, kc)
+    return num, dot, m_row, bcum, (C1, n1, m_new)
+
+
+def _chunks(q, k, v, log_i, log_f, chunk):
+    """The float32 inputs as (B, nc, chunk, H, *) and the causal mask of
+    a chunk; T must be a multiple of ``chunk``."""
+    b, t = q.shape[:2]
+    if t % chunk:
+        raise ValueError(f"T={t} must be a multiple of chunk={chunk}")
+    parts = tuple(x.reshape(b, t // chunk, chunk, *x.shape[2:])
+                  for x in _f32_inputs(q, k, v, log_i, log_f))
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=q.device).tril()[None, :, :, None]   # s <= t
+    return parts, tri
+
+
 def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, chunk: int = 256):
     """Chunk-parallel mLSTM, the semantics of :func:`mlstm_sequential`.
     T must be a multiple of ``chunk``.  Returns h in float32."""
     b, t, h, d = q.shape
-    if t % chunk:
-        raise ValueError(f"T={t} must be a multiple of chunk={chunk}")
-    nc = t // chunk
-    q, k, v, li, lf = (x.reshape(b, nc, chunk, *x.shape[2:])
-                       for x in _f32_inputs(q, k, v, log_i, log_f))
-    C0, n0, m0 = (_zero_state(b, h, d, q.device) if state is None
-                  else tuple(s.float() for s in state))
-    tri = torch.ones((chunk, chunk), dtype=torch.bool,
-                     device=q.device).tril()[None, :, :, None]   # s <= t
+    parts, tri = _chunks(q, k, v, log_i, log_f, chunk)
+    state = (_zero_state(b, h, d, q.device) if state is None
+             else tuple(s.float() for s in state))
     hs = []
-    for c in range(nc):
-        qc, kc, vc, lic, lfc = q[:, c], k[:, c], v[:, c], li[:, c], lf[:, c]
-        bcum = lfc.cumsum(dim=1)            # inclusive sum of log_f, (B,C,H)
-        btot = bcum[:, -1]                  # (B,H)
-        # intra-chunk log weights e_ts = bcum_t - bcum_s + li_s (s <= t)
-        e = bcum[:, :, None, :] - bcum[:, None, :, :] + lic[:, None, :, :]
-        e = e.masked_fill(~tri, -math.inf)  # (B,t,s,H)
-        g = bcum + m0[:, None, :]           # inter exponent (B,C,H)
-        m_row = torch.maximum(e.amax(dim=2), g)
-        m_row = torch.clamp_min(m_row, -1e30)          # guard -inf rows
-        s_mat = torch.einsum("bthd,bshd->btsh", qc, kc) * torch.exp(
-            e - m_row[:, :, None, :])
-        s_mat = s_mat.masked_fill(~tri, 0.0)
-        c_inter = torch.exp(g - m_row)                  # (B,C,H)
-        num = (torch.einsum("btsh,bshd->bthd", s_mat, vc)
-               + c_inter[..., None] * torch.einsum("bthd,bhde->bthe", qc, C0))
-        dot = (s_mat.sum(dim=2)
-               + c_inter * torch.einsum("bthd,bhd->bth", qc, n0))
-        den = _denominator(dot, m_row)[..., None]
-        hs.append(num / den)
-        # chunk-end state update
-        m_new = torch.maximum(btot + m0,
-                              (btot[:, None] - bcum + lic).amax(dim=1))
-        scale0 = torch.exp(btot + m0 - m_new)           # (B,H)
-        w_s = torch.exp(btot[:, None] - bcum + lic - m_new[:, None])
-        C0 = (scale0[..., None, None] * C0
-              + torch.einsum("bsh,bshd,bshe->bhde", w_s, kc, vc))
-        n0 = scale0[..., None] * n0 + torch.einsum("bsh,bshd->bhd", w_s, kc)
-        m0 = m_new
-    return torch.stack(hs, dim=1).reshape(b, t, h, d), (C0, n0, m0)
+    for c in range(t // chunk):
+        num, dot, m_row, _, state = _chunk_terms(
+            *(x[:, c] for x in parts), tri, *state)
+        hs.append(num / _denominator(dot, m_row)[..., None])
+    return torch.stack(hs, dim=1).reshape(b, t, h, d), state
+
+
+def mlstm_chunkwise_raw(q, k, v, log_i, log_f, chunk: int = 256):
+    """Zero-init chunkwise mLSTM returning the UN-normalized per-position
+    terms, for a context-parallel state correction
+    (:mod:`.xlstm_sp`): ``(num (B,T,H,D), dot (B,T,H), m_loc (B,T,H),
+    b_global (B,T,H), (F_total (B,H), C, n, m))``, all float32.
+    ``h = num / max(|dot|, exp(-m_loc))`` is the local result,
+    ``b_global`` the inclusive cumulative log-forget within the segment and
+    ``F_total = b_global[:, -1]``.  Port of
+    ``repro.models.xlstm.mlstm_chunkwise_raw``; T must be a multiple of
+    ``chunk``."""
+    b, t, h, d = q.shape
+    parts, tri = _chunks(q, k, v, log_i, log_f, chunk)
+    state = _zero_state(b, h, d, q.device)
+    f0 = torch.zeros((b, h), dtype=torch.float32, device=q.device)
+    terms = []
+    for c in range(t // chunk):
+        num, dot, m_row, bcum, state = _chunk_terms(
+            *(x[:, c] for x in parts), tri, *state)
+        terms.append((num, dot, m_row, bcum + f0[:, None, :]))
+        f0 = f0 + bcum[:, -1]
+    return (*(torch.cat(x, dim=1) for x in zip(*terms)), (f0, *state))
 
 
 # ---------------------------------------------------------------------------

@@ -42,9 +42,9 @@ from torch.distributed.tensor import Partial, Replicate, Shard
 from repro_torch.models import ModelConfig
 from repro_torch.models.convert import as_dtensor
 from repro_torch.models.layers import AxisRules
-from repro_torch.models.transformer import (check_trainable, decode_step,
-                                            forward_train, init_params,
-                                            prefill, resolve_device)
+from repro_torch.models.transformer import (decode_step, forward_train,
+                                            init_params, prefill,
+                                            resolve_device)
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.runtime.sharding import narrow, spec_map
@@ -63,10 +63,7 @@ def make_rules(mesh) -> AxisRules:
 
 
 def init_train_state(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
-    """Parameters from :func:`init_params` (``seed``), AdamW state, step 0.
-    Raises for a config whose training is not ported
-    (:func:`~repro_torch.models.transformer.check_trainable`)."""
-    check_trainable(cfg)
+    """Parameters from :func:`init_params` (``seed``), AdamW state, step 0."""
     params = init_params(seed, cfg, device=device)
     return {"params": params, "opt": init_opt_state(params),
             "step": torch.zeros((), dtype=torch.int32,
@@ -324,17 +321,13 @@ def suggest_grad_accum(cfg: ModelConfig, global_batch: int, seq_len: int,
 def make_serve_steps(cfg: ModelConfig, rules: AxisRules, seq_len: int):
     """(prefill_fn, decode_fn) for serving shapes; the parameters as
     ``models.cast_params`` returns them.  Decode reads the cross K/V that
-    prefill left in the caches; a ``cross_src`` passed to it raises."""
+    prefill left in the caches, or ``cross_src`` where a cache holds none
+    (:func:`~repro_torch.models.transformer.decode_step`)."""
     def prefill_fn(params, batch):
         return prefill(params, batch, cfg, seq_len, rules=rules)
 
     def decode_fn(params, tokens, caches, pos, cross_src=None):
-        if cross_src is not None:
-            raise NotImplementedError(
-                "a cross-attention source in decode is not ported yet "
-                "(ROADMAP queue A, item 10(a), training of hymba, whisper "
-                "and internvl); decode reads the cross K/V from the caches")
         return decode_step(params, tokens, caches, pos, cfg, seq_len,
-                           rules=rules)
+                           rules=rules, cross_src=cross_src)
 
     return prefill_fn, decode_fn

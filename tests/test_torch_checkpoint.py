@@ -85,7 +85,9 @@ def _configs(arch):
     return (jax_get_config(arch).reduced(), get_config(arch).reduced())
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m",
+                                  "hymba-1.5b", "whisper-base",
+                                  "internvl2-26b"])
 def test_reference_checkpoint_restores_into_the_port(tmp_path, arch):
     cj, ct = _configs(arch)
     state = jax.jit(lambda: jax_init_train_state(jax.random.PRNGKey(0),
@@ -106,7 +108,9 @@ def test_reference_checkpoint_restores_into_the_port(tmp_path, arch):
         assert np.array_equal(a, np.asarray(b))
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m",
+                                  "hymba-1.5b", "whisper-base",
+                                  "internvl2-26b"])
 def test_port_checkpoint_restores_into_the_reference(tmp_path, arch):
     cj, ct = _configs(arch)
     state = init_train_state(3, ct, device="cpu")

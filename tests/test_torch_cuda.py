@@ -108,7 +108,22 @@ CASES = {
     "gqa5_d16_window": (2, 131, 131, 10, 2, 16, None, True, 20),
     "cache_past_fill": (2, 40, 1024, 6, 2, 128, list(range(300, 340)), True,
                         0),
+    # the training shapes of hymba-1.5b (G 5 D 64: 1024-key windows, and a
+    # 256-key window that binds at T 640), internvl2-26b (G 6 D 128) and
+    # whisper-base (its encoder at T = S = 1500, its cross-attention: 1024
+    # queries at position 0 against 1500 keys), where the lse path runs
+    "train_gqa5_window1024": (2, 1024, 1024, 25, 5, 64, None, True, 1024),
+    "train_gqa5_t640_window256": (2, 640, 640, 25, 5, 64, None, True, 256),
+    "train_gqa6_d128": (2, 1024, 1024, 48, 8, 128, None, True, 0),
+    "train_noncausal_t1500": (2, 1500, 1500, 8, 8, 64, None, False, 0),
+    "train_cross_t1024_s1500": (2, 1024, 1500, 8, 8, 64, [0] * 1024, False,
+                                0),
 }
+#: The lse path's hazard shapes of the models trained with a prefix or an
+#: encoder.
+TRAIN_LSE_CASES = ["train_gqa5_window1024", "train_gqa5_t640_window256",
+                   "train_gqa6_d128", "train_noncausal_t1500",
+                   "train_cross_t1024_s1500"]
 ALL_MASKED = ("fully_masked_rows", "decode_all_masked",
               "fully_masked_rows_d256")
 
@@ -207,7 +222,8 @@ def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
                                   "mqa_d256_window_tail", "gqa3_d256_odd",
                                   "decode_t16_d256", "wide_range_d64",
                                   "wide_range_d256", "gqa5_d256_odd_t",
-                                  "gqa5_d16_window", "cache_past_fill"])
+                                  "gqa5_d16_window", "cache_past_fill"]
+                         + TRAIN_LSE_CASES)
 def test_function_and_lse_match_plain_version(cuda, name, dtype):
     """The Function's forward on the card (the fp32 tensor-core kernel, or
     the prefill kernel in bf16 whatever T is) and its lse against the plain
@@ -244,11 +260,14 @@ def test_function_and_lse_match_plain_version(cuda, name, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m",
-                                  "gemma3-1b", "starcoder2-3b"])
+                                  "gemma3-1b", "starcoder2-3b", "hymba-1.5b",
+                                  "whisper-base", "internvl2-26b"])
 def test_training_on_the_card_matches_the_cpu(cuda, arch):
     """loss_and_grads of the reduced model in fp32, card (the fp32
     tensor-core kernel through the Function) against CPU: loss rtol 1e-5,
-    every gradient leaf relative L2 1e-4."""
+    every gradient leaf relative L2 1e-4.  hymba-1.5b (its SSM under grad,
+    4 meta tokens), whisper-base (16 seeded frames: encoder and
+    cross-attention) and internvl2-26b (8 seeded patch embeddings) too."""
     from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.runtime.trainer import loss_and_grads
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
@@ -257,12 +276,20 @@ def test_training_on_the_card_matches_the_cpu(cuda, arch):
     rng = np.random.default_rng(2)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
              for k in ("tokens", "labels")}
+    for name, on, length in (("frames", cfg.is_encdec, cfg.encoder_seq_len),
+                             ("patch_embeds", cfg.num_patch_tokens,
+                              cfg.num_patch_tokens)):
+        if on:
+            batch[name] = torch.from_numpy((rng.normal(
+                size=(2, length, cfg.d_model)) * 0.02).astype(np.float32))
     before = fa.launches_by_path["fp32_tc"]
     loss_c, _, g_c = loss_and_grads(
         tree_map(lambda _, a: a.to(cuda), params),
         {k: v.to(cuda) for k, v in batch.items()}, cfg)
-    # remat "full": every layer's attention runs again in the backward
-    assert fa.launches_by_path["fp32_tc"] - before == 2 * cfg.num_layers
+    # remat "full": every attention runs again in the backward
+    calls = (cfg.num_layers + cfg.block_pattern.count("attn_cross")
+             + (cfg.encoder_layers if cfg.is_encdec else 0))
+    assert fa.launches_by_path["fp32_tc"] - before == 2 * calls
     loss, _, g = loss_and_grads(params, batch, cfg)
     np.testing.assert_allclose(float(loss_c), float(loss), rtol=1e-5)
     for a, b in zip(tree_leaves(g_c), tree_leaves(g)):

@@ -23,7 +23,10 @@ threshold at full size.
 of the single-device port step on the same global batches: the reduced
 llama3.2-3b, its labels < 0 spread unevenly over the dp ranks, and
 granite-moe-3b-a800m (experts over "model": the expert-parallel MoE) on
-(4, 2), llama3.2-3b with ``grad_accum=2`` and granite on (2, 2).  Losses
+(4, 2), llama3.2-3b with ``grad_accum=2`` and granite on (2, 2), and
+whisper-base (its frames split over dp like the tokens, the encoder
+trained through the cross-attention) on (2, 1), a third spawn of 2 ranks
+beside the 4.  Losses
 rtol 1e-6; each rank's local shard of every parameter equals the slice
 its spec gives of the single-device result, rtol 1e-5 atol 1e-6, wherever
 the entry's m (the gradients' running mean) is at least SMALL_GRAD of its
@@ -87,13 +90,14 @@ import dataclasses
 import numpy as np
 
 SMALL_FSDP = 4096
-MESH = {8: (4, 2), 4: (2, 2)}
+MESH = {8: (4, 2), 4: (2, 2), 2: (2, 1)}
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 # case: (arch, grad_accum, uneven labels, world)
 CASES = {"llama": ("llama3.2-3b", 1, True, 8),
          "granite": ("granite-moe-3b-a800m", 1, False, 8),
          "llama_ga2": ("llama3.2-3b", 2, False, 4),
-         "granite_22": ("granite-moe-3b-a800m", 1, False, 4)}
+         "granite_22": ("granite-moe-3b-a800m", 1, False, 4),
+         "whisper_21": ("whisper-base", 1, False, 2)}
 
 
 def config(get_config, arch):
@@ -107,7 +111,9 @@ def small_demo(get_config):
                                dtype="float32")
 
 
-def batches(vocab, uneven, steps=2):
+# global batches of 8 rows; with an encoder-decoder cfg each also carries
+# seeded frames x 0.02
+def batches(vocab, uneven, steps=2, cfg=None):
     rng = np.random.default_rng(7)
     out = []
     for _ in range(steps):
@@ -117,6 +123,10 @@ def batches(vocab, uneven, steps=2):
             lab[0:2, 3:] = -100
             lab[4, :] = -1
         out.append({"tokens": tok, "labels": lab})
+        if cfg is not None and cfg.is_encdec:
+            out[-1]["frames"] = (rng.normal(size=(
+                8, cfg.encoder_seq_len, cfg.d_model)) * 0.02).astype(
+                    np.float32)
     return out
 
 
@@ -175,7 +185,7 @@ for case, (arch, ga, uneven, w) in CASES.items():
                              grad_specs=S.grad_accum_specs(
                                  state["params"], cfg, rules))
     losses = []
-    for b in batches(cfg.vocab_size, uneven):
+    for b in batches(cfg.vocab_size, uneven, cfg=cfg):
         state, m = step(state, b)
         losses.append(float(m["loss"]))
     out[f"{case}/loss"] = np.asarray(losses)
@@ -190,7 +200,7 @@ if world == 8:      # save with the embedding sharded over "model"
         st["params"]["embed"]["table"], S.Spec("model", None), mesh)
     CheckpointManager(f"{root}/elastic").save(
         5, train_state_to_reference(st, demo), blocking=True)
-else:               # restore onto (2, 2), then the loop
+elif world == 4:    # restore onto (2, 2), then the loop
     like = train_state_like(T.init_train_state(0, demo, device="cpu"), demo)
     sh = S.spec_map(lambda _, x: (mesh, S.Spec()), like)
     sh["params"]["embed"]["table"] = (mesh, S.Spec("model", None))
@@ -396,7 +406,7 @@ def _single_device(scope, case, state_np):
                                OptConfig(**scope["OPT"]), grad_accum=ga)
     st = train_state_from_numpy(state_np, ct, device="cpu")
     losses = []
-    for b in scope["batches"](ct.vocab_size, uneven):
+    for b in scope["batches"](ct.vocab_size, uneven, cfg=ct):
         st, m = step(st, b)
         losses.append(float(m["loss"]))
     return np.asarray(losses), st
@@ -409,7 +419,7 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharding")
     scope = _common()
     states = {}
-    for arch in ("llama3.2-3b", "granite-moe-3b-a800m"):
+    for arch in ("llama3.2-3b", "granite-moe-3b-a800m", "whisper-base"):
         cj = scope["config"](jax_get_config, arch)
         states[arch] = _reference_state(arch, cj)
         CheckpointManager(tmp / "init" / arch).save(0, states[arch],
@@ -426,6 +436,7 @@ def runs(tmp_path_factory):
         jlosses.append(float(jm["loss"]))
     out8 = join_ranks(w8)
     w4 = start_ranks(_RANK, 4, tmp / "w4")
+    w2 = start_ranks(_RANK, 2, tmp / "w2")
     demo = scope["small_demo"](get_config)
     unsharded = TTR.init_train_state(0, demo, device="cpu")
     CheckpointManager(tmp / "unsharded").save(
@@ -435,8 +446,8 @@ def runs(tmp_path_factory):
                          **scope["LOOP"])
     base = TL.run_training(demo, OptConfig(**scope["OPT"]), loop, data,
                            device="cpu")
-    out4 = join_ranks(w4)
-    return dict(tmp=tmp, scope=scope, ranks={8: out8, 4: out4},
+    out4, out2 = join_ranks(w4), join_ranks(w2)
+    return dict(tmp=tmp, scope=scope, ranks={8: out8, 4: out4, 2: out2},
                 single=single, reference=(np.asarray(jlosses), jst),
                 unsharded=unsharded, loop=base)
 

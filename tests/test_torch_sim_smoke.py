@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s ``sim``, ``studies``, ``faults``, ``flow``,
-``trace``, ``serving``, ``moe``, ``train``, ``extract`` and internvl2-26b's
-``prefill`` phases, and the serve phase's logit checks, on the CPU at a
+``trace``, ``serving``, ``moe``, ``train``, ``xlstm_sp``, ``extract`` and
+internvl2-26b's ``prefill`` phases, and the serve phase's logit checks, on the CPU at a
 tiny size, so
 that the phases the GPU run ends with cannot rot between chip runs: they
 drive ``sim_speed``, ``xl_scale``, the exactness checks, the studies path
@@ -200,10 +200,14 @@ def test_train_phase_rehearses_on_the_cpu(chip_smoke):
     and starcoder2-3b train their steps with one attention backward call
     per layer a step, the reduced xlstm-350m (3 mLSTM layers, T 256) with
     one scan backward call per mLSTM layer a step and its step 1 checked in
-    fp32 and bf16, every model's step 1 within FULL_GRAD_REL_L2 on every
-    leaf, and each timed shape has its bounds.  On one torch thread:
-    beside the suite's other test processes, torch's thread pool made it
-    many times slower."""
+    fp32 and bf16, the reduced hymba-1.5b (its step 1 in fp32 at 2 of its
+    4 layers), whisper-base (2 encoder layers, and a self- and a
+    cross-attention in each of its 4 decoder layers: 10 attentions) and
+    internvl2-26b (cut to 2 layers) with one backward call an attention a
+    step, every model's
+    step 1 within FULL_GRAD_REL_L2 on every leaf, and each timed shape has
+    its bounds.  On one torch thread: beside the suite's other test
+    processes, torch's thread pool made it many times slower."""
     import torch
     tiny = chip_smoke.TRAIN_TINY
     threads = torch.get_num_threads()
@@ -212,19 +216,33 @@ def test_train_phase_rehearses_on_the_cpu(chip_smoke):
         lines, timing = chip_smoke.phase_train("cpu", tiny)
     finally:
         torch.set_num_threads(threads)
-    steps, layers = tiny["steps"], 4
     assert set(lines) == {"llama3.2-3b", "gemma3-1b", "starcoder2-3b",
-                          "xlstm-350m"}
+                          "xlstm-350m", "hymba-1.5b", "whisper-base",
+                          "internvl2-26b"}
+    attention = {"llama3.2-3b": 4, "gemma3-1b": 4, "starcoder2-3b": 4,
+                 "xlstm-350m": 0, "hymba-1.5b": 4,
+                 "whisper-base": 2 + 2 * 4, "internvl2-26b": 2}
     for arch, line in lines.items():
+        steps = tiny["steps_by_model"].get(arch, tiny["steps"])
         mlstm = line["blocks"]["mlstm"]
-        assert line["launches"]["flash_attention_backward"] == steps * (
-            layers - mlstm - line["blocks"]["slstm"])
+        assert line["steps"] == steps
+        assert line["attention_layers"] == attention[arch]
+        assert line["launches"]["flash_attention_backward"] == (
+            steps * attention[arch])
         assert line["launches"]["mlstm_scan_backward"] == steps * mlstm
     assert lines["xlstm-350m"]["blocks"] == {"attn": 0, "mlstm": 3,
-                                             "slstm": 1}
+                                             "slstm": 1, "hymba": 0,
+                                             "attn_cross": 0}
+    assert lines["internvl2-26b"]["reduced"] == ["layers 4 -> 2"]
+    assert lines["hymba-1.5b"]["step1_float32"]["layers"] == 2
+    assert lines["hymba-1.5b"]["prefix"] == 4
+    assert lines["internvl2-26b"]["prefix"] == 8
+    assert lines["whisper-base"]["encoder_frames"] == 16
+    assert all(line["weight_grads_nonzero_full_depth"] > 0
+               for line in lines.values())
     for arch, line in lines.items():
-        dtypes = {"float32", "bfloat16"} if arch == "xlstm-350m" else {
-            "bfloat16"}
+        dtypes = ({"float32", "bfloat16"} if arch == "xlstm-350m" else
+                  {"float32"} if arch == "hymba-1.5b" else {"bfloat16"})
         assert {k for k in line if k.startswith("step1_") and k !=
                 "step1_launches"} == {f"step1_{d}" for d in dtypes}
         for d in dtypes:
@@ -371,14 +389,14 @@ def test_train_phase_sizes_are_the_training_shape(chip_smoke):
     from repro_torch.models import get_config
     from repro_torch.models.config import ShapeConfig
     full = chip_smoke.TRAIN_FULL
-    assert (full["models"], full["model_reduced"], full["batch"],
+    assert (full["models"][:4], full["model_reduced"], full["batch"],
             full["seq"], full["steps"]) == (
         (("llama3.2-3b", "training_shape"),
          ("gemma3-1b", "training_shape_d256"),
          ("starcoder2-3b", "training_shape_gqa12"), ("xlstm-350m", None)),
         False, 2, 1024, 4)
     assert [chip_smoke.TRAIN_HAZARDS[case][:6]
-            for case in full["timing_cases"]] == [
+            for case in full["timing_cases"][:3]] == [
         (2, 1024, 1024, 24, 8, 128), (2, 1024, 1024, 4, 1, 256),
         (2, 1024, 1024, 24, 2, 128)]
     xl = get_config("xlstm-350m")
@@ -398,6 +416,68 @@ def test_train_phase_sizes_are_the_training_shape(chip_smoke):
     ms = (flops / chip_smoke.PEAK_FLOPS[chip_smoke.torch.bfloat16]
           + nbytes / chip_smoke.HBM_BYTES_PER_S) * 1e3
     assert 75 < ms < 85
+
+
+def test_prefixed_training_sizes_are_the_published_widths(chip_smoke):
+    """hymba-1.5b (full depth: 128 meta tokens + 896 text tokens, the
+    SSM's chunked scan, 3 steps, step 1 in fp32 at 4 of its layers),
+    whisper-base (full depth, 1500 frames, 1024 text tokens) and
+    internvl2-26b (4 of 48 layers: 2.70 B parameters, 43 GB of fp32
+    train state at 16 bytes a parameter; 256 patch embeddings + 768 text
+    tokens), each attention's lse shape among the hazards and timed at its
+    published heads and head dim."""
+    from repro_torch.launch import specs
+    from repro_torch.models import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.config import ShapeConfig
+    full = chip_smoke.TRAIN_FULL
+    assert [m for m, _ in full["models"][4:]] == [
+        "hymba-1.5b", "whisper-base", "internvl2-26b"]
+    assert full["steps_by_model"] == {"hymba-1.5b": 3}
+    assert full["step1"]["hymba-1.5b"] == (("float32",), 4)
+    shape = ShapeConfig("chip", full["seq"], full["batch"], "train")
+    text = {"hymba-1.5b": 896, "whisper-base": 1024, "internvl2-26b": 768}
+    for arch, cases in full["models"][4:]:
+        cfg = get_config(arch)
+        if arch in full["layers_by_model"]:
+            cfg = chip_smoke.cut_depth(cfg, full["layers_by_model"][arch])
+        assert specs.train_input_specs(cfg, shape)["tokens"].shape == (
+            2, text[arch])
+        assert sum(n for _, n in cases) == chip_smoke.attention_layers(
+            cfg) - (6 if arch == "whisper-base" else 0)
+        for case, _ in cases:
+            b, t, s, h, kvh, d = chip_smoke.TRAIN_HAZARDS[case][:6]
+            assert (h, kvh, d) == (cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.head_dim)
+            assert case in full["hazards"] and case in full["timing_cases"]
+    vlm = chip_smoke.cut_depth(get_config("internvl2-26b"), 4)
+    n = sum(a.numel() for _, a in chip_smoke._named_leaves(
+        TT.param_shapes(vlm)))
+    assert 2.6e9 < n < 2.8e9 and 16 * n < 45e9
+    w = get_config("whisper-base")
+    assert chip_smoke.attention_layers(w) == 18
+    assert chip_smoke.TRAIN_HAZARDS["train_whisper_cross"][:3] == (
+        2, 1024, w.encoder_seq_len)
+
+
+def test_xlstm_sp_phase_rehearses_on_the_cpu(chip_smoke):
+    """Phase xlstm_sp at a tiny size on the CPU: the segments folded on one
+    rank give the whole sequence's scan within SP_REL_L2; the full sizes
+    are xlstm-350m's heads and head dim at B2 T1024 in 4 segments."""
+    import torch
+    from repro_torch.models import get_config
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rel = chip_smoke.phase_xlstm_sp("cpu", chip_smoke.XLSTM_SP_TINY)
+    finally:
+        torch.set_num_threads(threads)
+    assert rel <= chip_smoke.SP_REL_L2
+    xl = get_config("xlstm-350m")
+    full = chip_smoke.XLSTM_SP_FULL
+    assert (full["b"], full["t"], full["h"], full["d"], full["segments"]) \
+        == (2, 1024, xl.num_heads, xl.ssm_expand * xl.d_model
+            // xl.num_heads, 4)
 
 
 def test_train_step_work_counts_each_layers_window(chip_smoke):

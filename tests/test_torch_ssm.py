@@ -6,7 +6,8 @@ reference's ``init_ssm`` weights copied into torch, and seeded numpy
 inputs.  Tolerances as tests/test_torch_model.py's: outputs float32 atol
 1e-5, bfloat16 atol 2e-2; the fp32 state h to 1e-5 of its largest
 magnitude in float32 and to relative L2 5e-2 in bfloat16, the conv window
-as the outputs.
+as the outputs.  Gradients (float32) as tests/test_torch_train.py holds
+them: rtol 1e-4, atol 1e-5.
 """
 import dataclasses
 
@@ -26,6 +27,7 @@ from repro_torch.models import ssm as TS
 TOL = {"float32": dict(rtol=0, atol=1e-5), "bfloat16": dict(rtol=0, atol=2e-2)}
 STATE_TOL = 1e-5
 STATE_REL_L2 = 5e-2
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 @pytest.fixture(autouse=True)
@@ -161,3 +163,106 @@ def test_decode_steps_continue_the_prefill(dtype):
                                    atol=STATE_TOL * np.abs(b).max())
     else:
         assert np.linalg.norm(a - b) / np.linalg.norm(b) <= STATE_REL_L2
+
+
+def _serving_loop(p, x, cfg):
+    """The recurrence as serving runs it, a position at a time (dec * h +
+    drv, then h C): apply_ssm without grad must give its bits."""
+    inner = cfg.ssm_expand * cfg.d_model
+    xz = x @ p["in_proj"]
+    xs, z = xz[..., :inner], xz[..., inner:]
+    xc, _ = TS._causal_conv(xs, p["conv_w"])
+    xc = TS.silu(xc)
+    dt, b_t, c_t = TS._ssm_params(p, xc, cfg)
+    a = -torch.exp(p["A_log"])
+    xf = xc.float()
+    h = torch.zeros((x.shape[0], inner, cfg.ssm_state))
+    ys = []
+    for t in range(x.shape[1]):
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + (dt[:, t] * xf[:, t])[..., None] * b_t[:, t, None, :])
+        ys.append(torch.bmm(h, c_t[:, t, :, None])[..., 0])
+    y = (torch.stack(ys, dim=1) + p["D"] * xf).to(x.dtype) * TS.silu(z)
+    return y @ p["out_proj"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [200, 256])
+def test_serving_output_is_the_loop_to_the_bit(dtype, t):
+    """Without grad apply_ssm keeps serving's loop over positions: its
+    output equals that loop's to the bit, at a flat and a chunked length
+    (the chunked, checkpointed scan runs only under grad)."""
+    cfg, _, _, pt = _setup(dtype)
+    _, xt = _x(t, cfg, dtype, seed=4)
+    with torch.no_grad():
+        got, _ = TS.apply_ssm(pt, xt, cfg)
+        assert torch.equal(got, _serving_loop(pt, xt, cfg))
+    # and the inference-mode call (grad on, nothing requires it) too
+    got2, _ = TS.apply_ssm(pt, xt, cfg)
+    assert torch.equal(got, got2)
+
+
+@pytest.mark.parametrize("t", [200, 256])
+def test_apply_ssm_gradients_match_reference(t):
+    """Every parameter's and the input's gradient of mean(y * w) (w a
+    seeded cotangent; a mean over positions, as a training loss is, the
+    scale GRAD_TOL is set for) against jax.grad of
+    repro.models.ssm.apply_ssm, at T 200 (the flat scan) and T 256 (two
+    chunks of 128, each under a checkpoint; the reference's under
+    jax.checkpoint), in float32."""
+    cfg, jcfg, pj, pt = _setup("float32")
+    xj, xt = _x(t, cfg, "float32", seed=6)
+    w = (np.random.default_rng(7).normal(size=(2, t, cfg.d_model))
+         / (2 * t)).astype(np.float32)
+
+    def ref_loss(p, x):
+        y, _ = JS.apply_ssm(p, x, jcfg, AxisRules())
+        return jnp.sum(y * w)
+    gpj, gxj = jax.jit(jax.grad(ref_loss, argnums=(0, 1)))(pj, xj)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in pt.items()}
+    x = xt.clone().requires_grad_(True)
+    y, _ = TS.apply_ssm(leaves, x, cfg)
+    (y * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(_f32(x.grad), _f32(gxj), **GRAD_TOL)
+    for name, leaf in leaves.items():
+        assert leaf.grad is not None and torch.isfinite(leaf.grad).all()
+        np.testing.assert_allclose(_f32(leaf.grad), _f32(gpj[name]),
+                                   err_msg=name, **GRAD_TOL)
+
+
+def _saved_bytes(fn):
+    """Bytes of the distinct storages autograd saves for the backward while
+    ``fn`` runs (a checkpointed region saves through its own hooks and
+    shows none)."""
+    seen = {}
+
+    def pack(a):
+        seen[a.untyped_storage().data_ptr()] = a.untyped_storage().nbytes()
+        return a
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda a: a):
+        fn()
+    return sum(seen.values())
+
+
+def test_chunked_scan_keeps_only_chunk_boundaries():
+    """Under grad, the scan at T 1024 (eight checkpointed chunks) saves less
+    than a fifth of what the flat scan at T 1000 saves (its every carry,
+    decay and output); the whole SSM saves less than half."""
+    cfg, _, _, pt = _setup("float32")
+    inner, state = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    rng = np.random.default_rng(8)
+
+    def scan(t):
+        f = lambda *s: torch.from_numpy(  # noqa: E731
+            rng.normal(size=s).astype(np.float32)).requires_grad_(True)
+        dt = torch.nn.functional.softplus(f(2, t, inner))
+        args = (torch.zeros((2, inner, state)), dt, f(2, t, state),
+                f(2, t, state), f(2, t, inner), -torch.exp(f(inner, state)))
+        return lambda: TS._scan_grad(*args)
+
+    def layer(t):
+        p = {k: v.clone().requires_grad_(True) for k, v in pt.items()}
+        return lambda: TS.apply_ssm(p, _x(t, cfg, "float32")[1], cfg)
+    chunked, flat = _saved_bytes(scan(1024)), _saved_bytes(scan(1000))
+    assert flat > 0 and chunked < flat / 5, (chunked, flat)
+    assert _saved_bytes(layer(1024)) < _saved_bytes(layer(1000)) / 2

@@ -5,7 +5,8 @@
 
 The same weights (the reference's ``init_params(PRNGKey(0))`` through
 ``params_from_numpy``) and the same numpy batches go through both, in
-fp32.  Tolerances: the loss and every gradient leaf rtol 1e-4, atol 1e-5
+fp32; a VLM's batch carries seeded patch embeddings and an encoder-decoder's
+seeded frames, each x 0.02, as tests/test_smoke_archs.py makes them.  Tolerances: the loss and every gradient leaf rtol 1e-4, atol 1e-5
 (fp32 sums in other orders through a few layers).  Train steps: losses
 rtol 1e-5, m and v rtol 1e-3 atol 1e-7 (sums of gradients), and the
 parameters after 3 AdamW steps of lr 1e-3 within atol 1e-4, a tenth of
@@ -44,7 +45,9 @@ from repro_torch.runtime import trainer as TTR
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 ARCHS = ["llama3.2-3b", "granite-moe-3b-a800m", "lacin-demo", "xlstm-350m",
-         "starcoder2-3b"]
+         "starcoder2-3b", "hymba-1.5b", "whisper-base", "internvl2-26b"]
+#: The models with a prefix or an encoder.
+PREFIXED = ["hymba-1.5b", "whisper-base", "internvl2-26b"]
 
 
 @pytest.fixture(autouse=True)
@@ -65,18 +68,27 @@ def _configs(arch, **kw):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_params(arch):
-    cj, _ = _configs(arch)
+def _reference_params(arch, **kw):
+    cj, _ = _configs(arch, **kw)
     return jax.tree_util.tree_map(
         np.asarray, JT.init_params(jax.random.PRNGKey(0), cj))
 
 
-def _batch(vocab, b=2, t=24, seed=0):
+def _batch(vocab, b=2, t=24, seed=0, cfg=None):
+    """Tokens and labels; with ``cfg``, also its patch embeddings and
+    frames (seeded, x 0.02) where it takes them."""
     rng = np.random.default_rng(seed)
     tok = rng.integers(0, vocab, (b, t)).astype(np.int32)
     lab = rng.integers(0, vocab, (b, t)).astype(np.int32)
     lab[0, :3] = -100                                 # ignored labels
-    return {"tokens": tok, "labels": lab}
+    out = {"tokens": tok, "labels": lab}
+    if cfg is not None and cfg.num_patch_tokens:
+        out["patch_embeds"] = (rng.normal(size=(
+            b, cfg.num_patch_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg is not None and cfg.is_encdec:
+        out["frames"] = (rng.normal(size=(
+            b, cfg.encoder_seq_len, cfg.d_model)) * 0.02).astype(np.float32)
+    return out
 
 
 def _leaves_close(got, want, **tol):
@@ -87,25 +99,25 @@ def _leaves_close(got, want, **tol):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_forward_train(arch, t=24):
+def _reference_forward_train(arch, t=24, **kw):
     """(loss, metrics, grads) of jax.value_and_grad of the reference's
     forward_train on ``_batch`` of length ``t``, jitted once per config
     and length: a remat policy changes what is recomputed, not the value,
     so the port's three policies are held to the one reference."""
-    cj, _ = _configs(arch)
-    batch = {k: jnp.asarray(v) for k, v in _batch(cj.vocab_size,
-                                                  t=t).items()}
+    cj, _ = _configs(arch, **kw)
+    batch = {k: jnp.asarray(v) for k, v in _batch(cj.vocab_size, t=t,
+                                                  cfg=cj).items()}
     (lj, mj), gj = jax.jit(jax.value_and_grad(
         lambda p, b: JT.forward_train(p, b, cj, JRules()), has_aux=True))(
-        _reference_params(arch), batch)
+        _reference_params(arch, **kw), batch)
     return lj, mj, gj
 
 
-def _check_forward_train(arch, remat, t=24):
-    _, ct = _configs(arch, remat=remat)
-    pn = _reference_params(arch)
-    batch = _batch(ct.vocab_size, t=t)
-    lj, mj, gj = _reference_forward_train(arch, t)
+def _check_forward_train(arch, remat, t=24, **kw):
+    _, ct = _configs(arch, remat=remat, **kw)
+    pn = _reference_params(arch, **kw)
+    batch = _batch(ct.vocab_size, t=t, cfg=ct)
+    lj, mj, gj = _reference_forward_train(arch, t, **kw)
     pt = params_from_numpy(pn, ct, device="cpu")
     lt, mt, gt = TTR.loss_and_grads(
         pt, {k: torch.from_numpy(v) for k, v in batch.items()}, ct)
@@ -121,15 +133,32 @@ def _check_forward_train(arch, remat, t=24):
     _leaves_close(got, gj, **GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch,remat", [
-    ("llama3.2-3b", "none"), ("llama3.2-3b", "full"), ("llama3.2-3b", "dots"),
-    ("granite-moe-3b-a800m", "full"), ("granite-moe-3b-a800m", "dots"),
-    ("gemma3-1b", "full"), ("starcoder2-3b", "full"),
-    ("nemotron-4-15b", "full"), ("qwen3-moe-30b-a3b", "full")])
-def test_forward_train_matches_reference(arch, remat):
+@pytest.mark.parametrize("arch,remat,t", [
+    pytest.param(arch, remat, t, id=f"{arch}-{remat}" + (
+        f"-t{t}" if t != 24 else "")) for arch, remat, t in [
+        ("llama3.2-3b", "none", 24), ("llama3.2-3b", "full", 24),
+        ("llama3.2-3b", "dots", 24), ("granite-moe-3b-a800m", "full", 24),
+        ("granite-moe-3b-a800m", "dots", 24), ("gemma3-1b", "full", 24),
+        ("starcoder2-3b", "full", 24), ("nemotron-4-15b", "full", 24),
+        ("qwen3-moe-30b-a3b", "full", 24),
+        ("hymba-1.5b", "none", 24), ("hymba-1.5b", "full", 24),
+        ("hymba-1.5b", "none", 252), ("hymba-1.5b", "full", 252),
+        ("whisper-base", "none", 24), ("whisper-base", "full", 24),
+        ("internvl2-26b", "none", 24), ("internvl2-26b", "full", 24)]])
+def test_forward_train_matches_reference(arch, remat, t):
     """Loss, metrics and every gradient against jax.value_and_grad of
-    repro.models.transformer.forward_train, under each remat policy."""
-    _check_forward_train(arch, remat)
+    repro.models.transformer.forward_train, under each remat policy.
+    hymba-1.5b (4 meta tokens) at 24 text tokens runs its SSM's flat scan
+    over 28 positions, at 252 its chunked scan over 256; whisper-base
+    trains its encoder over 16 frames through the cross-attention's K/V,
+    internvl2-26b reads 8 patch embeddings; the loss skips the prefix."""
+    _check_forward_train(arch, remat, t)
+
+
+def test_meta_tokens_train_and_match_reference():
+    """llama3.2-3b with two meta tokens in front of its text: the meta
+    tokens' gradient and every other against the reference's."""
+    _check_forward_train("llama3.2-3b", "full", num_meta_tokens=2)
 
 
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
@@ -159,7 +188,7 @@ def _check_train_steps(arch, grad_accum, steps=3, t=24):
     tst = train_state_from_numpy(jax.tree_util.tree_map(np.asarray, jst), ct,
                                  device="cpu")
     for i in range(steps):
-        batch = _batch(cj.vocab_size, b=4, t=t, seed=i)
+        batch = _batch(cj.vocab_size, b=4, t=t, seed=i, cfg=cj)
         jst, jm = jstep(jst, {k: jnp.asarray(v) for k, v in batch.items()})
         tst, tm = tstep(tst, batch)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
@@ -178,7 +207,7 @@ def _check_train_steps(arch, grad_accum, steps=3, t=24):
 
 @pytest.mark.parametrize("arch,grad_accum", [
     ("llama3.2-3b", 1), ("llama3.2-3b", 2), ("granite-moe-3b-a800m", 1),
-    ("nemotron-4-15b", 1)])
+    ("nemotron-4-15b", 1), ("whisper-base", 2)])
 def test_make_train_step_matches_reference(arch, grad_accum):
     """3 steps of make_train_step against the reference's on the same
     weights and batches: losses, then every parameter, m and v."""
@@ -264,13 +293,24 @@ def test_train_state_round_trip_is_exact(arch):
 
 
 def test_untrainable_configs_raise():
-    """Parts not ported raise naming ROADMAP item 10(a); a step on a mesh,
-    with ``grad_specs``, builds (it is held on gloo ranks in
+    """What cannot train raises: an encoder-decoder's batch without its
+    frames, an unknown remat policy, a batch entry no model reads; a step
+    on a mesh, with ``grad_specs``, builds (it is held on gloo ranks in
     tests/test_torch_sharding.py)."""
     base = get_config("llama3.2-3b").reduced()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP .*10\(a\)"):
-        TTR.init_train_state(0, dataclasses.replace(base, num_meta_tokens=2),
-                             device="cpu")
+    _, whisper = _configs("whisper-base")
+    params = TT.init_params(0, whisper, device="cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in _batch(whisper.vocab_size, cfg=whisper).items()}
+    with pytest.raises(ValueError, match="frames"):
+        TT.forward_train(params, {k: batch[k] for k in ("tokens", "labels")},
+                         whisper)
+    with pytest.raises(ValueError, match="remat"):
+        TT.forward_train(params, batch,
+                         dataclasses.replace(whisper, remat="some"))
+    with pytest.raises(ValueError, match="unknown batch entries"):
+        TT.forward_train(params, dict(batch, pixels=batch["frames"]),
+                         whisper)
 
     class OneRankMesh:
         """A (1, 1) mesh's names, sizes and this rank's coordinate."""
@@ -287,26 +327,72 @@ def test_untrainable_configs_raise():
                                         grad_specs={}))
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-base",
-                                  "internvl2-26b"])
-def test_training_prefix_and_encoder_models_raises(arch):
-    """hymba-1.5b, whisper-base and internvl2-26b serve in the port but do
-    not train yet: forward_train and init_train_state raise naming the
-    ROADMAP item that ports their training (10(a), training), and the
-    serve steps' decode refuses a cross-attention source (it reads the
-    cross K/V prefill left in the caches)."""
+@pytest.mark.parametrize("arch", PREFIXED)
+def test_init_train_state_builds_prefixed_models(arch):
+    """init_train_state builds hymba-1.5b, whisper-base and internvl2-26b:
+    their meta tokens, encoder and SSM leaves among the parameters, m and
+    v zeros of the parameters' shapes, and a step of the train step runs
+    on it with a finite loss."""
     _, ct = _configs(arch)
-    label = r"ROADMAP queue A, item 10\(a\), training"
-    params = TT.init_params(0, ct, device="cpu")
-    batch = {k: torch.from_numpy(v) for k, v in _batch(ct.vocab_size).items()}
-    with pytest.raises(NotImplementedError, match=label):
-        TT.forward_train(params, batch, ct)
-    with pytest.raises(NotImplementedError, match=label):
-        TTR.init_train_state(0, ct, device="cpu")
-    _, decode_fn = TTR.make_serve_steps(ct, TTR.make_rules(None), 16)
-    with pytest.raises(NotImplementedError, match=label):
-        decode_fn(params, batch["tokens"][:, :1], None, 8,
-                  cross_src=torch.zeros((2, 4, ct.d_model)))
+    state = TTR.init_train_state(0, ct, device="cpu")
+    params = state["params"]
+    assert ("meta_tokens" in params) == bool(ct.num_meta_tokens)
+    assert ("encoder" in params) == ct.is_encdec == ("enc_norm" in params)
+    if arch == "hymba-1.5b":
+        assert params["layers"][0]["ssm"]["A_log"].dtype == torch.float32
+    leaves = lambda t: jax.tree_util.tree_leaves(  # noqa: E731
+        t, is_leaf=torch.is_tensor)
+    assert [a.shape for a in leaves(state["opt"]["m"])] == \
+        [a.shape for a in leaves(params)]
+    assert not any(a.any() for a in leaves(state["opt"]["v"]))
+    step = TTR.make_train_step(ct, TTR.make_rules(None), OptConfig())
+    state, m = step(state, _batch(ct.vocab_size, t=8, cfg=ct))
+    assert np.isfinite(float(m["loss"])) and int(state["step"]) == 1
+
+
+def test_decode_with_a_cross_source_matches_reference():
+    """whisper-base's decode_fn with ``cross_src`` (the encoder's output)
+    on caches whose cross-attention layers hold no ``ck``/``cv``: the
+    logits and every cache equal the reference's decode_step with the same
+    source on the same caches, and the returned caches hold the cross K/V
+    prefill would have left."""
+    cj, ct = _configs("whisper-base")
+    pn = _reference_params("whisper-base")
+    batch = _batch(ct.vocab_size, t=8, cfg=ct)
+    pt = TT.cast_params(params_from_numpy(pn, ct, device="cpu"), ct)
+    prefill_fn, decode_fn = TTR.make_serve_steps(ct, TTR.make_rules(None), 16)
+    inputs = {"tokens": torch.from_numpy(batch["tokens"]),
+              "frames": torch.from_numpy(batch["frames"])}
+    logits, caches = prefill_fn(pt, inputs)
+    src = TT.encode_frames(pt, inputs["frames"], ct)
+    tok = logits.argmax(-1)
+    bare = [{k: v.clone() for k, v in c.items() if k not in ("ck", "cv")}
+            for c in caches]
+    got, got_caches = decode_fn(pt, tok, bare, 8, cross_src=src)
+    want_read, _ = decode_fn(pt, tok, [{k: v.clone() for k, v in c.items()}
+                                       for c in caches], 8)
+    np.testing.assert_allclose(got.numpy(), want_read.numpy(), rtol=0,
+                               atol=1e-5)
+    jprefill = jax.jit(lambda p, b: JT.prefill(p, b, cj, JRules(), 16))
+    _, jcaches = jprefill(pn, {k: jnp.asarray(v) for k, v in batch.items()
+                               if k != "labels"})
+    jsrc = JT.encode_frames(pn, jnp.asarray(batch["frames"]), cj, JRules())
+    jbare = [{k: v for k, v in c.items() if k not in ("ck", "cv")}
+             for c in jcaches]
+    jlogits, jnew = JT.decode_step(pn, jnp.asarray(tok.numpy()), jbare,
+                                   jnp.int32(8), cj, JRules(), 16,
+                                   cross_src=jsrc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jlogits), rtol=0,
+                               atol=1e-5)
+    i = 0
+    for run, run_want in zip(TT.build_runs(ct), jnew):
+        group = got_caches[i:i + run.count]
+        i += run.count
+        assert set(group[0]) == set(run_want) >= {"ck", "cv"}
+        for k, want in run_want.items():
+            np.testing.assert_allclose(
+                torch.stack([c[k] for c in group]).float().numpy(),
+                np.asarray(want, np.float32), rtol=0, atol=1e-5, err_msg=k)
 
 
 def test_train_state_defaults_to_the_card(monkeypatch):
