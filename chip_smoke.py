@@ -93,7 +93,8 @@ Phases, one JSON line each:
    seeded frames, 1024 text tokens) at full width and depth and
    internvl2-26b at full width with 4 of its 48 layers (256 seeded patch
    embeddings + 768 text tokens) (fp32 parameters, bf16 compute, remat
-   "full") through runtime.trainer.make_train_step for 4 steps of
+   "full") through runtime.trainer.make_train_step for 4 steps (3 for
+   xlstm-350m and hymba-1.5b, whose steps are host-bound) of
    data.host_batch (B2, 1024 positions a row; launch/specs.py lays out the
    prefix): step 1 against the same step
    with the plain versions, the mLSTM scan differentiated by autograd, at
@@ -123,6 +124,22 @@ Phases, one JSON line each:
    writes) and restored with ``shardings=``, equal to the bit: step ms
    beside the unsharded step's, peak memory, ``save_s``, ``restore_s``;
    the group destroyed before the phase returns;
+   then ``"phase": "tp"``: tensor-parallel llama3.2-3b (models/layers.py
+   over a ("model",) mesh) at published width with 8 of its 28 layers:
+   on one rank in this process, then on two ranks, two processes of this
+   script (``--tp-rank``) sharing the card over gloo (one card hosts one
+   NCCL rank, ROADMAP C9), each at 12 query and 4 KV heads: served in fp32
+   (logits within 1e-5 relative L2 of the one-rank run, greedy tokens
+   equal) and bf16 (5e-2; B4, 512-token prompts, 8 decode steps, the ranks
+   fed the one-rank run's tokens), trained in bf16 (3 steps of B2 T1024,
+   losses and grad norms within 1e-2) and fp32 (2 steps: within 1e-5, the
+   parameters within relative L2 1e-4), each rank's resident fp32
+   parameters, gradients, m and v at most 0.55 of one rank's, one prefill
+   and one decode launch a layer a call, two prefills with lse and one
+   backward call a layer a train step; ``"phase": "tp_times"`` prints
+   both runs' prefill, decode step and train step ms and each rank's peak
+   memory; the attention kernels are timed alone at a rank's shape (H12
+   KV4 D128, with lse at B2 T1024);
    then ``"phase": "extract"``: the collectives of a training step,
    recorded as the step posts them (repro_torch.workload.extract) in one
    process as rank 0 of an 8-rank recording group (torch's "fake"
@@ -222,6 +239,7 @@ sys.path.insert(0, SRC)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -1572,6 +1590,9 @@ TRAIN_HAZARDS = {
                               0),
     "train_whisper_cross": (2, 1024, 1500, 8, 8, 64, [0] * 1024, None,
                             False, 0),
+    # one rank of llama3.2-3b's attention over 2 tp ranks (phase tp)
+    "train_tp_rank_h12_kv4": (2, 1024, 1024, 12, 4, 128, None, None, True,
+                              0),
 }
 #: The lse hazard cases at the training shapes of the models with a prefix
 #: or an encoder, each also timed.
@@ -1632,7 +1653,7 @@ TRAIN_FULL = {
                ("internvl2-26b", (("train_internvl_g6", 4),))),
     "model_reduced": False, "seq": 1024, "batch": 2, "steps": 4,
     "layers_by_model": {"internvl2-26b": 4},
-    "steps_by_model": {"hymba-1.5b": 3},
+    "steps_by_model": {"hymba-1.5b": 3, "xlstm-350m": 3},
     "step1": {"xlstm-350m": (("float32", "bfloat16"), None),
               "hymba-1.5b": (("float32",), 4)}}
 TRAIN_TINY = {
@@ -2796,6 +2817,459 @@ def phase_shard(device="cuda", sizes=SHARD_FULL):
          restore_s=restore_s, restored_equal=True,
          seconds=time.perf_counter() - t0)
     return launches
+
+
+#: Phase ``tp``: tensor-parallel compute (models/layers.py) over a ("model",)
+#: mesh of ``tp`` ranks, two processes sharing the one card over gloo (one
+#: card hosts one NCCL rank: ROADMAP C9), against the same work on one rank
+#: in this process first.  llama3.2-3b at published width cut to ``layers``
+#: of its 28 (so that the one-rank run, then both ranks, fit the card with
+#: room, and the phase keeps chip_smoke.py inside its time limit): served
+#: in fp32 and bf16 (B4, 512-token prompts, ``decode_steps`` greedy steps,
+#: the ranks fed the one-rank run's tokens), trained in bf16 (B2 T1024, 3
+#: steps, remat "full": the timed run) and in fp32 (2 steps: the parameter
+#: check), both with the reference's defaults (FULL_OPT, as phase train's
+#: llama3.2-3b: at lr 1e-3 from step 1 its loss swings).  The tiny sizes
+#: rehearse it on the CPU.
+TP_FULL = {"arch": "llama3.2-3b", "reduced": False, "layers": 8, "tp": 2,
+           "batch": 4, "prompt": 512, "max_seq": 1024, "decode_steps": 8,
+           "train_batch": 2, "train_seq": 1024, "train_steps": 3,
+           "fp32_train_steps": 2, "timeout_s": 420}
+TP_TINY = {"arch": "llama3.2-3b", "reduced": True, "layers": 2, "tp": 2,
+           "batch": 2, "prompt": 16, "max_seq": 32, "decode_steps": 3,
+           "train_batch": 2, "train_seq": 32, "train_steps": 3,
+           "fp32_train_steps": 2, "timeout_s": 180}
+#: The gates, fixed before the phase's first run on the card (the two
+#: update bounds after a later run, below).  fp32 logits: relative L2
+#: 1e-5 of the one-rank run's, and the same greedy
+#: tokens (the row-parallel products, the vocabulary's gather and the
+#: attention at fewer heads sum in another order: fp32 rounding, about 1e-7
+#: a sum, with two orders of room for depth).  bf16 logits: the serve
+#: phase's LOGITS_TOL (each all-reduce of bf16 partial products rounds once
+#: more).  bf16 training: each step's loss and grad_norm within 1e-2 of the
+#: one-rank run's (phase train's step-1 loss tolerance).  fp32 training:
+#: losses and grad_norm within 1e-5, and each parameter's update over the
+#: steps (after less before) against the one-rank run's: relative L2
+#: TP_FP32_UPDATE_REL_L2 over all leaves and TP_FP32_LEAF_REL_L2 on every
+#: leaf (AdamW's step is lr m / (sqrt(v) + eps): on an entry whose
+#: gradient is within rounding of zero, a ratio of rounding errors, where
+#: a wrong gradient moves the leaf's every entry).  The two update bounds
+#: were set after a run on the card (NVIDIA H100 80GB HBM3, 700 W) read,
+#: sound, 3.3e-5 over all leaves and 6.3e-5 on the worst leaf, and, with
+#: each ln2 scale given only its rank's MLP-slice gradient (its tp sum
+#: dropped, planted in a copy of the code), 6.2e-3 and 0.94 (an ln2
+#: scale): 5e-4 and 1e-2 sit 15 and 160 times above the sound readings
+#: and 12 and 94 times below the fault's.  Each rank's resident
+#: parameters, gradients, m and v (fp32) at most TP_RESIDENT_SHARE of the
+#: one-rank run's: the layers' leaves are halved, the norms' are whole.
+TP_FP32_REL_L2 = 1e-5
+TP_BF16_REL_L2 = LOGITS_TOL
+TP_BF16_LOSS_RTOL = 1e-2
+TP_FP32_LOSS_RTOL = 1e-5
+TP_FP32_UPDATE_REL_L2 = 5e-4
+TP_FP32_LEAF_REL_L2 = 1e-2
+TP_RESIDENT_SHARE = 0.55
+#: The lse's training case at one rank's shape of phase tp (TRAIN_HAZARDS),
+#: timed alone in the parent.
+TP_RANK_CASE = "train_tp_rank_h12_kv4"
+
+
+def tp_config(sizes, dtype="bfloat16"):
+    cfg = get_config(sizes["arch"])
+    cfg = cfg.reduced() if sizes["reduced"] else cfg
+    return dataclasses.replace(cut_depth(cfg, sizes["layers"]), dtype=dtype,
+                               remat="full")
+
+
+@contextlib.contextmanager
+def attention_heads(seen):
+    """Adds (heads, KV heads, head dim) of every attention call (through
+    ``ops.flash_attention``, the kernel's entry on the card) to ``seen``."""
+    kept = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.add((q.shape[2], k.shape[2], q.shape[3]))
+        return kept(q, k, v, **kw)
+    ops.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        ops.flash_attention = kept
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def tp_work(sizes, device, mesh=None, feed=None):
+    """Phase tp's work on one rank (``mesh`` None) or as this rank of
+    ``mesh``: serving in fp32 and bf16 (prefill, then ``decode_steps``
+    greedy steps, fed ``feed``'s tokens by dtype where given), bf16 training
+    (``train_steps``) and fp32 training (``fp32_train_steps``) from seed
+    SEED, with launches (counts set to 0 just before each part), times,
+    the heads every attention call saw, resident and peak memory.  Returns
+    it all on the CPU, with each fp32 parameter's update over the training
+    (this rank's shards, and their regions)."""
+    rules = TR.make_rules(mesh)
+    rng = np.random.default_rng(SEED)
+    cfg = tp_config(sizes)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (sizes["batch"], sizes["prompt"]))).to(device)
+    heads = set()
+    out = {"serve": {}, "train": {}}
+
+    def placed(tree, specs):
+        """``tree`` placed on the mesh by ``specs`` (``tree`` as it is
+        without one)."""
+        if mesh is None:
+            return tree
+        out = SH.shard_tree(tree, specs(tree), mesh)
+        del tree
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    stored = placed(init_params(SEED, cfg, device=device),
+                    lambda p: SH.param_specs(p, cfg, rules))
+    with attention_heads(heads), torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            scfg = tp_config(sizes, dtype)
+            # the working copy once: local tensors, each rank's tp slices
+            params = SH.working_copy(TT.cast_params(stored, scfg), scfg,
+                                     rules)
+            prefill_fn, decode_fn = TR.make_serve_steps(scfg, rules,
+                                                        sizes["max_seq"])
+            reset_launches()
+            logits, caches = prefill_fn(params, {"tokens": toks})
+            _sync(device)
+            launched = {"prefill": kernel_launches()}
+            got, mine = [logits.float().cpu()], [logits.argmax(-1).cpu()]
+            reset_launches()
+            for i in range(sizes["decode_steps"]):
+                tok = (mine[-1] if feed is None else feed[dtype][i]).to(device)
+                logits, caches = decode_fn(params, tok, caches,
+                                           sizes["prompt"] + i)
+                got.append(logits.float().cpu())
+                mine.append(logits.argmax(-1).cpu())
+            _sync(device)
+            launched["decode"] = kernel_launches()
+            times = {}
+            if device == "cuda":
+                times["prefill_ms"] = cuda_ms(
+                    lambda: prefill_fn(params, {"tokens": toks}), iters=3,
+                    warmup=1)
+                pos = sizes["prompt"] + sizes["decode_steps"]
+                times["decode_step_ms"] = cuda_ms(
+                    lambda: decode_fn(params, tok, caches, pos), iters=8)
+            out["serve"][dtype] = dict(logits=got, tokens=mine,
+                                       launches=launched, **times)
+            del params, caches, logits
+    del stored
+    for dtype, steps in (("bfloat16", sizes["train_steps"]),
+                         ("float32", sizes["fp32_train_steps"])):
+        tcfg = tp_config(sizes, dtype)
+        state = placed(TR.init_train_state(SEED, tcfg, device=device),
+                       lambda s: SH.state_specs(s["params"], tcfg, rules))
+        step = TR.make_train_step(tcfg, rules, OptConfig(**FULL_OPT), **(
+            {} if mesh is None else {"grad_specs": SH.grad_accum_specs(
+                state["params"], tcfg, rules)}))
+        data = DataConfig(vocab_size=tcfg.vocab_size,
+                          seq_len=sizes["train_seq"],
+                          global_batch=sizes["train_batch"])
+        # parameters, gradients (placed as the parameters: no dp axis), m
+        # and v, fp32, this rank's shards
+        resident = 4 * sum(_local(a).numel() for a in (
+            _leaves(state["params"]) * 2 + _leaves(state["opt"]["m"])
+            + _leaves(state["opt"]["v"])))
+        # this rank's fp32 shards before the first step: the check reads
+        # each leaf's update
+        before = {n: _local(a).detach().clone() for n, a in _named_leaves(
+            state["params"])} if dtype == "float32" else None
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        losses, norms, step_ms, launched = [], [], [], []
+        with attention_heads(heads):
+            for i in range(steps):
+                reset_launches()
+                MF.backward_calls = 0
+                _sync(device)
+                t1 = time.perf_counter()
+                state, m = step(state, host_batch(data, i))
+                _sync(device)
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                launched.append(dict(kernel_launches(),
+                                     flash_attention_backward=(
+                                         MF.backward_calls)))
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if device == "cuda" else None)
+        out["train"][dtype] = dict(losses=losses, grad_norms=norms,
+                                   step_ms=step_ms, launches=launched,
+                                   resident_bytes=resident,
+                                   peak_memory_gb=peak)
+        if dtype == "float32":
+            out["updates"] = {n: (_local(a).detach() - before[n]).cpu()
+                              for n, a in _named_leaves(state["params"])}
+            del before
+            out["regions"] = {n: [(r.start, r.stop) for r in SH.local_region(
+                tuple(a.shape), a.placements, mesh)] if mesh is not None
+                else None for n, a in _named_leaves(state["params"])}
+        del state, step
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    out["heads"] = sorted(heads)
+    return out
+
+
+def tp_rank_main(rank, world, port, outdir, device, sizes):
+    """One rank of phase tp (``python3 chip_smoke.py --tp-rank ...``): a
+    gloo group over localhost, a ("model",) mesh of ``world``, tp_work fed
+    the one-rank run's tokens, its result saved to ``outdir``.  The group
+    is destroyed also on failure."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    rank, world = int(rank), int(world)
+    sizes = json.loads(sizes)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=sizes["timeout_s"]))
+    try:
+        mesh = init_device_mesh(device, (world,), mesh_dim_names=("model",))
+        feed = torch.load(os.path.join(outdir, "tokens.pt"))
+        res = tp_work(sizes, device, mesh, feed)
+        torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_ranks(sizes, device, feed):
+    """Starts ``tp`` processes of this script as the ranks, waits for them
+    (each within ``timeout_s``), and returns their results; every process
+    is joined or killed and the directory removed, also on failure."""
+    world = sizes["tp"]
+    tmp = tempfile.mkdtemp(prefix=".tp_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    procs, logs = [], []
+    try:
+        torch.save(feed, os.path.join(tmp, "tokens.pt"))
+        port = free_port()
+        for r in range(world):
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank",
+                 str(r), str(world), str(port), tmp, device,
+                 json.dumps(sizes)], stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + sizes["timeout_s"]
+        failed = []
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r}: no result in {sizes['timeout_s']} s")
+                continue
+            if p.returncode:
+                failed.append(f"rank {r}: exit {p.returncode}")
+        if failed:
+            tails = []
+            for r in range(world):
+                logs[r].flush()
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    tails.append(f"--- rank {r} ---\n" + f.read()[-3000:])
+            raise AssertionError("phase tp: " + "; ".join(failed) + "\n"
+                                 + "\n".join(tails))
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(world)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_tp(device="cuda", sizes=TP_FULL):
+    """Tensor-parallel serving and training (the comment on TP_FULL says
+    what runs, and the one on the gates what they hold), one rank in this
+    process first, then ``tp`` ranks in processes of their own.  On the
+    card also: one prefill per layer a prefill, one decode per layer a
+    step, two prefills with lse and one backward call per layer a train
+    step, every attention call at H/tp and KV/tp heads on each rank; and
+    the attention kernels timed alone at a rank's shape.  Returns rank 0's
+    launches by run (counts set to 0 just before each part)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cfg = tp_config(sizes)
+    tp = sizes["tp"]
+    one = tp_work(sizes, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    feed = {dtype: run["tokens"] for dtype, run in one["serve"].items()}
+    ranks = _tp_ranks(sizes, device, feed)
+    shape = (cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim)
+
+    # serving: logits step by step, fp32 tokens
+    serve = {}
+    for dtype, tol in (("float32", TP_FP32_REL_L2),
+                       ("bfloat16", TP_BF16_REL_L2)):
+        want = one["serve"][dtype]
+        rel = [max(rel_l2(got, w) for got, w in zip(r["serve"][dtype][
+            "logits"], want["logits"])) for r in ranks]
+        same = [sum(bool(torch.equal(a, b)) for a, b in zip(
+            r["serve"][dtype]["tokens"], want["tokens"])) for r in ranks]
+        if max(rel) > tol:
+            raise AssertionError(f"tp {dtype} logits: relative L2 {rel} "
+                                 f"from one rank, above {tol}")
+        if dtype == "float32" and min(same) != len(want["tokens"]):
+            raise AssertionError(f"tp fp32 greedy tokens: {same} of "
+                                 f"{len(want['tokens'])} steps equal")
+        serve[dtype] = dict(logits_rel_l2_max=max(rel),
+                            steps_with_equal_tokens=same)
+    # training: losses and grad norms; the fp32 parameters
+    train = {}
+    for dtype, tol in (("bfloat16", TP_BF16_LOSS_RTOL),
+                       ("float32", TP_FP32_LOSS_RTOL)):
+        want = one["train"][dtype]
+        diffs = [max(abs(a - b) / abs(b) for a, b in zip(
+            r["train"][dtype][key], want[key]))
+            for r in ranks for key in ("losses", "grad_norms")]
+        if not all(math.isfinite(x) for r in ranks
+                   for x in r["train"][dtype]["losses"]) or max(diffs) > tol:
+            raise AssertionError(
+                f"tp {dtype} training: losses "
+                f"{[r['train'][dtype]['losses'] for r in ranks]}, grad "
+                f"norms {[r['train'][dtype]['grad_norms'] for r in ranks]}"
+                f" against {want['losses']}, {want['grad_norms']}")
+        train[dtype] = dict(rel_diff_max=max(diffs))
+    num = den = 0.0
+    worst, worst_leaf = 0.0, None
+    for name, w in one["updates"].items():
+        for r in ranks:
+            region = r["regions"][name]
+            part = (w if region is None else w[tuple(
+                slice(a, b) for a, b in region)]).to(device, torch.float64)
+            d2 = float((r["updates"][name].to(device, torch.float64)
+                        - part).square().sum())
+            n2 = float(part.square().sum())
+            num, den = num + d2, den + n2
+            if n2 > 0 and (d2 / n2) ** 0.5 > worst:
+                worst, worst_leaf = (d2 / n2) ** 0.5, name
+    update_rel = (num / den) ** 0.5
+    if update_rel > TP_FP32_UPDATE_REL_L2 or worst > TP_FP32_LEAF_REL_L2:
+        raise AssertionError(
+            f"tp fp32 parameter updates: relative L2 {update_rel} from one "
+            f"rank's over all leaves (bound {TP_FP32_UPDATE_REL_L2}), "
+            f"{worst} on leaf {worst_leaf} (bound {TP_FP32_LEAF_REL_L2})")
+    share = [r["train"]["bfloat16"]["resident_bytes"]
+             / one["train"]["bfloat16"]["resident_bytes"] for r in ranks]
+    if max(share) > TP_RESIDENT_SHARE:
+        raise AssertionError(f"tp resident bytes a rank: {share} of one "
+                             f"rank's")
+    layers = cfg.num_layers
+    if device == "cuda":
+        want = {"prefill": {"flash_attention_prefill": layers},
+                "decode": {"flash_attention_decode":
+                           layers * sizes["decode_steps"]}}
+        for r, res in enumerate(ranks + [one]):
+            run = res["serve"]["bfloat16"]["launches"]
+            for part, counts in want.items():
+                if any(run[part][k] != n for k, n in counts.items()):
+                    raise AssertionError(f"tp run {r} {part}: launches "
+                                         f"{run[part]}, want {counts}")
+            for i, got in enumerate(res["train"]["bfloat16"]["launches"]):
+                if got["flash_attention_prefill"] != 2 * layers or got[
+                        "flash_attention_backward"] != layers or got[
+                        "flash_attention_decode"] or got[
+                        "flash_attention_fp32_tc"]:
+                    raise AssertionError(f"tp run {r} train step {i}: "
+                                         f"launches {got}")
+        for r in ranks:
+            if r["heads"] != [shape]:
+                raise AssertionError(f"tp rank attention at {r['heads']}, "
+                                     f"not {shape}")
+    world_note = (f"{tp} ranks sharing one card over gloo (host-staged "
+                  "all-reduces), not tensor parallelism across cards")
+    full = get_config(sizes["arch"])
+    emit("tp", device=device, model=cfg.name, layers=layers,
+         reduced=f"depth: {layers} of {full.num_layers} layers; width as "
+                 "published", d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+         vocab=cfg.vocab_size, mesh={"model": tp}, backend="gloo",
+         note=world_note, rank_attention_shape=list(shape),
+         one_rank_attention_shapes=one["heads"],
+         serve_batch=sizes["batch"], prompt=sizes["prompt"],
+         decode_steps=sizes["decode_steps"], serve=serve,
+         train_batch=sizes["train_batch"], train_seq=sizes["train_seq"],
+         train_steps=sizes["train_steps"],
+         fp32_train_steps=sizes["fp32_train_steps"], train=train,
+         losses={dtype: {"one_rank": one["train"][dtype]["losses"],
+                         "ranks": [r["train"][dtype]["losses"]
+                                   for r in ranks]}
+                 for dtype in ("bfloat16", "float32")},
+         fp32_update_rel_l2=update_rel, fp32_update_rel_l2_worst_leaf=[
+             worst_leaf, worst],
+         resident_gb={"one_rank": one["train"]["bfloat16"][
+             "resident_bytes"] / 1e9, "ranks": [
+             r["train"]["bfloat16"]["resident_bytes"] / 1e9
+             for r in ranks]}, resident_share=share,
+         launches_rank0={"serve_bf16": ranks[0]["serve"]["bfloat16"][
+             "launches"], "serve_fp32": ranks[0]["serve"]["float32"][
+             "launches"], "train_bf16_step": ranks[0]["train"]["bfloat16"][
+             "launches"][-1]},
+         seconds=time.perf_counter() - t0)
+
+    def times(res):
+        return {"prefill_ms": {d: res["serve"][d].get("prefill_ms")
+                               for d in res["serve"]},
+                "decode_step_ms": {d: res["serve"][d].get("decode_step_ms")
+                                   for d in res["serve"]},
+                "step_ms": {d: res["train"][d]["step_ms"]
+                            for d in res["train"]},
+                "peak_memory_gb": {d: res["train"][d]["peak_memory_gb"]
+                                   for d in res["train"]}}
+    emit("tp_times", device=device, model=cfg.name, layers=layers,
+         note=world_note, one_rank=times(one),
+         ranks=[times(r) for r in ranks])
+    if device == "cuda":
+        # the attention kernels alone at a rank's shape
+        b, h, kvh, d = sizes["batch"], *shape
+        timing = {
+            "prefill": time_attention(
+                "prefill", b, sizes["prompt"], sizes["prompt"], h, kvh, d,
+                None, copies=1, phase="attention",
+                model=f"{cfg.name} (tp rank)"),
+            "decode": time_attention(
+                "decode", b, 1, sizes["max_seq"], h, kvh, d, [DECODE_POS],
+                copies=8, phase="attention", model=f"{cfg.name} (tp rank)"),
+            "lse": time_training_attention(device, TRAIN_FULL,
+                                           TP_RANK_CASE)}
+        emit("train_attention", device=device, **timing["lse"])
+    else:
+        timing = None
+    r0 = ranks[0]
+
+    def summed(*runs):
+        return {k: sum(run[k] for run in runs) for k in runs[0]}
+    launches = {
+        "serve_bf16": summed(*r0["serve"]["bfloat16"]["launches"].values()),
+        "serve_fp32": summed(*r0["serve"]["float32"]["launches"].values()),
+        "train_bf16": summed(*r0["train"]["bfloat16"]["launches"]),
+        "train_fp32": summed(*r0["train"]["float32"]["launches"])}
+    return launches, timing
 
 
 # ---------------------------------------------------------------------------
@@ -4864,6 +5338,7 @@ def main():
     train = {arch: line["launches"] for arch, line in train_lines.items()}
     phase_xlstm_sp()
     shard = phase_shard()
+    tp_launches, tp_timing = phase_tp()
     extract_dp_launches = phase_extract(trace=llama_trace, card=smi)
     phase_sim()
     phase_studies()
@@ -4896,6 +5371,9 @@ def main():
                   f"qwen3-moe-30b-a3b ({SERVE_LAYERS['qwen3-moe-30b-a3b']} "
                   "layers)": qwen3}
     train_runs = {f"train {arch}": run for arch, run in train.items()}
+    tp_run = f"tp {TP_FULL['arch']} ({TP_FULL['layers']} layers) rank 0"
+    serve_runs[f"{tp_run} serve bf16"] = tp_launches["serve_bf16"]
+    train_runs[f"{tp_run} train bf16"] = tp_launches["train_bf16"]
     prefill_runs = dict(serve_runs, **train_runs,
                         **{"extract dp llama3.2-3b": extract_dp_launches,
                            f"shard {SHARD_FULL['arch']}": shard,
@@ -4914,7 +5392,9 @@ def main():
                      "xlstm-350m"]["step1_launches"],
                  "train hymba-1.5b step 1 (fp32, "
                  f"{TRAIN_FULL['step1']['hymba-1.5b'][1]} layers)":
-                     train_lines["hymba-1.5b"]["step1_launches"]}
+                     train_lines["hymba-1.5b"]["step1_launches"],
+                 f"{tp_run} serve fp32": tp_launches["serve_fp32"],
+                 f"{tp_run} train fp32": tp_launches["train_fp32"]}
     attn = "src/repro/kernels/flash_attention.py:39"
     scan_keys = ("state_max_abs_err", "library_note", "ms_eager",
                  "plain_ms_eager", "bound_ms_fp32_pipe")
@@ -4932,8 +5412,8 @@ def main():
                 "launches": sum(by_run.values()), "launches_by_run": by_run,
                 **times}
 
-    def with_lse(case):
-        t = train_timing[case]
+    def with_lse(case, t=None):
+        t = t or train_timing[case]
         return dict(shape=t["shape"], ms=t["fwd_ms"],
                     plain_ms=t["fwd_plain_ms"],
                     library_ms=t["fwd_library_ms"],
@@ -4963,14 +5443,18 @@ def main():
               at_cross_s1500={k: wx[k] for k in at},
               at_encoder_t1500={k: wenc[k] for k in at},
               **{f"at_{case}_with_lse": with_lse(case)
-                 for case in PREFIXED_CASES}),
+                 for case in PREFIXED_CASES},
+              at_tp_rank_h12_kv4={k: tp_timing["prefill"][k] for k in at},
+              at_tp_rank_training_shape_with_lse=with_lse(
+                  TP_RANK_CASE, tp_timing["lse"])),
         entry("flash_attention", "decode", "flash_attention_decode.cu", attn,
               dec, serve_runs, at_d64={k: gdec[k] for k in at},
               at_d256={k: mdec[k] for k in at},
               at_gqa12={k: cdec[k] for k in at},
               at_gqa5={k: ydec[k] for k in at},
               at_gqa8={k: qdec[k] for k in at},
-              at_cross_s1500={k: wxd[k] for k in at}),
+              at_cross_s1500={k: wxd[k] for k in at},
+              at_tp_rank_h12_kv4={k: tp_timing["decode"][k] for k in at}),
         entry("flash_attention", "fp32_tc", "flash_attention_fp32tc.cu", attn,
               fp32, fp32_runs, ("fma_ms", "fma_max_abs_err",
                                 "split_floor_ms"),
@@ -5011,6 +5495,8 @@ if __name__ == "__main__":
             raise SystemExit("the witness needs a CUDA device")
         phase_device()
         xlstm_witness(out=sys.argv[2] if len(sys.argv) > 2 else None)
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(*sys.argv[2:])
     elif sys.argv[1:2] in (["--gelu-ab"], ["--silu-ab"]):
         phase_device()
         activation_ab(sys.argv[1][2:6])

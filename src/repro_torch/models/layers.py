@@ -4,8 +4,19 @@ Port of ``repro.models.layers``.  Plain functions on tensors and on
 parameter dicts whose layouts are the JAX package's (``wq (d, h, dh)``,
 ``wo (h, dh, d)``, ``wi (d, f)``), so converting weights is a copy.
 :class:`AxisRules` names the mesh axes as the reference's does, over a
-``torch.distributed`` ``DeviceMesh``; only the expert-parallel MoE reads
-it (the reference's sharding constraints have no counterpart on one card).
+``torch.distributed`` ``DeviceMesh``.
+
+Tensor parallelism (the reference's ``rules.constrain(..., "tp")``, which
+GSPMD turns into split products and all-reduces): a layer handed the
+``tp`` slice of a leaf, as ``runtime.sharding.param_specs`` places it,
+computes on that slice, and one given the whole leaf computes it whole;
+each layer reads which from the leaf's shape against the config.  qkv and
+the MLP's up projections are column-parallel (each rank its heads or
+``d_ff`` columns), ``wo`` and the MLP's down projection row-parallel (a
+partial product, then one all-reduce over ``tp``), the embedding and the
+head vocab-parallel.  :func:`enter_tp` and :func:`reduce_tp` carry the
+collectives and their transposes; with ``rules.tp_size == 1`` both are the
+identity and post nothing.
 """
 from __future__ import annotations
 
@@ -14,8 +25,10 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import library_all_reduce
 from repro_torch.kernels import ops as kops
 from . import flash
 
@@ -59,6 +72,79 @@ class AxisRules:
         if not self.dp or self.mesh is None:
             return 1
         return math.prod(self.axis_size(a) for a in self.dp)
+
+    @property
+    def tp_rank(self) -> int:
+        """This process's coordinate on the ``tp`` axis (0 without one)."""
+        if self.tp_size == 1:
+            return 0
+        return int(self.mesh.get_local_rank(self.tp))
+
+    @property
+    def tp_group(self):
+        return self.mesh.get_group(self.tp)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel collectives (the reference's constraints to "tp").
+# ---------------------------------------------------------------------------
+
+class _EnterTP(torch.autograd.Function):
+    """Identity forward; the gradient summed over the ``tp`` group backward:
+    the input of a column-parallel product, whose ranks each add a part of
+    its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return library_all_reduce(grad, ctx.group), None
+
+
+class _ReduceTP(torch.autograd.Function):
+    """Sum over the ``tp`` group forward; identity backward: the partial
+    products of a row-parallel product, whose sum every rank then uses."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return library_all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def enter_tp(x, rules: AxisRules):
+    """``x`` as the input of a tensor-parallel region: the same tensor,
+    whose gradient is all-reduced over ``tp``.  Also every replicated
+    leaf that only part of each rank's work reads (a qk-norm scale, a
+    replicated ``wk``), so each rank's gradient of it is the whole one."""
+    if rules.tp_size == 1:
+        return x
+    return _EnterTP.apply(x, rules.tp_group)
+
+
+def reduce_tp(x, rules: AxisRules):
+    """The sum of every ``tp`` rank's ``x`` (one all-reduce); the gradient
+    passes through unchanged."""
+    if rules.tp_size == 1:
+        return x
+    return _ReduceTP.apply(x, rules.tp_group)
+
+
+def tp_sliced(local: int, whole: int, rules: AxisRules, what: str) -> bool:
+    """Whether a leaf dim of ``local`` entries is this rank's ``tp`` slice
+    of ``whole`` (False where it is the whole dim); raises on anything
+    else."""
+    if local == whole:
+        return False
+    if rules.tp_size > 1 and local * rules.tp_size == whole:
+        return True
+    raise ValueError(f"{what} has {local} of {whole} entries: neither whole "
+                     f"nor a slice over {rules.tp_size} tp ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -174,20 +260,75 @@ def _project_heads(x, w):
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def qkv_proj(p, x, cfg):
+def local_kv_heads(cfg, rules: AxisRules = AxisRules()):
+    """The KV heads that this rank's query heads read, in the order its
+    K/V (and its cache) hold them: every head without tensor parallelism
+    or where the query heads do not split over ``tp`` (the layer then
+    computes whole); this rank's slice where the KV heads split too;
+    else (a replicated ``wk``/``wv``) the heads its query heads' groups
+    read, a range where each is read by equally many of them (the kernel
+    sees plain GQA with its own group size), or one KV head a query head."""
+    h, kv, tp = cfg.num_heads, cfg.num_kv_heads, rules.tp_size
+    if tp == 1 or h % tp:
+        return range(kv)
+    r, h_loc = rules.tp_rank, h // tp
+    if kv % tp == 0:
+        return range(r * (kv // tp), (r + 1) * (kv // tp))
+    read = [(r * h_loc + j) // (h // kv) for j in range(h_loc)]
+    lo, hi = read[0], read[-1] + 1
+    if h_loc % (hi - lo) == 0 and all(
+            read.count(i) == h_loc // (hi - lo) for i in range(lo, hi)):
+        return range(lo, hi)
+    return read
+
+
+def _kv_slice(w, heads, rules: AxisRules):
+    """A replicated K/V leaf cut to ``heads`` on its dim -2; its gradient
+    summed over ``tp`` (:func:`enter_tp`)."""
+    w = enter_tp(w, rules)
+    if isinstance(heads, range):
+        return w.narrow(-2, heads.start, len(heads))
+    return w.index_select(-2, torch.tensor(heads, device=w.device))
+
+
+def qkv_proj(p, x, cfg, rules: AxisRules = AxisRules()):
+    """q, k, v: (B, T, heads, dh).  Column-parallel where ``wq`` holds this
+    rank's heads: q of those heads, and k and v of the KV heads they read
+    (:func:`local_kv_heads`), from ``wk``/``wv`` slices or cut from
+    replicated ones; the biases follow their heads."""
+    if not tp_sliced(p["wq"].shape[1], cfg.num_heads, rules, "wq"):
+        q = _project_heads(x, p["wq"])
+        k = _project_heads(x, p["wk"])
+        v = _project_heads(x, p["wv"])
+        if "bq" in p:
+            q = q + p["bq"]
+            k = k + p["bk"]
+            v = v + p["bv"]
+        return q, k, v
+    x = enter_tp(x, rules)
+    heads = local_kv_heads(cfg, rules)
+    # wk/wv (d, kv, dh) and bk/bv (kv, dh): the KV heads on dim -2
+    kv = {name: w if tp_sliced(w.shape[-2], cfg.num_kv_heads, rules, name)
+          else _kv_slice(w, heads, rules)
+          for name, w in p.items() if name in ("wk", "wv", "bk", "bv")}
     q = _project_heads(x, p["wq"])
-    k = _project_heads(x, p["wk"])
-    v = _project_heads(x, p["wv"])
+    k = _project_heads(x, kv["wk"])
+    v = _project_heads(x, kv["wv"])
     if "bq" in p:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + kv["bk"]
+        v = v + kv["bv"]
     return q, k, v
 
 
-def out_proj(p, o):
+def out_proj(p, o, cfg=None, rules: AxisRules = AxisRules()):
+    """(B, T, heads, dh) -> (B, T, d).  Row-parallel where ``wo`` holds this
+    rank's heads: the partial product all-reduced over ``tp``, then ``bo``
+    added once.  Without ``cfg``, ``wo`` is taken whole."""
     h, k, d = p["wo"].shape
     y = o.flatten(-2) @ p["wo"].reshape(h * k, d)
+    if cfg is not None and tp_sliced(h, cfg.num_heads, rules, "wo"):
+        y = reduce_tp(y, rules)
     if "bo" in p:
         y = y + p["bo"]
     return y
@@ -264,9 +405,14 @@ def gelu_tanh(x):
     return x * (half * (1.0 + torch.tanh(inner)))
 
 
-def apply_mlp(p: dict, x, cfg):
+def apply_mlp(p: dict, x, cfg, rules: AxisRules = AxisRules()):
     """Gated kinds take ``wg`` as the gate (under silu / gelu) and ``wi``
-    as the up projection."""
+    as the up projection.  Where ``wi`` holds this rank's ``d_ff`` columns:
+    ``wi``/``wg`` (and ``bi``) column-parallel, ``wo`` row-parallel with
+    one all-reduce over ``tp``, ``bo`` added after it."""
+    sliced = tp_sliced(p["wi"].shape[1], cfg.d_ff, rules, "wi")
+    if sliced:
+        x = enter_tp(x, rules)
     h = x @ p["wi"]
     if "bi" in p:
         h = h + p["bi"]
@@ -282,6 +428,8 @@ def apply_mlp(p: dict, x, cfg):
     else:
         raise ValueError(f"unknown mlp {cfg.mlp!r}")
     y = h @ p["wo"]
+    if sliced:
+        y = reduce_tp(y, rules)
     if "bo" in p:
         y = y + p["bo"]
     return y
@@ -301,20 +449,84 @@ def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def embed_tokens(p, tokens, cfg):
-    x = p["table"][tokens]
+def vocab_start(embed_params, head_params, cfg,
+                rules: AxisRules = AxisRules()):
+    """The first vocabulary entry of this rank's slice where the head (the
+    tied ``table`` or ``lm_head``'s ``w``) holds a ``tp`` slice of the
+    padded vocabulary, else None (whole)."""
+    if cfg.tie_embeddings:
+        local = embed_params["table"].shape[0]
+    else:
+        local = head_params["w"].shape[1]
+    if not tp_sliced(local, cfg.vocab_padded, rules, "the head"):
+        return None
+    return rules.tp_rank * local
+
+
+def embed_tokens(p, tokens, cfg, rules: AxisRules = AxisRules()):
+    """Vocab-parallel where ``table`` holds this rank's rows: each rank
+    looks up the tokens in its slice, zeros elsewhere, and the sum over
+    ``tp`` (exact: one term each) is the lookup; gemma's sqrt(d) after."""
+    table = p["table"]
+    if tp_sliced(table.shape[0], cfg.vocab_padded, rules, "table"):
+        local = tokens.long() - rules.tp_rank * table.shape[0]
+        inside = (local >= 0) & (local < table.shape[0])
+        x = reduce_tp(torch.where(
+            inside[..., None], table[local.clamp(0, table.shape[0] - 1)],
+            0), rules)
+    else:
+        x = table[tokens]
     if cfg.name.startswith("gemma"):
         x = x * math.sqrt(cfg.d_model)
     return x.to(_dtype(cfg))
 
 
-def logits_from_hidden(x, embed_params, head_params, cfg):
+def logits_from_hidden(x, embed_params, head_params, cfg,
+                       rules: AxisRules = AxisRules()):
+    """Logits over the padded vocabulary, the padding columns at -1e30; where
+    the head holds a ``tp`` slice (:func:`vocab_start`), this rank's columns
+    of them, softcapped and masked by their global index (the input's
+    gradient summed over ``tp``).  :func:`gather_vocab` gives the whole."""
+    start = vocab_start(embed_params, head_params, cfg, rules)
+    if start is not None:
+        x = enter_tp(x, rules)
     if cfg.tie_embeddings:
         logits = x @ embed_params["table"].to(_dtype(cfg)).T
     else:
         logits = x @ head_params["w"].to(_dtype(cfg))
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    if cfg.vocab_padded != cfg.vocab_size:  # mask padding rows to -inf
-        logits[..., cfg.vocab_size:] = -1e30
+    pad = cfg.vocab_size - (start or 0)
+    if pad < logits.shape[-1]:  # mask padding rows to -inf
+        logits[..., max(pad, 0):] = -1e30
     return logits
+
+
+def gather_vocab(logits, cfg, rules: AxisRules = AxisRules()):
+    """The whole (..., Vp) logits from every ``tp`` rank's slice: each writes
+    its columns into zeros and the sum over ``tp`` (one all-reduce, exact)
+    assembles them.  Whole logits are returned as they are."""
+    local = logits.shape[-1]
+    if not tp_sliced(local, cfg.vocab_padded, rules, "the logits"):
+        return logits
+    whole = logits.new_zeros(logits.shape[:-1] + (cfg.vocab_padded,))
+    whole[..., rules.tp_rank * local:(rules.tp_rank + 1) * local] = logits
+    return reduce_tp(whole, rules)
+
+
+def vocab_parallel_ce_parts(logits, labels, start: int,
+                            rules: AxisRules):
+    """(lse, picked logit) of fp32 ``logits``, this rank's vocabulary slice
+    from ``start``, as one device computes them on the whole row: the max
+    over ``tp`` (all-reduce max; the lse does not depend on it), then the
+    sum of exponentials and the picked logit (one all-reduce of both)."""
+    local = logits.shape[-1]
+    m = logits.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=rules.tp_group)
+    sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+    idx = labels.long() - start
+    inside = (idx >= 0) & (idx < local)
+    picked = logits.gather(-1, idx.clamp(0, local - 1)[..., None])[..., 0]
+    sumexp, picked = reduce_tp(torch.stack(
+        [sumexp, torch.where(inside, picked, 0.0)]), rules).unbind(0)
+    return torch.log(sumexp) + m, picked

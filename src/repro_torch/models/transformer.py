@@ -38,7 +38,14 @@ prefix positions (:func:`prefix_len`) fills the caches to P + T, and the
 first decode step writes position P + T.  Entry points take a ``device`` that
 defaults to ``"cuda"`` and raise when CUDA is absent unless the caller asks
 for ``"cpu"``.  ``rules`` (:class:`~.layers.AxisRules`, keyword-only, a
-single device by default) reaches the expert-parallel MoE.
+single device by default) reaches the expert-parallel MoE and the
+tensor-parallel layers: on a mesh with a ``tp`` axis, each ``ATTN``
+block's attention and MLP, the embedding, the head and the loss compute on
+the ``tp`` slices of the leaves they are given (:func:`tp_slice_dim` says
+which dim), with all-reduces over ``tp``; ``MLSTM``, ``SLSTM``, ``HYMBA``
+and ``ATTN_CROSS`` blocks and the encoder compute whole leaves.  Under
+``tp`` an ``ATTN`` layer's cache holds this rank's KV heads only
+(:func:`init_caches`), and prefill and decode return the whole logits.
 
 :func:`forward_train` takes the parameters as stored (``param_dtype``,
 fp32) and casts each layer's to ``cfg.dtype`` inside the layer,
@@ -160,6 +167,32 @@ def _check_cast(params, cfg: ModelConfig):
                         f"{cfg.dtype}; pass them through cast_params once")
 
 
+#: The dim of each ``ATTN`` block leaf that the tensor-parallel layers read
+#: as this rank's ``tp`` slice: heads of q, k, v and their biases and of
+#: ``wo``'s rows, the MLP's ``d_ff`` columns and ``wo``'s rows.
+_TP_DIMS = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
+            ("attn", "bq"): 0, ("attn", "bk"): 0, ("attn", "bv"): 0,
+            ("attn", "wo"): 0, ("mlp", "wi"): 1, ("mlp", "wg"): 1,
+            ("mlp", "bi"): 0, ("mlp", "wo"): 0}
+
+
+def tp_slice_dim(path: tuple, cfg: ModelConfig) -> int | None:
+    """The dim on which the layers compute the leaf at ``path`` (dict keys
+    and list indices, as ``optim.adamw.tree_map`` gives them) on its ``tp``
+    slice, or None where they compute it whole: the embedding's rows, the
+    head's columns and ``_TP_DIMS`` in ``ATTN`` blocks.  The blocks of the
+    other kinds, the encoder's, the norms and the experts (expert-parallel,
+    ``models/moe.py``) are None."""
+    if path == ("embed", "table"):
+        return 0
+    if path == ("lm_head", "w"):
+        return 1
+    if len(path) == 4 and path[0] == "layers" \
+            and _layer_specs(cfg)[path[1]][0] == ATTN:
+        return _TP_DIMS.get(path[2:])
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Init.
 # ---------------------------------------------------------------------------
@@ -238,17 +271,21 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
-                device="cuda"):
+                device="cuda", rules: AxisRules = AxisRules()):
     """One zeroed cache per layer: ``{"k", "v"}`` of (batch, seq_len, KV,
     dh) in ``dtype`` (default the compute dtype) for attention, with
     ``{"ck", "cv"}`` of (batch, encoder_seq_len, KV, dh) for
     cross-attention, and the float32 recurrent state of the SSM and xLSTM
-    blocks, as the reference has them."""
+    blocks, as the reference has them.  Under ``rules`` with a ``tp`` axis
+    an ``ATTN`` layer's k and v hold this rank's KV heads only
+    (:func:`~.layers.local_kv_heads`): head-local, where the reference's
+    ``cache_specs`` shards them on the sequence (ROADMAP C26)."""
     device = resolve_device(device)
     dtype = getattr(torch, dtype or cfg.dtype)
+    local = len(L.local_kv_heads(cfg, rules))
 
-    def zeros(length):
-        return torch.zeros((batch, length, cfg.num_kv_heads, cfg.head_dim),
+    def zeros(length, heads=cfg.num_kv_heads):
+        return torch.zeros((batch, length, heads, cfg.head_dim),
                            dtype=dtype, device=device)
     caches = []
     for kind, _, _ in _layer_specs(cfg):
@@ -257,7 +294,8 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
         elif kind == SLSTM:
             caches.append(init_slstm_cache(cfg, batch, device=device))
         else:
-            c = {"k": zeros(seq_len), "v": zeros(seq_len)}
+            heads = local if kind == ATTN else cfg.num_kv_heads
+            c = {"k": zeros(seq_len, heads), "v": zeros(seq_len, heads)}
             if kind == ATTN_CROSS:
                 c.update(ck=zeros(cfg.encoder_seq_len),
                          cv=zeros(cfg.encoder_seq_len))
@@ -272,18 +310,25 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
 # ---------------------------------------------------------------------------
 
 def _self_attention(p, y, cfg, *, window: int, theta: float, q_pos, kv_pos,
-                    cache=None, pos: int | None = None, causal: bool = True):
+                    cache=None, pos: int | None = None, causal: bool = True,
+                    rules: AxisRules = AxisRules()):
     """qkv + qk-norm + rope + (cache update) + attend + out-proj.
 
     Prefill (``cache`` None): ``q_pos`` = ``kv_pos`` = (T,) positions, and
     the returned cache is this block's post-RoPE k and v.  Decode: writes
     k and v into ``cache`` in place at ``pos`` and attends over the whole
-    cache.
+    cache.  With this rank's heads of ``p["attn"]`` (tensor-parallel), q,
+    k, v and the cache hold those heads, and the kernel runs at them.
     """
-    q, k, v = L.qkv_proj(p["attn"], y, cfg)
+    q, k, v = L.qkv_proj(p["attn"], y, cfg, rules)
     if cfg.qk_norm:
-        q = L.rms_norm_head(q) * (1 + p["q_scale"])
-        k = L.rms_norm_head(k) * (1 + p["k_scale"])
+        # each rank's heads read the whole scales: their gradients summed
+        sliced = q.shape[2] != cfg.num_heads
+        q_scale, k_scale = ((L.enter_tp(p["q_scale"], rules),
+                             L.enter_tp(p["k_scale"], rules)) if sliced
+                            else (p["q_scale"], p["k_scale"]))
+        q = L.rms_norm_head(q) * (1 + q_scale)
+        k = L.rms_norm_head(k) * (1 + k_scale)
     cos, sin = L.rope_cos_sin(q_pos, cfg.head_dim, theta)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
@@ -305,7 +350,7 @@ def _self_attention(p, y, cfg, *, window: int, theta: float, q_pos, kv_pos,
         k_all, v_all = cache["k"], cache["v"]
     o = L.attention(q, k_all, v_all, q_pos=q_pos, kv_pos=kv_pos,
                     window=window, causal=causal)
-    return L.out_proj(p["attn"], o), new_cache
+    return L.out_proj(p["attn"], o, cfg, rules), new_cache
 
 
 def _cross_attention(p, x, cross_src, cache):
@@ -347,7 +392,7 @@ def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
     y = L.apply_norm(p["ln1"], x)
     attn_out, new_cache = _self_attention(
         p, y, cfg, window=window, theta=theta, q_pos=q_pos, kv_pos=kv_pos,
-        cache=cache, pos=pos, causal=causal)
+        cache=cache, pos=pos, causal=causal, rules=rules)
     x = x + attn_out
     if "xattn" in p:
         xo, xcache = _cross_attention(p, x, cross_src, cache)
@@ -357,7 +402,7 @@ def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
     if cfg.is_moe:
         m, metrics = apply_moe(p["moe"], y, cfg, rules, losses=losses)
     else:
-        m = L.apply_mlp(p["mlp"], y, cfg)
+        m = L.apply_mlp(p["mlp"], y, cfg, rules)
     return x + m, new_cache, metrics
 
 
@@ -512,10 +557,10 @@ def prefix_len(cfg: ModelConfig, batch) -> int:
     return patches + cfg.num_meta_tokens
 
 
-def _prepare_prefix(params, batch, cfg):
+def _prepare_prefix(params, batch, cfg, rules: AxisRules = AxisRules()):
     """Embed the tokens and put the prefix streams in front: the patch
     embeddings, then the meta tokens (port of ``_prepare_prefix``)."""
-    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg, rules)
     if cfg.num_patch_tokens and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     if cfg.num_meta_tokens:
@@ -574,7 +619,7 @@ def forward_train(params, batch, cfg: ModelConfig, *,
     """
     _check_batch(batch, ("tokens", "labels", "frames", "patch_embeds"))
     _check_frames(batch, cfg)
-    x = _prepare_prefix(params, batch, cfg)
+    x = _prepare_prefix(params, batch, cfg, rules)
     prefix = prefix_len(cfg, batch)
     cross_src = (encode_frames(params, batch["frames"], cfg, train=True)
                  if cfg.is_encdec else None)
@@ -585,23 +630,34 @@ def forward_train(params, batch, cfg: ModelConfig, *,
     x = L.apply_norm(params["final_norm"], x)
     if prefix:
         x = x[:, prefix:]
-    logits = L.logits_from_hidden(x, params["embed"], params.get("lm_head"),
-                                  cfg)
-    loss, n_tok = cross_entropy(logits, batch["labels"])
+    head = params.get("lm_head")
+    logits = L.logits_from_hidden(x, params["embed"], head, cfg, rules)
+    loss, n_tok = cross_entropy(
+        logits, batch["labels"], rules,
+        vocab_start=L.vocab_start(params["embed"], head, cfg, rules))
     aux_loss = 0.01 * aux[0] + 0.001 * aux[1]
     metrics = {"ce_loss": loss, "aux_loss": aux_loss, "tokens": n_tok}
     return loss + aux_loss, metrics
 
 
-def cross_entropy(logits, labels):
+def cross_entropy(logits, labels, rules: AxisRules = AxisRules(),
+                  vocab_start: int | None = None):
     """Masked mean cross entropy in fp32; labels < 0 are ignored.  Returns
     (loss, tokens counted).  The vocabulary's padding columns arrive at
     -1e30 (``logits_from_hidden``), so they add nothing to the log-sum-exp.
+    ``vocab_start``: ``logits`` are this rank's ``tp`` slice of the
+    vocabulary from that entry, and the loss, the same on every ``tp``
+    rank, is the whole row's (:func:`~.layers.vocab_parallel_ce_parts`).
     Port of ``repro.models.transformer.cross_entropy``."""
     mask = labels >= 0
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    if vocab_start is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, labels.clamp_min(0).long()[..., None])[
+            ..., 0]
+    else:
+        lse, picked = L.vocab_parallel_ce_parts(logits, labels, vocab_start,
+                                                rules)
     ce = (lse - picked) * mask
     n = mask.sum().clamp_min(1)
     return ce.sum() / n, n
@@ -624,7 +680,7 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int, *,
     _check_batch(batch, ("tokens", "frames", "patch_embeds"))
     _check_cast(params, cfg)
     _check_frames(batch, cfg)
-    x = _prepare_prefix(params, batch, cfg)
+    x = _prepare_prefix(params, batch, cfg, rules)
     cross_src = (encode_frames(params, batch["frames"], cfg)
                  if cfg.is_encdec else None)
     t = x.shape[1]
@@ -639,8 +695,8 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int, *,
     caches = [{n: F.pad(a, (0, 0, 0, 0, 0, seq_len - t)) if n in ("k", "v")
                else a for n, a in c.items()} for c in states]
     x = L.apply_norm(params["final_norm"], x[:, -1:])
-    logits = L.logits_from_hidden(x, params["embed"], params.get("lm_head"),
-                                  cfg)
+    logits = L.gather_vocab(L.logits_from_hidden(
+        x, params["embed"], params.get("lm_head"), cfg, rules), cfg, rules)
     return logits, caches
 
 
@@ -659,13 +715,13 @@ def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig,
     reference's does.
     """
     _check_cast(params, cfg)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = L.embed_tokens(params["embed"], tokens, cfg, rules)
     kv_pos = torch.arange(seq_len, dtype=torch.int32, device=x.device)
     q_pos = torch.tensor([pos], dtype=torch.int32, device=x.device)
     x, caches, _ = apply_stack(params, x, cfg, q_pos=q_pos, kv_pos=kv_pos,
                                caches=caches, pos=pos, rules=rules,
                                losses=False, cross_src=cross_src)
     x = L.apply_norm(params["final_norm"], x)
-    logits = L.logits_from_hidden(x, params["embed"], params.get("lm_head"),
-                                  cfg)
+    logits = L.gather_vocab(L.logits_from_hidden(
+        x, params["embed"], params.get("lm_head"), cfg, rules), cfg, rules)
     return logits, caches

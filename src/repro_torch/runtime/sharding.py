@@ -19,7 +19,11 @@ process group.
 placements and :func:`shard_tree` places a tree of whole tensors or numpy
 arrays (every rank holding the same values) as DTensors, each rank slicing
 out its own shard: the port's ``jax.device_put(x, NamedSharding)``, with no
-collective.
+collective.  :func:`working_copy` turns a placed tree into the local
+tensors the layers compute on: each leaf gathered whole, but a leaf that a
+tensor-parallel layer reads on its ``tp`` slice
+(``models.transformer.tp_slice_dim``), or an expert leaf of the
+expert-parallel MoE, keeps that slice, gathered over the other axes only.
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import (as_dtensor, per_layer,
                                         shapes_from_params, stacked)
 from repro_torch.models.layers import AxisRules
-from repro_torch.models.transformer import build_runs, init_caches
+from repro_torch.models.transformer import (build_runs, init_caches,
+                                            tp_slice_dim)
+from repro_torch.optim.adamw import tree_map
 
 
 class Spec(tuple):
@@ -418,3 +424,58 @@ def checkpoint_shardings(specs, cfg: ModelConfig, mesh) -> dict:
                     "v": stacked_specs(opt["v"], cfg), "step": opt["step"]},
             "step": specs["step"]}
     return spec_map(lambda _, spec: (mesh, spec), tree)
+
+
+# ---------------------------------------------------------------------------
+# The working copy: what the layers compute on.
+# ---------------------------------------------------------------------------
+
+def is_expert_leaf(path, cfg: ModelConfig, rules: AxisRules) -> bool:
+    """An expert store leaf of the expert-parallel MoE (``models/moe.py``),
+    which computes on its ``tp`` slice of the experts."""
+    return (cfg.is_moe and cfg.moe_impl != "dense" and rules.tp_size > 1
+            and len(path) >= 2 and path[-2] == "moe"
+            and path[-1] in ("wi", "wo", "wg"))
+
+
+def working_dim(path, leaf: DTensor, cfg: ModelConfig,
+                rules: AxisRules) -> int | None:
+    """The dim of ``leaf`` (a DTensor at ``path``) on which the layers
+    compute its ``tp`` slice: ``tp_slice_dim``'s where the leaf is placed
+    ``Shard`` on it over ``tp`` (a leaf placed otherwise, on another dim or
+    replicated, is computed whole), 0 for an expert leaf; None where the
+    layers take it whole."""
+    if rules.tp_size == 1:
+        return None
+    placed = leaf.placements[list(rules.mesh.mesh_dim_names).index(rules.tp)]
+    if is_expert_leaf(path, cfg, rules):
+        if placed != Shard(0):
+            raise ValueError(f"expert leaf {'/'.join(map(str, path))} is "
+                             f"placed {leaf.placements}, not sharded over "
+                             f"{rules.tp} on its expert dim")
+        return 0
+    dim = tp_slice_dim(path, cfg)
+    return dim if dim is not None and placed == Shard(dim) else None
+
+
+def working_leaf(leaf: DTensor, dim: int | None, rules: AxisRules):
+    """``leaf`` as a local tensor: whole where ``dim`` is None, else this
+    rank's ``tp`` slice, gathered over every other mesh axis."""
+    if dim is None:
+        return leaf.full_tensor()
+    mesh = rules.mesh
+    tp = list(mesh.mesh_dim_names).index(rules.tp)
+    return leaf.redistribute(mesh, [
+        pl if i == tp else Replicate()
+        for i, pl in enumerate(leaf.placements)]).to_local()
+
+
+def working_copy(params, cfg: ModelConfig, rules: AxisRules):
+    """``params`` as the layers compute on them under ``rules``: each
+    DTensor leaf through :func:`working_dim` and :func:`working_leaf`;
+    other tensors (already local) as they are."""
+    def local(path, leaf):
+        if not isinstance(leaf, DTensor):
+            return leaf
+        return working_leaf(leaf, working_dim(path, leaf, cfg, rules), rules)
+    return tree_map(local, params)

@@ -17,20 +17,26 @@ by ``runtime.sharding.state_specs`` (``sharding.shard_tree``), and the step
 computes what the single-device step computes on the global batch, which
 every rank passes.  Each rank takes its dp rows of each microbatch
 (``train_batch_specs``), gathers every leaf once a step over the mesh axes
-its spec shards it on (ZeRO-3), but an expert leaf keeps its ``tp`` slice,
-the expert-parallel MoE's (``models/moe.py``), and runs ``forward_train``
-and its backward on local tensors, the hand-written kernels included.  A
-rank's loss is weighted by its labels over the global count (the
-reference's ``ce.sum() / n`` over the whole batch), the MoE's aux and z
-losses come from router statistics summed over dp (``AxisRules.
-global_router_stats``), and each gradient is summed over dp into
-``grad_specs``' placements when given (a reduce-scatter: the reference's
-ZeRO-2), else the parameter's.  AdamW then runs on m and v's shards, its
-clip reading the norm over all shards, and each updated parameter shard is
-gathered back to its own placement.  On a mesh with a ``tp`` axis each
-rank computes whole layers for its dp rows (ROADMAP C22); the numbers are
-the reference's.  Data parallelism with the LACIN gradient all-reduce is
-:func:`repro_torch.runtime.manual_dp.make_manual_dp_train_step`.
+its spec shards it on (ZeRO-3), but a leaf that the tensor-parallel layers
+compute on its ``tp`` slice (every ``ATTN`` block's attention and MLP
+leaves, the embedding, the head) or an expert leaf of the expert-parallel
+MoE (``models/moe.py``) keeps that slice, gathered over dp only
+(``sharding.working_copy``), and runs ``forward_train`` and its backward
+on local tensors, the hand-written kernels included: on a mesh with a
+``tp`` axis of size tp each rank's working copy holds 1/tp of those
+leaves, and its layers post all-reduces over ``tp``.  The ``MLSTM``,
+``SLSTM``, ``HYMBA`` and ``ATTN_CROSS`` blocks and the encoder still
+compute whole layers on every ``tp`` rank (ROADMAP C22).  A rank's loss is
+weighted by its labels over the global count (the reference's ``ce.sum() /
+n`` over the whole batch), the MoE's aux and z losses come from router
+statistics summed over dp (``AxisRules.global_router_stats``), and each
+gradient (a ``tp`` slice's, or a whole leaf's, equal on every ``tp`` rank)
+is summed over dp into ``grad_specs``' placements when given (a
+reduce-scatter: the reference's ZeRO-2), else the parameter's.  AdamW then
+runs on m and v's shards, its clip reading the norm over all shards, and
+each updated parameter shard is gathered back to its own placement.  The
+numbers are the reference's.  Data parallelism with the LACIN gradient
+all-reduce is :func:`repro_torch.runtime.manual_dp.make_manual_dp_train_step`.
 """
 from __future__ import annotations
 
@@ -47,7 +53,8 @@ from repro_torch.models.transformer import (decode_step, forward_train,
                                             resolve_device)
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.optim.adamw import tree_leaves, tree_map
-from repro_torch.runtime.sharding import narrow, spec_map
+from repro_torch.runtime.sharding import (is_expert_leaf, narrow, spec_map,
+                                          working_dim, working_leaf)
 from repro_torch.runtime.sharding import placements as spec_placements
 
 
@@ -163,36 +170,22 @@ def _sharded_train_step(cfg: ModelConfig, rules: AxisRules, opt: OptConfig,
     dp_size, dp_index = rules.dp_size, 0
     for i in dp_dims:
         dp_index = dp_index * int(mesh.size(i)) + coord[i]
-    ep = cfg.is_moe and cfg.moe_impl != "dense" and rules.tp_size > 1
     fwd_rules = dataclasses.replace(rules, global_router_stats=True)
     over_dp = [Partial() if i in dp_dims else Replicate()
                for i in range(mesh.ndim)]
     replicated = [Replicate()] * mesh.ndim
 
-    def expert(path) -> bool:
-        return ep and len(path) >= 2 and path[-2] == "moe" and path[-1] in (
-            "wi", "wo", "wg")
-
-    def gather(path, p):
-        """The leaf whole, once a step; an expert leaf its tp slice."""
-        if not expert(path):
-            return p.full_tensor()
-        if p.placements[tp_dim] != Shard(0):
-            raise ValueError(f"expert leaf {'/'.join(map(str, path))} is "
-                             f"placed {p.placements}, not sharded over "
-                             f"{rules.tp} on its expert dim")
-        return p.redistribute(mesh, [
-            Replicate() if i in dp_dims else pl
-            for i, pl in enumerate(p.placements)]).to_local()
-
-    def reduce(path, g, p, target):
-        """This rank's gradient (the whole leaf, or its expert slice) summed
-        over dp into ``target``'s placement: the local shard."""
+    def reduce(path, g, p, target, dim):
+        """This rank's gradient (the whole leaf, or its ``tp`` slice on
+        ``dim``) summed over dp into ``target``'s placement: the local
+        shard."""
         src = over_dp
-        if expert(path):
-            # the all-to-all's backward summed the tp ranks' equal losses
-            g = g / rules.tp_size
-            src = [Shard(0) if i == tp_dim else pl
+        if dim is not None:
+            if is_expert_leaf(path, cfg, rules):
+                # the all-to-all's backward summed the tp ranks' equal
+                # losses
+                g = g / rules.tp_size
+            src = [Shard(dim) if i == tp_dim else pl
                    for i, pl in enumerate(over_dp)]
         return as_dtensor(g, mesh, src, p.shape).redistribute(
             mesh, target).to_local()
@@ -217,9 +210,14 @@ def _sharded_train_step(cfg: ModelConfig, rules: AxisRules, opt: OptConfig,
         else:
             spec_map(lambda _, p, s: targets.append(spec_placements(s, mesh)),
                      params, grad_specs)
-        paths = []
-        live = tree_map(lambda path, p: paths.append(path) or gather(path, p),
-                        params)
+        paths, dims = [], []
+
+        def gather(path, p):
+            """Once a step: the leaf whole, or its ``tp`` slice."""
+            paths.append(path)
+            dims.append(working_dim(path, p, cfg, rules))
+            return working_leaf(p, dims[-1], rules)
+        live = tree_map(gather, params)
         acc, weighted, aux = None, 0.0, 0.0
         for mb in range(grad_accum):
             whole = {k: v[mb * rows:(mb + 1) * rows] for k, v in batch.items()}
@@ -230,9 +228,10 @@ def _sharded_train_step(cfg: ModelConfig, rules: AxisRules, opt: OptConfig,
             _, metrics, grads = loss_and_grads(
                 live, part, cfg, fwd_rules, weights=(weight, 1.0 / dp_size))
             grads = tree_leaves(grads)
-            for j, (path, p, target) in enumerate(zip(paths, plist, targets)):
+            for j, (path, p, target, dim) in enumerate(
+                    zip(paths, plist, targets, dims)):
                 g, grads[j] = grads[j], None
-                g = reduce(path, g, p, target)
+                g = reduce(path, g, p, target, dim)
                 if acc is None:
                     grads[j] = g
                 else:
@@ -320,8 +319,13 @@ def suggest_grad_accum(cfg: ModelConfig, global_batch: int, seq_len: int,
 
 def make_serve_steps(cfg: ModelConfig, rules: AxisRules, seq_len: int):
     """(prefill_fn, decode_fn) for serving shapes; the parameters as
-    ``models.cast_params`` returns them.  Decode reads the cross K/V that
-    prefill left in the caches, or ``cross_src`` where a cache holds none
+    ``models.cast_params`` returns them, local tensors: on a mesh, each
+    rank's working copy of parameters placed by ``sharding.param_specs``
+    (``sharding.working_copy``, taken once by the caller), and each rank
+    then computes prefill and decode on its ``tp`` slices, on caches of its
+    KV heads (``init_caches(rules=)``), and returns the whole logits.
+    Decode reads the cross K/V that prefill left in the caches, or
+    ``cross_src`` where a cache holds none
     (:func:`~repro_torch.models.transformer.decode_step`)."""
     def prefill_fn(params, batch):
         return prefill(params, batch, cfg, seq_len, rules=rules)

@@ -13,6 +13,12 @@ cache's last prefix positions.
 Greedy argmax runs on the device; temperature sampling draws from the
 engine's numpy ``Generator`` exactly as the reference does, so the same
 logits give the same tokens.
+
+On a mesh (``rules`` with one), every rank runs the same requests: given
+parameters placed by ``runtime.sharding.param_specs`` (DTensors, or their
+local tensors), each computes prefill and decode on its ``tp`` slices
+(``models/layers.py``) with caches of its KV heads, gets the whole logits,
+and so the same tokens.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from repro_torch.models.layers import AxisRules
 from repro_torch.models.transformer import (cast_params, decode_step,
                                             init_caches, prefill, prefix_len,
                                             resolve_device)
+from repro_torch.runtime.sharding import working_copy
 
 
 @dataclass
@@ -48,11 +55,14 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rules = rules
-        # compute-dtype copies on the device, made once here
-        self.params = cast_params(params, cfg, self.device)
+        # compute-dtype copies on the device (each rank's working copy on a
+        # mesh), made once here
+        self.params = cast_params(working_copy(params, cfg, rules), cfg,
+                                  self.device)
         self.slots = slots
         self.max_seq = max_seq
-        self.caches = init_caches(cfg, slots, max_seq, device=self.device)
+        self.caches = init_caches(cfg, slots, max_seq, device=self.device,
+                                  rules=rules)
         self.pos = 0                      # lockstep fill position
         self.active: list[Request | None] = [None] * slots
         self.queue: list[Request] = []

@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s ``sim``, ``studies``, ``faults``, ``flow``,
-``trace``, ``serving``, ``moe``, ``train``, ``xlstm_sp``, ``extract`` and
-internvl2-26b's ``prefill`` phases, and the serve phase's logit checks, on the CPU at a
+``trace``, ``serving``, ``moe``, ``train``, ``xlstm_sp``, ``extract``,
+``tp`` and internvl2-26b's ``prefill`` phases, and the serve phase's logit checks, on the CPU at a
 tiny size, so
 that the phases the GPU run ends with cannot rot between chip runs: they
 drive ``sim_speed``, ``xl_scale``, the exactness checks, the studies path
@@ -379,7 +379,8 @@ def test_xlstm_witness_rehearses_on_the_cpu(chip_smoke):
 
 def test_train_phase_sizes_are_the_training_shape(chip_smoke):
     """The full phase: llama3.2-3b, gemma3-1b, starcoder2-3b, then
-    xlstm-350m, at full width and depth, B2 T1024, 4 steps, attention timed
+    xlstm-350m, at full width and depth, B2 T1024, 4 steps (xlstm-350m's
+    host-bound step 3, so that phase tp fits the time), attention timed
     at each attention model's training shape and the mLSTM scan at
     xlstm-350m's (H4 D512: its inner width 2048 over 4 heads); llama's
     bound is about 8 x params x tokens FLOP plus 28 bytes a parameter,
@@ -395,6 +396,7 @@ def test_train_phase_sizes_are_the_training_shape(chip_smoke):
          ("gemma3-1b", "training_shape_d256"),
          ("starcoder2-3b", "training_shape_gqa12"), ("xlstm-350m", None)),
         False, 2, 1024, 4)
+    assert full["steps_by_model"]["xlstm-350m"] == 3
     assert [chip_smoke.TRAIN_HAZARDS[case][:6]
             for case in full["timing_cases"][:3]] == [
         (2, 1024, 1024, 24, 8, 128), (2, 1024, 1024, 4, 1, 256),
@@ -433,7 +435,7 @@ def test_prefixed_training_sizes_are_the_published_widths(chip_smoke):
     full = chip_smoke.TRAIN_FULL
     assert [m for m, _ in full["models"][4:]] == [
         "hymba-1.5b", "whisper-base", "internvl2-26b"]
-    assert full["steps_by_model"] == {"hymba-1.5b": 3}
+    assert full["steps_by_model"] == {"hymba-1.5b": 3, "xlstm-350m": 3}
     assert full["step1"]["hymba-1.5b"] == (("float32",), 4)
     shape = ShapeConfig("chip", full["seq"], full["batch"], "train")
     text = {"hymba-1.5b": 896, "whisper-base": 1024, "internvl2-26b": 768}
@@ -478,6 +480,36 @@ def test_xlstm_sp_phase_rehearses_on_the_cpu(chip_smoke):
     assert (full["b"], full["t"], full["h"], full["d"], full["segments"]) \
         == (2, 1024, xl.num_heads, xl.ssm_expand * xl.d_model
             // xl.num_heads, 4)
+
+
+def test_tp_phase_rehearses_on_the_cpu(chip_smoke, capsys):
+    """Phase tp at a tiny size on the CPU: the one-rank run here, then two
+    gloo ranks as processes of chip_smoke.py (``--tp-rank``) on a
+    ("model",) mesh, held to the phase's gates (they raise); each rank at
+    half the heads, half the resident bytes.  The full sizes are
+    llama3.2-3b's published width at 8 of its layers, and the lse's timed
+    case is a rank's attention shape."""
+    import json
+    import torch
+    from repro_torch.models import get_config
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        chip_smoke.phase_tp("cpu", chip_smoke.TP_TINY)
+    finally:
+        torch.set_num_threads(threads)
+    line = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+            if x.startswith('{"phase": "tp"')][0]
+    cfg = get_config("llama3.2-3b").reduced()
+    assert line["rank_attention_shape"] == [cfg.num_heads // 2,
+                                            cfg.num_kv_heads // 2,
+                                            cfg.head_dim]
+    assert max(line["resident_share"]) <= chip_smoke.TP_RESIDENT_SHARE
+    full, llama = chip_smoke.TP_FULL, get_config("llama3.2-3b")
+    assert full["layers"] <= 8 and not full["reduced"]
+    assert chip_smoke.TRAIN_HAZARDS[chip_smoke.TP_RANK_CASE][3:6] == (
+        llama.num_heads // full["tp"], llama.num_kv_heads // full["tp"],
+        llama.head_dim)
 
 
 def test_train_step_work_counts_each_layers_window(chip_smoke):
