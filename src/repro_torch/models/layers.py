@@ -15,8 +15,11 @@ the MLP's up projections are column-parallel (each rank its heads or
 ``d_ff`` columns), ``wo`` and the MLP's down projection row-parallel (a
 partial product, then one all-reduce over ``tp``), the embedding and the
 head vocab-parallel.  :func:`enter_tp` and :func:`reduce_tp` carry the
-collectives and their transposes; with ``rules.tp_size == 1`` both are the
-identity and post nothing.
+collectives and their transposes, :func:`sum_tp` a sum that each rank then
+uses in work of its own (all-reduced both ways), :func:`tp_cut` this
+rank's part of a whole leaf; with ``rules.tp_size == 1`` each is the
+identity and posts nothing.  The SSM and the xLSTM blocks
+(``models/ssm.py``, ``models/xlstm.py``) build on these.
 """
 from __future__ import annotations
 
@@ -133,6 +136,27 @@ def reduce_tp(x, rules: AxisRules):
     if rules.tp_size == 1:
         return x
     return _ReduceTP.apply(x, rules.tp_group)
+
+
+def sum_tp(x, rules: AxisRules):
+    """The sum of every ``tp`` rank's ``x``, all-reduced both ways
+    (``enter_tp(reduce_tp(x))``): for a sum of partial products that each
+    rank then uses in work of its own, as the selective SSM's ``x_proj``
+    product feeds each rank's channels and the mLSTM's sum of squares
+    over ``inner`` normalises each rank's heads.  There each rank's
+    gradient of the sum is only its own work's part, and every partial
+    needs all of them; :func:`reduce_tp` alone (an identity backward,
+    right where every rank's use of the sum is the same replicated work)
+    gives each partial its own rank's part only."""
+    return enter_tp(reduce_tp(x, rules), rules)
+
+
+def tp_cut(w, dim: int, start: int, length: int, rules: AxisRules):
+    """``length`` entries of a whole (replicated or gathered) leaf from
+    ``start`` on ``dim``, the part this rank's work reads; its gradient
+    summed over ``tp`` (:func:`enter_tp`), so each rank's gradient of the
+    leaf is the whole one."""
+    return enter_tp(w, rules).narrow(dim, start, length)
 
 
 def tp_sliced(local: int, whole: int, rules: AxisRules, what: str) -> bool:
@@ -285,10 +309,10 @@ def local_kv_heads(cfg, rules: AxisRules = AxisRules()):
 def _kv_slice(w, heads, rules: AxisRules):
     """A replicated K/V leaf cut to ``heads`` on its dim -2; its gradient
     summed over ``tp`` (:func:`enter_tp`)."""
-    w = enter_tp(w, rules)
     if isinstance(heads, range):
-        return w.narrow(-2, heads.start, len(heads))
-    return w.index_select(-2, torch.tensor(heads, device=w.device))
+        return tp_cut(w, -2, heads.start, len(heads), rules)
+    return enter_tp(w, rules).index_select(
+        -2, torch.tensor(heads, device=w.device))
 
 
 def qkv_proj(p, x, cfg, rules: AxisRules = AxisRules()):

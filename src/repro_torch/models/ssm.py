@@ -8,6 +8,18 @@ state) decay and drive tensors are never formed (at hymba-1.5b's width and
 same recurrence against the cached (conv window, ssm state) pair.  The loop
 is plain PyTorch: the reference's is a ``lax.scan`` in jnp, not a Pallas
 kernel.
+
+On a mesh with a ``tp`` axis, given this rank's ``tp`` slices of the
+channel leaves (``conv_w``, ``x_proj``, ``dt_proj``, ``dt_bias``,
+``A_log``, ``D``, ``out_proj``, as ``runtime.sharding.param_specs`` places
+them), the branch is channel-parallel: each rank runs the recurrence on
+its ``inner/tp`` channels, which needs no exchange, ``x_proj`` is
+row-parallel with its sum all-reduced both ways (:func:`~.layers.sum_tp`:
+every rank's channels read the whole dt, B and C) and ``out_proj``
+row-parallel.  ``in_proj`` holds ``[xs | z]`` side by side, so its
+contiguous ``tp`` slices would give one rank every ``xs`` column and the
+next every ``z`` column: the layer takes it whole and cuts this rank's
+columns of both halves.  Given whole leaves it computes whole.
 """
 from __future__ import annotations
 
@@ -15,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
-from .layers import dense_init, silu
+from . import layers as L
+from .layers import AxisRules, dense_init, silu
 
 DT_RANK_DIV = 16  # dt_rank = max(d_model // 16, 8)
 #: The reference's chunk of its checkpointed two-level scan.
@@ -64,12 +77,16 @@ def _causal_conv(x, w, state=None):
     return y, new_state
 
 
-def _ssm_params(p, xc, cfg):
+def _ssm_params(p, xc, cfg, rules: AxisRules = AxisRules(),
+                sliced: bool = False):
     """Input-dependent dt (B,T,inner), B and C (B,T,state), all float32,
-    from the conv output."""
+    from the conv output; ``sliced``: ``xc`` and the leaves this rank's
+    channels, the ``x_proj`` product summed over ``tp`` both ways."""
     state = cfg.ssm_state
     dt_rank = p["dt_proj"].shape[0]
     proj = xc @ p["x_proj"]
+    if sliced:
+        proj = L.sum_tp(proj, rules)
     dt_lowrank = proj[..., :dt_rank]
     b_t = proj[..., dt_rank:dt_rank + state].float()
     c_t = proj[..., dt_rank + state:].float()
@@ -112,27 +129,54 @@ def _scan_grad(h, dt, b_t, c_t, xf, a):
     return torch.cat(ys, dim=1), h
 
 
-def apply_ssm(p: dict, x, cfg, *, cache=None):
+def ssm_channels(cfg, rules: AxisRules = AxisRules()) -> int:
+    """The SSM channels a rank computes: ``inner/tp`` where they split over
+    ``tp`` (the leaves are then placed on it), else all of ``inner``."""
+    inner = cfg.ssm_expand * cfg.d_model
+    tp = rules.tp_size
+    return inner // tp if inner % tp == 0 else inner
+
+
+def _in_proj(p, x, cfg, rules: AxisRules, sliced: bool):
+    """xs and z (B, T, channels): ``in_proj``'s two halves, whole, or this
+    rank's columns of each cut from the whole leaf (its input's and its own
+    gradients summed over ``tp``)."""
+    inner = cfg.ssm_expand * cfg.d_model
+    if not sliced:
+        xz = x @ p["in_proj"]
+        return xz[..., :inner], xz[..., inner:]
+    ci = p["out_proj"].shape[0]
+    c0 = rules.tp_rank * ci
+    w = L.enter_tp(p["in_proj"], rules)
+    w = torch.cat([w[:, c0:c0 + ci], w[:, inner + c0:inner + c0 + ci]], 1)
+    xz = L.enter_tp(x, rules) @ w
+    return xz[..., :ci], xz[..., ci:]
+
+
+def apply_ssm(p: dict, x, cfg, *, cache=None,
+              rules: AxisRules = AxisRules()):
     """x: (B, T, d) -> (y (B, T, d), new_cache).
 
-    cache = {"conv": (B, K-1, inner), "state": (B, inner, state) float32}
-    or None (a zero state).  Without grad the recurrence is a loop over
-    positions, a step at a time; under grad (an input or a parameter that
-    requires it) :func:`_scan_grad`, chunked and checkpointed as the
-    reference's scan.  Both give the numbers of the reference's flat scan.
+    cache = {"conv": (B, K-1, channels), "state": (B, channels, state)
+    float32} or None (a zero state); channels are ``inner``, or this rank's
+    ``inner/tp`` where ``out_proj`` holds its ``tp`` slice (the module
+    docstring).  Without grad the recurrence is a loop over positions, a
+    step at a time; under grad (an input or a parameter that requires it)
+    :func:`_scan_grad`, chunked and checkpointed as the reference's scan.
+    Both give the numbers of the reference's flat scan.
     """
     inner = cfg.ssm_expand * cfg.d_model
-    xz = x @ p["in_proj"]
-    xs, z = xz[..., :inner], xz[..., inner:]
+    sliced = L.tp_sliced(p["out_proj"].shape[0], inner, rules, "out_proj")
+    xs, z = _in_proj(p, x, cfg, rules, sliced)
     conv_state = None if cache is None else cache["conv"]
     xc, new_conv = _causal_conv(xs, p["conv_w"], conv_state)
     xc = silu(xc)
 
-    dt, b_t, c_t = _ssm_params(p, xc, cfg)          # (B,T,inner), (B,T,S)x2
-    a = -torch.exp(p["A_log"])                       # (inner, S) fp32
+    dt, b_t, c_t = _ssm_params(p, xc, cfg, rules, sliced)  # (B,T,ci), (B,T,S)
+    a = -torch.exp(p["A_log"])                       # (ci, S) fp32
     xf = xc.float()
-    h = (torch.zeros((x.shape[0], inner, cfg.ssm_state), dtype=torch.float32,
-                     device=x.device)
+    h = (torch.zeros((x.shape[0], xs.shape[-1], cfg.ssm_state),
+                     dtype=torch.float32, device=x.device)
          if cache is None else cache["state"])
     if torch.is_grad_enabled() and (dt.requires_grad or xf.requires_grad
                                     or a.requires_grad or h.requires_grad):
@@ -140,20 +184,24 @@ def apply_ssm(p: dict, x, cfg, *, cache=None):
     else:
         ys = []
         for t in range(x.shape[1]):
-            dec = torch.exp(dt[:, t, :, None] * a)               # (B,inner,S)
+            dec = torch.exp(dt[:, t, :, None] * a)               # (B,ci,S)
             drv = (dt[:, t] * xf[:, t])[..., None] * b_t[:, t, None, :]
             h = dec * h + drv
-            ys.append(torch.bmm(h, c_t[:, t, :, None])[..., 0])  # (B,inner)
-        y = torch.stack(ys, dim=1)                               # (B,T,inner)
+            ys.append(torch.bmm(h, c_t[:, t, :, None])[..., 0])  # (B,ci)
+        y = torch.stack(ys, dim=1)                               # (B,T,ci)
     y = y + p["D"] * xf
     y = y.to(x.dtype) * silu(z)
     out = y @ p["out_proj"]
+    if sliced:
+        out = L.reduce_tp(out, rules)
     return out, {"conv": new_conv, "state": h}
 
 
-def init_ssm_cache(cfg, batch: int, *, device) -> dict:
-    inner = cfg.ssm_expand * cfg.d_model
-    return {"conv": torch.zeros((batch, cfg.conv_kernel - 1, inner),
+def init_ssm_cache(cfg, batch: int, *, device,
+                   rules: AxisRules = AxisRules()) -> dict:
+    """A zero cache of this rank's channels (:func:`ssm_channels`)."""
+    ci = ssm_channels(cfg, rules)
+    return {"conv": torch.zeros((batch, cfg.conv_kernel - 1, ci),
                                 dtype=torch.float32, device=device),
-            "state": torch.zeros((batch, inner, cfg.ssm_state),
+            "state": torch.zeros((batch, ci, cfg.ssm_state),
                                  dtype=torch.float32, device=device)}

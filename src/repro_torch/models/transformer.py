@@ -39,13 +39,18 @@ first decode step writes position P + T.  Entry points take a ``device`` that
 defaults to ``"cuda"`` and raise when CUDA is absent unless the caller asks
 for ``"cpu"``.  ``rules`` (:class:`~.layers.AxisRules`, keyword-only, a
 single device by default) reaches the expert-parallel MoE and the
-tensor-parallel layers: on a mesh with a ``tp`` axis, each ``ATTN``
-block's attention and MLP, the embedding, the head and the loss compute on
-the ``tp`` slices of the leaves they are given (:func:`tp_slice_dim` says
-which dim), with all-reduces over ``tp``; ``MLSTM``, ``SLSTM``, ``HYMBA``
-and ``ATTN_CROSS`` blocks and the encoder compute whole leaves.  Under
-``tp`` an ``ATTN`` layer's cache holds this rank's KV heads only
-(:func:`init_caches`), and prefill and decode return the whole logits.
+tensor-parallel layers: on a mesh with a ``tp`` axis, every block's
+attention (self- and cross-attention, where its query heads split over
+``tp``) and MLP, the encoder's layers, the hymba block's selective SSM
+(channel-parallel), the mLSTM block (head-parallel, where its heads split),
+the embedding, the head and the loss compute on the ``tp`` slices of the
+leaves they are given (:func:`tp_slice_dim` says which dim), with
+all-reduces over ``tp``.  The ``SLSTM`` block computes whole leaves: its
+recurrence mixes every head's h into each gate at every step.  Under
+``tp`` each attention cache holds this rank's KV heads only, a cross cache
+its heads' K/V, an SSM cache its channels and an mLSTM cache its heads'
+``C``, ``n``, ``m`` (:func:`init_caches`); prefill and decode return the
+whole logits.
 
 :func:`forward_train` takes the parameters as stored (``param_dtype``,
 fp32) and casts each layer's to ``cfg.dtype`` inside the layer,
@@ -167,30 +172,53 @@ def _check_cast(params, cfg: ModelConfig):
                         f"{cfg.dtype}; pass them through cast_params once")
 
 
-#: The dim of each ``ATTN`` block leaf that the tensor-parallel layers read
-#: as this rank's ``tp`` slice: heads of q, k, v and their biases and of
-#: ``wo``'s rows, the MLP's ``d_ff`` columns and ``wo``'s rows.
+#: The dim of each attention and MLP leaf that the tensor-parallel layers
+#: read as this rank's ``tp`` slice: heads of q, k, v and their biases and
+#: of ``wo``'s rows, the MLP's ``d_ff`` columns and ``wo``'s rows.
 _TP_DIMS = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
             ("attn", "bq"): 0, ("attn", "bk"): 0, ("attn", "bv"): 0,
             ("attn", "wo"): 0, ("mlp", "wi"): 1, ("mlp", "wg"): 1,
             ("mlp", "bi"): 0, ("mlp", "wo"): 0}
+#: Cross-attention's (no biases): heads of q, k, v, and ``wo``'s rows.
+_XATTN_DIMS = {("xattn", "wq"): 1, ("xattn", "wk"): 1, ("xattn", "wv"): 1,
+               ("xattn", "wo"): 0}
+#: The selective SSM's channel leaves (``in_proj``, whose ``tp`` slices
+#: would cut ``[xs | z]`` into one half a rank, is taken whole).
+_SSM_DIMS = {("ssm", "conv_w"): 1, ("ssm", "x_proj"): 0,
+             ("ssm", "dt_proj"): 1, ("ssm", "dt_bias"): 0,
+             ("ssm", "A_log"): 0, ("ssm", "D"): 0, ("ssm", "out_proj"): 0}
+#: The mLSTM block's head leaves: q, k, v columns, ``down``'s rows.
+_MLSTM_DIMS = {"wq": 1, "wk": 1, "wv": 1, "down": 0}
+#: Each block kind's sliced leaves below ``("layers", i)``.
+_KIND_DIMS = {ATTN: _TP_DIMS, ATTN_CROSS: {**_TP_DIMS, **_XATTN_DIMS},
+              HYMBA: {**_TP_DIMS, **_SSM_DIMS}}
 
 
-def tp_slice_dim(path: tuple, cfg: ModelConfig) -> int | None:
+def tp_slice_dim(path: tuple, cfg: ModelConfig,
+                 rules: AxisRules = AxisRules()) -> int | None:
     """The dim on which the layers compute the leaf at ``path`` (dict keys
     and list indices, as ``optim.adamw.tree_map`` gives them) on its ``tp``
     slice, or None where they compute it whole: the embedding's rows, the
-    head's columns and ``_TP_DIMS`` in ``ATTN`` blocks.  The blocks of the
-    other kinds, the encoder's, the norms and the experts (expert-parallel,
+    head's columns, the attention and MLP leaves of every block kind but
+    the sLSTM and of the encoder, cross-attention's, the SSM's channel
+    leaves, and the mLSTM's head leaves where its heads split over
+    ``rules``' ``tp`` (a slice that cuts a head is never computed on).  The
+    sLSTM's leaves, the norms and the experts (expert-parallel,
     ``models/moe.py``) are None."""
     if path == ("embed", "table"):
         return 0
     if path == ("lm_head", "w"):
         return 1
-    if len(path) == 4 and path[0] == "layers" \
-            and _layer_specs(cfg)[path[1]][0] == ATTN:
+    if len(path) == 4 and path[0] == "encoder":
         return _TP_DIMS.get(path[2:])
-    return None
+    if path[0] != "layers" or len(path) not in (3, 4):
+        return None
+    kind = _layer_specs(cfg)[path[1]][0]
+    if kind == MLSTM and len(path) == 3:
+        if cfg.num_heads % rules.tp_size:
+            return None
+        return _MLSTM_DIMS.get(path[2])
+    return _KIND_DIMS.get(kind, {}).get(path[2:]) if len(path) == 4 else None
 
 
 # ---------------------------------------------------------------------------
@@ -277,30 +305,34 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
     ``{"ck", "cv"}`` of (batch, encoder_seq_len, KV, dh) for
     cross-attention, and the float32 recurrent state of the SSM and xLSTM
     blocks, as the reference has them.  Under ``rules`` with a ``tp`` axis
-    an ``ATTN`` layer's k and v hold this rank's KV heads only
-    (:func:`~.layers.local_kv_heads`): head-local, where the reference's
-    ``cache_specs`` shards them on the sequence (ROADMAP C26)."""
+    each attention layer's k and v hold this rank's KV heads only
+    (:func:`~.layers.local_kv_heads`), and so do a cross layer's ck and cv;
+    an SSM cache holds this rank's channels, an mLSTM cache its heads'
+    ``C``, ``n`` and ``m`` (its ``conv`` whole).  Head-local, where the
+    reference's ``cache_specs`` shards k and v on the sequence, ``C`` and
+    ``n`` on ``dh`` and replicates ck and cv (ROADMAP C26, C27)."""
     device = resolve_device(device)
     dtype = getattr(torch, dtype or cfg.dtype)
     local = len(L.local_kv_heads(cfg, rules))
 
-    def zeros(length, heads=cfg.num_kv_heads):
+    def zeros(length, heads):
         return torch.zeros((batch, length, heads, cfg.head_dim),
                            dtype=dtype, device=device)
     caches = []
     for kind, _, _ in _layer_specs(cfg):
         if kind == MLSTM:
-            caches.append(init_mlstm_cache(cfg, batch, device=device))
+            caches.append(init_mlstm_cache(cfg, batch, device=device,
+                                           rules=rules))
         elif kind == SLSTM:
             caches.append(init_slstm_cache(cfg, batch, device=device))
         else:
-            heads = local if kind == ATTN else cfg.num_kv_heads
-            c = {"k": zeros(seq_len, heads), "v": zeros(seq_len, heads)}
+            c = {"k": zeros(seq_len, local), "v": zeros(seq_len, local)}
             if kind == ATTN_CROSS:
-                c.update(ck=zeros(cfg.encoder_seq_len),
-                         cv=zeros(cfg.encoder_seq_len))
+                c.update(ck=zeros(cfg.encoder_seq_len, local),
+                         cv=zeros(cfg.encoder_seq_len, local))
             elif kind == HYMBA:
-                c.update(init_ssm_cache(cfg, batch, device=device))
+                c.update(init_ssm_cache(cfg, batch, device=device,
+                                        rules=rules))
             caches.append(c)
     return caches
 
@@ -353,22 +385,36 @@ def _self_attention(p, y, cfg, *, window: int, theta: float, q_pos, kv_pos,
     return L.out_proj(p["attn"], o, cfg, rules), new_cache
 
 
-def _cross_attention(p, x, cross_src, cache):
+def _cross_attention(p, x, cross_src, cache, cfg,
+                     rules: AxisRules = AxisRules()):
     """Cross-attention against the cross K/V in ``cache`` where it holds
     them (``"ck"``: decode after prefill), else against the encoder's output
     ``cross_src`` (B, S, d), taken in x's dtype (prefill, training, and
     decode with a cross source).  As in the reference: no bias, no RoPE,
-    every key visible (non-causal, the queries at position 0).  Returns
-    (out, {"ck", "cv"})."""
+    every key visible (non-causal, the queries at position 0).  Where
+    ``wq`` holds this rank's heads: q column-parallel, ck and cv of the KV
+    heads they read (sliced, or cut from a replicated ``wk``/``wv``),
+    ``cross_src`` through :func:`~.layers.enter_tp` (so the encoder gets
+    every rank's heads' gradient), ``wo`` row-parallel.  Returns (out,
+    {"ck", "cv"})."""
     y = L.apply_norm(p["lnx"], x)
     w = p["xattn"]
-    q = L._project_heads(y, w["wq"])
+    sliced = L.tp_sliced(w["wq"].shape[1], cfg.num_heads, rules, "xattn wq")
+    q = L._project_heads(L.enter_tp(y, rules) if sliced else y, w["wq"])
     if cache is not None and "ck" in cache:
         ck, cv = cache["ck"], cache["cv"]
     else:
         src = cross_src.to(x.dtype)
-        ck = L._project_heads(src, w["wk"])
-        cv = L._project_heads(src, w["wv"])
+        wk, wv = w["wk"], w["wv"]
+        if sliced:
+            src = L.enter_tp(src, rules)
+            heads = L.local_kv_heads(cfg, rules)
+            wk, wv = (
+                a if L.tp_sliced(a.shape[1], cfg.num_kv_heads, rules, n)
+                else L._kv_slice(a, heads, rules)
+                for n, a in (("xattn wk", wk), ("xattn wv", wv)))
+        ck = L._project_heads(src, wk)
+        cv = L._project_heads(src, wv)
     dev = x.device
     o = L.attention(q, ck, cv,
                     q_pos=torch.zeros((q.shape[1],), dtype=torch.int32,
@@ -376,8 +422,7 @@ def _cross_attention(p, x, cross_src, cache):
                     kv_pos=torch.arange(ck.shape[1], dtype=torch.int32,
                                         device=dev),
                     window=0, causal=False)
-    h, k, d = w["wo"].shape
-    return o.flatten(-2) @ w["wo"].reshape(h * k, d), {"ck": ck, "cv": cv}
+    return L.out_proj({"wo": w["wo"]}, o, cfg, rules), {"ck": ck, "cv": cv}
 
 
 def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
@@ -395,7 +440,7 @@ def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
         cache=cache, pos=pos, causal=causal, rules=rules)
     x = x + attn_out
     if "xattn" in p:
-        xo, xcache = _cross_attention(p, x, cross_src, cache)
+        xo, xcache = _cross_attention(p, x, cross_src, cache, cfg, rules)
         x = x + xo
         new_cache = {**new_cache, **xcache}
     y = L.apply_norm(p["ln2"], x)
@@ -407,20 +452,23 @@ def apply_attn_block(p, x, cfg, *, window: int, theta: float, q_pos, kv_pos,
 
 
 def apply_hymba_block(p, x, cfg, *, window: int, theta: float, q_pos,
-                      kv_pos, cache=None, pos: int | None = None):
+                      kv_pos, cache=None, pos: int | None = None,
+                      rules: AxisRules = AxisRules()):
     """Attention and the selective SSM side by side over one norm, fused by
-    their normalised mean [Hymba], then the MLP.  Returns (x, cache): the
+    their normalised mean [Hymba], then the MLP.  Under ``tp`` each part
+    computes on the slices it is given and returns its output all-reduced,
+    so the fusion reads replicated outputs.  Returns (x, cache): the
     attention's ``{"k", "v"}`` with the SSM's ``{"conv", "state"}``."""
     y = L.apply_norm(p["ln1"], x)
     attn_out, attn_cache = _self_attention(
         p, y, cfg, window=window, theta=theta, q_pos=q_pos, kv_pos=kv_pos,
-        cache=cache, pos=pos)
-    ssm_out, ssm_cache = apply_ssm(p["ssm"], y, cfg, cache=cache)
+        cache=cache, pos=pos, rules=rules)
+    ssm_out, ssm_cache = apply_ssm(p["ssm"], y, cfg, cache=cache, rules=rules)
     fused = 0.5 * (L.rms_norm_head(attn_out) * (1 + p["attn_out_scale"])
                    + L.rms_norm_head(ssm_out) * (1 + p["ssm_out_scale"]))
     x = x + fused.to(x.dtype)
     y = L.apply_norm(p["ln2"], x)
-    x = x + L.apply_mlp(p["mlp"], y, cfg)
+    x = x + L.apply_mlp(p["mlp"], y, cfg, rules)
     return x, {"k": attn_cache["k"], "v": attn_cache["v"], **ssm_cache}
 
 
@@ -446,12 +494,12 @@ def _train_layer(p, x, cfg, *, kind: str, window: int, theta: float,
         lp = _cast(p, getattr(torch, cfg.dtype))
         metrics = {}
         if kind == MLSTM:
-            x, _ = apply_mlstm_block(lp, x, cfg)
+            x, _ = apply_mlstm_block(lp, x, cfg, rules=rules)
         elif kind == SLSTM:
             x, _ = apply_slstm_block(lp, x, cfg)
         elif kind == HYMBA:
             x, _ = apply_hymba_block(lp, x, cfg, window=window, theta=theta,
-                                     q_pos=q_pos, kv_pos=q_pos)
+                                     q_pos=q_pos, kv_pos=q_pos, rules=rules)
         else:
             x, _, metrics = apply_attn_block(
                 lp, x, cfg, window=window, theta=theta, q_pos=q_pos,
@@ -499,13 +547,13 @@ def apply_stack(params, x, cfg, *, q_pos, kv_pos, caches=None, pos=None,
         p = params["layers"][i]
         cache = None if caches is None else caches[i]
         if kind == MLSTM:
-            x, c = apply_mlstm_block(p, x, cfg, cache=cache)
+            x, c = apply_mlstm_block(p, x, cfg, cache=cache, rules=rules)
         elif kind == SLSTM:
             x, c = apply_slstm_block(p, x, cfg, cache=cache)
         elif kind == HYMBA:
             x, c = apply_hymba_block(p, x, cfg, window=window, theta=theta,
                                      q_pos=q_pos, kv_pos=kv_pos, cache=cache,
-                                     pos=pos)
+                                     pos=pos, rules=rules)
         else:
             x, c, metrics = apply_attn_block(
                 p, x, cfg, window=window, theta=theta, q_pos=q_pos,
@@ -578,13 +626,15 @@ def sinusoidal_positions(seq_len: int, d: int, device=None):
     return torch.from_numpy(table).to(device=device, dtype=torch.float32)
 
 
-def encode_frames(params, frames, cfg: ModelConfig, *, train: bool = False):
+def encode_frames(params, frames, cfg: ModelConfig, *, train: bool = False,
+                  rules: AxisRules = AxisRules()):
     """The whisper-style encoder over (stub) frame embeddings (B, S, d):
     sinusoidal positions added, the ``ATTN`` layers of ``params["encoder"]``
-    non-causal at the config's RoPE theta, then ``enc_norm``.  ``train``:
-    ``params`` as stored, each layer through :func:`_train_layer` under
-    ``cfg.remat`` (the reference's ``apply_stack(mode="train")``); the
-    layers' MoE losses are dropped, as there."""
+    non-causal at the config's RoPE theta (on their ``tp`` slices under
+    ``rules``), then ``enc_norm``.  ``train``: ``params`` as stored, each
+    layer through :func:`_train_layer` under ``cfg.remat`` (the reference's
+    ``apply_stack(mode="train")``); the layers' MoE losses are dropped, as
+    there."""
     dtype = getattr(torch, cfg.dtype)
     s = frames.shape[1]
     x = frames.to(dtype) + sinusoidal_positions(
@@ -593,12 +643,12 @@ def encode_frames(params, frames, cfg: ModelConfig, *, train: bool = False):
     if train:
         specs = [(ATTN, 0, cfg.rope_theta)] * len(params["encoder"])
         x, _, _ = _train_stack(params["encoder"], x, cfg, q_pos=pos,
-                               rules=AxisRules(), specs=specs, causal=False)
+                               rules=rules, specs=specs, causal=False)
         return L.apply_norm(params["enc_norm"], x)
     for p in params["encoder"]:
         x, _, _ = apply_attn_block(p, x, cfg, window=0, theta=cfg.rope_theta,
                                    q_pos=pos, kv_pos=pos, causal=False,
-                                   losses=False)
+                                   losses=False, rules=rules)
     return L.apply_norm(params["enc_norm"], x)
 
 
@@ -621,8 +671,8 @@ def forward_train(params, batch, cfg: ModelConfig, *,
     _check_frames(batch, cfg)
     x = _prepare_prefix(params, batch, cfg, rules)
     prefix = prefix_len(cfg, batch)
-    cross_src = (encode_frames(params, batch["frames"], cfg, train=True)
-                 if cfg.is_encdec else None)
+    cross_src = (encode_frames(params, batch["frames"], cfg, train=True,
+                               rules=rules) if cfg.is_encdec else None)
     t = x.shape[1]
     pos = torch.arange(t, dtype=torch.int32, device=x.device)
     x, _, aux = apply_stack(params, x, cfg, q_pos=pos, kv_pos=pos,
@@ -681,7 +731,7 @@ def prefill(params, batch, cfg: ModelConfig, seq_len: int, *,
     _check_cast(params, cfg)
     _check_frames(batch, cfg)
     x = _prepare_prefix(params, batch, cfg, rules)
-    cross_src = (encode_frames(params, batch["frames"], cfg)
+    cross_src = (encode_frames(params, batch["frames"], cfg, rules=rules)
                  if cfg.is_encdec else None)
     t = x.shape[1]
     if t > seq_len:

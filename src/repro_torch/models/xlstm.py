@@ -21,6 +21,15 @@ from the saved inputs and differentiates it, as the reference
 differentiates its jnp ``mlstm_chunkwise`` (it has no Pallas backward).
 ``backward_calls`` counts those backward passes, as the kernel wrappers
 count their launches.
+
+On a mesh with a ``tp`` axis, given this rank's ``tp`` slices of ``wq``,
+``wk``, ``wv`` (columns) and ``down`` (rows), the mLSTM block is
+head-parallel over its ``nh`` heads (:func:`apply_mlstm_block`); where the
+heads do not split over ``tp`` it is handed whole leaves and computes
+whole.  The sLSTM block computes whole on every rank: its block-diagonal
+recurrent product is split into the four gates, so each element of the
+next h reads every head's h, and a head split would need an exchange at
+every time step.
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 
-from .layers import apply_norm, dense_init, silu
+from . import layers as L
+from .layers import AxisRules, apply_norm, dense_init, silu
 from .ssm import _causal_conv
 
 
@@ -266,7 +276,27 @@ def init_mlstm_block(gen: torch.Generator, cfg, dtype) -> dict:
     }
 
 
-def apply_mlstm_block(p, x, cfg, *, cache=None, chunk: int = 256):
+def mlstm_heads(cfg, rules: AxisRules = AxisRules()) -> int:
+    """The mLSTM heads a rank computes: ``nh/tp`` where the heads split over
+    ``tp``, else all ``nh`` (the block then computes whole)."""
+    nh = cfg.num_heads
+    return nh // rules.tp_size if nh % rules.tp_size == 0 else nh
+
+
+def _rms_norm_over_tp(h, scale, width: int, rules: AxisRules,
+                      eps: float = 1e-6):
+    """:func:`~.layers.apply_norm`'s RMS norm of ``h`` (B, T, this rank's
+    columns of ``width``), the mean square over all ``width`` columns: each
+    rank's sum of squares summed over ``tp`` both ways
+    (:func:`~.layers.sum_tp`), since each rank normalises its own columns
+    by it."""
+    hf = h.float()
+    ms = L.sum_tp(hf.square().sum(dim=-1, keepdim=True), rules) / width
+    return (hf * torch.rsqrt(ms + eps) * (1.0 + scale.float())).to(h.dtype)
+
+
+def apply_mlstm_block(p, x, cfg, *, cache=None, chunk: int = 256,
+                      rules: AxisRules = AxisRules()):
     """Pre-norm residual mLSTM block.  cache: {"conv", "C", "n", "m"}.
 
     A prompt whose length is a multiple of ``chunk`` goes through
@@ -274,22 +304,52 @@ def apply_mlstm_block(p, x, cfg, *, cache=None, chunk: int = 256):
     and under autograd through :func:`mlstm_scan_grad` (the kernel forward
     and the plain backward); a single step or any other length through
     :func:`mlstm_sequential`, under autograd too, as in the reference.
+
+    Head-parallel where ``wq`` holds this rank's ``tp`` slice (``wq``,
+    ``wk``, ``wv``: its heads' ``dh``-wide column blocks; ``down``: their
+    rows).  The input side is whole on every rank, since each head's q, k
+    and v read every channel of ``xc`` and ``xin``: ``up``'s ``xin``
+    columns, the causal conv and silu compute whole, and ``xc``, ``xin``
+    enter the column-parallel products through :func:`~.layers.enter_tp`.
+    ``up``'s ``z`` half, ``w_i``, ``w_f``, ``b_i``, ``b_f`` and
+    ``hnorm_scale`` are cut to this rank's heads (:func:`~.layers.tp_cut`),
+    the output norm reads the sum of squares over all of ``inner``, and
+    ``down``'s partial product is all-reduced.  ``C``, ``n``, ``m`` hold
+    this rank's heads; ``conv`` is whole.
     """
     b, t, d = x.shape
     inner = cfg.ssm_expand * d
     nh = cfg.num_heads
     dh = inner // nh
+    sliced = L.tp_sliced(p["wq"].shape[1], inner, rules, "wq")
+    if sliced and nh % rules.tp_size:
+        raise ValueError(f"wq holds {p['wq'].shape[1]} of {inner} columns: "
+                         f"{nh} heads do not split over {rules.tp_size} tp "
+                         "ranks; pass it whole")
+    hl = nh // rules.tp_size if sliced else nh
     y = apply_norm({"scale": p["norm_scale"]}, x)
-    up = y @ p["up"]
-    xin, z = up[..., :inner], up[..., inner:]
+    if sliced:
+        h0, c0 = rules.tp_rank * hl, rules.tp_rank * hl * dh
+        xin = y @ p["up"][:, :inner]
+        z = L.enter_tp(y, rules) @ L.tp_cut(p["up"][:, inner:], 1, c0,
+                                            hl * dh, rules)
+        gates = {n: L.tp_cut(p[n], -1, h0, hl, rules)
+                 for n in ("w_i", "w_f", "b_i", "b_f")}
+        hnorm = L.tp_cut(p["hnorm_scale"], 0, c0, hl * dh, rules)
+    else:
+        up = y @ p["up"]
+        xin, z = up[..., :inner], up[..., inner:]
+        gates = {n: p[n] for n in ("w_i", "w_f", "b_i", "b_f")}
     conv_state = None if cache is None else cache["conv"]
     xc, new_conv = _causal_conv(xin, p["conv_w"], conv_state)
     xc = silu(xc)
-    q = (xc @ p["wq"]).reshape(b, t, nh, dh)
-    k = (xc @ p["wk"]).reshape(b, t, nh, dh)
-    v = (xin @ p["wv"]).reshape(b, t, nh, dh)
-    log_i = (xc @ p["w_i"] + p["b_i"]).float()
-    log_f = F.logsigmoid((xc @ p["w_f"] + p["b_f"]).float())
+    xq, xv = ((L.enter_tp(xc, rules), L.enter_tp(xin, rules)) if sliced
+              else (xc, xin))
+    q = (xq @ p["wq"]).reshape(b, t, hl, dh)
+    k = (xq @ p["wk"]).reshape(b, t, hl, dh)
+    v = (xv @ p["wv"]).reshape(b, t, hl, dh)
+    log_i = (xq @ gates["w_i"] + gates["b_i"]).float()
+    log_f = F.logsigmoid((xq @ gates["w_f"] + gates["b_f"]).float())
     state = None if cache is None else (cache["C"], cache["n"], cache["m"])
     scan_in = (q, k, v, log_i, log_f)
     if t == 1 or t % chunk:
@@ -298,17 +358,25 @@ def apply_mlstm_block(p, x, cfg, *, cache=None, chunk: int = 256):
         h, (C, n, m) = mlstm_scan_grad(*scan_in, state, chunk=chunk)
     else:
         h, (C, n, m) = kops.mlstm_scan(*scan_in, state, chunk=chunk)
-    h = h.reshape(b, t, inner).to(x.dtype)
-    h = apply_norm({"scale": p["hnorm_scale"]}, h)        # output norm
+    h = h.reshape(b, t, hl * dh).to(x.dtype)
+    if sliced:                                             # output norm
+        h = _rms_norm_over_tp(h, hnorm, inner, rules)
+    else:
+        h = apply_norm({"scale": p["hnorm_scale"]}, h)
     h = h * silu(z)
     out = h @ p["down"]
+    if sliced:
+        out = L.reduce_tp(out, rules)
     return x + out, {"conv": new_conv, "C": C, "n": n, "m": m}
 
 
-def init_mlstm_cache(cfg, batch, *, device) -> dict:
+def init_mlstm_cache(cfg, batch, *, device,
+                     rules: AxisRules = AxisRules()) -> dict:
+    """A zero cache: ``C``, ``n``, ``m`` of this rank's heads
+    (:func:`mlstm_heads`), ``conv`` whole."""
     inner = cfg.ssm_expand * cfg.d_model
     dh = inner // cfg.num_heads
-    C, n, m = _zero_state(batch, cfg.num_heads, dh, device)
+    C, n, m = _zero_state(batch, mlstm_heads(cfg, rules), dh, device)
     return {"conv": torch.zeros((batch, cfg.conv_kernel - 1, inner),
                                 dtype=torch.float32, device=device),
             "C": C, "n": n, "m": m}

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
@@ -454,20 +455,43 @@ def working_dim(path, leaf: DTensor, cfg: ModelConfig,
                              f"placed {leaf.placements}, not sharded over "
                              f"{rules.tp} on its expert dim")
         return 0
-    dim = tp_slice_dim(path, cfg)
+    dim = tp_slice_dim(path, cfg, rules)
     return dim if dim is not None and placed == Shard(dim) else None
+
+
+def gathered(leaf: DTensor, target) -> torch.Tensor:
+    """This rank's part of ``leaf`` redistributed to the placements
+    ``target`` (each either ``leaf``'s or ``Replicate()``), as a local
+    tensor.  Over a gloo group each shard is written into zeros and the
+    zeros summed over the mesh dims gathered (all-reduces, exact: one term
+    an entry): gloo all-reduces CUDA tensors but cannot all-gather them,
+    and two ranks sharing one card run over gloo (ROADMAP C9).  Elsewhere
+    ``DTensor.redistribute``."""
+    mesh, places = leaf.device_mesh, list(leaf.placements)
+    dims = [i for i, (a, b) in enumerate(zip(places, target)) if a != b]
+    if not dims or any(
+            dist.get_backend(mesh.get_group(i)) != "gloo" for i in dims):
+        return leaf.redistribute(mesh, target).to_local()
+    mine = local_region(tuple(leaf.shape), places, mesh)
+    want = local_region(tuple(leaf.shape), target, mesh)
+    local = leaf.to_local()
+    out = local.new_zeros([w.stop - w.start for w in want])
+    out[tuple(slice(m.start - w.start, m.stop - w.start)
+              for m, w in zip(mine, want))] = local
+    for i in dims:
+        dist.all_reduce(out, group=mesh.get_group(i))
+    return out
 
 
 def working_leaf(leaf: DTensor, dim: int | None, rules: AxisRules):
     """``leaf`` as a local tensor: whole where ``dim`` is None, else this
-    rank's ``tp`` slice, gathered over every other mesh axis."""
+    rank's ``tp`` slice, gathered over every other mesh axis
+    (:func:`gathered`)."""
     if dim is None:
-        return leaf.full_tensor()
-    mesh = rules.mesh
-    tp = list(mesh.mesh_dim_names).index(rules.tp)
-    return leaf.redistribute(mesh, [
-        pl if i == tp else Replicate()
-        for i, pl in enumerate(leaf.placements)]).to_local()
+        return gathered(leaf, [Replicate()] * leaf.device_mesh.ndim)
+    tp = list(rules.mesh.mesh_dim_names).index(rules.tp)
+    return gathered(leaf, [pl if i == tp else Replicate()
+                           for i, pl in enumerate(leaf.placements)])
 
 
 def working_copy(params, cfg: ModelConfig, rules: AxisRules):

@@ -18,15 +18,17 @@ computes what the single-device step computes on the global batch, which
 every rank passes.  Each rank takes its dp rows of each microbatch
 (``train_batch_specs``), gathers every leaf once a step over the mesh axes
 its spec shards it on (ZeRO-3), but a leaf that the tensor-parallel layers
-compute on its ``tp`` slice (every ``ATTN`` block's attention and MLP
-leaves, the embedding, the head) or an expert leaf of the expert-parallel
-MoE (``models/moe.py``) keeps that slice, gathered over dp only
+compute on its ``tp`` slice (``models.transformer.tp_slice_dim``: the
+attention, MLP, cross-attention, SSM and mLSTM leaves, the encoder's, the
+embedding, the head) or an expert leaf of the expert-parallel MoE
+(``models/moe.py``) keeps that slice, gathered over dp only
 (``sharding.working_copy``), and runs ``forward_train`` and its backward
 on local tensors, the hand-written kernels included: on a mesh with a
 ``tp`` axis of size tp each rank's working copy holds 1/tp of those
-leaves, and its layers post all-reduces over ``tp``.  The ``MLSTM``,
-``SLSTM``, ``HYMBA`` and ``ATTN_CROSS`` blocks and the encoder still
-compute whole layers on every ``tp`` rank (ROADMAP C22).  A rank's loss is
+leaves, and its layers post all-reduces over ``tp``.  The ``SLSTM`` block,
+attention whose query heads do not split over ``tp`` and an mLSTM whose
+heads do not still compute whole on every ``tp`` rank (ROADMAP C22).  A
+rank's loss is
 weighted by its labels over the global count (the reference's ``ce.sum() /
 n`` over the whole batch), the MoE's aux and z losses come from router
 statistics summed over dp (``AxisRules.global_router_stats``), and each

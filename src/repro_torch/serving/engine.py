@@ -17,8 +17,9 @@ logits give the same tokens.
 On a mesh (``rules`` with one), every rank runs the same requests: given
 parameters placed by ``runtime.sharding.param_specs`` (DTensors, or their
 local tensors), each computes prefill and decode on its ``tp`` slices
-(``models/layers.py``) with caches of its KV heads, gets the whole logits,
-and so the same tokens.
+(``models/layers.py``) with head-local caches (its KV heads, SSM channels
+and mLSTM heads: ``init_caches(rules=)``), gets the whole logits, and so
+the same tokens.
 """
 from __future__ import annotations
 

@@ -378,9 +378,11 @@ def test_xlstm_witness_rehearses_on_the_cpu(chip_smoke):
 
 
 def test_train_phase_sizes_are_the_training_shape(chip_smoke):
-    """The full phase: llama3.2-3b, gemma3-1b, starcoder2-3b, then
-    xlstm-350m, at full width and depth, B2 T1024, 4 steps (xlstm-350m's
-    host-bound step 3, so that phase tp fits the time), attention timed
+    """The full phase: llama3.2-3b, gemma3-1b, starcoder2-3b at full width
+    and depth, then xlstm-350m at full width with 8 of its 24 layers (its
+    sLSTM at layer 4 among them), B2 T1024, 4 steps (xlstm-350m's
+    host-bound step 3, and its depth, so that phase tp fits the time),
+    attention timed
     at each attention model's training shape and the mLSTM scan at
     xlstm-350m's (H4 D512: its inner width 2048 over 4 heads); llama's
     bound is about 8 x params x tokens FLOP plus 28 bytes a parameter,
@@ -397,6 +399,8 @@ def test_train_phase_sizes_are_the_training_shape(chip_smoke):
          ("starcoder2-3b", "training_shape_gqa12"), ("xlstm-350m", None)),
         False, 2, 1024, 4)
     assert full["steps_by_model"]["xlstm-350m"] == 3
+    assert full["layers_by_model"]["xlstm-350m"] == 8
+    assert "slstm" in get_config("xlstm-350m").block_pattern[:8]
     assert [chip_smoke.TRAIN_HAZARDS[case][:6]
             for case in full["timing_cases"][:3]] == [
         (2, 1024, 1024, 24, 8, 128), (2, 1024, 1024, 4, 1, 256),
@@ -421,8 +425,9 @@ def test_train_phase_sizes_are_the_training_shape(chip_smoke):
 
 
 def test_prefixed_training_sizes_are_the_published_widths(chip_smoke):
-    """hymba-1.5b (full depth: 128 meta tokens + 896 text tokens, the
-    SSM's chunked scan, 3 steps, step 1 in fp32 at 4 of its layers),
+    """hymba-1.5b (8 of its 32 layers, so that the script keeps its time:
+    128 meta tokens + 896 text tokens, the SSM's chunked scan, 3 steps,
+    step 1 in fp32 at 4 of its layers),
     whisper-base (full depth, 1500 frames, 1024 text tokens) and
     internvl2-26b (4 of 48 layers: 2.70 B parameters, 43 GB of fp32
     train state at 16 bytes a parameter; 256 patch embeddings + 768 text
@@ -483,12 +488,15 @@ def test_xlstm_sp_phase_rehearses_on_the_cpu(chip_smoke):
 
 
 def test_tp_phase_rehearses_on_the_cpu(chip_smoke, capsys):
-    """Phase tp at a tiny size on the CPU: the one-rank run here, then two
+    """Phase tp at a tiny size on the CPU: the one-rank runs here, then two
     gloo ranks as processes of chip_smoke.py (``--tp-rank``) on a
-    ("model",) mesh, held to the phase's gates (they raise); each rank at
-    half the heads, half the resident bytes.  The full sizes are
-    llama3.2-3b's published width at 8 of its layers, and the lse's timed
-    case is a rank's attention shape."""
+    ("model",) mesh, each running every model, held to the phase's gates
+    (they raise); each rank at half the heads (hymba's and whisper's
+    reduced 4 query heads split), half the mLSTM heads, about half the
+    resident bytes.  The full sizes are llama3.2-3b's published width at 8
+    of its layers, xlstm-350m's at 8 (its sLSTM at layer 4 among them),
+    hymba-1.5b's at 4 and whisper-base whole; the lse's timed cases are a
+    rank's attention shapes."""
     import json
     import torch
     from repro_torch.models import get_config
@@ -498,18 +506,41 @@ def test_tp_phase_rehearses_on_the_cpu(chip_smoke, capsys):
         chip_smoke.phase_tp("cpu", chip_smoke.TP_TINY)
     finally:
         torch.set_num_threads(threads)
-    line = [json.loads(x) for x in capsys.readouterr().out.splitlines()
-            if x.startswith('{"phase": "tp"')][0]
+    lines = {json.loads(x)["model"]: json.loads(x)
+             for x in capsys.readouterr().out.splitlines()
+             if x.startswith('{"phase": "tp"')}
+    assert list(lines) == [f"{arch}-smoke" for arch in (
+        "llama3.2-3b", "xlstm-350m", "hymba-1.5b", "whisper-base")]
+    line = lines["llama3.2-3b-smoke"]
     cfg = get_config("llama3.2-3b").reduced()
     assert line["rank_attention_shape"] == [cfg.num_heads // 2,
                                             cfg.num_kv_heads // 2,
                                             cfg.head_dim]
-    assert max(line["resident_share"]) <= chip_smoke.TP_RESIDENT_SHARE
+    for line in lines.values():
+        assert max(line["resident_share"]) <= chip_smoke.TP_RESIDENT_SHARE
+    xl = get_config("xlstm-350m").reduced()
+    assert lines["xlstm-350m-smoke"]["rank_scan_shapes"] == [
+        [xl.num_heads // 2, 2 * xl.d_model // xl.num_heads]]
+    assert lines["xlstm-350m-smoke"]["rank_attention_shapes"] == []
+    for arch in ("hymba-1.5b", "whisper-base"):
+        assert lines[f"{arch}-smoke"]["rank_attention_shapes"] == [[2, 1, 16]]
     full, llama = chip_smoke.TP_FULL, get_config("llama3.2-3b")
     assert full["layers"] <= 8 and not full["reduced"]
+    assert full["blocks"] == {"xlstm-350m": 8, "hymba-1.5b": 4,
+                              "whisper-base": 6}
+    assert "slstm" in get_config("xlstm-350m").block_pattern[:8]
+    assert get_config("whisper-base").num_layers == 6
     assert chip_smoke.TRAIN_HAZARDS[chip_smoke.TP_RANK_CASE][3:6] == (
         llama.num_heads // full["tp"], llama.num_kv_heads // full["tp"],
         llama.head_dim)
+    w = get_config("whisper-base")
+    for case in chip_smoke.TP_WHISPER_CASES:
+        assert chip_smoke.TRAIN_HAZARDS[case][3:6] == (
+            w.num_heads // full["tp"], w.num_kv_heads // full["tp"],
+            w.head_dim)
+    xf = get_config("xlstm-350m")
+    assert chip_smoke.MLSTM_TRAIN_HAZARDS[chip_smoke.TP_MLSTM_CASE][2:4] == (
+        xf.num_heads // full["tp"], 2 * xf.d_model // xf.num_heads)
 
 
 def test_train_step_work_counts_each_layers_window(chip_smoke):

@@ -32,8 +32,9 @@ factor 4, C24, under tensor-parallel attention):
   against the reference's ``forward_train``, and each rank's shard of every
   parameter against the single-device result.
 
-The reduced hymba-1.5b (its blocks compute whole on every rank: the
-gathered path) runs the two train steps on (2, 2).  Tolerances (float32):
+The other block kinds (the mLSTM, hymba-1.5b's, cross-attention and the
+encoder) are held in tests/test_torch_tensor_parallel_blocks.py.
+Tolerances (float32):
 losses and ``grad_norm`` rtol 1e-5 (the vocab-parallel log-sum-exp and the
 row-parallel products sum in another order); gradients rtol 1e-4, atol
 1e-5 of the leaf's largest (tests/test_torch_train.py's tolerance against
@@ -47,8 +48,7 @@ zero a ratio of rounding errors, which the reordered sums change
 moved 0.21 lr apart), and elsewhere a ratio that a gradient's error
 (measured up to 4e-6 of its leaf's largest) moves by that error over the
 entry's own size, the second step's again through the first step's
-parameters (0.4% of lr at most on llama3.2-3b's and hymba-1.5b's entries
-above BIG_GRAD, hymba's only through the vocab-parallel head and loss);
+parameters (0.4% of lr at most on llama3.2-3b's entries above BIG_GRAD);
 logits rtol 1e-5,
 atol 1e-5 against the single-device port, atol 1e-4 against the reference
 (tests/test_torch_model.py's float32 tolerance).
@@ -103,16 +103,9 @@ OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 CASES = {"llama3.2-3b": dict(remat="full"),
          "gemma3-1b": dict(logit_softcap=30.0),
          "starcoder2-3b": {}, "nemotron-4-15b": {},
-         "granite-moe-3b-a800m": dict(capacity_factor=4.0),
-         "hymba-1.5b": {}}
-#: blocks that compute whole leaves: the train steps only, on (2, 2)
-GATHERED = ("hymba-1.5b",)
+         "granite-moe-3b-a800m": dict(capacity_factor=4.0)}
 PROMPT_T, SEQ, DECODE_STEPS = 9, 16, 3
 ENGINE_LENGTHS, ENGINE_NEW, ENGINE_SEQ = (5, 9, 3, 7), 4, 24
-
-
-def runs_on(arch, mesh):
-    return arch not in GATHERED or mesh == "2x2"
 
 
 def config(get_config, arch):
@@ -188,8 +181,6 @@ except ValueError as e:
     out["production_error"] = np.asarray(str(e))
 
 for arch in CASES:
-    if not runs_on(arch, tag):
-        continue
     cfg = config(get_config, arch)
     fresh = T.init_train_state(0, cfg, device="cpu")
     specs = S.state_specs(fresh["params"], cfg, rules)
@@ -208,32 +199,31 @@ for arch in CASES:
         state["params"], live)
     out[f"{arch}/working"] = np.asarray(counts, np.int64)
     out[f"{arch}/working_names"] = np.asarray(names)
-    if arch not in GATHERED:
-        # every gradient of the whole first batch under tp alone
-        b0 = T.on_device(batches(cfg.vocab_size)[0], "cpu")
-        _, _, grads = T.loss_and_grads(live, b0, cfg, tp_only)
-        for name, g in by_path(grads).items():
-            out[f"{arch}/g{name}"] = g.numpy()
-        # serving, on the working copy of the placed DTensors
-        toks, engine_prompts = prompts(cfg.vocab_size)
-        served = TT.cast_params(live, cfg)
-        prefill_fn, decode_fn = T.make_serve_steps(cfg, rules, SEQ)
-        with torch.no_grad():
-            logits, caches = prefill_fn(served, {
-                "tokens": torch.from_numpy(toks)})
-            out[f"{arch}/cache_heads"] = np.asarray(caches[0]["k"].shape[2])
-            out[f"{arch}/prefill"] = logits.numpy()
-            for i in range(DECODE_STEPS):
-                logits, caches = decode_fn(served, logits.argmax(-1), caches,
-                                           PROMPT_T + i)
-                out[f"{arch}/decode{i}"] = logits.numpy()
-        eng = ServingEngine(cfg, state["params"], slots=4,
-                            max_seq=ENGINE_SEQ, rules=rules, device="cpu")
-        for rid, p in enumerate(engine_prompts):
-            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=ENGINE_NEW))
-        out[f"{arch}/engine"] = np.asarray([r.out_tokens for r in sorted(
-            eng.run(), key=lambda r: r.rid)])
-        del eng, live, grads
+    # every gradient of the whole first batch under tp alone
+    b0 = T.on_device(batches(cfg.vocab_size)[0], "cpu")
+    _, _, grads = T.loss_and_grads(live, b0, cfg, tp_only)
+    for name, g in by_path(grads).items():
+        out[f"{arch}/g{name}"] = g.numpy()
+    # serving, on the working copy of the placed DTensors
+    toks, engine_prompts = prompts(cfg.vocab_size)
+    served = TT.cast_params(live, cfg)
+    prefill_fn, decode_fn = T.make_serve_steps(cfg, rules, SEQ)
+    with torch.no_grad():
+        logits, caches = prefill_fn(served, {
+            "tokens": torch.from_numpy(toks)})
+        out[f"{arch}/cache_heads"] = np.asarray(caches[0]["k"].shape[2])
+        out[f"{arch}/prefill"] = logits.numpy()
+        for i in range(DECODE_STEPS):
+            logits, caches = decode_fn(served, logits.argmax(-1), caches,
+                                       PROMPT_T + i)
+            out[f"{arch}/decode{i}"] = logits.numpy()
+    eng = ServingEngine(cfg, state["params"], slots=4,
+                        max_seq=ENGINE_SEQ, rules=rules, device="cpu")
+    for rid, p in enumerate(engine_prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=ENGINE_NEW))
+    out[f"{arch}/engine"] = np.asarray([r.out_tokens for r in sorted(
+        eng.run(), key=lambda r: r.rid)])
+    del eng, live, grads
     step = T.make_train_step(cfg, rules, OptConfig(**OPT),
                              grad_specs=S.grad_accum_specs(
                                  state["params"], cfg, rules))
@@ -262,9 +252,8 @@ def _common():
 
 
 SCOPE = _common()
-SERVED = [a for a in SCOPE["CASES"] if a not in SCOPE["GATHERED"]]
-TRAINED = [(a, m) for a in SCOPE["CASES"] for m in SCOPE["MESHES"]
-           if SCOPE["runs_on"](a, m)]
+SERVED = list(SCOPE["CASES"])
+TRAINED = [(a, m) for a in SCOPE["CASES"] for m in SCOPE["MESHES"]]
 
 
 @pytest.fixture(autouse=True)
@@ -293,25 +282,24 @@ def _single_device(arch, state_np):
     _, _, grads = TTR.loss_and_grads(st["params"],
                                      TTR.on_device(batches[0], "cpu"), ct)
     out["grads"] = SCOPE["by_path"](grads)
-    if arch not in SCOPE["GATHERED"]:
-        toks, engine_prompts = SCOPE["prompts"](ct.vocab_size)
-        params = TT.cast_params(st["params"], ct)
-        with torch.no_grad():
-            logits, caches = TT.prefill(params, {"tokens": torch.from_numpy(
-                toks)}, ct, SCOPE["SEQ"])
-            out["prefill"] = logits.numpy()
-            for i in range(SCOPE["DECODE_STEPS"]):
-                logits, caches = TT.decode_step(
-                    params, logits.argmax(-1), caches, SCOPE["PROMPT_T"] + i,
-                    ct, SCOPE["SEQ"])
-                out[f"decode{i}"] = logits.numpy()
-        eng = ServingEngine(ct, st["params"], slots=4,
-                            max_seq=SCOPE["ENGINE_SEQ"], device="cpu")
-        for rid, p in enumerate(engine_prompts):
-            eng.submit(Request(rid=rid, prompt=p,
-                               max_new_tokens=SCOPE["ENGINE_NEW"]))
-        out["engine"] = [r.out_tokens for r in sorted(eng.run(),
-                                                      key=lambda r: r.rid)]
+    toks, engine_prompts = SCOPE["prompts"](ct.vocab_size)
+    params = TT.cast_params(st["params"], ct)
+    with torch.no_grad():
+        logits, caches = TT.prefill(params, {"tokens": torch.from_numpy(
+            toks)}, ct, SCOPE["SEQ"])
+        out["prefill"] = logits.numpy()
+        for i in range(SCOPE["DECODE_STEPS"]):
+            logits, caches = TT.decode_step(
+                params, logits.argmax(-1), caches, SCOPE["PROMPT_T"] + i,
+                ct, SCOPE["SEQ"])
+            out[f"decode{i}"] = logits.numpy()
+    eng = ServingEngine(ct, st["params"], slots=4,
+                        max_seq=SCOPE["ENGINE_SEQ"], device="cpu")
+    for rid, p in enumerate(engine_prompts):
+        eng.submit(Request(rid=rid, prompt=p,
+                           max_new_tokens=SCOPE["ENGINE_NEW"]))
+    out["engine"] = [r.out_tokens for r in sorted(eng.run(),
+                                                  key=lambda r: r.rid)]
     step = TTR.make_train_step(ct, TTR.make_rules(None),
                                OptConfig(**SCOPE["OPT"]))
     losses, norms = [], []
@@ -333,8 +321,6 @@ def _reference(arch, pn):
     loss, _ = jax.jit(lambda p, b: JT.forward_train(p, b, cj, JRules()))(
         pn, {k: jnp.asarray(v) for k, v in b0.items()})
     out = {"loss": float(loss)}
-    if arch in SCOPE["GATHERED"]:
-        return out
     toks, _ = SCOPE["prompts"](cj.vocab_size)
     logits, caches = jax.jit(lambda p, b: JT.prefill(
         p, b, cj, JRules(), SCOPE["SEQ"]))(
@@ -412,8 +398,7 @@ def test_sharded_steps_match_single_device_and_reference(runs, arch, mesh):
 def test_working_copy_holds_a_tp_slice(runs, arch, mesh):
     """Each rank's working copy holds 1/tp of every leaf that the layers
     compute on its slice (all of them on (2, 2); on (1, 4) the replicated
-    wk/wv/bk/bv stay whole) and the whole of every other leaf; the gathered
-    blocks' leaves are whole."""
+    wk/wv/bk/bv stay whole) and the whole of every other leaf."""
     tp = _tp(mesh)
     cfg = SCOPE["config"](get_config, arch)
     for out in runs["ranks"][mesh]:
@@ -426,9 +411,6 @@ def test_working_copy_holds_a_tp_slice(runs, arch, mesh):
         assert not kept[~sliced].any()
         names = {n for n, k in zip(out[f"{arch}/working_names"], kept) if k}
         head = "/embed/table" if cfg.tie_embeddings else "/lm_head/w"
-        if arch in SCOPE["GATHERED"]:
-            assert names == {"/embed/table", head}
-            continue
         ffn = ("moe/wi", "moe/wo") if cfg.is_moe else ("mlp/wi", "mlp/wo")
         want = {"/embed/table", head} | {
             f"/layers/{i}/{leaf}" for i in range(cfg.num_layers)
