@@ -11,10 +11,12 @@ Phases, one JSON line each:
 3. kernels -- holds each kernel against its plain PyTorch version on the
    hazard cases (flash attention, whose wrapper picks the fp32 tensor-core
    (split precision), the bf16 prefill or the bf16 decode kernel: fp32 tol
-   2e-5, bf16 tol 2e-2; mLSTM chunk scan, whose wrapper picks the fp32 FMA
-   kernel or the bf16 tensor-core kernel: fp32 rtol 5e-4 atol 5e-5, bf16
-   5e-2, on h and on the final state; the tensor-core kernel's fp32
-   passes, which take no call, against the plain version or float64) and
+   2e-5, bf16 tol 2e-2; mLSTM chunk scan, whose wrapper picks the bf16
+   tensor-core kernel, the fp32 one (split precision) or, for a chunk that
+   is not a multiple of 16, the FMA kernel: bf16 rtol = atol = 5e-2 on h,
+   fp32 rtol 5e-4 atol 5e-5 on the final state, and an fp32 h and state by
+   mlstm_scan.check_fp32 -- the plain version element by element where it
+   meets float64, else float64 row by row (ROADMAP C21)) and
    at the serving shapes, and times kernel, plain
    version and the library call, where there is one, beside its bound, on
    the device alone through a CUDA graph and per eager call; the
@@ -261,7 +263,8 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mlstm_scan as ms  # noqa: E402
 from repro_torch.kernels.ref import (reference_attention,  # noqa: E402
-                                     reference_mlstm_scan)
+                                     reference_mlstm_scan,
+                                     reference_mlstm_scan_float64)
 from repro_torch.data import DataConfig, host_batch  # noqa: E402
 from repro_torch.models import get_config, init_params  # noqa: E402
 from repro_torch.models import flash as MF  # noqa: E402
@@ -378,10 +381,10 @@ ALL_MASKED = ("fully_masked_rows", "decode_all_masked")
 # name: (b, t, h, d, chunk, gates); gates "normal", "forget_near_zero"
 # (log_f << 0), "forget_near_one" (log_f ~ 0: C sums every step of T),
 # "large_log_i" (the stabilizer dominates) or "state" (a given initial
-# state), "forget_near_one_state" both.  bf16 calls with a chunk that is
-# a multiple of 16 take the tensor-core kernel, the others the FMA kernel
-# (chunk24_bf16), as do fp32 calls.  The last is the serving shape of
-# xlstm-350m.
+# state), "forget_near_one_state" both.  Calls with a chunk that is a
+# multiple of 16 take the tensor-core kernel of their dtype (fp32: in split
+# precision), the others the FMA kernel (chunk24_bf16, in either dtype).
+# The last is the serving shape of xlstm-350m.
 MLSTM_HAZARDS = {
     "d16": (1, 64, 1, 16, 16, "normal"),
     "d32": (2, 128, 3, 32, 32, "normal"),
@@ -855,15 +858,53 @@ def check_mlstm(name, got, want, dtype):
     return errs[0], max(errs[1:])
 
 
+def scan_parts(out):
+    """A scan's (h, (C, n, m)) as the dict mlstm_scan.check_fp32 reads."""
+    return dict(zip("hCnm", (out[0], *out[1])))
+
+
+def check_mlstm_fp32(name, got, want, args, state, chunk):
+    """An fp32 scan ``got`` against its plain version ``want`` on ``args``
+    (and ``state``) by mlstm_scan.check_fp32 (ROADMAP C21): held to the
+    plain version element by element where that version meets float64,
+    else to float64 row by row and by its count of elements outside
+    MLSTM_TOL, against the plain version's and the FMA kernel's.  Returns
+    the readings and the largest |error| of h and of the state against the
+    plain version."""
+    fma = (scan_parts(fma_scan(*args, chunk=chunk, state=state))
+           if args[0].is_cuda else None)
+    readings = ms.check_fp32(
+        scan_parts(got), scan_parts(want),
+        scan_parts(mlstm_float64(args, state, chunk)), fma,
+        MLSTM_TOL[torch.float32])
+    if not readings["ok"]:
+        raise AssertionError(f"mlstm_scan {name} float32: the kernel fails "
+                             f"the fp32 check: {readings}")
+    errs = [float((g - w).abs().max()) for g, w in zip(
+        (got[0], *got[1]), (want[0], *want[1]))]
+    return readings, errs[0], max(errs[1:])
+
+
+def mlstm_path(chunk, dtype):
+    """The kernel plan() gives a scan: a chunk that is a multiple of 16
+    takes the tensor-core kernel of its dtype, any other the FMA kernel."""
+    if chunk % 16:
+        return "fma"
+    return "tc" if dtype == torch.bfloat16 else "tc_f32"
+
+
 def phase_mlstm_hazards():
+    """Each hazard in fp32 (check_mlstm_fp32) and bf16 (check_mlstm) through
+    the wrapper.  Returns the launches of this run: the chunk24_bf16 case
+    is the one that takes the FMA kernel in each dtype."""
     worst = {}
+    before_run = kernel_launches()
     for name, (b, t, h, d, chunk, gates) in MLSTM_HAZARDS.items():
         for dtype in (torch.float32, torch.bfloat16):
             args, state = mlstm_inputs(b, t, h, d, gates, dtype,
                                        seed=sum(map(ord, name)))
             path = ms.plan(b, t, h, d, chunk, dtype, state is not None).path
-            if path != ("tc" if dtype == torch.bfloat16 and chunk % 16 == 0
-                        else "fma"):
+            if path != mlstm_path(chunk, dtype):
                 raise AssertionError(f"mlstm_scan {name} {dtype}: path {path}")
             before = ms.launches, ms.launches_by_path[path]
             got = ms.mlstm_scan(*args, state, chunk=chunk)
@@ -872,47 +913,36 @@ def phase_mlstm_hazards():
                                                             before[1] + 1):
                 raise AssertionError("the wrapper did not count its launch")
             want = reference_mlstm_scan(*args, state, chunk=chunk)
-            err_h, err_state = check_mlstm(name, got, want, dtype)
+            readings = {}
+            if dtype == torch.float32:
+                readings, err_h, err_state = check_mlstm_fp32(
+                    name, got, want, args, state, chunk)
+            else:
+                err_h, err_state = check_mlstm(name, got, want, dtype)
             key = str(dtype).removeprefix("torch.")
             worst[key] = max(worst.get(key, 0.0), err_h)
             worst["state"] = max(worst.get("state", 0.0), err_state)
-            extra = {}
-            if dtype == torch.float32 and d == 512:  # ROADMAP C21
-                exact = mlstm_float64(args, state, chunk)[0]
-                extra = dict(
-                    outside_tol_vs_float64=outside(got[0], exact,
-                                                   MLSTM_TOL[dtype]),
-                    plain_outside_tol_vs_float64=outside(
-                        want[0], exact, MLSTM_TOL[dtype]))
             emit("kernel_case", kernel="mlstm_scan", case=name, path=path,
                  dtype=key,
                  shape=f"B{b} T{t} H{h} D{d} chunk {chunk} {gates}",
                  max_abs_err=err_h, state_max_abs_err=err_state,
-                 tol=MLSTM_TOL[dtype], **extra)
+                 tol=MLSTM_TOL[dtype], **readings)
+    launched = {k: n - before_run[k] for k, n in kernel_launches().items()}
     emit("kernel_hazards", kernel="mlstm_scan", cases=len(MLSTM_HAZARDS) * 2,
-         max_abs_err=worst)
+         max_abs_err=worst, launches=launched)
+    return launched
 
 
 def mlstm_float64(args, state, chunk):
     """The plain version in float64 on these inputs: h and (C, n, m)."""
-    with patched(*_float64_patches()):
-        return reference_mlstm_scan(
-            *(a.double() for a in args),
-            None if state is None else tuple(x.double() for x in state),
-            chunk=chunk)
+    return reference_mlstm_scan_float64(*args, state, chunk=chunk)
 
 
-def outside(got, want, tol):
-    """Elements of ``got`` outside ``tol`` (rtol, atol) of ``want``."""
-    err = (got.double() - want.double()).abs() - tol["rtol"] * want.abs()
-    return int((err > tol["atol"]).sum())
-
-
-def fma_scan(q, k, v, log_i, log_f, *, chunk):
+def fma_scan(q, k, v, log_i, log_f, *, chunk, state=None):
     """csrc/mlstm_scan.cu (the FMA kernel) on these inputs whatever their
-    type: the kernel bf16 calls took before the tensor-core kernel, timed
-    beside it.  Called here, not through the wrapper, so that it counts no
-    launch."""
+    type and chunk: the kernel that calls of either dtype took before the
+    tensor-core kernels, timed and checked beside them.  Called here, not
+    through the wrapper, so that it counts no launch."""
     b, t, h, d = q.shape
     out = torch.empty_like(q)
     c = q.new_empty((b, h, d, d), dtype=torch.float32)
@@ -920,7 +950,9 @@ def fma_scan(q, k, v, log_i, log_f, *, chunk):
     m = q.new_empty((b, h), dtype=torch.float32)
     err = ms._kernel("fma")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
-        log_f.data_ptr(), None, None, None, out.data_ptr(), c.data_ptr(),
+        log_f.data_ptr(),
+        *((None,) * 3 if state is None else (x.data_ptr() for x in state)),
+        out.data_ptr(), c.data_ptr(),
         n.data_ptr(), m.data_ptr(), b, t, h, d, chunk, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream)
@@ -935,20 +967,28 @@ def time_mlstm(dtype, shape=None, **tags):
     over 8 input sets so that each call finds them in device memory and not
     in the 50 MB L2, as each layer of a prefill does: on the device alone
     (``graph_ms``: ``ms``, ``plain_ms``) and per eager call with the host's
-    time to issue it (``cuda_ms``: the ``*_eager`` keys).  In bf16 the FMA
-    kernel, which bf16 calls took before the tensor-core kernel, is timed
-    beside it (``fma_ms``); in fp32, where the FMA kernel is the kernel,
-    ``split_floor_ms`` is the least time of the same work on the tensor
-    cores in split precision (split_floor; ROADMAP C21)."""
+    time to issue it (``cuda_ms``: the ``*_eager`` keys).  The FMA kernel,
+    which calls of both dtypes took before the tensor-core kernels, is
+    timed beside it (``fma_ms``); in fp32 ``split_floor_ms`` is the least
+    time of the same work on the tensor cores in split precision
+    (split_floor) and the kernel is held by check_mlstm_fp32 (C21)."""
     b, t, h, d, chunk, gates = MLSTM_HAZARDS["serving"]
     if shape is not None:
         b, t, h, d = shape
     sets = [mlstm_inputs(b, t, h, d, gates, dtype, seed=i)[0]
             for i in range(8)]
     want = reference_mlstm_scan(*sets[0], chunk=chunk)
-    err_h, err_state = check_mlstm("serving", ms.mlstm_scan(*sets[0],
-                                                            chunk=chunk),
-                                   want, dtype)
+    got = ms.mlstm_scan(*sets[0], chunk=chunk)
+    fma = fma_scan(*sets[0], chunk=chunk)
+    out = {}
+    if dtype == torch.float32:
+        out, err_h, err_state = check_mlstm_fp32("serving", got, want,
+                                                 sets[0], None, chunk)
+        out["fma_max_abs_err"] = float((fma[0] - want[0]).abs().max())
+    else:
+        err_h, err_state = check_mlstm("serving", got, want, dtype)
+        out["fma_max_abs_err"] = check_mlstm("serving (fma)", fma, want,
+                                             dtype)[0]
     turn = [0]
 
     def cycle(fn):
@@ -958,14 +998,9 @@ def time_mlstm(dtype, shape=None, **tags):
             return fn(*args, chunk=chunk)
         return call
 
-    calls = {"kernel": cycle(ms.mlstm_scan), "plain": cycle(reference_mlstm_scan)}
-    order = ["kernel", "plain", "kernel"]
-    out = {}
-    if dtype == torch.bfloat16:
-        out["fma_max_abs_err"] = check_mlstm(
-            "serving (fma)", fma_scan(*sets[0], chunk=chunk), want, dtype)[0]
-        calls["fma"] = cycle(fma_scan)
-        order = ["kernel", "plain", "fma", "kernel"]
+    calls = {"kernel": cycle(ms.mlstm_scan), "plain": cycle(reference_mlstm_scan),
+             "fma": cycle(fma_scan)}
+    order = ["kernel", "plain", "fma", "kernel"]
     iters = 16                  # a multiple of the 8 input sets
     times = {}
     for timer, suffix in ((graph_ms, ""), (cuda_ms, "_eager")):
@@ -988,9 +1023,8 @@ def time_mlstm(dtype, shape=None, **tags):
                plain_ms_eager=times["plain_eager"], library_ms=None,
                library_note=MLSTM_NO_LIBRARY, bound_ms=bound_ms,
                bound_by=bound_by, bound_ms_fp32_pipe=bound_fp32_ms,
-               multiply_adds=macs, bytes=nbytes)
-    if "fma" in calls:
-        out.update(fma_ms=times["fma"], fma_ms_eager=times["fma_eager"])
+               multiply_adds=macs, bytes=nbytes, fma_ms=times["fma"],
+               fma_ms_eager=times["fma_eager"])
     emit("kernel_timing", kernel="mlstm_scan", case="prefill", **tags,
          **out)
     return out
@@ -1042,10 +1076,10 @@ def expected_launches(cfg, new_tokens=NEW_TOKENS):
     self-attention of each attention, cross-attention and hymba layer, the
     cross-attention of each cross-attention layer, each encoder layer's),
     the decode kernel at every attention of each decode step (the encoder
-    runs once, at prefill), the fp32 kernel never; the tensor-core
+    runs once, at prefill), the fp32 kernel never; the bf16 tensor-core
     mlstm_scan at every mLSTM layer of the prefill (512 is a multiple of
-    its chunk, 256, a multiple of 16), the FMA one never, none in decode,
-    which takes the sequential step."""
+    its chunk, 256, a multiple of 16), the fp32 and FMA ones never, none in
+    decode, which takes the sequential step."""
     kinds = cfg.block_pattern
     attn = sum(kinds.count(k) for k in ("attn", "attn_cross", "hymba"))
     attn += kinds.count("attn_cross")
@@ -1056,7 +1090,8 @@ def expected_launches(cfg, new_tokens=NEW_TOKENS):
             "flash_attention_decode": attn * new_tokens,
             "mlstm_scan": kinds.count("mlstm"),
             "mlstm_scan_fma": 0,
-            "mlstm_scan_tc": kinds.count("mlstm")}
+            "mlstm_scan_tc": kinds.count("mlstm"),
+            "mlstm_scan_tc_f32": 0}
 
 
 def prefill_logits_check(params, batch, cfg, seq, check_dtype):
@@ -1441,11 +1476,11 @@ def phase_small_model():
             raise AssertionError(f"{name} reduced: fp32 attention left the "
                                  f"fp32 tensor-core kernel: {launched}")
         if arch == "xlstm-350m" and (
-                launched["mlstm_scan"], launched["mlstm_scan_fma"],
-                launched["mlstm_scan_tc"]) != (
-                (cfg.block_pattern.count("mlstm"),) * 2 + (0,)):
+                launched["mlstm_scan"], launched["mlstm_scan_tc_f32"],
+                launched["mlstm_scan_fma"], launched["mlstm_scan_tc"]) != (
+                (cfg.block_pattern.count("mlstm"),) * 2 + (0, 0)):
             raise AssertionError(f"{arch} reduced: fp32 mlstm_scan left the "
-                                 f"FMA kernel: {launched}")
+                                 f"split tensor-core kernel: {launched}")
         err = float((out["cuda"] - out["cpu"]).abs().max())
         if not (torch.isfinite(out["cuda"]).all() and err <= 1e-4):
             raise AssertionError(f"{name} reduced: card and CPU differ by {err}")
@@ -1853,20 +1888,21 @@ def train_mlstm_hazards(device, sizes):
     """The scan's Function on each case in fp32 and bf16: h of the kernel
     forward, and dq, dk, dv, dlog_i, dlog_f of the plain backward, against
     autograd through the plain version (each at MLSTM_TOL of the dtype,
-    element by element, and finite); one launch of the dtype's kernel and
-    one backward call a Function call."""
+    element by element, and finite; in fp32 h and the final state by
+    check_mlstm_fp32); one launch of the dtype's kernel and one backward
+    call a Function call."""
     worst = {}
     for name in sizes["mlstm_hazards"]:
         for dtype in (torch.float32, torch.bfloat16):
             args, dh, chunk = mlstm_train_inputs(name, dtype, device)
             b, t, h, d = args[0].shape
             path = ms.plan(b, t, h, d, chunk, dtype).path
-            outs = {}
+            outs, finals = {}, {}
             for how, fn in (("function", MX.mlstm_scan_grad),
                             ("plain", reference_mlstm_scan)):
                 leaves = _leaf_grads(*args)
                 before, bwd = kernel_launches(), MX.backward_calls
-                out, _ = fn(*leaves, chunk=chunk)
+                out, final = fn(*leaves, chunk=chunk)
                 grads = torch.autograd.grad(out, leaves, dh)
                 launched = {key: n - before[key]
                             for key, n in kernel_launches().items()}
@@ -1878,10 +1914,17 @@ def train_mlstm_hazards(device, sizes):
                                          f"launches {launched}, backward "
                                          f"calls {got[1]}")
                 outs[how] = (out, *grads)
-            errs = {}
+                finals[how] = (out.detach(), tuple(x.detach() for x in final))
+            errs, readings = {}, {}
             tol = MLSTM_TOL[dtype]
-            for what, g, w in zip(("h", "dq", "dk", "dv", "dlog_i",
-                                   "dlog_f"), *outs.values()):
+            checked = ("h", "dq", "dk", "dv", "dlog_i", "dlog_f")
+            if dtype == torch.float32:
+                readings, errs["h"], errs["state"] = check_mlstm_fp32(
+                    f"Function {name}", finals["function"], finals["plain"],
+                    args, None, chunk)
+                checked = checked[1:]
+            for what, g, w in zip(checked, *(o[len(o) - len(checked):]
+                                             for o in outs.values())):
                 err = (g.float() - w.float()).abs()
                 if not (torch.isfinite(g).all() and float(
                         (err - tol["rtol"] * w.float().abs()).max())
@@ -1896,7 +1939,7 @@ def train_mlstm_hazards(device, sizes):
             emit("train_case", kernel="mlstm_scan", case=name, dtype=key,
                  path=path, shape=f"B{b} T{t} H{h} D{d} chunk {chunk} "
                                   f"{MLSTM_TRAIN_HAZARDS[name][-1]}",
-                 max_abs_err=errs, tol=tol)
+                 max_abs_err=errs, tol=tol, **readings)
     return worst
 
 
@@ -1935,7 +1978,7 @@ def time_training_mlstm(device, sizes, dtype, case=None):
              "bwd_plain_ms": eager(bwd, max(iters // 4, 1)),
              "fwd_ms_eager": eager(fwd, iters)}
     fb, fb_by, fb32, macs, nbytes = mlstm_bound(args[0], chunk, None)
-    if device == "cuda" and dtype == torch.bfloat16:  # before the tc kernel
+    if device == "cuda":  # the kernel both dtypes took before
         times["fwd_fma_ms"] = timer(lambda: fma_scan(*args, chunk=chunk),
                                     iters)
     if device == "cuda" and dtype == torch.float32:  # ROADMAP C21
@@ -2413,7 +2456,8 @@ def train_full(device, sizes, arch):
     losses, step_ms, norms = [], [], []
     want = {"flash_attention_prefill": 2 * n_attn,
             "flash_attention_decode": 0, "flash_attention_fp32_tc": 0,
-            "mlstm_scan_tc": 2 * layers["mlstm"], "mlstm_scan_fma": 0}
+            "mlstm_scan_tc": 2 * layers["mlstm"], "mlstm_scan_fma": 0,
+            "mlstm_scan_tc_f32": 0}
     want_bwd = (n_attn, layers["mlstm"])
     for i in range(steps):
         before = kernel_launches()
@@ -2622,9 +2666,9 @@ def phase_xlstm_sp(device="cuda", sizes=XLSTM_SP_FULL):
     with the module's ``_combine`` on this one rank, in place of the
     exchanges of ``distributed_exclusive_scan``; each segment is then
     corrected with its inbound state (``apply_inbound``).  h against the
-    fp32 scan kernel (csrc/mlstm_scan.cu) over the whole sequence (relative
-    L2 SP_REL_L2), and each against float64: the elements outside
-    MLSTM_TOL, as the fp32 D 512 hazard lines count them (C21)."""
+    fp32 scan kernel (csrc/mlstm_scan_fp32tc.cu) over the whole sequence
+    (relative L2 SP_REL_L2), and each against float64: the elements
+    outside MLSTM_TOL, as the fp32 hazard lines count them (C21)."""
     t0 = time.perf_counter()
     b, t, h, d = (sizes[k] for k in ("b", "t", "h", "d"))
     n, chunk = sizes["segments"], sizes["chunk"]
@@ -2667,8 +2711,8 @@ def phase_xlstm_sp(device="cuda", sizes=XLSTM_SP_FULL):
          max_abs_err_vs_kernel=float((got - want).abs().max()),
          rel_l2_vs_float64=rel_l2(got, exact),
          kernel_rel_l2_vs_float64=rel_l2(want, exact),
-         outside_tol_vs_float64=outside(got, exact, tol),
-         kernel_outside_tol_vs_float64=outside(want, exact, tol),
+         outside_tol_vs_float64=ms.outside_tol(got, exact, tol),
+         kernel_outside_tol_vs_float64=ms.outside_tol(want, exact, tol),
          elements=got.numel(), float64_tol=tol, **times,
          seconds=time.perf_counter() - t0)
     return rel
@@ -2781,7 +2825,8 @@ def phase_shard(device="cuda", sizes=SHARD_FULL):
                    if device == "cuda" else None)
         want = {"flash_attention_prefill": 2 * attn,
                 "flash_attention_decode": 0, "flash_attention_fp32_tc": 0,
-                "mlstm_scan_tc": 0, "mlstm_scan_fma": 0}
+                "mlstm_scan_tc": 0, "mlstm_scan_fma": 0,
+                "mlstm_scan_tc_f32": 0}
         for i, (got, bwd) in enumerate(launched):
             if bwd != attn or (device == "cuda" and any(
                     got[k] != n for k, n in want.items())):
@@ -3047,15 +3092,16 @@ def tp_launch_counts(cfg, sizes):
     return {
         "prefill": {k: pre[k] for k in ("flash_attention_prefill",
                                         "flash_attention_decode",
-                                        "mlstm_scan_tc")},
+                                        "mlstm_scan_tc", "mlstm_scan_tc_f32")},
         "decode": {"flash_attention_prefill": 0,
                    "flash_attention_decode": dec["flash_attention_decode"],
-                   "mlstm_scan_tc": 0},
+                   "mlstm_scan_tc": 0, "mlstm_scan_tc_f32": 0},
         "train_step": {"flash_attention_prefill": 2 * n_attn,
                        "flash_attention_backward": n_attn,
                        "flash_attention_decode": 0,
                        "flash_attention_fp32_tc": 0,
                        "mlstm_scan_tc": 2 * n_mlstm,
+                       "mlstm_scan_tc_f32": 0,
                        "mlstm_backward": n_mlstm}}
 
 
@@ -5581,7 +5627,7 @@ def main():
     wxd = time_attention("cross decode", b, 1, w.encoder_seq_len, *wshape,
                          [0], copies=8, causal=False, phase="attention",
                          model=w.name)
-    phase_mlstm_hazards()
+    hazard_launches = phase_mlstm_hazards()
     scan = time_mlstm(torch.bfloat16)
     scan32 = time_mlstm(torch.float32)
     small = phase_small_model()
@@ -5756,13 +5802,32 @@ def main():
                   library_ms=None,
                   bound_ms=tp_timing["scan_training"]["fwd_bound_ms"],
                   bound_by=tp_timing["scan_training"]["fwd_bound_by"])),
-        entry("mlstm_scan", "fma", "mlstm_scan.cu",
+        entry("mlstm_scan", "tc_f32", "mlstm_scan_fp32tc.cu",
               "src/repro/kernels/mlstm_scan.py:32", scan32, fp32_runs,
-              scan_keys + ("split_floor_ms",),
+              scan_keys + ("split_floor_ms", "fma_ms", "held_to",
+                           "outside_tol_vs_float64",
+                           "plain_outside_tol_vs_float64",
+                           "row_outside_vs_float64"),
               at_training_shape=dict(
                   scan_at_training("float32"),
                   split_floor_ms=train_timing["mlstm float32"][
-                      "fwd_split_floor_ms"]))]
+                      "fwd_split_floor_ms"],
+                  fma_ms=train_timing["mlstm float32"]["fwd_fma_ms"]),
+              replaced=replaced(
+                  "mlstm_scan", "fma", "mlstm_scan.cu", fp32_runs,
+                  ms=scan32["fma_ms"],
+                  at_training_shape_ms=train_timing["mlstm float32"][
+                      "fwd_fma_ms"])),
+        # The FMA kernel keeps the calls whose chunk is not a multiple of
+        # 16 (chunk24_bf16, in both dtypes); timed at the fp32 serving
+        # shape, which it took before the split kernel.
+        entry("mlstm_scan", "fma", "mlstm_scan.cu",
+              "src/repro/kernels/mlstm_scan.py:32",
+              dict(scan32, ms=scan32["fma_ms"],
+                   ms_eager=scan32["fma_ms_eager"],
+                   max_abs_err=scan32["fma_max_abs_err"]),
+              {"mlstm hazards": hazard_launches},
+              scan_keys[1:] + ("split_floor_ms",))]
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     if idle:
         raise AssertionError(f"kernels of the path that no run launched: "

@@ -1,9 +1,10 @@
 // Chunkwise mLSTM forward for Hopper (sm_90a), with a plain C interface.
 //
 // Replaces the TPU kernel src/repro/kernels/mlstm_scan.py (`_kernel`,
-// launched through pl.pallas_call by `mlstm_scan`) for fp32 calls and bf16
-// calls whose chunk is not a multiple of 16; the other bf16 calls take
-// mlstm_scan_tc.cu (kernels/mlstm_scan.py says why fp32 calls stay here).
+// launched through pl.pallas_call by `mlstm_scan`) for the calls whose chunk
+// is not a multiple of 16, in either dtype; the others take the tensor-core
+// kernels, mlstm_scan_tc.cu (bf16) and mlstm_scan_fp32tc.cu (fp32, in split
+// precision), which kernels/mlstm_scan.py's plan() picks.
 // The Python wrapper is src/repro_torch/kernels/mlstm_scan.py; the plain
 // PyTorch version it is held against is
 // src/repro_torch/models/xlstm.py::mlstm_chunkwise.

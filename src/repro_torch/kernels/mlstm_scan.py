@@ -1,4 +1,4 @@
-"""Chunkwise mLSTM forward on the card: the wrapper of two CUDA kernels.
+"""Chunkwise mLSTM forward on the card: the wrapper of three CUDA kernels.
 
 Port of the TPU kernel ``repro.kernels.mlstm_scan`` (Pallas).  Same
 contract as :func:`repro_torch.kernels.ref.reference_mlstm_scan`, its plain
@@ -11,23 +11,23 @@ n (B,H,D), m (B,H)) in fp32, which decode continues from.
 Which kernel runs is a fixed rule on dtype and chunk, made by :func:`plan`
 (pure Python, no device):
 
-- float32: ``csrc/mlstm_scan.cu`` (path ``"fma"``), on the fp32 FMA pipe.
-  One rounding of each operand to bf16 or TF32 would miss the fp32
-  tolerance h is held to (rtol 5e-4, atol 5e-5); a split of each operand
-  into three bf16 terms would not.  Such split tensor-core passes, tried on
-  the H100, were six times faster and no further from the float64 answer
-  than the plain fp32 version, but the fp32 checks hold the kernel to the
-  plain fp32 version element by element, and with forget gates near one at
-  D = 512 that version is itself outside the tolerance of float64 on a few
-  elements, where this kernel agrees with it and the split passes did not
-  (PERF.md, ROADMAP C21).
 - bfloat16 with ``chunk`` a multiple of 16 (path ``"tc"``):
   ``csrc/mlstm_scan_tc.cu``, two launches on the tensor cores (wgmma) fed
   by TMA: a state pass that carries C across the chunks and writes the
   state entering each chunk to scratch allocated here (C as two bf16 terms
   hi + lo; n, m and the chunk's cumulative log_f in fp32), then an output
   pass over every (chunk, 128 rows, 128 columns of h) at once.
-- any other bfloat16 call: ``csrc/mlstm_scan.cu`` (path ``"fma"``).
+- float32 with ``chunk`` a multiple of 16 (path ``"tc_f32"``):
+  ``csrc/mlstm_scan_fp32tc.cu``, the same two passes on the bf16 tensor
+  cores in split precision: each fp32 operand enters its product as three
+  bf16 terms and each product is six term products (one rounding to bf16
+  or TF32 would miss the fp32 tolerance h is held to, rtol 5e-4, atol
+  5e-5).  The scratch holds C as three bf16 terms.  Where the plain fp32
+  version is itself outside that tolerance of the float64 answer (on a few
+  elements at D = 512), the kernel is held to float64 row by row instead
+  (:func:`check_fp32`, ROADMAP C21).
+- any other call, of either dtype (a chunk that is not a multiple of 16):
+  ``csrc/mlstm_scan.cu`` (path ``"fma"``), on the fp32 FMA pipe.
 
 The kernels are forward-only: a call with grad mode on and an input that
 requires grad raises, since their outputs are tensors autograd cannot see.
@@ -48,30 +48,34 @@ from . import _build
 
 #: Wrapper calls (one per scan) since the count was last set to 0.
 launches = 0
-#: The same calls by the kernel they launched (``"tc"``: its state and
-#: output passes); set each to 0 with ``launches``.
-launches_by_path = {"fma": 0, "tc": 0}
+#: The same calls by the kernel they launched (``"tc"``, ``"tc_f32"``: its
+#: state and output passes); set each to 0 with ``launches``.
+launches_by_path = {"fma": 0, "tc": 0, "tc_f32": 0}
 
 MAX_HEAD_DIM = 512     # fma: C[:, 64 columns] of fp32 fills 128 KB of shared memory
 MAX_CHUNK = 1024
 STATE_TILE = 128       # rows and columns of C a tc state block owns
 OUT_TILE = 128         # rows of a chunk and columns of h a tc output block owns
+OUT_ROWS_F32 = 64      # rows of a chunk a tc_f32 output block owns
 C_PARTS = 2            # bf16 terms of each chunk state in the tc scratch (kCParts)
+C_PARTS_F32 = 3        # ... in the tc_f32 scratch (kTerms)
 
 # path: (source under csrc/, C entry point, pointer and int arguments
 # before the float scale)
 _KERNELS = {"fma": ("mlstm_scan", "repro_mlstm_scan_fwd", 12, 5),
-            "tc": ("mlstm_scan_tc", "repro_mlstm_scan_tc", 16, 5)}
+            "tc": ("mlstm_scan_tc", "repro_mlstm_scan_tc", 16, 5),
+            "tc_f32": ("mlstm_scan_fp32tc", "repro_mlstm_scan_fp32tc", 16, 5)}
 _fns: dict[str, object] = {}
 
 
 @dataclass(frozen=True)
 class Plan:
     """How one call runs.  ``blocks``: thread blocks of each launch, in
-    order (tc: the state pass, then the output pass).  ``boundary``: tc
-    only, the shape of the bf16 scratch that holds C entering each chunk
-    that needs it (every chunk but the first, and the first too when an
-    initial state is given) as hi and lo terms, () when there is none."""
+    order (tc, tc_f32: the state pass, then the output pass).
+    ``boundary``: tc and tc_f32 only, the shape of the bf16 scratch that
+    holds C entering each chunk that needs it (every chunk but the first,
+    and the first too when an initial state is given) as C_PARTS (tc) or
+    C_PARTS_F32 (tc_f32) terms, () when there is none."""
     path: str
     blocks: tuple
     boundary: tuple = ()
@@ -81,19 +85,82 @@ def plan(b: int, t: int, h: int, d: int, chunk: int, dtype,
          has_state: bool = False) -> Plan:
     """The kernel and grid for q/k/v (b,t,h,d) of ``dtype`` in chunks of
     ``chunk``, from an initial state or not."""
-    if dtype == torch.bfloat16 and chunk % 16 == 0 and d % 16 == 0 \
-            and d <= MAX_HEAD_DIM:
+    if chunk % 16 == 0 and d % 16 == 0 and d <= MAX_HEAD_DIM:
+        path, parts = (("tc", C_PARTS) if dtype == torch.bfloat16
+                       else ("tc_f32", C_PARTS_F32))
         nc = t // chunk
         tiles = -(-d // STATE_TILE)
-        out = -(-chunk // OUT_TILE) * nc * b * h * -(-d // OUT_TILE)
+        rows = OUT_TILE if path == "tc" else OUT_ROWS_F32
+        out = -(-chunk // rows) * nc * b * h * -(-d // OUT_TILE)
         states = nc - 1 + int(has_state)
-        return Plan("tc", (tiles * tiles * b * h, out),
-                    (states, b * h, C_PARTS, d, d) if states else ())
+        return Plan(path, (tiles * tiles * b * h, out),
+                    (states, b * h, parts, d, d) if states else ())
     dv = 64 if d % 64 == 0 else 32 if d % 32 == 0 else 16
     return Plan("fma", (d // dv * b * h,))
 
 
 _plan = functools.lru_cache(maxsize=1024)(plan)   # a call's plan, kept
+
+
+#: fp32 h and final state against the plain version, element by element
+#: (tests/test_kernels.py holds the Pallas kernel so).
+FP32_TOL = dict(rtol=5e-4, atol=5e-5)
+
+
+def outside_tol(got, want, tol=FP32_TOL) -> int:
+    """Elements of ``got`` outside ``tol`` (rtol, atol) of ``want``."""
+    want = want.double()
+    err = (got.double() - want).abs() - tol["rtol"] * want.abs()
+    return int((err > tol["atol"]).sum())
+
+
+def outside_row_tol(got, exact, tol=FP32_TOL, *, rows: bool = True) -> int:
+    """Elements of ``got`` further from ``exact`` than atol + rtol times
+    the largest |exact| of their row, the last dimension (each element its
+    own row when ``rows`` is False): the size of the rounding error an fp32
+    dot product over the row makes."""
+    exact = exact.double()
+    scale = exact.abs().amax(-1, keepdim=True) if rows else exact.abs()
+    err = (got.double() - exact).abs()
+    return int((err > tol["atol"] + tol["rtol"] * scale).sum())
+
+
+def check_fp32(got, plain, exact, fma=None, tol=FP32_TOL) -> dict:
+    """The check an fp32 scan's output is held to (ROADMAP C21).
+    ``got``, ``plain``, ``exact`` and ``fma``: dicts of ``h`` and, where
+    given, the final ``C``, ``n``, ``m``, from the kernel, the plain fp32
+    version, the plain version in float64 and the FMA kernel on the same
+    inputs.  Where the plain version is within ``tol`` of float64 on every
+    element, the kernel is held to the plain version element by element.
+    Where it is not (a few elements at D = 512, in rows some 1e3 times
+    larger than they are), the kernel is held to float64
+    instead: row by row (:func:`outside_row_tol`), which the plain version
+    must meet too, and with no more elements outside ``tol`` of float64
+    than the plain version or the FMA kernel has.  Returns the readings,
+    ``held_to`` ("plain" or "float64") and ``ok``."""
+    def count(a, b):
+        return sum(outside_tol(a[k], b[k], tol) for k in got)
+
+    def count_rows(a):  # m is one value a (batch, head): its own row
+        return sum(outside_row_tol(a[k], exact[k], tol, rows=k != "m")
+                   for k in got)
+    out = dict(outside_tol_vs_float64=count(got, exact),
+               plain_outside_tol_vs_float64=count(plain, exact),
+               row_outside_vs_float64=count_rows(got),
+               plain_row_outside_vs_float64=count_rows(plain))
+    if fma is not None:
+        out["fma_outside_tol_vs_float64"] = count(fma, exact)
+    if out["plain_outside_tol_vs_float64"] == 0:
+        out.update(held_to="plain", outside_tol_vs_plain=count(got, plain))
+        out["ok"] = out["outside_tol_vs_plain"] == 0
+    else:
+        limit = max(out["plain_outside_tol_vs_float64"],
+                    out.get("fma_outside_tol_vs_float64", 0))
+        out.update(held_to="float64", outside_limit=limit)
+        out["ok"] = (out["row_outside_vs_float64"] == 0
+                     and out["plain_row_outside_vs_float64"] == 0
+                     and out["outside_tol_vs_float64"] <= limit)
+    return out
 
 
 def _kernel(path: str):
@@ -110,7 +177,7 @@ def _kernel(path: str):
 
 
 def _library():
-    """Builds and loads both kernels."""
+    """Builds and loads every kernel."""
     for path in _KERNELS:
         _kernel(path)
 
@@ -176,13 +243,14 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
             log_f.data_ptr(), c_in, n_in, m_in, out.data_ptr(), c.data_ptr(),
             n.data_ptr(), m.data_ptr())
     scale = 1.0 / math.sqrt(d)
-    if p.path == "tc":
+    if p.path != "fma":
         if any(x.data_ptr() % 16 for x in (q, k, v)):
             raise ValueError("q, k and v must start on a 16-byte boundary")
         nc = t // chunk
         # held until the launches are queued; the allocator reuses them only
         # for work queued after these on this stream
-        bound = q.new_empty(p.boundary) if p.boundary else None
+        bound = (q.new_empty(p.boundary, dtype=torch.bfloat16) if p.boundary
+                 else None)
         n_prev = q.new_empty((nc, b * h, d), dtype=torch.float32)
         m_prev = q.new_empty((nc, b * h), dtype=torch.float32)
         bcum = q.new_empty((nc, b * h, chunk), dtype=torch.float32)

@@ -66,3 +66,28 @@ def reference_mlstm_scan(q, k, v, log_i, log_f, state=None, *,
     from repro_torch.models.xlstm import mlstm_chunkwise
     h, final = mlstm_chunkwise(q, k, v, log_i, log_f, state, chunk)
     return h.to(q.dtype), final
+
+
+def reference_mlstm_scan_float64(q, k, v, log_i, log_f, state=None, *,
+                                 chunk: int = 256):
+    """:func:`reference_mlstm_scan`'s arithmetic in float64 on the same
+    inputs (and state): the answer an fp32 scan is read against where its
+    plain version misses it (``mlstm_scan.check_fp32``).  Returns h and
+    (C, n, m) in float64."""
+    from repro_torch.models.xlstm import _chunk_terms, _denominator
+    b, t, h, d = q.shape
+    q, k, v, li, lf = (x.double() for x in (q, k, v, log_i, log_f))
+    q = q / math.sqrt(d)
+    if state is None:
+        state = (q.new_zeros((b, h, d, d)), q.new_zeros((b, h, d)),
+                 q.new_full((b, h), -math.inf))
+    state = tuple(x.double() for x in state)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=q.device).tril()[None, :, :, None]
+    hs = []
+    for c in range(t // chunk):
+        s = slice(c * chunk, (c + 1) * chunk)
+        num, dot, m_row, _, state = _chunk_terms(
+            q[:, s], k[:, s], v[:, s], li[:, s], lf[:, s], tri, *state)
+        hs.append(num / _denominator(dot, m_row)[..., None])
+    return torch.cat(hs, dim=1), state

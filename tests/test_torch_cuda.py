@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mlstm_scan as ms
-from repro_torch.kernels.ref import reference_attention, reference_mlstm_scan
+from repro_torch.kernels.ref import (reference_attention, reference_mlstm_scan,
+                                     reference_mlstm_scan_float64)
 from repro_torch.models import get_config, init_params
 from repro_torch.models import transformer as TT
 
@@ -373,8 +374,9 @@ MLSTM_TOL = {"float32": dict(rtol=5e-4, atol=5e-5),
 # name: (b, t, h, d, chunk, gates); gates "normal", "forget_near_zero"
 # (log_f << 0), "forget_near_one" (log_f ~ 0: C sums every step of T),
 # "large_log_i" (the stabilizer dominates) or "state" (a given initial
-# state).  bf16 calls whose chunk is a multiple of 16 take the tensor-core
-# kernel, the others csrc/mlstm_scan.cu (chunk24_bf16).
+# state).  Calls whose chunk is a multiple of 16 take the tensor-core kernel
+# of their dtype (fp32: in split precision), the others csrc/mlstm_scan.cu
+# (chunk24_bf16, in either dtype).
 MLSTM_CASES = {
     "d16": (1, 64, 1, 16, 16, "normal"),
     "d32_chunk48": (1, 96, 2, 32, 48, "normal"),
@@ -425,16 +427,19 @@ def _mlstm_inputs(name, dtype, device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", sorted(MLSTM_CASES))
 def test_mlstm_kernel_matches_plain_version(cuda, name, dtype):
-    """The kernel the wrapper picks (csrc/mlstm_scan.cu for fp32 and for a
-    bf16 chunk that is not a multiple of 16, csrc/mlstm_scan_tc.cu for the
-    other bf16 calls) vs kernels.ref.reference_mlstm_scan (the chunkwise
-    mLSTM): h and the final (C, n, m)."""
+    """The kernel the wrapper picks (csrc/mlstm_scan_tc.cu for bf16 and
+    csrc/mlstm_scan_fp32tc.cu for fp32 where the chunk is a multiple of 16,
+    csrc/mlstm_scan.cu for the other calls) vs kernels.ref.
+    reference_mlstm_scan (the chunkwise mLSTM): h and the final (C, n, m),
+    in bf16 element by element, in fp32 by mlstm_scan.check_fp32 (held to
+    the plain version where it meets float64, else to float64 row by row:
+    ROADMAP C21)."""
     args, state, chunk = _mlstm_inputs(name, dtype, cuda)
     b, t, h, d = args[0].shape
     path = ms.plan(b, t, h, d, chunk, getattr(torch, dtype),
                    state is not None).path
-    assert path == ("tc" if dtype == "bfloat16" and chunk % 16 == 0
-                    else "fma")
+    assert path == ("fma" if chunk % 16 else
+                    "tc" if dtype == "bfloat16" else "tc_f32")
     before = ms.launches, ms.launches_by_path[path]
     got_h, got_state = ms.mlstm_scan(*args, state, chunk=chunk)
     torch.cuda.synchronize()
@@ -442,6 +447,13 @@ def test_mlstm_kernel_matches_plain_version(cuda, name, dtype):
                                                         before[1] + 1)
     want_h, want_state = reference_mlstm_scan(*args, state, chunk=chunk)
     assert got_h.dtype == want_h.dtype and got_h.shape == want_h.shape
+    if dtype == "float32":
+        parts = [dict(zip("hCnm", (x, *xs))) for x, xs in (
+            (got_h, got_state), (want_h, want_state),
+            reference_mlstm_scan_float64(*args, state, chunk=chunk))]
+        readings = ms.check_fp32(*parts, tol=MLSTM_TOL[dtype])
+        assert readings["ok"], readings
+        return
     # the state is fp32 on both sides; bf16 inputs are the same values
     for got, want, tol in ((got_h, want_h, MLSTM_TOL[dtype]),
                            *zip(got_state, want_state,
@@ -622,22 +634,32 @@ def _mlstm_grad_inputs(name, dtype, device):
 def test_mlstm_function_matches_plain_autograd(cuda, name, dtype):
     """MLSTMScan on the card (the kernel forward, the plain chunkwise
     backward) against autograd through the plain version: h at
-    MLSTM_TOL[dtype], dq, dk, dv, dlog_i, dlog_f at MLSTM_TOL[dtype] and
-    finite; one scan launch and one backward call."""
+    MLSTM_TOL[dtype] (in fp32 h and the final state by
+    mlstm_scan.check_fp32, ROADMAP C21), dq, dk, dv, dlog_i, dlog_f at
+    MLSTM_TOL[dtype] and finite; one scan launch and one backward call."""
     from repro_torch.models import xlstm as TX
     args, dh, chunk = _mlstm_grad_inputs(name, dtype, cuda)
-    outs = {}
+    outs, finals = {}, {}
     for how in ("function", "plain"):
         leaves = [x.detach().clone().requires_grad_(True) for x in args]
         before = ms.launches, TX.backward_calls
         if how == "function":
-            h, _ = TX.mlstm_scan_grad(*leaves, chunk=chunk)
+            h, final = TX.mlstm_scan_grad(*leaves, chunk=chunk)
         else:
-            h, _ = reference_mlstm_scan(*leaves, chunk=chunk)
+            h, final = reference_mlstm_scan(*leaves, chunk=chunk)
         grads = torch.autograd.grad(h, leaves, dh)
         launched = ms.launches - before[0], TX.backward_calls - before[1]
         assert launched == ((1, 1) if how == "function" else (0, 0))
         outs[how] = [h.detach()] + list(grads)
+        finals[how] = dict(zip("hCnm", (h.detach(),
+                                        *(x.detach() for x in final))))
+    if dtype == "float32":
+        exact = reference_mlstm_scan_float64(*args, chunk=chunk)
+        readings = ms.check_fp32(finals["function"], finals["plain"],
+                                 dict(zip("hCnm", (exact[0], *exact[1]))),
+                                 tol=MLSTM_TOL[dtype])
+        assert readings["ok"], readings
+        outs = {how: o[1:] for how, o in outs.items()}
     for got, want in zip(outs["function"], outs["plain"]):
         assert got.dtype == want.dtype and torch.isfinite(got).all()
         np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -648,7 +670,7 @@ def test_mlstm_function_matches_plain_autograd(cuda, name, dtype):
 @pytest.mark.cuda
 def test_xlstm_training_on_the_card_matches_the_cpu(cuda):
     """loss_and_grads of the reduced xlstm-350m in fp32 at T = 256 under
-    remat "full", card (the FMA scan kernel through MLSTMScan) against CPU:
+    remat "full", card (the split scan kernel through MLSTMScan) against CPU:
     loss rtol 1e-5, every gradient leaf relative L2 1e-4; two scan launches
     (forward and recompute) and one backward call an mLSTM layer."""
     from repro_torch.models import xlstm as TX
@@ -660,12 +682,12 @@ def test_xlstm_training_on_the_card_matches_the_cpu(cuda):
     rng = np.random.default_rng(3)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
              for k in ("tokens", "labels")}
-    before = ms.launches_by_path["fma"], TX.backward_calls
+    before = ms.launches_by_path["tc_f32"], TX.backward_calls
     loss_c, _, g_c = loss_and_grads(
         tree_map(lambda _, a: a.to(cuda), params),
         {k: v.to(cuda) for k, v in batch.items()}, cfg)
     mlstm = cfg.block_pattern.count("mlstm")
-    assert (ms.launches_by_path["fma"] - before[0],
+    assert (ms.launches_by_path["tc_f32"] - before[0],
             TX.backward_calls - before[1]) == (2 * mlstm, mlstm)
     loss, _, g = loss_and_grads(params, batch, cfg)
     np.testing.assert_allclose(float(loss_c), float(loss), rtol=1e-5)

@@ -327,11 +327,22 @@ MLSTM_PLAN_SHAPES = [  # (b, t, h, d, chunk)
 
 @pytest.mark.parametrize("shape", MLSTM_PLAN_SHAPES)
 @pytest.mark.parametrize("has_state", [False, True])
-def test_mlstm_plan_fp32_always_takes_the_fma_kernel(shape, has_state):
+def test_mlstm_plan_fp32_takes_the_split_kernel_iff_chunk_is_a_multiple_of_16(
+        shape, has_state):
+    """fp32 calls whose chunk (and D) is a multiple of 16 take the split
+    tensor-core kernel, two launches with the scratch of the chunk states;
+    the others the FMA kernel, one launch and no scratch."""
     b, t, h, d, chunk = shape
     p = ms.plan(b, t, h, d, chunk, torch.float32, has_state)
-    assert p.path == "fma" and p.boundary == ()
-    assert len(p.blocks) == 1
+    if chunk % 16:
+        assert p.path == "fma" and p.boundary == () and len(p.blocks) == 1
+    else:
+        assert p.path == "tc_f32" and len(p.blocks) == 2
+        # the state pass as bf16's; the output pass in blocks of 64 rows
+        assert p.blocks == (ms.plan(b, t, h, d, chunk, torch.bfloat16,
+                                    has_state).blocks[0],
+                            -(-chunk // 64) * (t // chunk) * b * h
+                            * -(-d // 128))
 
 
 @pytest.mark.parametrize("shape", MLSTM_PLAN_SHAPES)
@@ -369,8 +380,21 @@ def test_mlstm_plan_scratch_covers_the_chunk_states(nc, has_state):
     assert p.boundary == ((states, b * h, 2, d, d) if states else ())
 
 
+@pytest.mark.parametrize("nc", [1, 2, 4, 16])
+@pytest.mark.parametrize("has_state", [False, True])
+def test_mlstm_plan_fp32_scratch_holds_three_terms(nc, has_state):
+    """The split kernel's scratch: one C a chunk that carries a state in,
+    as three bf16 terms (their sum is the fp32 C exactly), so that the
+    output pass reads C0 with no split."""
+    b, h, d, chunk = 2, 3, 64, 64
+    p = ms.plan(b, nc * chunk, h, d, chunk, torch.float32, has_state)
+    states = nc - 1 + int(has_state)
+    assert ms.C_PARTS_F32 == 3
+    assert p.boundary == ((states, b * h, 3, d, d) if states else ())
+
+
 def test_mlstm_counts_launches_by_path():
-    assert set(ms.launches_by_path) == {"fma", "tc"}
+    assert set(ms.launches_by_path) == {"fma", "tc", "tc_f32"}
     assert isinstance(ms.launches, int)
 
 
