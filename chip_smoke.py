@@ -31,8 +31,8 @@ Phases, one JSON line each:
    qwen3-moe-30b-a3b's (G = 8: prefill blocks of 24 positions x 8 heads)
    and whisper-base's (its encoder, non-causal at T = S =
    1500; cross-attention at T 512 and T 1 against S 1500), each naming the
-   SDPA backend that ran; in fp32 the FMA kernels the tensor-core ones
-   replaced are timed beside them;
+   SDPA backend that ran; in fp32 the mLSTM's FMA kernel, which the
+   split tensor-core one replaced, is timed beside it;
 4. small   -- the reduced models in fp32 on the card against the CPU (the
    run that drives the fp32 attention kernel), the reduced MoE among them,
    the reduced gemma3-1b also at its published head dim, 256, and the
@@ -129,11 +129,21 @@ Phases, one JSON line each:
    "model" mesh of a world-1 NCCL group, ``grad_specs=grad_accum_specs``)
    against 3 unsharded steps from the same seed: losses within 1e-6
    relative, every parameter leaf within relative L2 1e-5, two prefill
-   launches with lse and one backward call an attention layer a step; then
+   launches with lse and one backward call an attention layer a step; one
+   more sharded step under FlopCounterMode (its arguments, FLOPs,
+   launches and peak, for phase dryrun); then
    the sharded state saved through CheckpointManager (gathered, rank 0
    writes) and restored with ``shardings=``, equal to the bit: step ms
    beside the unsharded step's, peak memory, ``save_s``, ``restore_s``;
    the group destroyed before the phase returns;
+   then ``"phase": "dryrun"`` (repro_torch.launch.dryrun): the same cell
+   traced on fake CUDA tensors as rank 0 of a world-1 ``"fake"`` group,
+   nothing allocated or launched, its argument bytes, FlopCounterMode's
+   FLOPs and the kernel wrappers' calls by path equal to the real step's
+   exactly, its peak estimate beside the real step's
+   ``max_memory_allocated``; then gemma3-1b's ``prefill_32k`` cell on the
+   16x16 production mesh (256 ranks): roofline terms, peak bytes a rank
+   against 80 GB, ``trace_s``;
    then ``"phase": "tp"``: tensor-parallel compute (models/layers.py,
    ssm.py, xlstm.py over a ("model",) mesh) at published width:
    llama3.2-3b (8 of its 28 layers), xlstm-350m (8 of 24: the mLSTM
@@ -183,6 +193,10 @@ Phases, one JSON line each:
    the graph and eager, kernels per cycle and a profile of graph replays;
    then drained runs: a one-shot all-to-all against the closed-form link
    loads, and Valiant and adaptive sweeps on a Dragonfly against the CPU;
+   then ``devices=`` (``"phase": "sim_blocks"``): ``"auto"`` and the
+   copies split into two blocks on the card (``xengine._block_sweep``)
+   against one program, to the bit, on a uniform sweep of 4 points and a
+   collective replay of 4 copies, with both wall times;
 8. studies -- the studies path (repro_torch.studies) at the bundled specs'
    own sizes on the torch engine: ``python -m repro_torch.studies run
    collective_replay`` as a subprocess (minimal replays at the
@@ -257,6 +271,7 @@ sys.path.insert(0, SRC)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -280,6 +295,8 @@ from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch import sim as S  # noqa: E402
 from repro_torch.core import DragonflyConfig  # noqa: E402
 from repro_torch.core.simulate import cin_link_loads  # noqa: E402
+from repro_torch.fabric import make_fabric  # noqa: E402
+from repro_torch.sim.workloads import collective_workload  # noqa: E402
 from repro_torch.sim import xengine as XE  # noqa: E402
 from repro_torch import studies as ST  # noqa: E402
 from repro_torch import workload as W  # noqa: E402
@@ -540,35 +557,12 @@ def make_inputs(b, t, s, h, kvh, d, q_pos, dtype, seed, copies=1,
     return q, kvs, torch.tensor(q_pos, dtype=torch.int32, device="cuda")
 
 
-def visible(q_pos, kv_pos, causal, window):
-    ok = (kv_pos[None, :] >= 0).expand(len(q_pos), -1)
-    if causal:
-        ok = ok & (kv_pos[None, :] <= q_pos[:, None])
-    if window > 0:
-        ok = ok & ((q_pos[:, None] - kv_pos[None, :]) < window)
-    return ok
-
-
-def attention_work(q, k, q_pos, kv_pos, causal, window):
-    """Bytes and flops of one call: each input byte the data needs read
-    once (K/V rows some query sees), the output written once, and the
-    multiply-adds of the visible (query, key) pairs."""
-    ok = visible(q_pos, kv_pos, causal, window)
-    b, _, h, d = q.shape
-    kvh = k.shape[2]
-    rows = int(ok.any(dim=0).sum())
-    pairs = int(ok.sum())
-    nbytes = (2 * q.numel() * q.element_size()
-              + 2 * b * rows * kvh * d * k.element_size()
-              + 4 * (q_pos.numel() + kv_pos.numel()))
-    return nbytes, 4 * b * h * d * pairs
-
-
 def bound(q, k, q_pos, kv_pos, causal, window):
-    """Least time the card could take: attention_work's bytes at the
-    memory's rate or its flops at the peak of q's type (fp32: the FMA
-    pipe), whichever is longer."""
-    nbytes, flops = attention_work(q, k, q_pos, kv_pos, causal, window)
+    """Least time the card could take: the bytes of the kernel's work()
+    at the memory's rate or its operations at the peak of q's type (fp32:
+    the FMA pipe), whichever is longer."""
+    nbytes, flops = fa.work(q, k, q_pos, kv_pos, causal=causal,
+                            window=window)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -698,35 +692,14 @@ def sdpa_backend(q, k, v, attn_mask=None, is_causal=False):
     return SDPBackend(choice).name
 
 
-def fma_attention(q, k, v, *, q_pos, kv_pos, causal, window):
-    """csrc/flash_attention.cu (the fp32 FMA kernel, which took every fp32
-    call before the tensor-core kernel) on these fp32 inputs, timed beside
-    it.  Called here, not through the wrapper, which sends it no call."""
-    b, t, h, d = q.shape
-    s, kvh = k.shape[1], k.shape[2]
-    bq = (16 if t <= fa.DECODE_MAX_T else fa.D256_FP32_BLOCK_Q if d == 256
-          else fa.FP32_BLOCK_Q)
-    out = torch.empty_like(q)
-    err = fa._kernel("fp32")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        kv_pos.data_ptr(), out.data_ptr(), None, b, t, s, h, kvh, d, bq,
-        int(causal), window, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention fp32 FMA kernel launch failed: "
-                           f"{err}")
-    return out
-
-
 def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
                    dtype=torch.bfloat16, phase="kernel_timing", causal=True,
                    **tags):
     """Kernel, plain version and SDPA at one serving shape, each timed on
     the device alone (``graph_ms``: ``ms``, ``plain_ms``, ``library_ms``)
     and per call with the host's time to issue it (``cuda_ms``: the
-    ``*_eager`` keys).  In fp32 the FMA kernel the tensor-core one replaced
-    is checked and timed beside it (``fma_ms``), and ``split_floor_ms`` is
-    the split's least time (split_floor).  With ``copies`` > 1 the calls cycle over that many
+    ``*_eager`` keys).  In fp32 ``split_floor_ms`` is the split's least
+    time (split_floor).  With ``copies`` > 1 the calls cycle over that many
     K/V caches, so that they find the cache in device memory and not in the
     50 MB L2, as each layer of a decode step does.  SDPA gets no mask where
     every key is visible, ``is_causal`` for aligned causal calls and the
@@ -739,7 +712,7 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
     kw = dict(q_pos=qp, kv_pos=kp, causal=causal, window=0)
     err = check_close(label, fa.flash_attention(q, k, v, **kw),
                       reference_attention(q, k, v, **kw), dtype)
-    mask = visible(qp, kp, causal, 0)
+    mask = fa.visible(qp, kp, causal, 0)
     turn = [0]
 
     def cycle(fn):
@@ -762,12 +735,6 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
              "library": cycle(sdpa)}
     order = ("kernel", "plain", "library", "kernel")
     fp32 = {}
-    if dtype == torch.float32:
-        fp32["fma_max_abs_err"] = check_close(
-            f"{label} (fma)", fma_attention(q, k, v, **kw),
-            reference_attention(q, k, v, **kw), dtype)
-        calls["fma"] = cycle(lambda *a: fma_attention(*a, **kw))
-        order = ("kernel", "plain", "library", "fma", "kernel")
     iters = 48                  # a multiple of copies (8)
     times = {}
     for timer, suffix in ((graph_ms, ""), (cuda_ms, "_eager")):
@@ -777,9 +744,8 @@ def time_attention(label, b, t, s, h, kvh, d, q_pos, copies,
                 calls[name], iters)
     bound_ms, bound_by = bound(q, k, qp, kp, causal, 0)
     if dtype == torch.float32:
-        fp32.update(fma_ms=times["fma"], fma_ms_eager=times["fma_eager"],
-                    split_floor_ms=split_floor(*attention_work(
-                        q, k, qp, kp, causal, 0)))
+        fp32.update(split_floor_ms=split_floor(*fa.work(
+            q, k, qp, kp, causal=causal, window=0)))
     backend = sdpa_backend(*(x.transpose(1, 2) for x in (q, k, v)),
                            **sdpa_kw)
     key = str(dtype).removeprefix("torch.")
@@ -825,15 +791,8 @@ def mlstm_bound(q, chunk, state):
     q n0 are left out when there is no initial state: they are zeros.
     Returns (bound ms, what bounds it, the same bound with the operations on
     the fp32 pipe, multiply-adds, bytes)."""
-    b, t, h, d = q.shape
-    nc = t // chunk
-    pairs = chunk * (chunk + 1) // 2
-    inter = (nc if state is not None else nc - 1) * chunk * (d * d + d)
-    macs = b * h * (nc * (2 * pairs * d + chunk * (d * d + d)) + inter)
-    nbytes = (4 * q.numel() * q.element_size()       # q, k, v read; h written
-              + 2 * b * t * h * 4                     # log_i, log_f
-              + 4 * b * h * (d * d + d + 1)           # final C, n, m
-              + (4 * b * h * (d * d + d + 1) if state is not None else 0))
+    nbytes, operations = ms.work(q, chunk, state)
+    macs = operations // 2
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * macs / PEAK_FLOPS[q.dtype] * 1e3
     t_ops_fp32 = 2 * macs / PEAK_FLOPS[torch.float32] * 1e3
@@ -1777,7 +1736,7 @@ def attention_backward_bound(q, k, qp, kp, causal, window):
     five products over the visible pairs (S recomputed, dP, dV, dQ, dK) at
     the peak of the inputs' type; also that bound on the fp32 pipe, where
     the plain backward computes."""
-    ok = visible(qp, kp, causal, window)
+    ok = fa.visible(qp, kp, causal, window)
     b, t, h, d = q.shape
     kvh = k.shape[2]
     pairs = int(ok.sum())
@@ -2020,7 +1979,7 @@ def time_training_attention(device, sizes, case):
     plain = lambda: reference_attention(q, k, v, q_pos=qp, kv_pos=kp,  # noqa
                                         return_lse=True, **kw)
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
-    ok = visible(qp, kp, kw["causal"], kw["window"])
+    ok = fa.visible(qp, kp, kw["causal"], kw["window"])
     aligned = qp.shape == kp.shape and torch.equal(qp, kp)
     causal_only = aligned and torch.equal(ok, torch.ones_like(ok).tril())
     mask = None if causal_only or bool(ok.all()) else ok
@@ -2850,6 +2809,27 @@ def phase_shard(device="cuda", sizes=SHARD_FULL):
                                  f"{rel[worst]} from the unsharded run")
         del got_params, want_params
 
+        # one more step under FlopCounterMode, for phase dryrun's cell:
+        # the step's arguments, aten FLOPs, launches and peak memory
+        batch = TR.on_device(batches[0], device)
+        real_cell = {"argument_bytes": sum(
+            a.to_local().numel() * a.to_local().element_size()
+            for a in _leaves(state)) + sum(
+            b.numel() * b.element_size() for b in batch.values())}
+        flops = FlopCounterMode(display=False)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        before = kernel_launches()
+        with flops:
+            state, _ = step(state, batch)
+        _sync(device)
+        real_cell.update(
+            flops=flops.get_total_flops(),
+            launches={k: n - before[k] for k, n in kernel_launches().items()},
+            max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                  if device == "cuda" else None))
+        del batch
+
         # the checkpoint: the gathered state, then restored onto the mesh
         mgr = CheckpointManager(tmp, keep=1)
         _sync(device)
@@ -2896,7 +2876,7 @@ def phase_shard(device="cuda", sizes=SHARD_FULL):
          checkpoint_gb=npz_gb, checkpoint_leaves=leaves, save_s=save_s,
          restore_s=restore_s, restored_equal=True,
          seconds=time.perf_counter() - t0)
-    return launches
+    return launches, real_cell
 
 
 #: Phase ``tp``: tensor-parallel compute (models/layers.py, ssm.py,
@@ -3434,6 +3414,107 @@ def tp_check(arch, one, ranks, sizes, device):
     return dict(cfg=cfg, serve=serve, train=train, update_rel=update_rel,
                 worst=(worst_leaf, worst), share=share, attn=attn,
                 scans=scans)
+
+
+#: Phase ``dryrun`` (launch/dryrun.py): phase ``shard``'s cell traced on
+#: fake tensors beside its real step, then base cells of the hill climb
+#: (launch/hillclimb.py) on the production meshes, each as (arch, shape,
+#: multi-pod).  Of its three base cells only gemma3-1b's prefill traces
+#: in the phase's time: qwen3-moe-30b-a3b's train_4k on 16x16 (16
+#: microbatches of 48 MoE layers, about a million fake ops) ran for more
+#: than 12 minutes on the card's host, and xlstm-350m's train_4k on
+#: 2x16x16 runs the sLSTM's loop over 4,096 positions under autograd;
+#: ``python -m repro_torch.launch.dryrun --all`` traces both (PERF.md).
+DRYRUN_FULL = {"cells": (("gemma3-1b", "prefill_32k", False),)}
+#: The CPU's rehearsal: phase shard's tiny cell alone.
+DRYRUN_TINY = {"cells": ()}
+
+
+def phase_dryrun(device="cuda", sizes=DRYRUN_FULL, real=None,
+                 shard=SHARD_FULL):
+    """The dry run (repro_torch.launch.dryrun), which traces a step on fake
+    tensors of ``device``'s type as rank 0 of a ``"fake"`` group and
+    launches nothing.  First phase ``shard``'s cell (``shard``'s model,
+    depth, batch and positions on a (1, 1) mesh), held to ``real``, the
+    readings of its real step: the argument bytes equal the real state's
+    and batch's, FlopCounterMode's total equals the real step's, and each
+    kernel path's calls equal the real step's launches of that path; the
+    peak estimate printed beside the real step's
+    ``torch.cuda.max_memory_allocated``.  Then each of ``sizes["cells"]``
+    on its production mesh (256 or 512 ranks): ok, its roofline terms, its
+    peak bytes a rank against 80 GB, ``trace_s``.  No process group may be
+    open.  Returns the records."""
+    from repro_torch.launch import dryrun as DR
+    t0 = time.perf_counter()
+    before = kernel_launches()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        if real is not None:
+            cfg = get_config(shard["arch"])
+            if shard["reduced"]:
+                cfg = dataclasses.replace(cfg.reduced(), remat="full")
+            if shard.get("layers"):
+                cfg = cut_depth(cfg, shard["layers"])
+            base = get_config(shard["arch"])
+            extra = {f.name: getattr(cfg, f.name)
+                     for f in dataclasses.fields(cfg)
+                     if getattr(cfg, f.name) != getattr(base, f.name)}
+            shape = ShapeConfig(f"train_b{shard['batch']}_t{shard['seq']}",
+                                shard["seq"], shard["batch"], "train")
+            rec = DR.run_cell(shard["arch"], shape, False, tmp,
+                              extra_cfg=extra, mesh_shape=(1, 1),
+                              mesh_axes=("data", "model"), device=device)
+            if not rec.get("ok"):
+                raise AssertionError(f"dryrun of phase shard's cell: "
+                                     f"{rec.get('error')}\n"
+                                     f"{rec.get('traceback')}")
+            calls = {f"{kernel}_{path}": rec["kernel_calls"].get(
+                         path, {}).get("calls", 0)
+                     for kernel, mod in (("flash_attention", fa),
+                                         ("mlstm_scan", ms))
+                     for path in mod.launches_by_path}
+            launched = {k: real["launches"][k] for k in calls}
+            got = {"argument_bytes": rec["memory"]["argument_bytes"],
+                   "flops": rec["flop_counter_flops"]}
+            want = {"argument_bytes": real["argument_bytes"],
+                    "flops": real["flops"]}
+            if got != want or (device == "cuda" and calls != launched):
+                raise AssertionError(f"dryrun of phase shard's cell: {got} "
+                                     f"and kernel calls {calls}; the real "
+                                     f"step: {want}, launches {launched}")
+            peak = rec["memory"]["peak_estimate_bytes"]
+            held = real["max_memory_allocated"]
+            out["shard"] = rec
+            emit("dryrun", cell=f"{shard['arch']} ({cfg.num_layers} layers) "
+                 f"B{shard['batch']} T{shard['seq']} on (1, 1)",
+                 device=device, **got, kernel_calls=calls,
+                 real_launches=launched, memory=rec["memory"],
+                 peak_estimate_bytes=peak, real_max_memory_allocated=held,
+                 peak_over_real=peak / held if held else None,
+                 trace_s=rec["trace_s"], traced_ops=rec["traced_ops"])
+        for arch, shape, multi in sizes["cells"]:
+            rec = DR.run_cell(arch, shape, multi, tmp, device=device)
+            if not rec.get("ok"):
+                raise AssertionError(f"dryrun {arch} {shape}: "
+                                     f"{rec.get('error')}\n"
+                                     f"{rec.get('traceback')}")
+            out[f"{arch} {shape}"] = rec
+            peak = rec["memory"]["peak_estimate_bytes"]
+            emit("dryrun", cell=f"{arch}__{shape}__"
+                 f"{'pod2x16x16' if multi else 'pod16x16'}", device=device,
+                 roofline=rec["roofline"], memory=rec["memory"],
+                 peak_gb_a_rank=peak / 1e9, hbm_gb=DR.HBM_BYTES / 1e9,
+                 fits_hbm=rec["fits_hbm"],
+                 wire_gb_a_rank=rec["collectives"][
+                     "total_wire_gbytes_per_dev"],
+                 collectives=rec["collectives"]["counts"],
+                 kernel_calls=rec["kernel_calls"],
+                 grad_accum=rec.get("grad_accum"), trace_s=rec["trace_s"],
+                 traced_ops=rec["traced_ops"])
+    if kernel_launches() != before:
+        raise AssertionError("the dry run launched a kernel")
+    emit("dryrun_phase", device=device, seconds=time.perf_counter() - t0)
+    return out
 
 
 def phase_tp(device="cuda", sizes=TP_FULL):
@@ -4228,6 +4309,9 @@ SIM_FULL = {
     "exact": {"a2a_n": 16, "a2a_terminals": 4, "dragonfly": (6, 3, 2, 12),
               "load": 0.5, "cycles": 60, "warmup": 15, "seeds": (1, 2),
               "adaptive": {"threshold": 0.5, "weight": 1.3}},
+    "blocks": {"n": 16, "terminals": 4, "loads": (0.3, 0.7),
+               "seeds": (0, 1), "cycles": 400, "warmup": 100,
+               "replay_seeds": (0, 1, 2, 3), "message_size": 2},
 }
 #: The same phase at a size the CPU runs in seconds (tests/test_torch_sim_smoke.py).
 SIM_TINY = {
@@ -4238,6 +4322,9 @@ SIM_TINY = {
     "exact": {"a2a_n": 8, "a2a_terminals": 2, "dragonfly": (4, 2, 2, 5),
               "load": 0.5, "cycles": 20, "warmup": 5, "seeds": (1, 2),
               "adaptive": {"threshold": 0.5, "weight": 1.3}},
+    "blocks": {"n": 8, "terminals": 2, "loads": (0.3, 0.7),
+               "seeds": (0, 1), "cycles": 40, "warmup": 10,
+               "replay_seeds": (0, 1, 2, 3), "message_size": 1},
 }
 
 
@@ -4501,16 +4588,63 @@ def run_sim_exact(cfg, device):
     return out
 
 
+def run_sim_blocks(cfg, device):
+    """The copies split over devices (``sweep(devices=)``): ``"auto"`` (every
+    visible card of ``device``'s type) against one program, and the split
+    run as two blocks on the same device (``xengine._block_sweep``, the
+    code ``devices=2`` runs on two cards) against one program, each to the
+    bit, on a uniform sweep of 4 points and on a collective replay of 4
+    copies (a drained run); wall seconds of one program and of the two
+    blocks, which on one device run one after the other."""
+    n = cfg["n"]
+    fab = make_fabric("xor", n)
+    topo = fab.sim_topology()
+
+    def uniform(load, seed):
+        return S.uniform(n, offered=load, cycles=cfg["cycles"],
+                         terminals=cfg["terminals"], seed=seed)
+    work = collective_workload(fab, "all_to_all",
+                               message_size=cfg["message_size"])
+    grids = {"uniform": (uniform, cfg["loads"], dict(
+                 seeds=cfg["seeds"], terminals=cfg["terminals"],
+                 cycles=cfg["cycles"], warmup=cfg["warmup"])),
+             "replay": (lambda load, seed: work.traffic(), [0.0], dict(
+                 seeds=cfg["replay_seeds"]))}
+    out = {"devices_auto": XE._resolve_devices("auto", torch.device(device))}
+    for name, (tf, loads, kw) in grids.items():
+        S.sweep(topo, "minimal", tf, loads, device=device, **kw)  # warm-up
+        t0 = time.perf_counter()
+        one = S.sweep(topo, "minimal", tf, loads, device=device, **kw)
+        one_s = time.perf_counter() - t0
+        auto = S.sweep(topo, "minimal", tf, loads, devices="auto",
+                       device=device, **kw)
+        check_same_grid(f"blocks {name}: devices='auto' against one program",
+                        auto, one)
+        XE._block_sweep([device] * 2, topo, "minimal", tf, loads, **kw)
+        t0 = time.perf_counter()
+        two = XE._block_sweep([device] * 2, topo, "minimal", tf, loads, **kw)
+        two_s = time.perf_counter() - t0
+        points = check_same_grid(
+            f"blocks {name}: two blocks on one device against one program",
+            two, one)
+        out[name] = {"points": points, "wall_s_one_program": one_s,
+                     "wall_s_two_blocks_one_device": two_s,
+                     "delivered": [r.packets_delivered for r in one[0]]}
+    emit("sim_blocks", device=device, **out)
+    return out
+
+
 def phase_sim(device="cuda", sizes=SIM_FULL):
-    """The simulator's main path: ``sim_speed``, ``xl_scale`` and the
-    exactness checks, each raising on a difference.  The port's kernels'
-    launch counts are set to 0 before and read after: this path runs
-    none of them."""
+    """The simulator's main path: ``sim_speed``, ``xl_scale``, the
+    exactness checks and the copies split over devices, each raising on a
+    difference.  The port's kernels' launch counts are set to 0 before
+    and read after: this path runs none of them."""
     t0 = time.perf_counter()
     reset_launches()
     out = {"sim_speed": run_sim_speed(sizes["sim_speed"], device),
            "xl_scale": run_xl_scale(sizes["xl_scale"], device),
-           "exact": run_sim_exact(sizes["exact"], device)}
+           "exact": run_sim_exact(sizes["exact"], device),
+           "blocks": run_sim_blocks(sizes["blocks"], device)}
     launched = kernel_launches()
     if any(launched.values()):
         raise AssertionError(f"the simulator launched a model kernel: "
@@ -5646,7 +5780,8 @@ def main():
     train_lines, train_timing = phase_train(launched=train_launched)
     train = {arch: line["launches"] for arch, line in train_lines.items()}
     phase_xlstm_sp()
-    shard = phase_shard()
+    shard, shard_cell = phase_shard()
+    phase_dryrun(real=shard_cell)
     tp_launches, tp_timing = phase_tp()
     extract_dp_launches = phase_extract(trace=llama_trace, card=smi)
     phase_sim()
@@ -5713,7 +5848,7 @@ def main():
                  "plain_ms_eager", "bound_ms_fp32_pipe")
     at = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
           "library_backend", "bound_ms", "bound_by")
-    at32 = at + ("fma_ms", "fma_max_abs_err", "split_floor_ms")
+    at32 = at + ("split_floor_ms",)
 
     def replaced(kernel, path, source, runs, **times):
         """The FMA kernel a tensor-core path replaced: its launches by run
@@ -5777,17 +5912,11 @@ def main():
               at_tp_rank_whisper_cross_h4={
                   k: tp_timing["whisper_cross_decode"][k] for k in at}),
         entry("flash_attention", "fp32_tc", "flash_attention_fp32tc.cu", attn,
-              fp32, fp32_runs, ("fma_ms", "fma_max_abs_err",
-                                "split_floor_ms"),
+              fp32, fp32_runs, ("split_floor_ms",),
               at_d256={k: mfp32[k] for k in at32},
               at_gqa5={k: ypre32[k] for k in at32},
               at_decode={k: dec32[k] for k in at32},
-              at_decode_d256={k: mdec32[k] for k in at32},
-              replaced=replaced(
-                  "flash_attention", "fp32", "flash_attention.cu", fp32_runs,
-                  ms=fp32["fma_ms"], at_d256_ms=mfp32["fma_ms"],
-                  at_gqa5_ms=ypre32["fma_ms"], at_decode_ms=dec32["fma_ms"],
-                  at_decode_d256_ms=mdec32["fma_ms"])),
+              at_decode_d256={k: mdec32[k] for k in at32}),
         entry("mlstm_scan", "tc", "mlstm_scan_tc.cu",
               "src/repro/kernels/mlstm_scan.py:32", scan,
               dict(serve_runs, **train_runs), scan_keys + ("fma_ms",),

@@ -11,9 +11,11 @@ collective replays, serving request metrics and graphs kept across calls
 ``flow``); serving arrival processes and their CLI, ``python -m
 repro_torch.workload`` (``workload``); and the declarative studies with
 their CLI, ``python -m repro_torch.studies`` (``studies``); the LACIN
-collectives (``core.collectives``, ``fabric.collectives``); and training of
-attention models (``models.forward_train`` with the flash-attention
-autograd Function ``models.flash``, ``optim``, ``data``, ``checkpoint``,
-``runtime.{trainer,loop,manual_dp}``).  Still to port: the rest of the LM
-substrate (ROADMAP queue A, item 10).
+collectives (``core.collectives``, ``fabric.collectives``); training of
+every stack (``models.forward_train`` with the autograd Functions of the
+kernels, ``optim``, ``data``, ``checkpoint``, ``runtime``), sharded on
+``DTensor`` and tensor-parallel; and the launch side (``launch``: the cost
+model, input specs, meshes, and the dry run and hill climb traced on fake
+tensors).  Every module of ``repro`` has its counterpart but the JAX
+shims of ``repro._compat``.
 """

@@ -28,9 +28,7 @@ Which kernel runs is a fixed rule on dtype and T, made by :func:`plan`
   the fp32 tolerance (2e-5); the split holds it.  One block per (batch, KV
   head, tile of positions) holds all G query heads of the group: 128
   (position, head) rows, 64 at D = 256.  Decode steps (T <= 16) take it
-  too: at those shapes it was faster than ``csrc/flash_attention.cu``,
-  the fp32 FMA kernel that took every fp32 call before it (PERF.md), which
-  no call takes now; chip_smoke.py times it beside this one.
+  too.
 - bfloat16, T > 16 (prefill): ``csrc/flash_attention_prefill.cu``,
   tensor cores (wgmma) fed by TMA; one block per (batch, KV head, tile of
   positions) holds all G = H/KV query heads of the group: 192 (position,
@@ -50,6 +48,14 @@ registers; each kernel's source says how.
 No path reads a position back to the host.  The kernels pad T and S to
 their tiles themselves, the way the reference pads them: zero rows, query
 position 0 and key position -1, so padded KV slots are masked.
+
+On fake tensors (``torch._subclasses.fake_tensor``: a step traced for its
+shapes, ``launch/dryrun.py``) the wrapper runs the same checks and
+:func:`plan` at :data:`H100_SMS`, returns empty outputs of the right
+shapes, and appends the call's path and :func:`work` to
+:data:`traced_calls` where a list is set there.  It loads and launches
+nothing, and counts no launch.  A tensor with data never takes that
+branch.
 """
 from __future__ import annotations
 
@@ -58,7 +64,9 @@ import functools
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from . import _build
 
@@ -67,6 +75,9 @@ launches = 0
 #: The same calls by the kernel they launched (decode: its split kernel and
 #: its combine pass); set each to 0 with ``launches``.
 launches_by_path = {"fp32_tc": 0, "prefill": 0, "decode": 0}
+#: Calls on fake tensors, as (path, operations, bytes) of :func:`work`,
+#: appended while a list is set here; None records none.
+traced_calls: list | None = None
 
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 KEY_TILE = 64          # keys per K/V tile, in every kernel
@@ -78,16 +89,11 @@ FP32_TERMS = 3         # bf16 terms of each fp32 operand in that kernel (kTerms)
 # At D = 256: prefill rows 64, decode rows 32, fp32 tensor-core rows 64
 # (each kernel's source says why).
 D256_PREFILL_ROWS, D256_DECODE_ROWS, D256_FP32_TC_ROWS = 64, 32, 64
-# The fp32 FMA kernel's blocks of query positions, 16 for T <= 16: the
-# instances that took every fp32 call before the tensor-core kernel, which
-# chip_smoke.py times beside it (no plan() gives it a call).
-FP32_BLOCK_Q, D256_FP32_BLOCK_Q = 64, 32
 H100_SMS = 132
 
 # path: (source under csrc/, C entry point, pointer and int arguments
 # before the float scale and the stream)
-_KERNELS = {"fp32": ("flash_attention", "repro_flash_attention_fwd", 7, 9),
-            "fp32_tc": ("flash_attention_fp32tc",
+_KERNELS = {"fp32_tc": ("flash_attention_fp32tc",
                         "repro_flash_attention_fp32tc", 7, 9),
             "prefill": ("flash_attention_prefill",
                         "repro_flash_attention_prefill", 7, 9),
@@ -163,7 +169,7 @@ def _kernel(path: str):
 
 
 def _library():
-    """Builds and loads every kernel, the fp32 FMA one included."""
+    """Builds and loads every kernel."""
     for path in _KERNELS:
         _kernel(path)
 
@@ -177,6 +183,58 @@ def _positions(pos, n, device, name):
                          f"{n} on {device}; got {pos.dtype} "
                          f"{tuple(pos.shape)} on {pos.device}")
     return pos
+
+
+def visible(q_pos, kv_pos, causal: bool, window: int) -> torch.Tensor:
+    """The (T, S) mask of the (query, key) pairs a call sees."""
+    ok = (kv_pos[None, :] >= 0).expand(len(q_pos), -1)
+    if causal:
+        ok = ok & (kv_pos[None, :] <= q_pos[:, None])
+    if window > 0:
+        ok = ok & ((q_pos[:, None] - kv_pos[None, :]) < window)
+    return ok
+
+
+def _aligned_counts(qp: np.ndarray, s: int, causal: bool,
+                    window: int) -> tuple[int, int]:
+    """(keys some query sees, visible pairs) for query positions ``qp``
+    against keys at 0 .. s-1, without the (T, S) mask."""
+    hi = np.minimum(qp, s - 1) if causal else np.full_like(qp, s - 1)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros_like(qp)
+    seen = hi >= lo
+    cover = np.zeros(s + 1, dtype=np.int64)
+    np.add.at(cover, lo[seen], 1)
+    np.add.at(cover, hi[seen] + 1, -1)
+    return (int((np.cumsum(cover[:s]) > 0).sum()),
+            int((hi - lo + 1)[seen].sum()))
+
+
+def work(q, k, q_pos=None, kv_pos=None, *, causal: bool = True,
+         window: int = 0) -> tuple[int, int]:
+    """(bytes, operations) of one call: each input byte the data needs
+    read once (the K/V rows some query sees), the output written once, and
+    the two multiply-adds (four operations) of each visible (query, key)
+    pair for each query head and head dim.  Positions with data are read;
+    ``None`` is the kernel's default, 0 .. T-1 and 0 .. S-1.  Positions
+    without data (fake tensors of a traced step) are taken as the keys at
+    0 .. S-1 and the queries at the last T of them, the most a call of
+    these shapes can see."""
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    known = [p is not None and not is_fake(p) for p in (q_pos, kv_pos)]
+    if all(known):
+        ok = visible(q_pos, kv_pos, causal, window)
+        rows, pairs = int(ok.any(dim=0).sum()), int(ok.sum())
+    else:
+        if any(known):
+            raise ValueError("work() wants both positions with data, or "
+                             "neither")
+        start = 0 if q_pos is None else s - t
+        rows, pairs = _aligned_counts(np.arange(start, start + t), s,
+                                      causal, window)
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * b * rows * kvh * d * k.element_size() + 4 * (t + s))
+    return nbytes, 4 * b * h * d * pairs
 
 
 def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
@@ -210,17 +268,27 @@ def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
         raise ValueError("T and S must be positive")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
+    fake = is_fake(q)
+    if not fake and any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
     if not isinstance(window, int):
         raise TypeError(f"window must be a Python int, got {type(window)}")
-    p = _plan(b, t, s, h, kvh, d, q.dtype, _sms(q.device.index), return_lse)
-    fn = _kernel(p.path)
+    p = _plan(b, t, s, h, kvh, d, q.dtype,
+              H100_SMS if fake else _sms(q.device.index), return_lse)
     qp = _positions(q_pos, t, q.device, "q_pos")
     kp = _positions(kv_pos, s, q.device, "kv_pos")
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if fake:
+        # a traced call (fake tensors have no data): its outputs' shapes
+        # and its work, nothing loaded or launched
+        if traced_calls is not None:
+            nbytes, ops = work(q, k, q_pos, kv_pos, causal=causal,
+                               window=window)
+            traced_calls.append((p.path, ops, nbytes))
+        return (out, lse) if return_lse else out
+    fn = _kernel(p.path)
     # the raw handle of the current stream, without building a Stream object
     # (a few microseconds a call, as much as a decode launch takes)
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)

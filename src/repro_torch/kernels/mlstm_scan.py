@@ -34,6 +34,13 @@ requires grad raises, since their outputs are tensors autograd cannot see.
 Training reaches them only through :class:`repro_torch.models.xlstm.
 MLSTMScan`, whose forward runs with grad mode off and whose backward
 differentiates the plain version.
+
+On fake tensors (a step traced for its shapes, ``launch/dryrun.py``) the
+wrapper runs the same checks and :func:`plan`, returns empty outputs of
+the right shapes, and appends the call's path and :func:`work` to
+:data:`traced_calls` where a list is set there; it loads and launches
+nothing, and counts no launch.  A tensor with data never takes that
+branch.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from . import _build
 
@@ -51,6 +59,9 @@ launches = 0
 #: The same calls by the kernel they launched (``"tc"``, ``"tc_f32"``: its
 #: state and output passes); set each to 0 with ``launches``.
 launches_by_path = {"fma": 0, "tc": 0, "tc_f32": 0}
+#: Calls on fake tensors, as (path, operations, bytes) of :func:`work`,
+#: appended while a list is set here; None records none.
+traced_calls: list | None = None
 
 MAX_HEAD_DIM = 512     # fma: C[:, 64 columns] of fp32 fills 128 KB of shared memory
 MAX_CHUNK = 1024
@@ -100,6 +111,25 @@ def plan(b: int, t: int, h: int, d: int, chunk: int, dtype,
 
 
 _plan = functools.lru_cache(maxsize=1024)(plan)   # a call's plan, kept
+
+
+def work(q, chunk: int, state=None) -> tuple[int, int]:
+    """(bytes, operations) of one call: each input read once and h and
+    the final state written once, and two operations a multiply-add of the
+    chunkwise algorithm: per (batch, head) and chunk of L rows, q k^T and
+    p v over the causal L(L+1)/2 pairs, and q C0, q n0 and the k^T w v,
+    k^T w state update over D x D.  The first chunk's q C0 and q n0 are
+    left out when there is no initial state: they are zeros."""
+    b, t, h, d = q.shape
+    nc = t // chunk
+    pairs = chunk * (chunk + 1) // 2
+    inter = (nc if state is not None else nc - 1) * chunk * (d * d + d)
+    macs = b * h * (nc * (2 * pairs * d + chunk * (d * d + d)) + inter)
+    nbytes = (4 * q.numel() * q.element_size()       # q, k, v read; h written
+              + 2 * b * t * h * 4                     # log_i, log_f
+              + 4 * b * h * (d * d + d + 1)           # final C, n, m
+              + (4 * b * h * (d * d + d + 1) if state is not None else 0))
+    return nbytes, 2 * macs
 
 
 #: fp32 h and final state against the plain version, element by element
@@ -182,7 +212,9 @@ def _library():
         _kernel(path)
 
 
-def _check_state(state, b, h, d, device):
+def _check_state(state, b, h, d, device, fake=False):
+    """The initial state's pointers, once its shapes are checked (none
+    on fake tensors)."""
     if state is None:
         return None, None, None
     shapes = ((b, h, d, d), (b, h, d), (b, h))
@@ -191,7 +223,7 @@ def _check_state(state, b, h, d, device):
             or not s.is_contiguous() for s, shape in zip(state, shapes)):
         raise ValueError(f"state must be contiguous float32 (C, n, m) of "
                          f"shapes {shapes} on {device}")
-    return tuple(s.data_ptr() for s in state)
+    return (None,) * 3 if fake else tuple(s.data_ptr() for s in state)
 
 
 def mlstm_scan(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
@@ -231,13 +263,21 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
         raise ValueError(f"T={t} must be a positive multiple of chunk={chunk}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("q, k, v, log_i and log_f must be contiguous")
-    c_in, n_in, m_in = _check_state(state, b, h, d, q.device)
+    fake = is_fake(q)
+    c_in, n_in, m_in = _check_state(state, b, h, d, q.device, fake)
     p = _plan(b, t, h, d, chunk, q.dtype, state is not None)
-    fn = _kernel(p.path)
     out = torch.empty_like(q)
     c = torch.empty((b, h, d, d), dtype=torch.float32, device=q.device)
     n = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    if fake:
+        # a traced call (fake tensors have no data): its outputs' shapes
+        # and its work, nothing loaded or launched
+        if traced_calls is not None:
+            nbytes, ops = work(q, chunk, state)
+            traced_calls.append((p.path, ops, nbytes))
+        return out, (c, n, m)
+    fn = _kernel(p.path)
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
             log_f.data_ptr(), c_in, n_in, m_in, out.data_ptr(), c.data_ptr(),

@@ -250,6 +250,18 @@ LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
 SHAPES: dict[str, ShapeConfig] = {s.name: s for s in
                                   (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
+#: Architectures with sub-quadratic sequence handling, eligible for the
+#: ``long_500k`` cell (others are skipped per the assignment, see DESIGN.md).
+LONG_CONTEXT_OK = frozenset({"xlstm-350m", "hymba-1.5b", "gemma3-1b"})
+
+
+def cell_is_applicable(arch: str, shape: str) -> tuple[bool, str]:
+    """(runs?, reason-if-skipped) for an (arch, shape) cell."""
+    if shape == "long_500k" and arch not in LONG_CONTEXT_OK:
+        return False, ("pure full-attention architecture: 524k-token decode "
+                       "needs sub-quadratic attention (DESIGN.md §6)")
+    return True, ""
+
 
 # ---------------------------------------------------------------------------
 # Registry (populated by repro_torch.configs modules).

@@ -8,7 +8,7 @@ blocks in the backward.  Here the same split is a ``torch.autograd.Function``:
 - forward: the attention kernel through :func:`repro_torch.kernels.ops.
   flash_attention` with ``return_lse=True``, so on the card the bf16
   prefill kernel (``csrc/flash_attention_prefill.cu``, whatever T is) or
-  the fp32 kernel (``csrc/flash_attention.cu``), and on the CPU their
+  the fp32 kernel (``csrc/flash_attention_fp32tc.cu``), and on the CPU their
   plain version.  It saves ``(q, k, v, o, lse)``.
 - backward: :func:`flash_backward`, the reference's ``_flash_bwd`` in
   plain PyTorch, blocked as it blocks: a dQ pass (each Q block over the KV

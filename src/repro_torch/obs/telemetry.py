@@ -6,8 +6,8 @@ in-memory and an on-disk AOT compile cache.  Here the program is a CUDA
 graph of the cycle step, and :func:`timed_graph` is the counterpart of
 the reference's ``timed_compiled``: it keeps each captured graph, with
 the buffers it replays onto, in an in-process LRU of
-:data:`_CACHE_LIMIT` entries keyed by the step's static spec, shapes and
-device.  A hit refills those buffers in place and replays
+:data:`_CACHE_LIMIT` entries keyed by the step's static spec, shapes,
+device and block of copies.  A hit refills those buffers in place and replays
 (``compile_cached="memory"``, ``compile_s`` 0.0); a miss captures
 (``compile_cached`` ``False``, ``compile_s`` the warm-up and capture).  A
 CUDA graph cannot outlive its process, so there is no disk layer:
@@ -74,41 +74,46 @@ def clear_caches(*, memory: bool = True, disk: bool = False) -> None:
         _CACHE.clear()
 
 
-def timed_graph(key, capture: Callable, refill: Callable,
-                execute: Callable, *, device: torch.device,
+def timed_graph(entries, execute: Callable, *, devices,
                 grid_points: int = 1) -> tuple:
-    """``execute(entry)`` on a kept or freshly captured entry, returning
-    ``(output, timing)`` (:func:`timing_dict`, backend ``"torch"``).
+    """``execute(graphs)`` on one kept or freshly captured graph for each
+    entry ``(key, capture, refill)`` (a sweep's blocks of copies, one a
+    device), returning ``(output, timing)`` (:func:`timing_dict`, backend
+    ``"torch"``).
 
     With ``key`` in the cache, the entry is ``refill``-ed in place and
-    reused (``compile_cached="memory"``, ``compile_s`` 0.0); otherwise
-    ``capture()`` builds it (``compile_s`` its time) and it is kept under
+    reused; otherwise ``capture()`` builds it and it is kept under
     ``key``, evicting the least recently used past :data:`_CACHE_LIMIT`.
     ``key=None`` keeps nothing and counts nothing (the CPU's eager runs).
-    ``execute_s`` runs from after acquisition to the device's completion,
-    so a hit's refill is in it."""
-    entry = _CACHE.get(key) if key is not None else None
-    if entry is not None:
-        _CACHE.move_to_end(key)
-        _STATS["memory_hits"] += 1
-        compile_s, cached = 0.0, "memory"
-        t1 = device_clock(device)
-        refill(entry)
-    else:
-        t0 = device_clock(device)
-        entry = capture()
-        t1 = device_clock(device)
-        compile_s, cached = t1 - t0, False
-        if key is not None:
-            _STATS["misses"] += 1
-            while len(_CACHE) >= _CACHE_LIMIT:
-                _CACHE.popitem(last=False)
-                _STATS["evictions"] += 1
-            _CACHE[key] = entry
-    out = execute(entry)
-    execute_s = device_clock(device) - t1
+    Where every graph was a hit the record says ``compile_cached="memory"``
+    and ``compile_s`` 0.0, and ``execute_s`` runs from the first
+    acquisition, so the refills are in it; otherwise ``compile_s`` is the
+    acquisitions' time and ``execute_s`` runs from after them to the
+    completion of every device in ``devices``."""
+    t0 = max(device_clock(d) for d in devices)
+    graphs, fresh = [], False
+    for key, capture, refill in entries:
+        entry = _CACHE.get(key) if key is not None else None
+        if entry is not None:
+            _CACHE.move_to_end(key)
+            _STATS["memory_hits"] += 1
+            refill(entry)
+        else:
+            entry, fresh = capture(), True
+            if key is not None:
+                _STATS["misses"] += 1
+                while len(_CACHE) >= _CACHE_LIMIT:
+                    _CACHE.popitem(last=False)
+                    _STATS["evictions"] += 1
+                _CACHE[key] = entry
+        graphs.append(entry)
+    t1 = max(device_clock(d) for d in devices)
+    out = execute(graphs)
+    t2 = max(device_clock(d) for d in devices)
+    compile_s, cached, start = ((t1 - t0, False, t1) if fresh
+                                else (0.0, "memory", t0))
     return out, timing_dict("torch", compile_s=compile_s,
-                            execute_s=execute_s, compile_cached=cached,
+                            execute_s=t2 - start, compile_cached=cached,
                             grid_points=grid_points)
 
 

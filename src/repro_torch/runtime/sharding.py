@@ -403,6 +403,9 @@ def place(x, sharding, mesh) -> DTensor:
     region = local_region(tuple(x.shape), places, mesh)
     local = (x.detach()[region] if isinstance(x, torch.Tensor)
              else torch.from_numpy(np.asarray(np.asarray(x)[region])))
+    if isinstance(x, torch.Tensor) and local.numel() < x.numel():
+        # a slice of its own: a view would hold all of x's memory
+        local = local.clone(memory_format=torch.contiguous_format)
     if local.device.type != mesh.device_type:
         local = local.to(mesh.device_type)
     return as_dtensor(local.contiguous(), mesh, places, tuple(x.shape))

@@ -20,9 +20,8 @@ engine.  Quickstart::
 Collective replays (:mod:`.workloads`) replay a fabric's own 1-factor
 schedules through either engine (``sim.replay``, on the card by
 default), and :mod:`.report` keeps the reference's deprecated sweep
-shims over :mod:`repro_torch.studies`.  Not ported yet: sharding the
-engine's copies over several devices (:mod:`.xengine`; ROADMAP queue A,
-item 3).
+shims over :mod:`repro_torch.studies`.  ``sweep(devices=)`` splits the
+engine's copies over several devices, bit for bit one program.
 """
 from .topology import (SimTopology, cin_topology, dragonfly_topology,
                        hyperx_topology, routed_link_loads)

@@ -63,8 +63,15 @@ captures exactly the kernels it did before.
 Serving traffic (a :class:`Traffic` carrying request ids) gets the
 reference's per-request latency percentiles and SLO attainment, computed
 on the host after the run; the request array never reaches the device.
-Not ported yet, and raising ``NotImplementedError`` from :func:`sweep`:
-sharding the copies over several devices.
+
+``devices=`` splits the copies over several devices, the counterpart of
+the reference's ``shard_map`` over a ``copies`` axis: each device runs
+the step on its contiguous block of copies, with the packet descriptors
+whole (so packet ids and copy ids stay global, and so do the threefry
+streams), and the blocks' outputs are put back together on the host as
+the reference's are.  The copies are disjoint fabrics, so the split is
+bit-identical to one program.  :func:`_block_sweep` runs the same blocks
+on any list of devices, one device as often as wanted.
 """
 from __future__ import annotations
 
@@ -107,13 +114,6 @@ _CACHE_DEVICES = ("cuda",)
 #: Blocks run (graph replays on CUDA, eager blocks on the CPU) since the
 #: module was imported: the host loop's trip count, read across a call.
 block_runs = 0
-
-#: What each unported option needs, by ROADMAP item.
-_NOT_PORTED = {
-    "devices": "sharding the copies over several devices is not ported "
-               "yet (ROADMAP queue A, item 3, last)",
-}
-
 
 def _bucket_count(x: int) -> int:
     """The shape-bucketing boundary at or above ``x`` (the reference's
@@ -675,73 +675,119 @@ def _shapes(d: dict) -> tuple:
 
 def _run_loop(spec: XSpec, tb: dict, pkt: dict, *, block: int = _BLOCK,
               grid_points: int = 1) -> tuple[dict, dict]:
-    """One run: the gated cycle loop and its output dict (numpy), with the
+    """One run on one block of copies: :func:`_run_blocks` of
+    ``[(tb, pkt)]``."""
+    return _run_blocks(spec, [(tb, pkt)], block=block,
+                       grid_points=grid_points)
+
+
+def _run_blocks(spec: XSpec, blocks: list, *, block: int = _BLOCK,
+                grid_points: int = 1) -> tuple[dict, dict]:
+    """One run: the gated cycle loop on each block ``(tb, pkt)`` of
+    copies, on the block's device, and the output dict (numpy) with the
     timing record.  On CUDA the ``block``-cycle step is captured as a CUDA
     graph and replayed, and the graph is kept for the next call of the
     same key (:func:`repro_torch.obs.telemetry.timed_graph`); on the CPU
-    the block runs eagerly.  The loop stops at the runtime bounds in
-    ``pkt["lim"]``, never at the bucketed static horizon."""
-    dev = tb["port_flat"].device
+    the block runs eagerly.  Each round replays every block once before
+    the host reads any drain predicate, so blocks on several cards
+    overlap.  A block stops at the runtime bounds in ``pkt["lim"]``, or
+    when its own copies have drained, never at the bucketed static
+    horizon.  Several blocks' outputs are put back together as the
+    reference's ``sweep`` does after its ``shard_map``."""
 
-    def capture() -> _Graph:
-        state = _init_state(spec, tb, pkt)
-        pred = torch.ones((), dtype=torch.bool, device=dev)
-        if dev.type == "cuda":
-            run = _capture(spec, tb, pkt, state, pred, block).replay
-        else:
-            def run():
-                _block(spec, tb, pkt, state, pred, block)
-        return _Graph(tb, pkt, state, pred, run)
+    def entry(i: int, tb: dict, pkt: dict):
+        dev = tb["port_flat"].device
 
-    def refill(g: _Graph) -> None:
-        # The graph reads only these tensors, at fixed addresses, so every
-        # one is overwritten in place.  g.tb: the topology and index
-        # tables and the threefry base key; g.pkt: src/dst/gen, the
-        # terminal block bounds, copy ids, warm-ups, lim (h_eff, cutoff),
-        # total_m and phase_cum; then g.state (every field, see
-        # _reset_state).  g.pred is written by every block before the
-        # host reads it.
-        for new, old in ((tb, g.tb), (pkt, g.pkt)):
-            for k, t in new.items():
-                old[k].copy_(t)
-        _reset_state(g.state)
+        def capture() -> _Graph:
+            state = _init_state(spec, tb, pkt)
+            pred = torch.ones((), dtype=torch.bool, device=dev)
+            if dev.type == "cuda":
+                run = _capture(spec, tb, pkt, state, pred, block).replay
+            else:
+                def run():
+                    _block(spec, tb, pkt, state, pred, block)
+            return _Graph(tb, pkt, state, pred, run)
 
-    def execute(g: _Graph) -> dict:
+        def refill(g: _Graph) -> None:
+            # The graph reads only these tensors, at fixed addresses, so
+            # every one is overwritten in place.  g.tb: the topology and
+            # index tables and the threefry base key; g.pkt: src/dst/gen,
+            # the terminal block bounds, copy ids, warm-ups, lim (h_eff,
+            # cutoff), total_m and phase_cum; then g.state (every field,
+            # see _reset_state).  g.pred is written by every block before
+            # the host reads it.
+            for new, old in ((tb, g.tb), (pkt, g.pkt)):
+                for k, t in new.items():
+                    old[k].copy_(t)
+            _reset_state(g.state)
+
+        # the block count and index key the graph too: two blocks on one
+        # device never share one
+        key = ((spec, str(dev), block, len(blocks), i, _shapes(tb),
+                _shapes(pkt)) if dev.type in _CACHE_DEVICES else None)
+        return key, capture, refill
+
+    def execute(graphs: list) -> dict:
         global block_runs
-        h_eff, cutoff = (int(a) for a in g.pkt["lim"].tolist())
+        h_eff, cutoff = (int(a) for a in graphs[0].pkt["lim"].tolist())
         if spec.drain:
             trips = -(-max(h_eff, cutoff) // block) + 1
         else:
             trips = -(-h_eff // block)
+        live = list(graphs)
         for _ in range(trips):
-            g.run()
-            block_runs += 1
-            if spec.drain and not bool(g.pred.item()):
-                break
-        st = g.state
-        b = g.pkt["copy_id"].shape[0]
-        out = {
-            "deliver": st.deliver[:g.pkt["src"].shape[0]],
-            "ej_log": st.ej_log[:spec.horizon],
-            "load_total": st.load_total,
-            "load_window": st.load_window,
-            "delivered_total": st.delivered_total,
-            "delivered_in_window": st.delivered_win,
-            "phase_done": st.phase_done,
-            "cycle": st.cycle,
-            "in_flight": st.occ.view(b, -1).sum(dim=1, dtype=_I32),
-        }
-        if spec.trace_stride:
-            out.update(tr_cycle=st.tr_cycle, tr_link=st.tr_link,
-                       tr_occ=st.tr_occ, tr_inj=st.tr_inj,
-                       tr_del=st.tr_del)
-        # Copies: the next call of this key overwrites the buffers.
-        return {k: a.to("cpu", copy=True).numpy() for k, a in out.items()}
+            for g in live:
+                g.run()
+                block_runs += 1
+            if spec.drain:
+                live = [g for g in live if bool(g.pred.item())]
+                if not live:
+                    break
+        outs = [_outputs(spec, g) for g in graphs]
+        return outs[0] if len(outs) == 1 else _reassemble(outs)
 
-    key = ((spec, str(dev), block, _shapes(tb), _shapes(pkt))
-           if dev.type in _CACHE_DEVICES else None)
-    return timed_graph(key, capture, refill, execute, device=dev,
+    return timed_graph([entry(i, tb, pkt) for i, (tb, pkt) in
+                        enumerate(blocks)], execute,
+                       devices=[tb["port_flat"].device for tb, _ in blocks],
                        grid_points=grid_points)
+
+
+def _outputs(spec: XSpec, g: _Graph) -> dict:
+    """A finished block's outputs, copied to the host (the next call of
+    its key overwrites the buffers)."""
+    st = g.state
+    b = g.pkt["copy_id"].shape[0]
+    out = {
+        "deliver": st.deliver[:g.pkt["src"].shape[0]],
+        "ej_log": st.ej_log[:spec.horizon],
+        "load_total": st.load_total,
+        "load_window": st.load_window,
+        "delivered_total": st.delivered_total,
+        "delivered_in_window": st.delivered_win,
+        "phase_done": st.phase_done,
+        "cycle": st.cycle,
+        "in_flight": st.occ.view(b, -1).sum(dim=1, dtype=_I32),
+    }
+    if spec.trace_stride:
+        out.update(tr_cycle=st.tr_cycle, tr_link=st.tr_link,
+                   tr_occ=st.tr_occ, tr_inj=st.tr_inj, tr_del=st.tr_del)
+    return {k: a.to("cpu", copy=True).numpy() for k, a in out.items()}
+
+
+def _reassemble(outs: list) -> dict:
+    """The blocks' outputs as one program's (the reference's host
+    reassembly): delivery records hold global packet ids, disjoint across
+    blocks and -1 elsewhere, so their max merges them; ejection-log rows
+    join along the lane axis; per-copy and per-link vectors and the phase
+    record join in copy order; the cycle is the last block's to stop.  A
+    traced run is one block, so no trace ring is joined."""
+    out = {"deliver": np.max([o["deliver"] for o in outs], axis=0),
+           "ej_log": np.concatenate([o["ej_log"] for o in outs], axis=1),
+           "cycle": np.max([o["cycle"] for o in outs])}
+    for k in ("load_total", "load_window", "delivered_total",
+              "delivered_in_window", "in_flight", "phase_done"):
+        out[k] = np.concatenate([o[k] for o in outs])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -830,11 +876,12 @@ def _device_tables(spec: XSpec, tables: _Tables, seed_key: int,
 
 
 class _Prepared(NamedTuple):
-    """A sweep ready to run: the step's spec, tables and packets on the
-    device, and what the host needs to turn its output into RunStats."""
+    """A sweep ready to run: the step's spec, each block's tables and
+    packets ``(tb, pkt)`` on its device, and what the host needs to turn
+    the output into RunStats.  ``tb`` and ``pkt`` are the first block's
+    (a sweep on one device has one block)."""
     spec: XSpec
-    tb: dict
-    pkt: dict
+    blocks: list
     topo: SimTopology
     policy: RoutingPolicy
     grid: list
@@ -849,6 +896,34 @@ class _Prepared(NamedTuple):
     trace: TraceConfig | None
     host_s: float
 
+    @property
+    def tb(self) -> dict:
+        return self.blocks[0][0]
+
+    @property
+    def pkt(self) -> dict:
+        return self.blocks[0][1]
+
+
+def _resolve_devices(devices, device: torch.device) -> int:
+    """How many blocks of copies a sweep on ``device`` runs (the
+    reference's ``_resolve_devices``): ``None`` or 1 one; ``"auto"`` every
+    visible device of ``device``'s type (``torch.cuda.device_count()`` for
+    CUDA, 1 for the CPU, the reference's one host device); an int is
+    checked against that count."""
+    if devices is None:
+        return 1
+    avail = torch.cuda.device_count() if device.type == "cuda" else 1
+    if devices == "auto":
+        return max(avail, 1)
+    ndev = int(devices)
+    if ndev < 1:
+        raise ValueError(f"devices={devices!r} must be >= 1")
+    if ndev > avail:
+        raise ValueError(f"devices={ndev} but only {avail} {device.type} "
+                         f"device(s) are visible")
+    return ndev
+
 
 def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
              loads: Sequence[float], *, seeds: Sequence[int] = (0,),
@@ -857,15 +932,26 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
              cycles: int | None = None, warmup: int | None = None,
              drain: bool | None = None, max_cycles: int | None = None,
              trace=None, bucket: bool | None = None, devices=None,
-             device="cuda") -> _Prepared | None:
+             device="cuda", block_devices=None) -> _Prepared | None:
     """The host side of :func:`sweep` up to the run (None for an empty
     grid): option checks, traffic packing, bucketing, tables, device
-    upload."""
+    upload.  The copies go in one block a device: ``devices`` of
+    ``device``'s type (:func:`_resolve_devices`), or one a device of
+    ``block_devices`` where given (:func:`_block_sweep`).  A traced run
+    keeps one block, as the reference's does."""
     t_host = time.perf_counter()
-    device = _resolve_device(device)
     trace_cfg = TraceConfig.coerce(trace)
-    if devices not in (None, 1):
-        raise NotImplementedError(_NOT_PORTED["devices"])
+    if block_devices is None:
+        device = _resolve_device(device)
+        ndev = 1 if trace_cfg is not None else _resolve_devices(devices,
+                                                                device)
+        block_devices = ([device] if ndev == 1 else
+                         [torch.device(device.type, i) for i in range(ndev)])
+    else:
+        block_devices = [_resolve_device(d) for d in block_devices]
+        if trace_cfg is not None:
+            block_devices = block_devices[:1]
+    ndev = len(block_devices)
     policy = _resolve_policy(policy)
     seeded_factory = _accepts_seed(traffic_factory)
     n = topo.num_switches
@@ -930,6 +1016,8 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
     bucket = True if bucket is None else bool(bucket)
     b_real = len(grid)
     b = _bucket_count(b_real) if bucket else b_real
+    b = -(-b // ndev) * ndev            # whole blocks of copies a device
+    bb = b // ndev
     h_static = _bucket_count(horizon) if bucket else horizon
     c_static = max(_bucket_count(cutoff) if bucket else cutoff, h_static)
     q_flat = b * n * topo.num_ports * num_vcs
@@ -956,7 +1044,7 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
         trace_samples=0 if trace_cfg is None else trace_samples)
 
     links = LinkTable.for_topology(topo, num_vcs)
-    tables = _build_tables(topo, links, b, terminals, num_vcs)
+    tables = _build_tables(topo, links, bb, terminals, num_vcs)
     flat_np = {k: (np.concatenate([pk[k] for pk in packed])
                    if packed[0][k].ndim else
                    np.asarray([pk[k] for pk in packed]))
@@ -977,30 +1065,41 @@ def _prepare(topo: SimTopology, policy, traffic_factory: Callable,
     for k in ("blk_start", "blk_end"):
         flat_np[k] = np.concatenate([flat_np[k],
                                      np.zeros(pad_b * n, np.int32)])
-    blk = tables.blk_idx
-    as_dev = lambda a, dt=_I32: torch.as_tensor(  # noqa: E731
-        np.asarray(a), dtype=dt, device=device)
-    pkt = {
-        "src": as_dev(flat_np["src"]),
-        "dst": as_dev(flat_np["dst"]),
-        "gen": as_dev(flat_np["gen"]),
-        "term_start": as_dev(flat_np["blk_start"][blk] + tables.slot_of_term),
-        "term_end": as_dev(flat_np["blk_end"][blk]),
-        "copy_id": as_dev(np.arange(b), _I64),
-        "warmup": as_dev(warmups + [0] * pad_b),
-        "lim": as_dev([horizon, cutoff]),
-        "total_m": as_dev(int(flat_np["m_real"].sum())),
-    }
+    flat_np["m_real"] = np.concatenate([flat_np["m_real"],
+                                        np.zeros(pad_b, np.int32)])
+    flat_np["warmup"] = np.asarray(warmups + [0] * pad_b)
     if replaying:
         # Per-copy cumulative phase sizes, padded to the shared static
         # phase count (padding phases are empty and complete at once).
-        pkt["phase_cum"] = as_dev(np.concatenate(
+        flat_np["phase_cum"] = np.concatenate(
             [np.stack([w.phase_cum(num_phases) for w in wls]),
-             np.zeros((pad_b, num_phases))]))
+             np.zeros((pad_b, num_phases))])
     seed_key = hash(tuple(s for _, s, _ in grid)) & 0x7FFFFFFF
-    tb = _device_tables(spec, tables, seed_key, device)
+    blk = tables.blk_idx
+    blocks = []
+    for j, dev in enumerate(block_devices):
+        # Block j: copies j*bb .. (j+1)*bb - 1; the packets whole, so
+        # packet ids and copy ids (the threefry fold keys) stay global.
+        lo, hi = j * bb, (j + 1) * bb
+        as_dev = lambda a, dt=_I32: torch.as_tensor(  # noqa: E731
+            np.asarray(a), dtype=dt, device=dev)
+        pkt = {
+            "src": as_dev(flat_np["src"]),
+            "dst": as_dev(flat_np["dst"]),
+            "gen": as_dev(flat_np["gen"]),
+            "term_start": as_dev(flat_np["blk_start"][lo * n:hi * n][blk]
+                                 + tables.slot_of_term),
+            "term_end": as_dev(flat_np["blk_end"][lo * n:hi * n][blk]),
+            "copy_id": as_dev(np.arange(lo, hi), _I64),
+            "warmup": as_dev(flat_np["warmup"][lo:hi]),
+            "lim": as_dev([horizon, cutoff]),
+            "total_m": as_dev(int(flat_np["m_real"][lo:hi].sum())),
+        }
+        if replaying:
+            pkt["phase_cum"] = as_dev(flat_np["phase_cum"][lo:hi])
+        blocks.append((_device_tables(spec, tables, seed_key, dev), pkt))
     host_s = time.perf_counter() - t_host
-    return _Prepared(spec=spec, tb=tb, pkt=pkt, topo=topo, policy=policy,
+    return _Prepared(spec=spec, blocks=blocks, topo=topo, policy=policy,
                      grid=grid, packed=packed,
                      workloads=wls if replaying else [None] * len(grid),
                      bases=bases, links=links,
@@ -1154,19 +1253,36 @@ def sweep(topo: SimTopology, policy, traffic_factory: Callable,
     numpy-engine feature and are ignored here).  Degraded topologies
     (``topo.meta["faults"]``) run their fallback tables.
 
-    ``devices`` other than one raises ``NotImplementedError`` (see the
-    module docstring).
+    ``devices`` splits the copies over devices of ``device``'s type, one
+    contiguous block each (``None`` one device, ``"auto"`` every visible
+    one, or an int; more than are visible raises ``ValueError``), bit for
+    bit the single-device run; a traced run keeps one block.
     """
-    run = _prepare(topo, policy, traffic_factory, loads, seeds=seeds,
-                   terminals=terminals, eject_bw=eject_bw, num_vcs=num_vcs,
-                   queue_capacity=queue_capacity, cycles=cycles,
-                   warmup=warmup, drain=drain, max_cycles=max_cycles,
-                   trace=trace, bucket=bucket, devices=devices,
-                   device=device)
+    return _execute(_prepare(
+        topo, policy, traffic_factory, loads, seeds=seeds,
+        terminals=terminals, eject_bw=eject_bw, num_vcs=num_vcs,
+        queue_capacity=queue_capacity, cycles=cycles, warmup=warmup,
+        drain=drain, max_cycles=max_cycles, trace=trace, bucket=bucket,
+        devices=devices, device=device))
+
+
+def _block_sweep(block_devices: Sequence, topo: SimTopology, policy,
+                 traffic_factory: Callable, loads: Sequence[float],
+                 **kw) -> list[list[RunStats]]:
+    """:func:`sweep` with the copies in one block for each entry of
+    ``block_devices`` (torch devices; one device may come several times),
+    in place of ``devices=`` and ``device=``: the split of ``devices=N``
+    run on any devices, so that one card or the CPU holds it to one
+    program bit for bit."""
+    return _execute(_prepare(topo, policy, traffic_factory, loads,
+                             block_devices=list(block_devices), **kw))
+
+
+def _execute(run: _Prepared | None) -> list[list[RunStats]]:
     if run is None:
         return []
-    out, timing = _run_loop(run.spec, run.tb, run.pkt,
-                            grid_points=len(run.grid))
+    out, timing = _run_blocks(run.spec, run.blocks,
+                              grid_points=len(run.grid))
     timing["host_s"] = round(run.host_s, 6)
     return _collect(run, out, timing)
 

@@ -62,8 +62,8 @@ class Result:
     spec_digest: str = ""
     #: Simulation fidelity tier: ``"cycle"`` for the packet-level
     #: engines (torch/numpy, and the reference's jax), ``"flow"`` for the
-    #: reference's analytical fair-share model (``repro.flow``; not ported
-    #: yet).  Stores may mix tiers; analyses that
+    #: analytical fair-share model (:mod:`repro_torch.flow`, a copy of
+    #: ``repro.flow``).  Stores may mix tiers; analyses that
     #: compare knees must filter on this marker (see
     #: :meth:`repro_torch.studies.runner.StudyResult.saturation_points`).
     #: Defaulted so records from older stores load as cycle-fidelity.

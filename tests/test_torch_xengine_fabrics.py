@@ -153,19 +153,26 @@ def test_simulate_backend_torch_is_the_cycle_engine():
 
 
 def test_unported_options_raise_naming_their_roadmap_item():
+    """Every option the port once raised for now runs: ``devices="auto"``
+    resolves to the CPU's one device and ``devices=1`` is one program, both
+    equal to ``devices=None`` to the bit, and asking for more devices than
+    are visible raises the reference's ``ValueError``
+    (``repro.sim.xengine._resolve_devices``).  Bucketing and serving
+    traffic run too (tests/test_torch_bucket.py,
+    tests/test_torch_workload.py)."""
     topo = T.cin_topology("xor", 8)
     tr = T.uniform(8, offered=0.5, cycles=10, terminals=2)
     run = dict(device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        T.simulate_torch(topo, "minimal", tr, devices=2, **run)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        T.simulate_torch(topo, "minimal", tr, devices="auto", **run)
-    # one device is the port's only layout; bucketing and serving traffic
-    # run (tests/test_torch_bucket.py, tests/test_torch_workload.py)
+    base = T.simulate_torch(topo, "minimal", tr, **run)
+    for devices in ("auto", 1):
+        assert_same_grid([[base]], [[T.simulate_torch(
+            topo, "minimal", tr, devices=devices, **run)]])
+    for devices in (2, 0):
+        with pytest.raises(ValueError, match="devices"):
+            T.simulate_torch(topo, "minimal", tr, devices=devices, **run)
     exact = T.simulate_torch(topo, "minimal", tr, bucket=False, devices=1,
                              **run)
-    assert_same_grid([[exact]], [[T.simulate_torch(topo, "minimal", tr,
-                                                   bucket=True, **run)]])
+    assert_same_grid([[exact]], [[base]])
     serving = T.uniform(8, offered=0.5, cycles=10, terminals=2)
     serving.request = np.arange(serving.num_packets)
     st = T.simulate_torch(topo, "minimal", serving, **run)
