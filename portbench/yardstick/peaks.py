@@ -1,0 +1,6 @@
+"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet; dense
+rates, no sparsity), at its full power limit of 700 W."""
+
+BF16_FLOPS = 989e12        # tensor cores, bf16 and fp16
+FP32_FLOPS = 67e12         # outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12  # 80 GB of HBM3
